@@ -10,11 +10,14 @@ conv3x3 + residual tail. Phases, one flushed line each with its seconds:
 
   0 device      card name, power limit (nvidia-smi), torch and CUDA versions
   1 build       the kernels, from csrc/, with one plain nvcc call
-  2 swin_block  kernel against its plain version at B=16, 128x128, C=180
+  2 swin_block  kernel against its plain version at B=16, 128x128, C=180,
+                and at the main path's 1x64x72
   3 conv3x3     the same for the conv kernel, plus the F.conv2d yardstick
   4 main_path   a seeded KAIR-keyed state dict → .pth → cli.test.build_preset
-                → test_pad → model on the card; kernel launch counts; output
-                against the same weights run in f32 on the CPU
+                → test_pad → model on the card, for a 256x256 and a 256x280
+                HR image (LR 64x64, and 64x70 padded to 64x72); kernel launch
+                counts; output against the same weights run in f32 on the
+                CPU, with a control that the comparison sees a dropped mask
   5 throughput  batch 16 of 128x128 LR: ms per forward, LR MP/s, MFU
 
 Any failed check raises and the script exits non-zero; a watchdog ends a
@@ -143,29 +146,35 @@ def phase_swin(report: list) -> None:
     x = torch.randn(b, h, w, c, generator=gen).to(dev, torch.bfloat16)
     pk = pack_swin_block(p, nh)
     mask = shift_mask_tensor(h, w, 8, 4, dev)
-    tol = 3e-2
+    tol = 1e-2
     with Phase("2 swin_block") as ph:
         ph.note(f"B={b} {h}x{w} C={c} nh={nh} bf16; limit max_abs <= {tol} * "
                 "max|ref| (qkv, probabilities and MLP hidden are stored in "
                 "bf16, f32 accumulation; plain version in f32 from the same "
                 "bf16 inputs)")
+        # the main path's second image: LR 64x72, a width of 8 mod 16
+        x72 = x[:1, :64, :72].contiguous()
+        cases = [(x, 0, None), (x, 4, mask), (x, -4, None),
+                 (x72, 4, shift_mask_tensor(64, 72, 8, 4, dev))]
         errs = []
-        for phase, m in ((0, None), (4, mask), (-4, None)):
-            got = swin_block_2d(x, p, nh, m, phase, packed=pk)
-            ref = swin_block_2d_reference(x.float(), p, nh, m, phase)
+        for xin, phase, m in cases:
+            got = swin_block_2d(xin, p, nh, m, phase, packed=pk)
+            ref = swin_block_2d_reference(xin.float(), p, nh, m, phase)
             torch.cuda.synchronize()
             e_abs, e_rel, ref_max, e_mean = compare(got, ref)
-            ph.note(f"phase {phase:+d} mask={'shift' if m is not None else 'none'}: "
-                    f"max_abs {e_abs:.4g} max_rel {e_rel:.4g} mean_abs "
+            what = (f"{tuple(xin.shape[:3])} phase {phase:+d} mask="
+                    f"{'shift' if m is not None else 'none'}")
+            ph.note(f"{what}: max_abs {e_abs:.4g} max_rel {e_rel:.4g} mean_abs "
                     f"{e_mean:.3g} (max|ref| {ref_max:.3g})")
-            require(e_rel <= tol, f"swin_block_2d phase {phase} max_rel "
-                    f"{e_rel:.4g} > {tol}")
+            require(e_rel <= tol, f"swin_block_2d {what} max_rel {e_rel:.4g} "
+                    f"> {tol}")
             if m is not None:
                 # the check must be able to see a dropped mask
-                no_mask = swin_block_2d_reference(x.float(), p, nh, None, phase)
+                no_mask = swin_block_2d_reference(xin.float(), p, nh, None, phase)
                 eff = (no_mask - ref).abs().max().item()
                 ph.note(f"mask effect {eff:.3g}")
-                require(eff > 3 * e_abs, "mask effect not above the kernel error")
+                require(eff > tol * ref_max and eff > 3 * e_abs,
+                        "mask effect not above the limit and the kernel error")
             errs.append(e_abs)
         ms = cuda_ms(lambda: swin_block_2d(x, p, nh, mask, 4, packed=pk))
         plain_ms = cuda_ms(lambda: swin_block_2d_reference(
@@ -210,16 +219,19 @@ def phase_conv(report: list) -> None:
                 f"precision={torch.get_float32_matmul_precision()}; limit max_abs <= "
                 f"{tol} * max|ref| (bf16 output rounding, f32 accumulation "
                 "in another order)")
+        # the last case is the main path's LR 64x72 (a partial column tile)
+        y72, r72 = y[:1, :64, :72].contiguous(), res[:1, :64, :72].contiguous()
         errs = []
-        for phase in (0, 4):
-            got = conv3x3_residual(y, res, wt, bias, phase, packed_weight=wpk)
-            ref = conv3x3_residual_reference(y.float(), res.float(), wt, bias,
+        for yin, rin, phase in ((y, res, 0), (y, res, 4), (y72, r72, 4)):
+            got = conv3x3_residual(yin, rin, wt, bias, phase, packed_weight=wpk)
+            ref = conv3x3_residual_reference(yin.float(), rin.float(), wt, bias,
                                              phase)
             torch.cuda.synchronize()
             e_abs, e_rel, ref_max, e_mean = compare(got, ref)
-            ph.note(f"phase {phase}: max_abs {e_abs:.4g} max_rel {e_rel:.4g} "
+            what = f"{tuple(yin.shape[:3])} phase {phase}"
+            ph.note(f"{what}: max_abs {e_abs:.4g} max_rel {e_rel:.4g} "
                     f"mean_abs {e_mean:.3g} (max|ref| {ref_max:.3g})")
-            require(e_rel <= tol, f"conv3x3_residual phase {phase} max_rel "
+            require(e_rel <= tol, f"conv3x3_residual {what} max_rel "
                     f"{e_rel:.4g} > {tol}")
             errs.append(e_abs)
         ms = cuda_ms(lambda: conv3x3_residual(y, res, wt, bias, 0,
@@ -243,14 +255,14 @@ def phase_conv(report: list) -> None:
         bound_ms=bms, bound_by=by, library_ms=lib_ms))
 
 
-def smooth_image(size: int, seed: int):
+def smooth_image(h: int, w: int, seed: int):
     """Seeded smooth RGB uint8 image: a few low-frequency sinusoids."""
     import numpy as np
     rng = np.random.RandomState(seed)
-    yy, xx = np.mgrid[0:size, 0:size].astype(np.float64) / size
-    img = np.zeros((size, size, 3))
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64) / max(h, w)
+    img = np.zeros((h, w, 3))
     for ch in range(3):
-        acc = 0.5 * np.ones((size, size))
+        acc = 0.5 * np.ones((h, w))
         for _ in range(4):
             fy, fx = rng.uniform(0.5, 4.0, 2)
             ph = rng.uniform(0, 2 * np.pi)
@@ -259,57 +271,117 @@ def smooth_image(size: int, seed: int):
     return np.uint8((np.clip(img, 0, 1) * 255).round())
 
 
+# Block weights of the main path, drawn like swin_params: KAIR's own
+# initialisation (Linear std 0.02) leaves the 36 blocks so close to the
+# identity that a wrong block would not show in the output.
+BLOCK_INIT = {"attn.qkv.weight": (0.0, 0.1), "attn.qkv.bias": (0.0, 0.1),
+              "attn.proj.weight": (0.0, 0.05), "attn.proj.bias": (0.0, 0.1),
+              "attn.relative_position_bias_table": (0.0, 0.5),
+              "norm1.weight": (1.0, 0.1), "norm1.bias": (0.0, 0.1),
+              "norm2.weight": (1.0, 0.1), "norm2.bias": (0.0, 0.1),
+              "mlp.fc1.weight": (0.0, 0.05), "mlp.fc1.bias": (0.0, 0.1),
+              "mlp.fc2.weight": (0.0, 0.05), "mlp.fc2.bias": (0.0, 0.1)}
+
+
+def main_path_state_dict(seed: int) -> dict:
+    """Seeded SwinIR-M x4 state dict with KAIR's key names: KAIR's
+    initialisation, the Swin blocks' tensors redrawn by BLOCK_INIT."""
+    import torch
+    from kair_tpu_torch.cli.test import SWINIR_X4
+    from kair_tpu_torch.models.swinir import SwinIR
+
+    torch.manual_seed(seed)
+    sd = SwinIR(img_size=64, **SWINIR_X4).state_dict()
+    gen = torch.Generator().manual_seed(seed)
+    for k, v in sd.items():
+        if ".residual_group.blocks." in k:
+            mean_std = BLOCK_INIT.get(k.split(".", 5)[-1])
+            if mean_std is not None:
+                sd[k] = torch.randn(v.shape, generator=gen) * mean_std[1] \
+                    + mean_std[0]
+    return sd
+
+
+def cpu_forward_without_shift_mask(model, lr):
+    """The f32 CPU forward with the shifted blocks' 0/-100 mask left out:
+    the control that the main-path comparison can see one wrong term."""
+    from kair_tpu_torch.cli.test import make_forward
+    from kair_tpu_torch.eval.test_modes import test_pad
+    from kair_tpu_torch.models import swinir as msw
+
+    with_mask = msw.shift_mask_tensor
+    msw.shift_mask_tensor = lambda *a: None
+    try:
+        return test_pad(make_forward(model), lr, modulo=8, sf=4)
+    finally:
+        msw.shift_mask_tensor = with_mask
+
+
 def phase_main_path(report: list, build_dir) -> None:
     import numpy as np
     import torch
-    from kair_tpu_torch.cli.test import SWINIR_X4, build_preset, make_forward
+    from kair_tpu_torch.cli.test import build_preset, make_forward
     from kair_tpu_torch.eval.test_modes import test_pad
-    from kair_tpu_torch.models.swinir import SwinIR
     from kair_tpu_torch.ops.kernels.conv_block import conv3x3_residual
     from kair_tpu_torch.ops.kernels.swin_block import swin_block_2d
     from kair_tpu_torch.utils import image as im
 
-    tol = 5e-2
+    tol = 2e-2
     with Phase("4 main_path") as ph:
-        torch.manual_seed(SEED)
-        sd = SwinIR(img_size=64, **SWINIR_X4).state_dict()
         with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
             path = f"{tmp}/swinir_m_x4_seed{SEED}.pth"
-            torch.save({"params": sd}, path)
+            torch.save({"params": main_path_state_dict(SEED)}, path)
             gpu_model, kind, n_ch = build_preset("swinir_classical_x4", path,
                                                  device="cuda",
                                                  dtype=torch.bfloat16)
             cpu_model, _, _ = build_preset("swinir_classical_x4", path,
                                            device="cpu", dtype=torch.float32)
-        img_h = smooth_image(256, SEED)
-        img_l = im.imresize_np(im.uint2single(img_h), 1 / 4, True)
-        lr = im.hwc_to_nhwc(img_l.astype(np.float32))
         ph.note(f"SwinIR-M x4 ({sum(p.numel() for p in gpu_model.parameters())} "
-                f"params) bf16 on cuda; LR {lr.shape[1]}x{lr.shape[2]}")
-
+                f"params, blocks drawn by BLOCK_INIT) bf16 on cuda; limit "
+                f"max_abs <= {tol} * max|ref| against the f32 CPU run (bf16 "
+                "activations through 36 blocks, 7 fused tails and the head); "
+                "control: the CPU run without the shift mask must differ by "
+                "more than the limit and 3x the error")
+        # 256x256 HR, and a width whose LR (70) test_pad takes to 72 = 8 mod 16
+        images = [(f"HR {hh}x{ww}", smooth_image(hh, ww, SEED + i))
+                  for i, (hh, ww) in enumerate(((256, 256), (256, 280)))]
         swin_block_2d.launches = 0
         conv3x3_residual.launches = 0
-        e_gpu = test_pad(make_forward(gpu_model), lr, modulo=8, sf=4)
-        torch.cuda.synchronize()
-        n_swin, n_conv = swin_block_2d.launches, conv3x3_residual.launches
-        ph.note(f"launches in one forward: swin_block_2d {n_swin}, "
-                f"conv3x3_residual {n_conv}")
-        require(n_swin == 36 and n_conv == 7,
-                f"expected 36 swin and 7 conv launches, got {n_swin}/{n_conv}")
+        outs = []
+        for n, (name, img_h) in enumerate(images, 1):
+            lr = im.hwc_to_nhwc(im.imresize_np(im.uint2single(img_h), 1 / 4,
+                                               True).astype(np.float32))
+            e_gpu = test_pad(make_forward(gpu_model), lr, modulo=8, sf=4)
+            torch.cuda.synchronize()
+            n_swin, n_conv = swin_block_2d.launches, conv3x3_residual.launches
+            require(n_swin == 36 * n and n_conv == 7 * n,
+                    f"{name}: expected 36 swin and 7 conv launches per "
+                    f"forward, got {n_swin}/{n_conv} after {n} forwards")
+            outs.append((name, img_h, lr, e_gpu))
         for k in report:
             k["launches"] = n_swin if k["name"] == "swin_block_2d" else n_conv
+        ph.note(f"launches in {len(images)} forwards: swin_block_2d {n_swin}, "
+                f"conv3x3_residual {n_conv} (36 and 7 per forward)")
 
-        e_cpu = test_pad(make_forward(cpu_model), lr, modulo=8, sf=4)
-        require(e_gpu.shape == (1, 256, 256, 3) and np.isfinite(e_gpu).all(),
-                f"output shape {e_gpu.shape} or non-finite values")
-        d = np.abs(e_gpu - e_cpu)
-        rel = d.max() / np.abs(e_cpu).max()
-        ph.note(f"vs f32 CPU: max_abs {d.max():.4g} max_rel {rel:.4g} mean_abs "
-                f"{d.mean():.3g}; limit max_abs <= {tol} * max|ref| (bf16 "
-                "activations through 36 blocks, 7 fused tails and the head)")
-        require(rel <= tol, f"main path max_rel {rel:.4g} > {tol}")
-        psnr = im.calculate_psnr(im.nhwc_to_uint(e_gpu), img_h, border=4)
-        ph.note(f"PSNR vs HR {psnr:.2f} dB (random weights: information only)")
+        for name, img_h, lr, e_gpu in outs:
+            e_cpu = test_pad(make_forward(cpu_model), lr, modulo=8, sf=4)
+            require(e_gpu.shape == (1,) + img_h.shape and np.isfinite(e_gpu).all(),
+                    f"{name}: output shape {e_gpu.shape} or non-finite values")
+            ref_max = np.abs(e_cpu).max()
+            err = np.abs(e_gpu - e_cpu).max()
+            effect = np.abs(cpu_forward_without_shift_mask(cpu_model, lr)
+                            - e_cpu).max()
+            psnr = im.calculate_psnr(im.nhwc_to_uint(e_gpu), img_h, border=4)
+            ph.note(f"{name} (LR {lr.shape[1]}x{lr.shape[2]}): max_abs "
+                    f"{err:.4g} max_rel {err / ref_max:.4g} mean_abs "
+                    f"{np.abs(e_gpu - e_cpu).mean():.3g}; shift-mask effect "
+                    f"max_rel {effect / ref_max:.4g}; PSNR vs HR {psnr:.2f} dB "
+                    "(random weights: information only)")
+            require(err <= tol * ref_max,
+                    f"{name}: main path max_rel {err / ref_max:.4g} > {tol}")
+            require(effect > tol * ref_max and effect > 3 * err,
+                    f"{name}: the shift-mask control ({effect / ref_max:.4g}) "
+                    "is not above the limit and 3x the error")
 
 
 def phase_throughput(card: str) -> None:

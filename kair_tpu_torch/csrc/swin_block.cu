@@ -82,6 +82,30 @@ struct SwinSmem {
   }
 };
 
+// Stage cycle profile, compiled in only with -DKAIR_PROFILE (the separate
+// library that kair_tpu_torch/cli/profile_swin_block.py builds): after each
+// stage's barrier, thread 0 of every block adds the SM clock cycles since
+// its previous mark to that stage's counter. The normal build has no marks.
+// Stages: 0 load, 1 LN1, 2 qkv, 3 QK^T, 4 softmax, 5 PV, 6 proj, 7 LN2,
+// 8 fc1 + GELU, 9 fc2 + store (3-5 summed over the heads).
+#ifdef KAIR_PROFILE
+constexpr int kStages = 10;
+__device__ unsigned long long g_stage_cycles[kStages];
+#define PROF_START() long long prof_t = clock64()
+#define PROF_MARK(i)                                                       \
+  do {                                                                     \
+    __syncthreads();                                                       \
+    if (threadIdx.x == 0) {                                                \
+      const long long t = clock64();                                       \
+      atomicAdd(&g_stage_cycles[i], (unsigned long long)(t - prof_t));     \
+      prof_t = t;                                                          \
+    }                                                                      \
+  } while (0)
+#else
+#define PROF_START() do {} while (0)
+#define PROF_MARK(i) do {} while (0)
+#endif
+
 // LayerNorm without affine (folded into the next matmul) of the 64 rows of
 // xs into bf16 dst[64][ld]; columns C..CP-1 are zeroed for the K padding.
 __device__ void layernorm64(const float* xs, int C, int CP, bf16* dst, int ld) {
@@ -104,6 +128,7 @@ __device__ void layernorm64(const float* xs, int C, int CP, bf16* dst, int ld) {
 
 __global__ void __launch_bounds__(kThreads) swin_block_2d_kernel(SwinArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
+  PROF_START();
   const int C = a.C, CP = round16(C), NH = a.NH, HP = a.HP, H = a.H, W = a.W;
   const int QW = NH * 96;
   const SwinSmem L(C, NH, HP);
@@ -147,15 +172,18 @@ __global__ void __launch_bounds__(kThreads) swin_block_2d_kernel(SwinArgs a) {
     xs[t * C + 2 * p + 1] = f.y;
   }
   __syncthreads();
+  PROF_MARK(0);
 
   // ---- LN1 → qkv -------------------------------------------------------------
   layernorm64(xs, C, CP, abuf, LA);
   __syncthreads();
+  PROF_MARK(1);
   auto qkv_epi = [&](int r, int c, float v) {
     big[r * LQ + c] = __float2bfloat16(v + bqkv[c]);
   };
   gemm_m64<kWarps>(abuf, LA, a.wqkv, QW, CP / 16, QW / 16, stage, qkv_epi);
   __syncthreads();
+  PROF_MARK(2);
 
   // ---- attention, one head at a time -------------------------------------------
   for (int h = 0; h < NH; ++h) {
@@ -177,6 +205,7 @@ __global__ void __launch_bounds__(kThreads) swin_block_2d_kernel(SwinArgs a) {
       wmma::store_matrix_sync(S + m * 16 * kLS + n * 16, acc, kLS, wmma::mem_row_major);
     }
     __syncthreads();
+    PROF_MARK(3);
 
     const float* bias = a.relbias + h * 4096;
     const float* mk = a.mask ? a.mask + (size_t)win * 4096 : nullptr;
@@ -205,6 +234,7 @@ __global__ void __launch_bounds__(kThreads) swin_block_2d_kernel(SwinArgs a) {
       P[i * kLP + lane + 32] = __float2bfloat16(e1 * inv);
     }
     __syncthreads();
+    PROF_MARK(4);
 
     auto pv_epi = [&](int r, int c, float v) { abuf[r * LA + c] = __float2bfloat16(v); };
     for (int tile = warp; tile < 8; tile += kWarps) {      // O_h = P V_h
@@ -222,6 +252,7 @@ __global__ void __launch_bounds__(kThreads) swin_block_2d_kernel(SwinArgs a) {
       drain_tile(acc, stage, m * 16, h * 32 + n * 16, pv_epi);
     }
     __syncthreads();
+    PROF_MARK(5);
   }
 
   // ---- proj + residual 1 (x1 stays f32 in xs) --------------------------------------
@@ -230,16 +261,19 @@ __global__ void __launch_bounds__(kThreads) swin_block_2d_kernel(SwinArgs a) {
   };
   gemm_m64<kWarps>(abuf, LA, a.wp, CP, NH * 2, CP / 16, stage, proj_epi);
   __syncthreads();
+  PROF_MARK(6);
 
   // ---- LN2 → fc1 → exact GELU → fc2 + residual 2 → out ---------------------------
   layernorm64(xs, C, CP, abuf, LA);
   __syncthreads();
+  PROF_MARK(7);
   auto fc1_epi = [&](int r, int c, float v) {
     const float u = v + b1[c];
     big[r * LH + c] = __float2bfloat16(0.5f * u * (1.f + erff(u * 0.70710678118654752f)));
   };
   gemm_m64<kWarps>(abuf, LA, a.w1, HP, CP / 16, HP / 16, stage, fc1_epi);
   __syncthreads();
+  PROF_MARK(8);
   bf16* out = a.out;
   auto fc2_epi = [&](int r, int c, float v) {
     if (c < C) {
@@ -249,6 +283,7 @@ __global__ void __launch_bounds__(kThreads) swin_block_2d_kernel(SwinArgs a) {
     }
   };
   gemm_m64<kWarps>(big, LH, a.w2, CP, HP / 16, CP / 16, stage, fc2_epi);
+  PROF_MARK(9);
 }
 
 }  // namespace
@@ -285,6 +320,16 @@ extern "C" int kair_swin_block_2d(const void* x, void* out, const void* wqkv,
   swin_block_2d_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
+
+#ifdef KAIR_PROFILE
+// Copies the stage counters to dst[kStages] (host) and zeroes them.
+extern "C" int kair_swin_stage_cycles(unsigned long long* dst) {
+  cudaError_t e = cudaMemcpyFromSymbol(dst, g_stage_cycles, sizeof(g_stage_cycles));
+  if (e != cudaSuccess) return (int)e;
+  static const unsigned long long zero[kStages] = {};
+  return (int)cudaMemcpyToSymbol(g_stage_cycles, zero, sizeof(zero));
+}
+#endif
 
 extern "C" const char* kair_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -6,14 +6,14 @@ parameter layouts (``layers.0.residual_group.blocks.0.attn.qkv.weight``, the
 ``relative_position_index`` and ``attn_mask`` buffers, …), so a released
 ``.pth`` loads with ``load_state_dict``.
 
-Inference with ``fuse_block=True`` (the default) runs every Swin block whose
-geometry allows it (window 8, H % 8 == 0, W % 16 == 0, W ≤ ``strip_w_max``)
-as ONE fused block kernel with the cyclic shift folded into its read, and
-each RSTB tail (un-roll + conv3x3 + residual) plus ``conv_after_body`` as
-ONE conv kernel: ``ops/kernels/swin_block.py`` and ``conv_block.py``. On a
-CUDA tensor those are the hand-written kernels, on a CPU tensor their plain
-versions. Other geometries, training mode and ``fuse_block=False`` take the
-composed PyTorch path (``_flat_block``).
+In eval mode every Swin block whose window is 8 (H and W are multiples of
+it after ``pad_input``) runs as ONE fused block kernel with the cyclic shift
+folded into its read, and each RSTB tail (un-roll + conv3x3 + residual) plus
+``conv_after_body`` as ONE conv kernel: ``ops/kernels/swin_block.py`` and
+``conv_block.py``. On a CUDA tensor those are the hand-written kernels, on a
+CPU tensor their plain versions. A window under 8 and training mode take the
+composed PyTorch route (the block kernel's plain version, then the roll
+back).
 """
 
 from __future__ import annotations
@@ -27,44 +27,20 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from kair_tpu_torch.ops.blocks import Conv, pixel_shuffle
-from kair_tpu_torch.ops.kernels.swin_block import (SwinBlockParams,
+from kair_tpu_torch.ops.kernels.swin_block import (WS, SwinBlockParams,
                                                     pack_swin_block,
-                                                    swin_block_2d)
+                                                    swin_block_2d,
+                                                    swin_block_2d_reference)
 from kair_tpu_torch.ops.kernels.window_msa import shift_mask_tensor
 from kair_tpu_torch.ops.window_attention import (relative_position_index,
-                                                  shift_attn_mask, window_msa,
-                                                  window_partition,
-                                                  window_reverse)
+                                                  shift_attn_mask)
 from kair_tpu_torch.utils.logger import warn_once
 
 
-def strip_w_max(c: int) -> int:
-    """Widest frame the JAX strip kernel takes at channel width ``c``
-    (``kair_tpu/ops/pallas/swin_block.py:722``); wider frames take the
-    window-pair path there and the composed path here."""
-    return max(16, (2048 * 180 // max(c, 1)) // 8 // 16 * 16)
-
-
-def strip_ok(ws: int, h: int, w: int, c: int) -> bool:
-    """Geometry that the fused block kernel serves in the model."""
-    return ws == 8 and h % 8 == 0 and w % 16 == 0 and w <= strip_w_max(c)
-
-
-def _flat_block(x: torch.Tensor, ws: int, p: SwinBlockParams, num_heads: int,
-                mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """The whole block composed in PyTorch on an already shifted map: LN1 →
-    W-MSA → residual → LN2 → MLP → residual (counterpart of
-    ``_flat_block_xla``; LN is per token, so it commutes with the roll)."""
-    b, h, w, c = x.shape
-    y = F.layer_norm(x, (c,), p.norm1_weight, p.norm1_bias, 1e-5)
-    yw = window_msa(window_partition(y, ws), p.qkv_weight, p.qkv_bias,
-                    p.proj_weight, p.proj_bias, p.rel_table,
-                    relative_position_index(ws, ws), num_heads, mask)
-    x = x + window_reverse(yw, ws, h, w)
-    z = F.layer_norm(x, (c,), p.norm2_weight, p.norm2_bias, 1e-5)
-    z = F.linear(F.gelu(F.linear(z, p.fc1_weight, p.fc1_bias)),
-                 p.fc2_weight, p.fc2_bias)
-    return x + z
+def kernel_ok(ws: int, h: int, w: int) -> bool:
+    """Geometry that the fused block kernel takes: 8x8 windows tiling the
+    map (``ops/kernels/swin_block.py``)."""
+    return ws == WS and h % WS == 0 and w % WS == 0
 
 
 class Mlp(nn.Module):
@@ -94,15 +70,13 @@ class SwinBlock(nn.Module):
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  num_heads: int, window_size: int, shift_size: int,
-                 mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 fuse_block: bool = True):
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True):
         super().__init__()
         if min(input_resolution) <= window_size:
             shift_size, window_size = 0, min(input_resolution)
         self.num_heads = num_heads
         self.window_size = window_size
         self.shift_size = shift_size
-        self.fuse_block = fuse_block
         self.norm1 = nn.LayerNorm(dim)
         self.attn = WindowAttention(dim, window_size, num_heads, qkv_bias)
         self.norm2 = nn.LayerNorm(dim)
@@ -144,8 +118,7 @@ class SwinBlock(nn.Module):
             raise ValueError(f"input {h}x{w} is smaller than the block's "
                              f"window {self.window_size}")
         mask = shift_mask_tensor(h, w, ws, shift, x.device)
-        inference = self.fuse_block and not self.training
-        if inference and strip_ok(ws, h, w, c):
+        if not self.training and kernel_ok(ws, h, w):
             # the cyclic shift is folded into the kernel's read
             # (phase = shift − phase_in); the output stays in this block's
             # phase and RSTB threads it to the next block
@@ -154,17 +127,13 @@ class SwinBlock(nn.Module):
                                  packed=self._packed() if x.is_cuda else None)
         if phase_in:
             raise ValueError("phase threading requires the fused block kernel")
-        if inference:
+        if not self.training:
             warn_once(f"swin-composed-fallback-{h}x{w}x{ws}",
                       f"SwinIR fused block kernel not used at {h}x{w}, window "
-                      f"{ws} (needs window 8, H%8==0, W%16==0, "
-                      f"W<={strip_w_max(c)}): composed PyTorch path")
-        if shift:
-            x = torch.roll(x, (-shift, -shift), (1, 2))
-        x = _flat_block(x, ws, self.params(), self.num_heads, mask)
-        if shift:
-            x = torch.roll(x, (shift, shift), (1, 2))
-        return x
+                      f"{ws} (it needs window {WS}): composed PyTorch path")
+        x = swin_block_2d_reference(x, self.params(), self.num_heads, mask,
+                                    phase=shift, window=ws)
+        return torch.roll(x, (shift, shift), (1, 2)) if shift else x
 
 
 class BasicLayer(nn.Module):
@@ -181,34 +150,31 @@ class RSTB(nn.Module):
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int], depth: int,
                  num_heads: int, window_size: int, mlp_ratio: float = 4.0,
-                 resi_connection: str = "1conv", fuse_block: bool = True):
+                 resi_connection: str = "1conv"):
         super().__init__()
         if resi_connection != "1conv":
             raise NotImplementedError(
                 f"resi_connection={resi_connection!r} is not ported yet "
                 "(later slice); the port has '1conv'")
         self.window_size = window_size
-        self.fuse_block = fuse_block
         self.residual_group = BasicLayer([
             SwinBlock(dim, input_resolution, num_heads, window_size,
-                      0 if i % 2 == 0 else window_size // 2, mlp_ratio,
-                      fuse_block=fuse_block)
+                      0 if i % 2 == 0 else window_size // 2, mlp_ratio)
             for i in range(depth)])
         self.conv = Conv(dim, dim, 3, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
         ws = min(h, w) if min(h, w) <= self.window_size else self.window_size
-        fused = self.fuse_block and not self.training
         # phase threading: each block's output stays in that block's shift
         # phase; the tail un-rolls once, inside the conv kernel's read
-        use_phase = fused and strip_ok(ws, h, w, c)
+        use_phase = not self.training and kernel_ok(ws, h, w)
         res, phase = x, 0
         for blk in self.residual_group.blocks:
             res = blk(res, phase_in=phase)
             if use_phase:
                 phase = blk.shift_size if min(h, w) > self.window_size else 0
-        if fused:
+        if not self.training:
             return self.conv(res, residual=x, phase=phase)
         return self.conv(res) + x
 
@@ -231,8 +197,7 @@ class SwinIR(nn.Module):
                  mlp_ratio: float = 4.0, upscale: int = 2,
                  img_range: float = 1.0, upsampler: str = "",
                  resi_connection: str = "1conv", ape: bool = False,
-                 patch_norm: bool = True, num_feat: int = 64,
-                 fuse_block: bool = True):
+                 patch_norm: bool = True, num_feat: int = 64):
         super().__init__()
         if upsampler not in ("pixelshuffle", "pixelshuffledirect", ""):
             raise NotImplementedError(
@@ -243,7 +208,6 @@ class SwinIR(nn.Module):
         self.img_range = img_range
         self.upsampler = upsampler
         self.img_size = img_size
-        self.fuse_block = fuse_block
         mean = (0.4488, 0.4371, 0.4040) if in_chans == 3 else (0.0,) * in_chans
         self.register_buffer("mean", torch.tensor(mean), persistent=False)
 
@@ -257,7 +221,7 @@ class SwinIR(nn.Module):
         res = (img_size, img_size)
         self.layers = nn.ModuleList([
             RSTB(embed_dim, res, d, nh, window_size, mlp_ratio,
-                 resi_connection, fuse_block)
+                 resi_connection)
             for d, nh in zip(depths, num_heads)])
         self.norm = nn.LayerNorm(embed_dim)
         self.conv_after_body = Conv(embed_dim, embed_dim, 3, 1, 1)
@@ -312,7 +276,7 @@ class SwinIR(nn.Module):
         for layer in self.layers:
             feat = layer(feat)
         feat = self.norm(feat)
-        if self.fuse_block and not self.training:
+        if not self.training:
             return self.conv_after_body(feat, residual=feat0)
         return self.conv_after_body(feat) + feat0
 

@@ -15,6 +15,8 @@ library behind. A missing ``nvcc`` or a failed build raises with the
 compiler's output; nothing falls back.
 
 Nothing here runs at import time: the first kernel launch builds and loads.
+``library(profile=True)`` builds the same sources with ``-DKAIR_PROFILE``
+into a library of its own, for ``cli/profile_swin_block.py`` only.
 """
 
 from __future__ import annotations
@@ -26,14 +28,13 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BUILD_TIMEOUT_S = 300
-SMEM_MAX = 232448           # bytes of shared memory a block may use on sm_90
 
 
 def round16(v: int) -> int:
@@ -55,9 +56,12 @@ SIGNATURES = {
     "kair_conv3x3_shared_bytes": ([_I], _I),             # C
     "kair_error_string": ([_I], ctypes.c_char_p),
 }
+PROFILE_SIGNATURES = {
+    "kair_swin_stage_cycles": ([_P], _I),                # dst (host u64[10])
+}
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[bool, ctypes.CDLL] = {}
 
 
 def sources() -> List[Path]:
@@ -73,8 +77,9 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libkair_kernels.{source_hash()}.so"
+def library_path(profile: bool = False) -> Path:
+    name = "libkair_kernels_profile" if profile else "libkair_kernels"
+    return BUILD_DIR / f"{name}.{source_hash()}.so"
 
 
 def find_nvcc() -> str:
@@ -89,23 +94,24 @@ def find_nvcc() -> str:
         "and need the CUDA toolkit")
 
 
-def nvcc_command(nvcc: str, out_path: Path) -> List[str]:
+def nvcc_command(nvcc: str, out_path: Path, profile: bool = False
+                 ) -> List[str]:
     """The one compiler command line (a dry run: nothing is executed)."""
     return ([nvcc] + ARCH_FLAGS
             + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas=-v", "-o", str(out_path)]
-            + [str(s) for s in sources()])
+               "-Xptxas=-v"] + (["-DKAIR_PROFILE"] if profile else [])
+            + ["-o", str(out_path)] + [str(s) for s in sources()])
 
 
-def build() -> Path:
+def build(profile: bool = False) -> Path:
     """Compile the library unless this source hash is already built."""
-    out = library_path()
+    out = library_path(profile)
     if out.exists():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-    cmd = nvcc_command(nvcc, tmp)
+    cmd = nvcc_command(nvcc, tmp, profile)
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=BUILD_TIMEOUT_S)
@@ -129,18 +135,18 @@ def build_log() -> str:
     return p.read_text() if p.exists() else ""
 
 
-def library() -> ctypes.CDLL:
+def library(profile: bool = False) -> ctypes.CDLL:
     """Build (first call) and load the kernel library, with typed entries."""
-    global _lib
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, (argtypes, restype) in SIGNATURES.items():
+        if profile not in _libs:
+            lib = ctypes.CDLL(str(build(profile)))
+            sigs = {**SIGNATURES, **(PROFILE_SIGNATURES if profile else {})}
+            for name, (argtypes, restype) in sigs.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = restype
-            _lib = lib
-    return _lib
+            _libs[profile] = lib
+    return _libs[profile]
 
 
 def check(err: int, what: str) -> None:

@@ -89,8 +89,6 @@ def conv3x3_residual(y: torch.Tensor, res: torch.Tensor, weight: torch.Tensor,
                          f"{cp}) tensor on {y.device}")
     bias32 = bias.float().contiguous()
     lib = _build.library()
-    if lib.kair_conv3x3_shared_bytes(c) > _build.SMEM_MAX:
-        raise ValueError(f"conv3x3_residual at C={c} exceeds shared memory")
     out = torch.empty_like(y)
     with torch.cuda.device(y.device):
         err = lib.kair_conv3x3_residual(

@@ -119,23 +119,24 @@ def pack_swin_block(p: SwinBlockParams, num_heads: int,
 
 def swin_block_2d_reference(x: torch.Tensor, p: SwinBlockParams,
                             num_heads: int, mask: Optional[torch.Tensor] = None,
-                            phase: int = 0) -> torch.Tensor:
+                            phase: int = 0, window: int = WS) -> torch.Tensor:
     """Plain PyTorch version of the kernel, computed in f32 from the given
     inputs (counterpart of ``_reference_2d`` :468 / ``_reference_block_tokens``
     :415): roll, window partition, LN1, W-MSA with max-subtracted softmax,
     residual, LN2, exact-GELU MLP, residual, window reverse. Returns
-    ``x.dtype``."""
+    ``x.dtype``. ``window`` other than 8 is the model's composed route for
+    geometries the kernel does not take."""
     f = x.float()
     if phase:
         f = torch.roll(f, (-phase, -phase), (1, 2))
     b, h, w, c = f.shape
     y = F.layer_norm(f, (c,), p.norm1_weight.float(), p.norm1_bias.float(), 1e-5)
-    a = window_msa(window_partition(y, WS), p.qkv_weight.float(),
+    a = window_msa(window_partition(y, window), p.qkv_weight.float(),
                    None if p.qkv_bias is None else p.qkv_bias.float(),
                    p.proj_weight.float(), p.proj_bias.float(),
-                   p.rel_table.float(), relative_position_index(WS, WS),
+                   p.rel_table.float(), relative_position_index(window, window),
                    num_heads, None if mask is None else mask.float())
-    x1 = f + window_reverse(a, WS, h, w)
+    x1 = f + window_reverse(a, window, h, w)
     z = F.layer_norm(x1, (c,), p.norm2_weight.float(), p.norm2_bias.float(), 1e-5)
     z = F.gelu(F.linear(z, p.fc1_weight.float(), p.fc1_bias.float()))
     return (x1 + F.linear(z, p.fc2_weight.float(), p.fc2_bias.float())).to(x.dtype)
@@ -178,16 +179,20 @@ def swin_block_2d(x: torch.Tensor, p: SwinBlockParams, num_heads: int,
     if x.device.type == "cpu":
         return swin_block_2d_reference(x, p, num_heads, mask, phase)
     _check_cuda_args(x, p, num_heads, mask)
-    b, h, w, c = x.shape
     pk = packed if packed is not None else pack_swin_block(p, num_heads)
     if pk.wqkv.dtype != torch.bfloat16 or pk.wqkv.device != x.device:
         raise ValueError("packed weights must be bf16 on the input's device")
-    lib = _build.library()
-    smem = lib.kair_swin_block_shared_bytes(c, num_heads, pk.hp)
-    if smem > _build.SMEM_MAX:
-        raise ValueError(f"swin_block_2d at C={c}, hidden={pk.hp} needs "
-                         f"{smem} bytes of shared memory (max {_build.SMEM_MAX})")
     out = torch.empty_like(x)
+    _launch(_build.library(), x, out, pk, num_heads, mask, phase)
+    swin_block_2d.launches += 1
+    return out
+
+
+def _launch(lib, x: torch.Tensor, out: torch.Tensor, pk: SwinBlockPack,
+            num_heads: int, mask: Optional[torch.Tensor], phase: int) -> None:
+    """One launch of the kernel in ``lib`` on checked arguments; raises on a
+    CUDA error (oversized shared memory included)."""
+    b, h, w, c = x.shape
     with torch.cuda.device(x.device):
         err = lib.kair_swin_block_2d(
             x.data_ptr(), out.data_ptr(), pk.wqkv.data_ptr(),
@@ -198,8 +203,6 @@ def swin_block_2d(x: torch.Tensor, p: SwinBlockParams, num_heads: int,
             b, h, w, c, num_heads, pk.hp, int(phase),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "swin_block_2d")
-    swin_block_2d.launches += 1
-    return out
 
 
 swin_block_2d.launches = 0

@@ -2,8 +2,8 @@
 bounds (counterparts of ``bench.py:83 swinir_flops_per_lr_pixel`` and the
 peak table of ``kair_tpu/utils/summary.py:18-33``).
 
-The table holds NVIDIA's published dense peaks for the SXM parts (data
-sheets and the Hopper architecture white paper). They assume the card's full
+The table holds NVIDIA's published dense peaks for the H100 SXM (data
+sheet and the Hopper architecture white paper). They assume the card's full
 700 W power limit; a card set lower runs slower, so every measured number
 is reported beside ``nvidia-smi``'s power limit. An unknown card (or the
 CPU) gets None, never a guessed number.
@@ -16,7 +16,6 @@ from typing import Dict, Optional
 # dense bf16 tensor-core TFLOP/s and device-memory TB/s, by device name
 PEAKS: Dict[str, Dict[str, float]] = {
     "H100 SXM": {"bf16_tflops": 989.0, "hbm_tbps": 3.35},
-    "H200 SXM": {"bf16_tflops": 989.0, "hbm_tbps": 4.8},
 }
 
 
@@ -27,8 +26,6 @@ def card_for_device_name(name: str) -> Optional[str]:
     n = name.upper()
     if "PCIE" in n or "NVL" in n:
         return None
-    if "H200" in n:
-        return "H200 SXM"
     if "H100" in n:
         return "H100 SXM"
     return None
@@ -37,11 +34,6 @@ def card_for_device_name(name: str) -> Optional[str]:
 def peak_bf16_tflops(name: str) -> Optional[float]:
     card = card_for_device_name(name)
     return PEAKS[card]["bf16_tflops"] if card else None
-
-
-def peak_hbm_tbps(name: str) -> Optional[float]:
-    card = card_for_device_name(name)
-    return PEAKS[card]["hbm_tbps"] if card else None
 
 
 def swinir_block_flops_per_token(embed_dim: int = 180, num_heads: int = 6,

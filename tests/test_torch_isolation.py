@@ -101,6 +101,18 @@ def test_nvcc_command_is_one_plain_call():
     assert _build.library_path().parent == _build.BUILD_DIR
 
 
+def test_profile_build_is_its_own_library():
+    """-DKAIR_PROFILE (the stage-cycle marks) goes only into the profile
+    library; the kernels' own build has no marks."""
+    out = pathlib.Path("/nonexistent/lib.so")
+    assert "-DKAIR_PROFILE" not in _build.nvcc_command("nvcc", out)
+    prof = _build.nvcc_command("nvcc", out, profile=True)
+    assert "-DKAIR_PROFILE" in prof
+    assert prof[prof.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert _build.library_path(True) != _build.library_path()
+    assert _build.library_path(True).parent == _build.BUILD_DIR
+
+
 def test_gitignore_lists_build_dir():
     lines = (REPO / ".gitignore").read_text().split()
     assert "kair_tpu_torch/_build/" in lines

@@ -10,7 +10,8 @@
 (d) full-width, full-depth SwinIR-M x4 on a 1x16x16 input, the port loaded
     through cli.test.build_preset from a .pth against JAX fuse_block=False,
     atol 2e-4 (f32 sums in another order through 36 blocks);
-and the composed path for a geometry off the kernel, and cli.test.main.
+and the kernel route for a width of 8 mod 16, the composed route for a window
+under 8, and cli.test.main.
 """
 
 from unittest import mock
@@ -50,12 +51,13 @@ def nhwc(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 3, 1)))
 
 
-@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "composed"])
+@pytest.mark.parametrize("training", [False, True], ids=["fused", "composed"])
 @pytest.mark.parametrize("name,cfg", FIXTURE_CASES, ids=[c[0] for c in FIXTURE_CASES])
-def test_port_matches_kair_fixture(name, cfg, fuse):
+def test_port_matches_kair_fixture(name, cfg, training):
+    """Eval mode takes the kernels' route, training mode the composed one."""
     z = np.load(FIXTURES / f"model_{name}.npz")
     sd = {k[3:]: torch.from_numpy(z[k]) for k in z.files if k.startswith("sd.")}
-    model = tsw.SwinIR(fuse_block=fuse, **cfg).eval()
+    model = tsw.SwinIR(**cfg).train(training)
     model.load_state_dict(sd)              # strict: KAIR's key set exactly
     with torch.no_grad():
         got = model(nhwc(z["in0"])).numpy()
@@ -80,24 +82,23 @@ def _interpret(fn):
     return lambda *a, **kw: fn(*a, **{**kw, "interpret": True})
 
 
-@pytest.mark.parametrize("jax_fuse", [True, False], ids=["jax_fused", "jax_xla"])
-def test_port_matches_jax_same_weights(jax_fuse):
-    sd = _seeded_sd(SMALL, 32)
-    x = np.random.RandomState(3).rand(1, 32, 32, 3).astype(np.float32)
-
-    variables = convert_swinir(_numpy_sd(sd), depths=SMALL["depths"],
-                               upsampler="pixelshuffle", upscale=4)
-    if jax_fuse:
+def _jax_forward(sd, cfg, x, fuse):
+    variables = convert_swinir(_numpy_sd(sd), depths=cfg["depths"],
+                               upsampler=cfg["upsampler"],
+                               upscale=cfg["upscale"])
+    if fuse:
         variables = {"params": fused_block_params(variables["params"])}
     with mock.patch.object(jsb, "swin_block_pallas_2d",
                            _interpret(jsb.swin_block_pallas_2d)), \
             mock.patch.object(jcb, "conv3x3_residual",
                               _interpret(jcb.conv3x3_residual)):
-        want = np.asarray(JaxSwinIR(fuse_block=jax_fuse, **SMALL).apply(
+        return np.asarray(JaxSwinIR(fuse_block=fuse, **cfg).apply(
             variables, jnp.asarray(x)))
 
-    model = tsw.SwinIR(img_size=32, **SMALL).eval()
-    model.load_state_dict(sd)
+
+def _port_forward_counted(model, x):
+    """The port's eval forward, counting the calls of the block wrapper and
+    of the fused conv tails on the way."""
     calls = {"swin": 0, "conv": 0}
     blocks, convs = tsw.swin_block_2d, tsw.Conv.forward
 
@@ -112,6 +113,18 @@ def test_port_matches_jax_same_weights(jax_fuse):
     with mock.patch.object(tsw, "swin_block_2d", swin_spy), \
             mock.patch.object(tsw.Conv, "forward", conv_spy), torch.no_grad():
         got = model(torch.from_numpy(x)).numpy()
+    return got, calls
+
+
+@pytest.mark.parametrize("jax_fuse", [True, False], ids=["jax_fused", "jax_xla"])
+def test_port_matches_jax_same_weights(jax_fuse):
+    sd = _seeded_sd(SMALL, 32)
+    x = np.random.RandomState(3).rand(1, 32, 32, 3).astype(np.float32)
+    want = _jax_forward(sd, SMALL, x, jax_fuse)
+
+    model = tsw.SwinIR(img_size=32, **SMALL).eval()
+    model.load_state_dict(sd)
+    got, calls = _port_forward_counted(model, x)
     assert calls == {"swin": 4, "conv": 3}     # every block, 2 tails + body
     np.testing.assert_allclose(got, want, atol=1e-4)
 
@@ -145,23 +158,35 @@ def test_full_swinir_m_x4_port_matches_jax(tmp_path):
     np.testing.assert_allclose(got, want, atol=2e-4)
 
 
-def test_geometry_off_the_kernel_takes_composed_path():
-    """W % 16 != 0: the fused strip kernel is not used; the composed path
-    gives the same function as the fused-off model."""
+def test_width_8_mod_16_takes_the_kernel_route():
+    """W % 16 == 8 (what test_pad's modulo 8 leaves for many real widths):
+    every block and tail goes through the kernel wrappers, and the result
+    matches JAX (fuse_block=False) at atol 1e-4."""
     sd = _seeded_sd(SMALL, 24)
-    x = torch.from_numpy(np.random.RandomState(5).rand(1, 16, 24, 3)
-                         .astype(np.float32))
-    fused = tsw.SwinIR(img_size=24, **SMALL).eval()
-    plain = tsw.SwinIR(img_size=24, fuse_block=False, **SMALL).eval()
-    fused.load_state_dict(sd)
-    plain.load_state_dict(sd)
+    x = np.random.RandomState(5).rand(1, 16, 24, 3).astype(np.float32)
+    want = _jax_forward(sd, SMALL, x, False)
+    model = tsw.SwinIR(img_size=24, **SMALL).eval()
+    model.load_state_dict(sd)
+    got, calls = _port_forward_counted(model, x)
+    assert calls == {"swin": 4, "conv": 3}
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_geometry_off_the_kernel_takes_composed_path():
+    """A window under 8: the block kernel is never called, the composed
+    route matches JAX (fuse_block=False) at atol 1e-4, and the tails still
+    go through the conv wrapper."""
+    cfg = {**SMALL, "window_size": 4}
+    sd = _seeded_sd(cfg, 16)
+    x = np.random.RandomState(5).rand(1, 16, 24, 3).astype(np.float32)
+    want = _jax_forward(sd, cfg, x, False)
+    model = tsw.SwinIR(img_size=16, **cfg).eval()
+    model.load_state_dict(sd)
     with mock.patch.object(tsw, "swin_block_2d",
-                           side_effect=AssertionError("kernel path")), \
-            torch.no_grad():
-        got = fused(x)
-    with torch.no_grad():
-        want = plain(x)
-    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+                           side_effect=AssertionError("kernel path")):
+        got, calls = _port_forward_counted(model, x)
+    assert calls == {"swin": 0, "conv": 3}
+    np.testing.assert_allclose(got, want, atol=1e-4)
 
 
 def test_cli_test_main_runs_sr4_on_cpu(tmp_path):
