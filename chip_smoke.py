@@ -19,6 +19,20 @@ conv3x3 + residual tail. Phases, one flushed line each with its seconds:
                 counts; output against the same weights run in f32 on the
                 CPU, with a control that the comparison sees a dropped mask
   5 throughput  batch 16 of 128x128 LR: ms per forward, LR MP/s, MFU
+  6 swin_bwd    the block backward kernel against its plain version at the
+                training shape B=32, 48x48, C=180 (unshifted, shifted with
+                the mask) and 1x48x56 (shifted): dx and the 13 parameter
+                grads, with a dropped-mask control; its time, bound, the
+                plain version's and the forward kernel's times
+  7 train       SwinIR-M x4 training from the shipped option file
+                (options/swinir/train_swinir_sr_classical_x4.json) through
+                config.parse → cli.train.build_trainer, bf16, batches of 32
+                from the port's Loader over seeded smooth images: (a) one
+                gradient on the card against the f32 CPU run on the same
+                weights and a B=2 batch, with a dropped-mask control; (b) 2
+                warm-up and 8 timed steps, 36 forward and 36 backward block
+                launches per step and no conv kernel; (c) save, then resume
+                in a fresh trainer with equal G, E and optimizer state
 
 Any failed check raises and the script exits non-zero; a watchdog ends a
 hung run with a traceback. The line before the last is one JSON object with
@@ -31,6 +45,7 @@ from __future__ import annotations
 import faulthandler
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -409,6 +424,295 @@ def phase_throughput(card: str) -> None:
         require(math.isfinite(ms) and ms > 0, "throughput timing")
 
 
+def phase_swin_bwd(report: list) -> None:
+    import torch
+    from kair_tpu_torch.ops.kernels.swin_block import (SwinBlockParams,
+                                                        pack_swin_block,
+                                                        swin_block_2d,
+                                                        swin_block_2d_bwd,
+                                                        swin_block_2d_bwd_reference)
+    from kair_tpu_torch.ops.kernels.window_msa import shift_mask_tensor
+    from kair_tpu_torch.utils.summary import swinir_block_bwd_flops_per_token
+
+    b, h, w, c, nh, hidden = 32, 48, 48, 180, 6, 360
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 2)
+    # f32 parameters, as the trainer holds them; bf16 activations
+    p = swin_params(c, nh, hidden, gen, dev, torch.float32)
+    x = torch.randn(b, h, w, c, generator=gen).to(dev, torch.bfloat16)
+    dy = torch.randn(b, h, w, c, generator=gen).to(dev, torch.bfloat16)
+    x56 = torch.randn(1, 48, 56, c, generator=gen).to(dev, torch.bfloat16)
+    dy56 = torch.randn(1, 48, 56, c, generator=gen).to(dev, torch.bfloat16)
+    mask = shift_mask_tensor(h, w, 8, 4, dev)
+    names = ("dx",) + SwinBlockParams._fields
+    tol = 2e-2
+    with Phase("6 swin_bwd") as ph:
+        ph.note(f"B={b} {h}x{w} C={c} nh={nh}, bf16 x and dy, f32 parameters; "
+                f"limit per tensor max_abs <= {tol} * max|ref| for dx and each "
+                "of the 13 grads (bf16 operands and stored intermediates, f32 "
+                "accumulation; plain version: autograd in f32 from the same "
+                "inputs); control: without the mask the plain dx must differ "
+                "by more than the limit and 3x the error")
+        errs = []
+        pkb = pack_swin_block(p, nh, folded=False)     # as the model caches it
+        for xin, dyin, m in ((x, dy, None), (x, dy, mask),
+                             (x56, dy56, shift_mask_tensor(48, 56, 8, 4, dev))):
+            dx, g = swin_block_2d_bwd(xin, dyin, p, nh, m, pkb)
+            torch.cuda.synchronize()
+            rdx, rg = swin_block_2d_bwd_reference(xin, dyin, p, nh, m)
+            worst, worst_name, dx_abs = 0.0, "", 0.0
+            for name, got, ref in zip(names, (dx,) + tuple(g), (rdx,) + tuple(rg)):
+                e_abs, e_rel, _, _ = compare(got, ref)
+                require(e_rel <= tol, f"swin_block_2d_bwd {tuple(xin.shape[:3])} "
+                        f"{name}: max_rel {e_rel:.4g} > {tol}")
+                if name == "dx":
+                    dx_abs = e_abs
+                    errs.append(e_abs)
+                if e_rel > worst:
+                    worst, worst_name = e_rel, name
+            what = (f"{tuple(xin.shape[:3])} mask="
+                    f"{'shift' if m is not None else 'none'}")
+            note = f"{what}: worst max_rel {worst:.4g} ({worst_name})"
+            if m is not None:
+                ndx, _ = swin_block_2d_bwd_reference(xin, dyin, p, nh, None)
+                eff = (ndx.float() - rdx.float()).abs().max().item()
+                ref_max = rdx.float().abs().max().item()
+                note += f"; mask effect on dx max_rel {eff / ref_max:.4g}"
+                require(eff > tol * ref_max and eff > 3 * dx_abs,
+                        "mask effect not above the limit and the kernel error")
+            ph.note(note)
+        ms = cuda_ms(lambda: swin_block_2d_bwd(x, dy, p, nh, mask, pkb))
+        plain_ms = cuda_ms(lambda: swin_block_2d_bwd_reference(
+            x, dy, p, nh, mask), warmup=1, reps=5)
+        pk = pack_swin_block(p, nh)
+        fwd_ms = cuda_ms(lambda: swin_block_2d(x, p, nh, mask, 0, packed=pk))
+        tokens = b * h * w
+        flops = tokens * swinir_block_bwd_flops_per_token(c, 8, hidden / c)
+        n_params = sum(t.numel() for t in p)
+        # x and dy read, dx written (bf16); parameters read and grads written
+        # (f32); the mask read
+        nbytes = 3 * 2 * tokens * c + 2 * 4 * n_params + 4 * mask.numel()
+        bms, by = bound_ms(flops, nbytes)
+        ph.note(f"kernel {ms:.3f} ms (shifted, median of 10); plain f32 "
+                f"{plain_ms:.3f} ms; forward kernel at this shape {fwd_ms:.3f} "
+                f"ms; bound {bms:.4f} ms ({by}); {flops / ms / 1e9:.1f} TFLOP/s; "
+                "max_abs_err in the kernels line is dx's")
+    report.append(dict(
+        name="swin_block_2d_bwd", route="cuda",
+        source="kair_tpu_torch/csrc/swin_block_bwd.cu",
+        replaces="kair_tpu/ops/pallas/swin_block.py:588",
+        launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=None))
+
+
+OPTION_FILE = "options/swinir/train_swinir_sr_classical_x4.json"
+
+
+def train_options(tmp: str):
+    """The shipped option file, parsed by the port, with its output paths
+    and image folder moved into `tmp`."""
+    from kair_tpu_torch import config
+    raw = config.load_json_with_comments(
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), OPTION_FILE))
+    raw["path"]["root"] = os.path.join(tmp, "runs")
+    raw["datasets"]["train"]["dataroot_H"] = os.path.join(tmp, "trainH")
+    path = os.path.join(tmp, os.path.basename(OPTION_FILE))
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return config.parse(path)
+
+
+def seeded_sr_dataset(ds_opt, n_images: int = 64, size: int = 200):
+    """The port's DatasetSR over `n_images` seeded smooth HR images (the card
+    has no image set and no cv2): its two file-system hooks replaced."""
+    from kair_tpu_torch.data.datasets import DatasetSR
+
+    class SeededSR(DatasetSR):
+        cache: dict = {}
+
+        def image_paths(self, root):
+            return [f"{root}/seed{i}.png" for i in range(n_images)]
+
+        def read_uint(self, path):
+            if path not in self.cache:
+                seed = int(path.rsplit("seed", 1)[1].split(".")[0])
+                self.cache[path] = smooth_image(size, size, SEED + 100 + seed)
+            return self.cache[path]
+
+    return SeededSR(ds_opt)
+
+
+def seeded_train_weights(model, seed: int) -> dict:
+    """The model's state dict with the Swin blocks' tensors redrawn by
+    BLOCK_INIT, so that a wrong block term shows in the gradients."""
+    import torch
+    sd = model.state_dict()
+    gen = torch.Generator().manual_seed(seed)
+    for k, v in sd.items():
+        mean_std = BLOCK_INIT.get(k.split(".", 5)[-1]) \
+            if ".residual_group.blocks." in k else None
+        if mean_std is not None:
+            sd[k] = (torch.randn(v.shape, generator=gen) * mean_std[1]
+                     + mean_std[0]).to(v)
+    return sd
+
+
+def grads_of(trainer, batch) -> dict:
+    trainer.compute_grads(batch)
+    return {n: p.grad.detach().float().cpu()
+            for n, p in trainer.model.named_parameters()}
+
+
+def rel_norm(a: dict, b: dict, names) -> float:
+    import torch
+    num = torch.sqrt(sum(((a[n] - b[n]) ** 2).sum() for n in names))
+    den = torch.sqrt(sum((b[n] ** 2).sum() for n in names))
+    return (num / den).item()
+
+
+def phase_train(report: list, card: str, build_dir) -> None:
+    import numpy as np
+    import torch
+    from kair_tpu_torch import config
+    from kair_tpu_torch.cli.train import build_trainer
+    from kair_tpu_torch.data.base import Loader
+    from kair_tpu_torch.models import swinir as msw
+    from kair_tpu_torch.ops.kernels.conv_block import conv3x3_residual
+    from kair_tpu_torch.ops.kernels.swin_block import (swin_block_2d,
+                                                        swin_block_2d_bwd)
+    from kair_tpu_torch.train.trainer import PlainTrainer
+    from kair_tpu_torch.utils.summary import (peak_bf16_tflops,
+                                              swinir_flops_per_lr_pixel)
+
+    # measured by this phase on an H100 (PERF.md): 0.0075 over all
+    # parameters and 0.035 at the worst block parameter (a relative-position
+    # table). Dropping the mask moves the global norm by only 0.025 (it
+    # touches the border windows) but a block parameter by 0.67, so the
+    # control is held to the per-parameter limit
+    tol_global, tol_param = 3e-2, 1e-1
+    warmup, timed = 2, 8
+    with Phase("7 train") as ph, tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        opt = train_options(tmp)
+        ds_opt = opt["datasets"]["train"]
+        bs = ds_opt["dataloader_batch_size"]
+        trainer = build_trainer(opt, dtype=torch.bfloat16)
+        torch.manual_seed(SEED)
+        sd = seeded_train_weights(trainer.model, SEED + 3)
+        trainer.model.load_state_dict(sd)
+        trainer.ema.load_state_dict(sd)
+        net = opt["netG"]
+        ph.note(f"{OPTION_FILE}: embed {net['embed_dim']}, depths "
+                f"{net['depths']}, heads {net['num_heads']}, window "
+                f"{net['window_size']}, batch {bs}, H_size {ds_opt['H_size']}, "
+                f"{opt['train']['G_lossfn_type']}, Adam "
+                f"{opt['train']['G_optimizer_lr']}, EMA {opt['train']['E_decay']}; "
+                f"{sum(p.numel() for p in trainer.model.parameters())} params "
+                "(blocks drawn by BLOCK_INIT)")
+        loader = Loader(seeded_sr_dataset(ds_opt), bs, seed=SEED)
+        batches, epoch = [], 0
+        while len(batches) < warmup + timed:
+            batches += [{k: v for k, v in bt.items() if isinstance(v, np.ndarray)}
+                        for bt in loader.epoch(epoch)]
+            epoch += 1
+        batches = batches[:warmup + timed]
+        hs, sf = ds_opt["H_size"], opt["scale"]
+        lr_hw = batches[0]["L"].shape[1:3]
+        require(batches[0]["L"].shape == (bs, hs // sf, hs // sf, 3)
+                and batches[0]["H"].shape == (bs, hs, hs, 3),
+                f"batch shapes {batches[0]['L'].shape} {batches[0]['H'].shape}")
+
+        # (a) the gradient on the card against the f32 CPU run
+        small = {k: v[:2] for k, v in batches[0].items()}
+        g_card = grads_of(trainer, small)
+        cpu = PlainTrainer(opt, device="cpu", dtype=torch.float32)
+        cpu.model.load_state_dict(sd)
+        g_cpu = grads_of(cpu, small)
+        with_mask = msw.shift_mask_tensor
+        msw.shift_mask_tensor = lambda *a: None
+        try:
+            g_nomask = grads_of(cpu, small)
+        finally:
+            msw.shift_mask_tensor = with_mask
+        names = list(g_cpu)
+        block = [n for n in names if ".residual_group.blocks." in n]
+        err = rel_norm(g_card, g_cpu, names)
+        per = {n: rel_norm(g_card, g_cpu, [n]) for n in block}
+        worst = max(per, key=per.get)
+        eff = {n: rel_norm(g_nomask, g_cpu, [n]) for n in block}
+        eff_worst = max(eff, key=eff.get)
+        ph.note(f"(a) gradient, B=2, bf16 card vs f32 CPU: relative norm error "
+                f"{err:.4g} over all parameters (limit {tol_global}), worst "
+                f"block parameter {worst} {per[worst]:.4g} (limit {tol_param}); "
+                f"control, the CPU run without the shift mask: "
+                f"{rel_norm(g_nomask, g_cpu, names):.4g} over all parameters, "
+                f"{eff[eff_worst]:.4g} at {eff_worst}")
+        require(err <= tol_global, f"gradient error {err:.4g} > {tol_global}")
+        require(per[worst] <= tol_param,
+                f"block parameter {worst}: {per[worst]:.4g} > {tol_param}")
+        require(eff[eff_worst] > tol_param and eff[eff_worst] > 3 * per[worst],
+                "the dropped-mask control is not above the per-parameter limit "
+                "and 3x the worst error")
+
+        # (b) steps: one forward and one backward block launch per block
+        swin_block_2d.launches = swin_block_2d_bwd.launches = 0
+        conv3x3_residual.launches = 0
+        losses = [trainer.train_step(bt)["G_loss"] for bt in batches[:warmup]]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        losses += [trainer.train_step(bt)["G_loss"] for bt in batches[warmup:]]
+        e.record()
+        torch.cuda.synchronize()
+        n_fwd, n_bwd = swin_block_2d.launches, swin_block_2d_bwd.launches
+        n_conv = conv3x3_residual.launches
+        steps, n_blocks = warmup + timed, sum(net["depths"])
+        require(n_fwd == n_blocks * steps and n_bwd == n_blocks * steps
+                and n_conv == 0,
+                f"expected {n_blocks} forward, {n_blocks} backward and 0 conv "
+                f"launches per step, got {n_fwd}/{n_bwd}/{n_conv} in {steps} "
+                "steps")
+        for k in report:
+            if k["name"] == "swin_block_2d_bwd":
+                k["launches"] = n_bwd
+        loss_vals = [float(v) for v in losses]
+        require(all(math.isfinite(v) for v in loss_vals), f"losses {loss_vals}")
+        ms = s.elapsed_time(e) / timed
+        peak_mem = torch.cuda.max_memory_allocated()
+        lr_px = bs * lr_hw[0] * lr_hw[1]
+        tflops = 3 * swinir_flops_per_lr_pixel() * lr_px / (ms / 1e3) / 1e12
+        peak = peak_bf16_tflops(torch.cuda.get_device_name(0))
+        mfu = tflops / peak if peak else None
+        ph.note(f"(b) launches in {steps} steps: swin_block_2d {n_fwd}, "
+                f"swin_block_2d_bwd {n_bwd}, conv3x3_residual {n_conv}; losses "
+                f"{loss_vals[0]:.4g} .. {loss_vals[-1]:.4g}; ms_per_step {ms:.2f} "
+                f"(mean of {timed}, CUDA events), {bs / (ms / 1e3):.1f} patches/s, "
+                f"{lr_px / (ms / 1e3) / 1e6:.4f} LR MP/s, training MFU "
+                f"{'n/a' if mfu is None else f'{mfu:.4f}'} (3x the forward's "
+                "analytic FLOP, recompute not counted); peak memory "
+                f"{peak_mem / 2 ** 30:.2f} GiB [{card}]")
+
+        # (c) save, then resume in a fresh trainer
+        from kair_tpu_torch.ckpt import checkpoint as ck
+        models = opt["path"]["models"]
+        paths = trainer.save(models, trainer.step)
+        fresh = build_trainer(opt, dtype=torch.bfloat16)
+        step, g_path = config.find_last_checkpoint(models, "G")
+        fresh.resume(g_path, step)
+        require(step == trainer.step == fresh.step, f"resumed at {step}")
+        for name, a, b in (("G", trainer.model.state_dict(), fresh.model.state_dict()),
+                           ("E", trainer.ema.state_dict(), fresh.ema.state_dict())):
+            require(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+                    f"resumed {name} differs")
+        so, sf = ck.load(paths[-1]), fresh.optimizer.state_dict()
+        require(so["param_groups"] == sf["param_groups"] and all(
+            torch.equal(torch.as_tensor(v).cpu(), torch.as_tensor(sf["state"][i][k]).cpu())
+            for i, st in so["state"].items() for k, v in st.items()),
+            "resumed optimizer state differs")
+        ph.note(f"(c) saved {', '.join(os.path.basename(p) for p in paths)}; "
+                "a fresh trainer resumed with equal G, E and optimizer state")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -437,12 +741,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 ph.note(line.strip())
         ph.note(f"shared memory: swin {lib.kair_swin_block_shared_bytes(180, 6, 368)} "
-                f"B, conv {lib.kair_conv3x3_shared_bytes(180)} B per block")
+                f"B, conv {lib.kair_conv3x3_shared_bytes(180)} B, swin backward "
+                f"{lib.kair_swin_block_bwd_shared_bytes(180, 6, 368)} B per block")
 
     phase_swin(report)
     phase_conv(report)
     phase_main_path(report, _build.BUILD_DIR)
     phase_throughput(card)
+    phase_swin_bwd(report)
+    phase_train(report, card, _build.BUILD_DIR)
     faulthandler.cancel_dump_traceback_later()
 
     log(card)

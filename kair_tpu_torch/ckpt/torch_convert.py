@@ -75,10 +75,24 @@ def _indexed(tree: Dict[str, Any], prefix: str):
     return sorted(items, key=lambda kv: kv[0])
 
 
+def _unflatten_fused_block(blk: Dict[str, Any]) -> Dict[str, Any]:
+    """A fuse_block=True block (norm1_scale, fc1_kernel, …) in the standard
+    nesting (norm1/{scale,bias}, fc1/{kernel,bias}, …): the inverse of
+    ``kair_tpu.models.swinir.fused_block_params``."""
+    out = {k: v for k, v in blk.items()
+           if not k.startswith(("norm1_", "norm2_", "fc1_", "fc2_"))}
+    for n in ("norm1", "norm2"):
+        out[n] = {"scale": blk[f"{n}_scale"], "bias": blk[f"{n}_bias"]}
+    for n in ("fc1", "fc2"):
+        out[n] = {"kernel": blk[f"{n}_kernel"], "bias": blk[f"{n}_bias"]}
+    return out
+
+
 def swinir_from_jax(variables: Dict[str, Any], img_size: int = 64,
                     window_size: int = 8) -> Dict[str, torch.Tensor]:
     """Inverse of ``kair_tpu.ckpt.torch_convert.convert_swinir``: a JAX
-    SwinIR parameter tree (standard, non-fused layout) → KAIR state dict,
+    SwinIR parameter tree, in the standard layout or the fuse_block=True one
+    that the JAX trainer builds, → KAIR state dict,
     including the ``relative_position_index`` and ``attn_mask`` buffers a
     KAIR model built with ``img_size`` holds. Supports the 1conv residual
     and the pixelshuffle, pixelshuffledirect and denoise heads."""
@@ -99,6 +113,10 @@ def swinir_from_jax(variables: Dict[str, Any], img_size: int = 64,
             if j % 2 == 1 and shift > 0:
                 sd[f"{pre}.attn_mask"] = _t(shift_attn_mask(img_size, img_size,
                                                             ws, shift))
+            if "norm1_scale" in blk:
+                # fuse_block=True layout (kair_tpu/models/swinir.py:94-105):
+                # LN and MLP parameters flat under the block
+                blk = _unflatten_fused_block(blk)
             _ln(sd, f"{pre}.norm1", blk["norm1"])
             sd[f"{pre}.attn.relative_position_bias_table"] = _t(
                 np.asarray(blk["rel_bias_table"]))

@@ -11,9 +11,17 @@ it after ``pad_input``) runs as ONE fused block kernel with the cyclic shift
 folded into its read, and each RSTB tail (un-roll + conv3x3 + residual) plus
 ``conv_after_body`` as ONE conv kernel: ``ops/kernels/swin_block.py`` and
 ``conv_block.py``. On a CUDA tensor those are the hand-written kernels, on a
-CPU tensor their plain versions. A window under 8 and training mode take the
-composed PyTorch route (the block kernel's plain version, then the roll
-back).
+CPU tensor their plain versions.
+
+In training mode a block with an 8x8 window is rolled explicitly, runs as
+one autograd node (``swin_block_train``: the block kernel forward, the
+backward kernel ``swin_block_2d_bwd`` backward, at phase 0, as JAX trains,
+``kair_tpu/models/swinir.py:124-137``) and is rolled back; the RSTB tail is
+``F.conv2d`` + residual, as the JAX package leaves it to XLA in training.
+``use_checkpoint`` recomputes each RSTB in the backward
+(``torch.utils.checkpoint``, non-reentrant; JAX's ``nn.remat``). A window
+under 8 takes the composed PyTorch route (the block kernel's plain version,
+then the roll back) and says so once.
 """
 
 from __future__ import annotations
@@ -25,12 +33,14 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from kair_tpu_torch.ops.blocks import Conv, pixel_shuffle
 from kair_tpu_torch.ops.kernels.swin_block import (WS, SwinBlockParams,
                                                     pack_swin_block,
                                                     swin_block_2d,
-                                                    swin_block_2d_reference)
+                                                    swin_block_2d_reference,
+                                                    swin_block_train)
 from kair_tpu_torch.ops.kernels.window_msa import shift_mask_tensor
 from kair_tpu_torch.ops.window_attention import (relative_position_index,
                                                   shift_attn_mask)
@@ -90,7 +100,7 @@ class SwinBlock(nn.Module):
         # for the actual input size (identical at the training resolution)
         self.register_buffer("attn_mask", mask)
         self._pack_key: Optional[tuple] = None
-        self._pack = None
+        self._packs: dict = {}
 
     def params(self) -> SwinBlockParams:
         a, m = self.attn, self.mlp
@@ -101,13 +111,17 @@ class SwinBlock(nn.Module):
             m.fc2.weight, m.fc2.bias)
 
     @torch.no_grad()
-    def _packed(self):
-        """Kernel operands, rebuilt only when a parameter changes."""
+    def _packed(self, folded: bool = True):
+        """Kernel operands (the forward's folded pack, or the backward's),
+        rebuilt only when a parameter changes: an optimizer step bumps the
+        parameters' versions, so each step packs anew."""
         key = tuple((t.data_ptr(), t._version) for t in self.parameters())
         if key != self._pack_key:
-            self._pack = pack_swin_block(self.params(), self.num_heads)
-            self._pack_key = key
-        return self._pack
+            self._packs, self._pack_key = {}, key
+        if folded not in self._packs:
+            self._packs[folded] = pack_swin_block(self.params(), self.num_heads,
+                                                  folded=folded)
+        return self._packs[folded]
 
     def forward(self, x: torch.Tensor, phase_in: int = 0) -> torch.Tensor:
         b, h, w, c = x.shape
@@ -127,10 +141,21 @@ class SwinBlock(nn.Module):
                                  packed=self._packed() if x.is_cuda else None)
         if phase_in:
             raise ValueError("phase threading requires the fused block kernel")
-        if not self.training:
-            warn_once(f"swin-composed-fallback-{h}x{w}x{ws}",
-                      f"SwinIR fused block kernel not used at {h}x{w}, window "
-                      f"{ws} (it needs window {WS}): composed PyTorch path")
+        if kernel_ok(ws, h, w):
+            # training: explicit rolls around the differentiable block
+            if shift:
+                x = torch.roll(x, (-shift, -shift), (1, 2))
+            cuda = x.is_cuda
+            x = swin_block_train(
+                x, self.params(), self.num_heads, mask,
+                packed=self._packed() if cuda else None,
+                packed_bwd=self._packed(False) if cuda and torch.is_grad_enabled()
+                else None)
+            return torch.roll(x, (shift, shift), (1, 2)) if shift else x
+        warn_once(f"swin-composed-fallback-{h}x{w}x{ws}-{self.training}",
+                  f"SwinIR fused block kernels not used at {h}x{w}, window "
+                  f"{ws}, training={self.training} (they need window {WS}): "
+                  "composed PyTorch path")
         x = swin_block_2d_reference(x, self.params(), self.num_heads, mask,
                                     phase=shift, window=ws)
         return torch.roll(x, (shift, shift), (1, 2)) if shift else x
@@ -197,7 +222,8 @@ class SwinIR(nn.Module):
                  mlp_ratio: float = 4.0, upscale: int = 2,
                  img_range: float = 1.0, upsampler: str = "",
                  resi_connection: str = "1conv", ape: bool = False,
-                 patch_norm: bool = True, num_feat: int = 64):
+                 patch_norm: bool = True, num_feat: int = 64,
+                 use_checkpoint: bool = False):
         super().__init__()
         if upsampler not in ("pixelshuffle", "pixelshuffledirect", ""):
             raise NotImplementedError(
@@ -208,6 +234,7 @@ class SwinIR(nn.Module):
         self.img_range = img_range
         self.upsampler = upsampler
         self.img_size = img_size
+        self.use_checkpoint = use_checkpoint
         mean = (0.4488, 0.4371, 0.4040) if in_chans == 3 else (0.0,) * in_chans
         self.register_buffer("mean", torch.tensor(mean), persistent=False)
 
@@ -274,7 +301,11 @@ class SwinIR(nn.Module):
             feat = feat + self.absolute_pos_embed.reshape(
                 1, fh, fw, -1).to(feat.dtype)
         for layer in self.layers:
-            feat = layer(feat)
+            if self.use_checkpoint and self.training:
+                feat = torch.utils.checkpoint.checkpoint(layer, feat,
+                                                         use_reentrant=False)
+            else:
+                feat = layer(feat)
         feat = self.norm(feat)
         if not self.training:
             return self.conv_after_body(feat, residual=feat0)

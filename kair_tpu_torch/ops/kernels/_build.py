@@ -50,9 +50,16 @@ SIGNATURES = {
     # x, out, wqkv, bqkv, wp, bp, w1, b1, w2, b2, relbias, mask,
     # B, H, W, C, NH, HP, phase, stream
     "kair_swin_block_2d": ([_P] * 12 + [_I] * 7 + [_P], _I),
+    # x, dy, wqkv, bqkv, wp, bp, w1, b1, w2, b2, ln, relbias, mask,
+    # qkv_s, h1, ao, h2, g, dyp, dp, dx1, dqkv, part_ln, part_bias, part_w,
+    # dx, dw, dln, dbias, B, H, W, C, NH, hidden, HP, K1, KG, N3, splits,
+    # scale, stream
+    "kair_swin_block_2d_bwd": ([_P] * 29 + [_I] * 11 + [ctypes.c_float, _P],
+                               _I),
     # y, res, w, bias, out, B, H, W, C, phase, stream
     "kair_conv3x3_residual": ([_P] * 5 + [_I] * 5 + [_P], _I),
     "kair_swin_block_shared_bytes": ([_I] * 3, _I),      # C, NH, HP
+    "kair_swin_block_bwd_shared_bytes": ([_I] * 3, _I),  # C, NH, HP
     "kair_conv3x3_shared_bytes": ([_I], _I),             # C
     "kair_error_string": ([_I], ctypes.c_char_p),
 }

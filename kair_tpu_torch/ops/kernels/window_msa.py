@@ -16,8 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from kair_tpu_torch.ops.window_attention import (rel_pos_bias,
-                                                  relative_position_index,
+from kair_tpu_torch.ops.window_attention import (relative_position_index,
                                                   shift_attn_mask)
 
 
@@ -35,8 +34,23 @@ def fold_ln_affine(weight: torch.Tensor, bias: torch.Tensor,
 def window_bias(bias_table: torch.Tensor, num_heads: int,
                 ws: int = 8) -> torch.Tensor:
     """(nh, ws², ws²) f32 relative-position score bias, contiguous."""
-    return rel_pos_bias(bias_table.float(), relative_position_index(ws, ws),
-                        num_heads).contiguous()
+    n = ws * ws
+    idx = rel_index_on(ws, bias_table.device)
+    return bias_table.float()[idx].reshape(n, n, num_heads).permute(
+        2, 0, 1).contiguous()
+
+
+def rel_index_on(ws: int, device: torch.device) -> torch.Tensor:
+    """The flat (ws⁴,) relative-position index as a long tensor on
+    ``device``, made once per (window, device): copying it from the host
+    at every pack would be a pageable copy that waits for the card."""
+    return _rel_index_on(ws, str(device))
+
+
+@lru_cache(maxsize=16)
+def _rel_index_on(ws: int, device: str) -> torch.Tensor:
+    return torch.as_tensor(relative_position_index(ws, ws).reshape(-1),
+                           dtype=torch.long, device=device)
 
 
 def shift_mask_tensor(h: int, w: int, ws: int, shift: int,

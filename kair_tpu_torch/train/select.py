@@ -1,0 +1,31 @@
+"""Trainer registry (counterpart of ``kair_tpu/train/select.py``; reference
+models/select_model.py:9-33)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+FEED_KEYS = {
+    # plain feeds L; plain2 (L, C) for FFDNet (model_plain2.py:9-19);
+    # plain4 (L, k, sf, sigma) for USRNet (model_plain4.py:8-23)
+    "plain": (),
+    "plain2": ("C",),
+    "plain4": ("k", "sf", "sigma"),
+}
+LATER_SLICES = {"gan": "GAN", "vrt": "video"}
+
+
+def define_trainer(opt: dict, dtype: Optional[torch.dtype] = None,
+                   device=None):
+    model = (opt.get("model") or "plain").lower()
+    if model in FEED_KEYS:
+        from kair_tpu_torch.train.trainer import PlainTrainer
+        return PlainTrainer(opt, extra_keys=FEED_KEYS[model], dtype=dtype,
+                            device=device)
+    if model in LATER_SLICES:
+        raise NotImplementedError(
+            f"model [{model}] trainer belongs to the {LATER_SLICES[model]} "
+            "slice of the port, not ported yet")
+    raise NotImplementedError(f"model [{model}] is not defined")

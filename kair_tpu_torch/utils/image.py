@@ -4,7 +4,8 @@ which is pure numpy; the port keeps its own copy so it never imports the
 JAX package).
 
 Host images are HWC (or HW) numpy arrays as in the reference; batches for
-the model are NHWC. Metric parity targets: PSNR utils_image.py:629-644, SSIM
+the model are NHWC. ``augment_img`` is the training datasets' flip and
+rotation. Metric parity targets: PSNR utils_image.py:629-644, SSIM
 utils_image.py:650-697 (11x11 sigma 1.5 Gaussian, valid region), bicubic
 imresize utils_image.py:871-1014 (MATLAB antialiased kernel, symmetric
 boundary). ``cv2`` is imported only inside the file readers and writers.
@@ -80,6 +81,28 @@ def nhwc_to_uint(x) -> np.ndarray:
     (reference tensor2uint: utils_image.py:296-300)."""
     img = np.squeeze(np.asarray(x, dtype=np.float32))
     return np.uint8((np.clip(img, 0, 1) * 255.0).round())
+
+
+def augment_img(img: np.ndarray, mode: int = 0) -> np.ndarray:
+    """The eight flips and rotations of the reference table
+    (utils_image.py:387-404), as numpy views."""
+    if mode == 0:
+        return img
+    elif mode == 1:
+        return np.flipud(np.rot90(img))
+    elif mode == 2:
+        return np.flipud(img)
+    elif mode == 3:
+        return np.rot90(img, k=3)
+    elif mode == 4:
+        return np.flipud(np.rot90(img, k=2))
+    elif mode == 5:
+        return np.rot90(img)
+    elif mode == 6:
+        return np.rot90(img, k=2)
+    elif mode == 7:
+        return np.flipud(np.rot90(img, k=3))
+    raise ValueError(f"bad augment mode {mode}")
 
 
 def modcrop(img: np.ndarray, scale: int) -> np.ndarray:

@@ -46,6 +46,19 @@ def swinir_block_flops_per_token(embed_dim: int = 180, num_heads: int = 6,
                   + 2 * int(c * mlp_ratio) * c)
 
 
+def swinir_block_bwd_flops_per_token(embed_dim: int = 180, window: int = 8,
+                                     mlp_ratio: float = 2.0) -> float:
+    """FLOP per token of the block backward with the forward recomputed
+    (``ops/kernels/swin_block.py::swin_block_2d_bwd``): the forward without
+    fc2 (its output is not needed), then two products per weight matrix
+    (input grad and weight grad) and four attention products (dP, dq, dk,
+    dv) — 1,563,840 at SwinIR-M width, 2.77x the forward."""
+    c, n, hid = embed_dim, window * window, int(embed_dim * mlp_ratio)
+    recompute = 2.0 * (3 * c * c + 2 * n * c + c * c + c * hid)
+    backward = 2.0 * 2 * (3 * c * c + c * c + 2 * c * hid) + 2.0 * 4 * n * c
+    return recompute + backward
+
+
 def swinir_flops_per_lr_pixel(embed_dim=180, depths=(6,) * 6, num_heads=6,
                               window=8, mlp_ratio=2.0, num_feat=64,
                               in_chans=3, upscale=4) -> float:
