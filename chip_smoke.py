@@ -32,7 +32,8 @@ conv3x3 + residual tail. Phases, one flushed line each with its seconds:
                 weights and a B=2 batch, with a dropped-mask control; (b) 2
                 warm-up and 8 timed steps, 36 forward and 36 backward block
                 launches per step and no conv kernel; (c) save, then resume
-                in a fresh trainer with equal G, E and optimizer state
+                in a fresh trainer with equal G, E and optimizer state; (d)
+                device time per step by kernel, from torch.profiler
 
 Any failed check raises and the script exits non-zero; a watchdog ends a
 hung run with a traceback. The line before the last is one JSON object with
@@ -563,6 +564,12 @@ def grads_of(trainer, batch) -> dict:
             for n, p in trainer.model.named_parameters()}
 
 
+def kernel_name(key: str) -> str:
+    """A profiler key without its namespace noise, template and arguments."""
+    key = key.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return key.split("(")[0].split("<")[0].strip()[:60]
+
+
 def rel_norm(a: dict, b: dict, names) -> float:
     import torch
     num = torch.sqrt(sum(((a[n] - b[n]) ** 2).sum() for n in names))
@@ -586,10 +593,10 @@ def phase_train(report: list, card: str, build_dir) -> None:
 
     # measured by this phase on an H100 (PERF.md): 0.0075 over all
     # parameters and 0.035 at the worst block parameter (a relative-position
-    # table). Dropping the mask moves the global norm by only 0.025 (it
-    # touches the border windows) but a block parameter by 0.67, so the
-    # control is held to the per-parameter limit
-    tol_global, tol_param = 3e-2, 1e-1
+    # table). Dropping the mask moves the global norm by 0.025 (it touches
+    # the border windows only) and a block parameter by 0.67: each limit
+    # lies between the sound reading and the control's
+    tol_global, tol_param = 1.5e-2, 1e-1
     warmup, timed = 2, 8
     with Phase("7 train") as ph, tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         opt = train_options(tmp)
@@ -640,15 +647,18 @@ def phase_train(report: list, card: str, build_dir) -> None:
         worst = max(per, key=per.get)
         eff = {n: rel_norm(g_nomask, g_cpu, [n]) for n in block}
         eff_worst = max(eff, key=eff.get)
+        eff_global = rel_norm(g_nomask, g_cpu, names)
         ph.note(f"(a) gradient, B=2, bf16 card vs f32 CPU: relative norm error "
                 f"{err:.4g} over all parameters (limit {tol_global}), worst "
                 f"block parameter {worst} {per[worst]:.4g} (limit {tol_param}); "
                 f"control, the CPU run without the shift mask: "
-                f"{rel_norm(g_nomask, g_cpu, names):.4g} over all parameters, "
+                f"{eff_global:.4g} over all parameters, "
                 f"{eff[eff_worst]:.4g} at {eff_worst}")
         require(err <= tol_global, f"gradient error {err:.4g} > {tol_global}")
         require(per[worst] <= tol_param,
                 f"block parameter {worst}: {per[worst]:.4g} > {tol_param}")
+        require(eff_global > tol_global,
+                "the dropped-mask control is not above the global limit")
         require(eff[eff_worst] > tol_param and eff[eff_worst] > 3 * per[worst],
                 "the dropped-mask control is not above the per-parameter limit "
                 "and 3x the worst error")
@@ -691,6 +701,37 @@ def phase_train(report: list, card: str, build_dir) -> None:
                 f"{'n/a' if mfu is None else f'{mfu:.4f}'} (3x the forward's "
                 "analytic FLOP, recompute not counted); peak memory "
                 f"{peak_mem / 2 ** 30:.2f} GiB [{card}]")
+
+        # (d) where a step's device time goes: two more steps under the
+        # profiler, device events only (a CPU op that launched a ctypes-bound
+        # kernel would count that kernel's time again)
+        prof_steps = 2
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for bt in batches[warmup:warmup + prof_steps]:
+                trainer.train_step(bt)
+            torch.cuda.synchronize()
+        rows = []
+        for ev in prof.key_averages():
+            if (ev.device_type != torch.autograd.DeviceType.CUDA
+                    or getattr(ev, "is_user_annotation", False)
+                    or ev.key.startswith("Optimizer.")):
+                continue
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = ev.self_cuda_time_total
+            if dev_us > 0:
+                rows.append((dev_us / 1e3 / prof_steps, ev.count // prof_steps,
+                             ev.key))
+        rows.sort(reverse=True)
+        busy = sum(r[0] for r in rows)
+        ph.note(f"(d) device time per step (profiler, {prof_steps} steps): busy "
+                f"{busy:.2f} ms of the {ms:.2f} ms step, idle share "
+                f"{1 - busy / ms:.4f}; " + ", ".join(
+                    f"{kernel_name(name)} {t:.2f} ms x{n}"
+                    for t, n, name in rows[:8]) if rows else
+                "(d) the profiler saw no device time")
 
         # (c) save, then resume in a fresh trainer
         from kair_tpu_torch.ckpt import checkpoint as ck

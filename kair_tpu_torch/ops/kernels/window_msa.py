@@ -16,7 +16,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from kair_tpu_torch.ops.window_attention import (relative_position_index,
+from kair_tpu_torch.ops.window_attention import (rel_pos_bias,
+                                                  relative_position_index,
                                                   shift_attn_mask)
 
 
@@ -34,10 +35,8 @@ def fold_ln_affine(weight: torch.Tensor, bias: torch.Tensor,
 def window_bias(bias_table: torch.Tensor, num_heads: int,
                 ws: int = 8) -> torch.Tensor:
     """(nh, ws², ws²) f32 relative-position score bias, contiguous."""
-    n = ws * ws
-    idx = rel_index_on(ws, bias_table.device)
-    return bias_table.float()[idx].reshape(n, n, num_heads).permute(
-        2, 0, 1).contiguous()
+    return rel_pos_bias(bias_table.float(), rel_index_on(ws, bias_table.device),
+                        num_heads).contiguous()
 
 
 def rel_index_on(ws: int, device: torch.device) -> torch.Tensor:

@@ -9,6 +9,7 @@ KAIR's parameters natively.
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 from typing import Optional
 
@@ -73,10 +74,12 @@ def shift_attn_mask(h: int, w: int, ws: int, shift: int) -> np.ndarray:
 
 def rel_pos_bias(bias_table: torch.Tensor, rel_index, num_heads: int
                  ) -> torch.Tensor:
-    """(nh, N, N) relative-position bias gathered from the table."""
-    idx = torch.as_tensor(np.asarray(rel_index), dtype=torch.long,
+    """(nh, N, N) relative-position bias gathered from the table.
+    ``rel_index`` is the (N, N) index, or a long tensor of it already on
+    the table's device (used as it is, no copy)."""
+    idx = torch.as_tensor(rel_index, dtype=torch.long,
                           device=bias_table.device).reshape(-1)
-    n = int(np.asarray(rel_index).shape[0])
+    n = math.isqrt(idx.numel())
     return bias_table[idx].reshape(n, n, num_heads).permute(2, 0, 1)
 
 

@@ -34,7 +34,9 @@ from kair_tpu_torch.ops.kernels.swin_block import (SwinBlockParams,
                                                    pack_swin_block,
                                                    swin_block_2d,
                                                    swin_block_2d_reference)
-from kair_tpu_torch.ops.window_attention import window_partition, window_reverse
+from kair_tpu_torch.ops.kernels.window_msa import window_bias
+from kair_tpu_torch.ops.window_attention import (rel_pos_bias, window_partition,
+                                                  window_reverse)
 
 ATOL = 1e-4
 
@@ -154,6 +156,22 @@ def conv_inputs(b, h, w, c, seed=0):
     bias = (rng.randn(c) * 0.1).astype(np.float32)
     return y, r, k, bias
 
+
+@pytest.mark.parametrize("ws", [4, 8])
+def test_window_bias_matches_jax_gather(ws):
+    """The kernels' score bias (``window_bias``, gathered on the index cached
+    on the table's device) and ``rel_pos_bias`` from the (N, N) index both
+    equal the relative-position gather of JAX's ``window_msa``."""
+    nh, n = 3, ws * ws
+    table = np.random.RandomState(ws).randn((2 * ws - 1) ** 2, nh).astype(np.float32)
+    idx = relative_position_index(ws, ws)
+    want = np.asarray(jnp.asarray(table)[idx.reshape(-1)].reshape(
+        n, n, nh).transpose(2, 0, 1))
+    got = window_bias(torch.from_numpy(table), nh, ws)
+    assert got.is_contiguous() and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        rel_pos_bias(torch.from_numpy(table), idx, nh).numpy(), want)
 
 @pytest.mark.parametrize("b,h,w,c,phase", CONV_CASES)
 def test_conv_reference_matches_pallas(b, h, w, c, phase):

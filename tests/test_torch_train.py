@@ -3,8 +3,9 @@
 * One JAX ``PlainTrainer`` step (tiny SwinIR, fuse_block=True, the Pallas
   forward and backward block kernels in interpret mode) and one port step,
   on weights carried across by ``swinir_from_jax``: the loss and every
-  gradient match (f32; rtol 1e-3 of each tensor's scale); Adam + EMA fed
-  JAX's gradients give JAX's updated parameters and EMA to 1e-6; the lr of
+  gradient match (f32; rtol 1e-3 of each tensor's scale); Adam + EMA
+  (decay 0.5, so the EMA's move is far above the limit) fed JAX's
+  gradients give JAX's updated parameters and EMA to 1e-6; the lr of
   the port's schedules equals JAX's at every step.
 * ``DatasetSR`` + ``Loader``: identical batches from one seed.
 * ``config.parse`` of the shipped SwinIR option files: the same tree.
@@ -101,7 +102,9 @@ def _params(sd, model):
 
 
 def test_one_step_matches_jax_trainer(tmp_path, hr_dir):
-    path = tiny_options(tmp_path, hr_dir)
+    # E_decay 0.5 moves the EMA by half Adam's step (about 1e-4), far above
+    # the 1e-6 limit; at 0.999 the move (about 2e-7) would hide under it
+    path = tiny_options(tmp_path, hr_dir, E_decay=0.5)
     batch = next(base.Loader(datasets.define_dataset(
         config.parse(path)["datasets"]["train"]), 2, seed=0).epoch(0))
     arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
@@ -134,7 +137,7 @@ def test_one_step_matches_jax_trainer(tmp_path, hr_dir):
         np.testing.assert_allclose(prm.grad.numpy(), want, rtol=1e-3,
                                    atol=1e-3 * np.abs(want).max(), err_msg=n)
 
-    # Adam + EMA fed JAX's gradients land on JAX's parameters
+    # Adam + EMA fed JAX's gradients land on JAX's parameters and EMA
     for n, prm in t.model.named_parameters():
         prm.grad = gsd[n].clone()
     t.apply_update()
@@ -143,6 +146,8 @@ def test_one_step_matches_jax_trainer(tmp_path, hr_dir):
         want = _params(swinir_from_jax(_numpy_tree(tree), img_size=16,
                                        window_size=8), t.model)
         for n, prm in module.named_parameters():
+            moved = np.abs(want[n].numpy() - sd[n].numpy()).max()
+            assert moved > 1e-5, (n, moved)
             np.testing.assert_allclose(prm.detach().numpy(), want[n].numpy(),
                                        atol=1e-6, err_msg=n)
     assert t.step == 1 and int(new_state.step) == 1
