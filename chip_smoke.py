@@ -6,12 +6,17 @@
 The main path is SwinIR-M ×4 classical-SR inference (embed 180, depths
 6×6, 6 heads, window 8, MLP ratio 2, pixelshuffle head, bf16) through the
 port's two hand-written kernels: the fused Swin block and the fused
-conv3x3 + residual tail. Phases, one flushed line each with its seconds:
+conv3x3 + residual tail; then training, then the rest of SwinIR's
+inference routes: JPEG-CAR at window 7 (the window-block kernel), the
+unfused route (the window-attention kernel) and SwinIR-L. Phases, one
+flushed line each with its seconds:
 
   0 device      card name, power limit (nvidia-smi), torch and CUDA versions
   1 build       the kernels, from csrc/, with one plain nvcc call
   2 swin_block  kernel against its plain version at B=16, 128x128, C=180,
-                and at the main path's 1x64x72
+                at the main path's 1x64x72, and at SwinIR-L's width (B=4,
+                128x128, C=240, 8 heads, hidden 480), shifted and not, with
+                the dropped-mask control
   3 conv3x3     the same for the conv kernel, plus the F.conv2d yardstick
   4 main_path   a seeded KAIR-keyed state dict → .pth → cli.test.build_preset
                 → test_pad → model on the card, for a 256x256 and a 256x280
@@ -34,6 +39,28 @@ conv3x3 + residual tail. Phases, one flushed line each with its seconds:
                 launches per step and no conv kernel; (c) save, then resume
                 in a fresh trainer with equal G, E and optimizer state; (d)
                 device time per step by kernel, from torch.profiler
+  8 swin_win    the window-block kernel (windows up to 8, padded to 64 rows)
+                against its plain version: window 7 at B=8, 126x126, C=180,
+                shifted (phase 3) and not; window 4 on 1x12x20 and window 7
+                on 1x21x35 (odd window counts); dropped-mask control; time
+                and bound
+  9 window_msa  the window-attention kernel against the composed window_msa
+                at B=16, 128x128, C=180, with and without the mask and the
+                qkv bias; the same control; time and bound
+ 10 jpeg_car    KAIR's 006 JPEG-CAR SwinIR-M (color, window 7, img_range 255)
+                from an option tree through define_g: B=8 of 126x126 on the
+                card, 36 window-block and 7 conv launches, no composed
+                block; image 0 against the f32 CPU run (also in gray
+                levels) with the dropped-mask control; ms, LR MP/s, MFU;
+                device time per forward by kernel, from torch.profiler
+ 11 unfused     SwinIR-M x4 through cli.test.build_preset with fuse off:
+                36 window-attention launches per B=16 128x128 forward;
+                against the fused forward and the f32 CPU run; its time
+ 12 swinir_l    KAIR's real-world SwinIR-L x4 (embed 240, depths 9x6, 8
+                heads, 3conv, nearest+conv): 54 block launches per B=4
+                128x128 forward; a 64x64 image against the f32 CPU run,
+                the error after each stage and with the 3conv tails and the
+                head's convs in f32; its time
 
 Any failed check raises and the script exits non-zero; a watchdog ends a
 hung run with a traceback. The line before the last is one JSON object with
@@ -53,7 +80,7 @@ import sys
 import tempfile
 import time
 
-WATCHDOG_S = 540          # the whole run, build included, stays under 10 min
+WATCHDOG_S = 590          # the whole run, build included, stays under 10 min
 SEED = 0
 
 
@@ -128,9 +155,9 @@ def compare(got, ref):
         d.mean().item()
 
 
-def swin_params(c: int, nh: int, hidden: int, gen, device, dtype):
-    """Seeded block weights, scaled so the softmax is far from uniform and
-    every term of the block moves the output."""
+def swin_params(c: int, nh: int, hidden: int, gen, device, dtype, ws: int = 8):
+    """Seeded block weights for a ws x ws window, scaled so the softmax is
+    far from uniform and every term of the block moves the output."""
     import torch
     from kair_tpu_torch.ops.kernels.swin_block import SwinBlockParams
 
@@ -140,7 +167,7 @@ def swin_params(c: int, nh: int, hidden: int, gen, device, dtype):
     return SwinBlockParams(
         qkv_weight=rnd(3 * c, c, std=0.1), qkv_bias=rnd(3 * c, std=0.1),
         proj_weight=rnd(c, c, std=0.05), proj_bias=rnd(c, std=0.1),
-        rel_table=rnd(225, nh, std=0.5),
+        rel_table=rnd((2 * ws - 1) ** 2, nh, std=0.5),
         norm1_weight=rnd(c, std=0.1, mean=1.0), norm1_bias=rnd(c, std=0.1),
         norm2_weight=rnd(c, std=0.1, mean=1.0), norm2_bias=rnd(c, std=0.1),
         fc1_weight=rnd(hidden, c, std=0.05), fc1_bias=rnd(hidden, std=0.1),
@@ -192,6 +219,27 @@ def phase_swin(report: list) -> None:
                 require(eff > tol * ref_max and eff > 3 * e_abs,
                         "mask effect not above the limit and the kernel error")
             errs.append(e_abs)
+        # SwinIR-L's width, whose shared-memory layout overlaps x1 with
+        # q/k/v and the MLP hidden layer with the scores
+        bl, cl, nhl, hl = 4, 240, 8, 480
+        pl = swin_params(cl, nhl, hl, gen, dev, torch.bfloat16)
+        xl = torch.randn(bl, h, w, cl, generator=gen).to(dev, torch.bfloat16)
+        pkl = pack_swin_block(pl, nhl)
+        for phase, m in ((0, None), (4, mask)):
+            got = swin_block_2d(xl, pl, nhl, m, phase, packed=pkl)
+            ref = swin_block_2d_reference(xl.float(), pl, nhl, m, phase)
+            control = None if m is None else swin_block_2d_reference(
+                xl.float(), pl, nhl, None, phase)
+            errs.append(check_case(
+                ph, f"C={cl} nh={nhl} hidden={hl} {tuple(xl.shape[:3])} phase "
+                f"{phase:+d} mask={'shift' if m is not None else 'none'}",
+                got, ref, tol, control))
+        ms_l = cuda_ms(lambda: swin_block_2d(xl, pl, nhl, mask, 4, packed=pkl))
+        flops_l = bl * h * w * swinir_block_flops_per_token(cl, nhl, 8, hl / cl)
+        bms_l, by_l = bound_ms(flops_l, 2 * 2 * bl * h * w * cl + 4 * mask.numel()
+                               + block_weight_bytes(cl, nhl, hl, 64))
+        ph.note(f"C={cl} kernel {ms_l:.3f} ms (B={bl} shifted, median of 10); "
+                f"bound {bms_l:.4f} ms ({by_l})")
         ms = cuda_ms(lambda: swin_block_2d(x, p, nh, mask, 4, packed=pk))
         plain_ms = cuda_ms(lambda: swin_block_2d_reference(
             x.float(), p, nh, mask, 4), warmup=1, reps=5)
@@ -570,6 +618,39 @@ def kernel_name(key: str) -> str:
     return key.split("(")[0].split("<")[0].strip()[:60]
 
 
+def device_breakdown(fn, runs: int, ms: float, what: str) -> str:
+    """Device time per run of ``fn`` (which does ``runs`` runs) by kernel,
+    from torch.profiler, device events only (a CPU op that launched a
+    ctypes-bound kernel would count that kernel's time again), and the
+    idle share against ``ms`` per run timed with CUDA events."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)
+                or ev.key.startswith("Optimizer.")):
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us / 1e3 / runs, ev.count // runs, ev.key))
+    if not rows:
+        return "the profiler saw no device time"
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    return (f"device time per {what} (profiler, {runs} runs): busy "
+            f"{busy:.2f} ms of the {ms:.2f} ms {what}, idle share "
+            f"{1 - busy / ms:.4f}; " + ", ".join(
+                f"{kernel_name(name)} {t:.2f} ms x{n}"
+                for t, n, name in rows[:8]))
+
+
 def rel_norm(a: dict, b: dict, names) -> float:
     import torch
     num = torch.sqrt(sum(((a[n] - b[n]) ** 2).sum() for n in names))
@@ -703,35 +784,12 @@ def phase_train(report: list, card: str, build_dir) -> None:
                 f"{peak_mem / 2 ** 30:.2f} GiB [{card}]")
 
         # (d) where a step's device time goes: two more steps under the
-        # profiler, device events only (a CPU op that launched a ctypes-bound
-        # kernel would count that kernel's time again)
+        # profiler
         prof_steps = 2
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            for bt in batches[warmup:warmup + prof_steps]:
-                trainer.train_step(bt)
-            torch.cuda.synchronize()
-        rows = []
-        for ev in prof.key_averages():
-            if (ev.device_type != torch.autograd.DeviceType.CUDA
-                    or getattr(ev, "is_user_annotation", False)
-                    or ev.key.startswith("Optimizer.")):
-                continue
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = ev.self_cuda_time_total
-            if dev_us > 0:
-                rows.append((dev_us / 1e3 / prof_steps, ev.count // prof_steps,
-                             ev.key))
-        rows.sort(reverse=True)
-        busy = sum(r[0] for r in rows)
-        ph.note(f"(d) device time per step (profiler, {prof_steps} steps): busy "
-                f"{busy:.2f} ms of the {ms:.2f} ms step, idle share "
-                f"{1 - busy / ms:.4f}; " + ", ".join(
-                    f"{kernel_name(name)} {t:.2f} ms x{n}"
-                    for t, n, name in rows[:8]) if rows else
-                "(d) the profiler saw no device time")
+        ph.note("(d) " + device_breakdown(
+            lambda: [trainer.train_step(bt)
+                     for bt in batches[warmup:warmup + prof_steps]],
+            prof_steps, ms, "step"))
 
         # (c) save, then resume in a fresh trainer
         from kair_tpu_torch.ckpt import checkpoint as ck
@@ -752,6 +810,468 @@ def phase_train(report: list, card: str, build_dir) -> None:
             "resumed optimizer state differs")
         ph.note(f"(c) saved {', '.join(os.path.basename(p) for p in paths)}; "
                 "a fresh trainer resumed with equal G, E and optimizer state")
+
+
+def block_weight_bytes(c: int, nh: int, hidden: int, n: int) -> int:
+    """Bytes of one block's parameters as the kernels read them: bf16
+    matrices, f32 biases and LN vectors, the (nh, n, n) f32 score bias."""
+    return (2 * (3 * c * c + c * c + 2 * c * hidden)
+            + 4 * (3 * c + c + hidden + c + 4 * c) + 4 * nh * n * n)
+
+
+def check_case(ph, what, got, ref, tol, control=None) -> float:
+    """Require max|got − ref| ≤ tol · max|ref| and, given the plain version
+    without the shift mask, that dropping it moves the result by more than
+    the limit and 3x the error; note both. Returns the max abs error."""
+    e_abs, e_rel, ref_max, e_mean = compare(got, ref)
+    note = (f"{what}: max_abs {e_abs:.4g} max_rel {e_rel:.4g} mean_abs "
+            f"{e_mean:.3g} (max|ref| {ref_max:.3g})")
+    require(e_rel <= tol, f"{what}: max_rel {e_rel:.4g} > {tol}")
+    if control is not None:
+        eff = (control.float() - ref.float()).abs().max().item()
+        note += f"; mask effect max_rel {eff / ref_max:.4g}"
+        require(eff > tol * ref_max and eff > 3 * e_abs,
+                f"{what}: the dropped-mask control is not above the limit and "
+                "3x the error")
+    ph.note(note)
+    return e_abs
+
+
+def phase_swin_win(report: list) -> None:
+    import torch
+    from kair_tpu_torch.ops.kernels.swin_block import (pack_swin_block,
+                                                        swin_block_2d,
+                                                        swin_block_win_reference)
+    from kair_tpu_torch.ops.kernels.window_msa import shift_mask_tensor
+    from kair_tpu_torch.utils.summary import swinir_block_flops_per_token
+
+    c, nh, hidden = 180, 6, 360
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 4)
+    p7 = swin_params(c, nh, hidden, gen, dev, bf, ws=7)
+    p4 = swin_params(c, nh, hidden, gen, dev, bf, ws=4)
+    x = torch.randn(8, 126, 126, c, generator=gen).to(dev, bf)
+    x21 = torch.randn(1, 21, 35, c, generator=gen).to(dev, bf)
+    x12 = torch.randn(1, 12, 20, c, generator=gen).to(dev, bf)
+    mask = shift_mask_tensor(126, 126, 7, 3, dev)
+    tol = 1e-2
+    with Phase("8 swin_win") as ph:
+        ph.note(f"window block kernel, C={c} nh={nh} bf16; limit max_abs <= "
+                f"{tol} * max|ref| against the f32 plain version on the same "
+                "bf16 inputs; control: the shifted cases' plain version "
+                "without the mask")
+        errs = []
+        for xin, p, ws, phase in ((x, p7, 7, 3), (x, p7, 7, 0),
+                                  (x21, p7, 7, 3), (x12, p4, 4, 2)):
+            h, w = xin.shape[1:3]
+            m = shift_mask_tensor(h, w, ws, phase, dev)
+            got = swin_block_2d(xin, p, nh, m, phase, ws,
+                                packed=pack_swin_block(p, nh))
+            ref = swin_block_win_reference(xin.float(), p, nh, m, phase, ws)
+            torch.cuda.synchronize()
+            control = None if m is None else swin_block_win_reference(
+                xin.float(), p, nh, None, phase, ws)
+            errs.append(check_case(
+                ph, f"{tuple(xin.shape[:3])} ws {ws} ({(h // ws) * (w // ws)} "
+                f"windows) phase {phase}", got, ref, tol, control))
+        pk = pack_swin_block(p7, nh)
+        ms = cuda_ms(lambda: swin_block_2d(x, p7, nh, mask, 3, 7, packed=pk))
+        plain_ms = cuda_ms(lambda: swin_block_win_reference(
+            x.float(), p7, nh, mask, 3, 7), warmup=1, reps=5)
+        tokens = x.numel() // c
+        flops = tokens * swinir_block_flops_per_token(c, nh, 7, hidden / c)
+        nbytes = (2 * 2 * tokens * c + block_weight_bytes(c, nh, hidden, 49)
+                  + 4 * mask.numel())
+        bms, by = bound_ms(flops, nbytes)
+        ph.note(f"kernel {ms:.3f} ms (B=8 126x126 ws 7 shifted, median of 10); "
+                f"plain f32 {plain_ms:.3f} ms; bound {bms:.4f} ms ({by}, "
+                f"{flops / 1e9:.1f} GFLOP on the real tokens), "
+                f"{bms / ms:.4f} of it; {flops / ms / 1e9:.1f} TFLOP/s")
+    report.append(dict(
+        name="swin_block_win", route="cuda",
+        source="kair_tpu_torch/csrc/swin_block.cu",
+        replaces="kair_tpu/ops/pallas/swin_block.py:843",
+        launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=None))
+
+
+def phase_window_msa(report: list) -> None:
+    import torch
+    from kair_tpu_torch.ops.kernels.window_msa import (pack_window_msa,
+                                                       shift_mask_tensor,
+                                                       window_msa_win,
+                                                       window_msa_win_reference)
+    from kair_tpu_torch.utils.summary import window_msa_flops_per_token
+
+    b, h, w, c, nh = 16, 128, 128, 180, 6
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 5)
+    p = swin_params(c, nh, 2 * c, gen, dev, bf)
+    y = torch.randn(b, h, w, c, generator=gen).to(dev, bf)
+    mask = shift_mask_tensor(h, w, 8, 4, dev)
+    tol = 1e-2
+
+    def args(qkv_bias, m, phase, f32=False):
+        cast = (lambda t: None if t is None else t.float()) if f32 else \
+            (lambda t: t)
+        return (cast(p.qkv_weight), cast(qkv_bias), cast(p.proj_weight),
+                cast(p.proj_bias), cast(p.rel_table), nh, m, phase, 8)
+
+    with Phase("9 window_msa") as ph:
+        ph.note(f"window attention kernel on a bf16 B={b} {h}x{w} C={c} map, "
+                f"nh={nh}; limit max_abs <= {tol} * max|ref| against the "
+                "composed window_msa in f32; control: the shifted cases' "
+                "plain version without the mask")
+        errs = []
+        for qb, m, phase in ((p.qkv_bias, mask, 4), (p.qkv_bias, None, 0),
+                             (None, mask, 4)):
+            pk = pack_window_msa(*args(qb, m, phase)[:6])
+            got = window_msa_win(y, *args(qb, m, phase), packed=pk)
+            ref = window_msa_win_reference(y.float(), *args(qb, m, phase, True))
+            torch.cuda.synchronize()
+            control = None if m is None else window_msa_win_reference(
+                y.float(), *args(qb, None, phase, True))
+            errs.append(check_case(
+                ph, f"phase {phase} mask={'shift' if m is not None else 'none'}"
+                f" qkv_bias={'yes' if qb is not None else 'no'}", got, ref, tol,
+                control))
+        pk = pack_window_msa(*args(p.qkv_bias, mask, 4)[:6])
+        ms = cuda_ms(lambda: window_msa_win(y, *args(p.qkv_bias, mask, 4),
+                                            packed=pk))
+        plain_ms = cuda_ms(lambda: window_msa_win_reference(
+            y.float(), *args(p.qkv_bias, mask, 4, True)), warmup=1, reps=5)
+        tokens = b * h * w
+        flops = tokens * window_msa_flops_per_token(c, 8)
+        weights = 2 * 4 * c * c + 4 * 4 * c + 4 * nh * 64 * 64
+        nbytes = 2 * 2 * tokens * c + weights + 4 * mask.numel()
+        bms, by = bound_ms(flops, nbytes)
+        bytes_ms = nbytes / 3.35e12 * 1e3
+        ph.note(f"kernel {ms:.3f} ms (shifted, median of 10); plain f32 "
+                f"{plain_ms:.3f} ms; bound {bms:.4f} ms ({by}; the bytes alone "
+                f"{bytes_ms:.4f} ms), {bms / ms:.4f} of it; "
+                f"{flops / ms / 1e9:.1f} TFLOP/s")
+    report.append(dict(
+        name="window_msa_win", route="cuda",
+        source="kair_tpu_torch/csrc/swin_block.cu",
+        replaces="kair_tpu/ops/pallas/window_msa.py:271",
+        launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=None))
+
+
+def visible_state_dict(model, seed: int, he_convs=(), img_range: float = 1.0):
+    """A seeded state dict in which the Swin blocks move the output: the
+    blocks drawn by BLOCK_INIT (``seeded_train_weights``), the convs named
+    in ``he_convs`` redrawn He-normal (std sqrt(2 / fan_in)), conv_first
+    scaled by 1 / img_range and conv_last by img_range. Under KAIR's
+    initialisation the blocks' share of the output is ~1e-3 both at
+    img_range 255 (the body sees the input at 255x its scale) and behind
+    the five small-gain convs of the nearest+conv head; no comparison could
+    see a wrong block there."""
+    import torch
+    sd = seeded_train_weights(model, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    for name in he_convs:
+        v = sd[f"{name}.weight"]
+        sd[f"{name}.weight"] = torch.randn(v.shape, generator=gen) * math.sqrt(
+            2.0 / v[0].numel())
+    if img_range != 1.0:
+        sd["conv_first.weight"] = sd["conv_first.weight"] / img_range
+        sd["conv_last.weight"] = sd["conv_last.weight"] * img_range
+        sd["conv_last.bias"] = sd["conv_last.bias"] * img_range
+    return sd
+
+
+def cpu_without_shift_mask(fn):
+    """fn() with the shifted blocks' 0/−100 mask left out of the model."""
+    from kair_tpu_torch.models import swinir as msw
+    with_mask = msw.shift_mask_tensor
+    msw.shift_mask_tensor = lambda *a: None
+    try:
+        return fn()
+    finally:
+        msw.shift_mask_tensor = with_mask
+
+
+class LaunchCount:
+    """Zero every kernel's launch count (and count calls of the composed
+    block route, which the card must never take), read them after."""
+
+    def __enter__(self):
+        from kair_tpu_torch.models import swinir as msw
+        from kair_tpu_torch.ops.kernels import conv_block, swin_block, window_msa
+        # kernel name → (wrapper, its count of that kernel's launches)
+        self.fns = {"swin_block_2d": (swin_block.swin_block_2d, "launches"),
+                    "swin_block_win": (swin_block.swin_block_2d, "launches_win"),
+                    "window_msa_win": (window_msa.window_msa_win, "launches"),
+                    "conv3x3_residual": (conv_block.conv3x3_residual, "launches")}
+        for f, attr in self.fns.values():
+            setattr(f, attr, 0)
+        self.composed, self.msw = 0, msw
+        self.ref = msw.swin_block_win_reference
+
+        def counted(*a, **kw):
+            self.composed += 1
+            return self.ref(*a, **kw)
+        msw.swin_block_win_reference = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.msw.swin_block_win_reference = self.ref
+        self.counts = {n: getattr(f, attr) for n, (f, attr) in self.fns.items()}
+        self.counts["composed"] = self.composed
+        return False
+
+    def expect(self, what: str, **want) -> str:
+        got = {k: v for k, v in self.counts.items() if v}
+        want = {k: v for k, v in want.items() if v}
+        require(got == want, f"{what}: launches {got}, expected {want}")
+        return ", ".join(f"{k} {v}" for k, v in self.counts.items())
+
+
+def model_timing(ph, model, x, flops_per_px: float, card: str, what: str):
+    """ms per forward (median of 10, CUDA events), LR MP/s and MFU;
+    returns the ms."""
+    import torch
+    from kair_tpu_torch.utils.summary import peak_bf16_tflops
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: model(x), warmup=2, reps=10)
+    b, h, w = x.shape[:3]
+    tflops = flops_per_px * b * h * w / (ms / 1e3) / 1e12
+    peak = peak_bf16_tflops(torch.cuda.get_device_name(0))
+    ph.note(f"{what}: ms_per_forward {ms:.2f}, {b * h * w / (ms / 1e3) / 1e6:.4f} "
+            f"LR MP/s, {tflops:.1f} TFLOP/s, MFU "
+            f"{'n/a' if not peak else f'{tflops / peak:.4f}'} of the bf16 "
+            f"dense peak [{card}]")
+    require(math.isfinite(ms) and ms > 0, f"{what} timing")
+    return ms
+
+
+def forward(model, x):
+    import torch
+    with torch.inference_mode():
+        out = model(x)
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    return out.float().cpu()
+
+
+# KAIR 006_CAR_DFWB_s126w7_SwinIR-M_jpeg{10,20,30,40} (main_test_swinir.py:
+# 170-172), color, as an option tree's netG
+JPEG_CAR_NET = {"net_type": "swinir", "upscale": 1, "in_nc": 3,
+                "img_size": 126, "window_size": 7, "img_range": 255.0,
+                "depths": [6] * 6, "embed_dim": 180, "num_heads": [6] * 6,
+                "mlp_ratio": 2, "upsampler": "", "resi_connection": "1conv"}
+
+
+def phase_jpeg_car(report: list, card: str) -> None:
+    import numpy as np
+    import torch
+    from kair_tpu_torch.models.registry import define_g
+    from kair_tpu_torch.utils.summary import swinir_flops_per_lr_pixel
+
+    b, s, tol = 8, 126, 2e-2
+    with Phase("10 jpeg_car") as ph:
+        torch.manual_seed(SEED)
+        cpu_model = define_g({"netG": dict(JPEG_CAR_NET)}).eval()
+        sd = visible_state_dict(cpu_model, SEED + 6, img_range=255.0)
+        cpu_model.load_state_dict(sd)
+        gpu_model = define_g({"netG": dict(JPEG_CAR_NET)})
+        gpu_model.load_state_dict(sd)
+        gpu_model = gpu_model.to("cuda", torch.bfloat16).eval()
+        ph.note("KAIR 006_CAR_DFWB_s126w7_SwinIR-M (color, embed 180, depths "
+                "6x6, 6 heads, window 7, img_range 255) from an option tree "
+                "through define_g, bf16 on cuda, blocks by BLOCK_INIT, "
+                "conv_first / 255 and conv_last x 255 (visible_state_dict); "
+                f"limit max_abs <= {tol} * max|ref| against the f32 CPU run on "
+                "image 0; head normalisation and the image residual in f32")
+        rng = np.random.RandomState(SEED + 7)
+        imgs = np.stack([smooth_image(s, s, SEED + 200 + i) for i in range(b)])
+        x = np.clip(imgs / 255.0 + rng.normal(0, 8 / 255, imgs.shape), 0, 1)
+        x = torch.from_numpy(x.astype(np.float32))
+        xg = x.to("cuda")
+        with LaunchCount() as lc:
+            out = forward(gpu_model, xg)
+        counts = lc.expect("JPEG-CAR forward", swin_block_win=36,
+                           conv3x3_residual=7)
+        for k in report:
+            if k["name"] == "swin_block_win":
+                k["launches"] = lc.counts["swin_block_win"]
+        ph.note(f"launches in one B={b} {s}x{s} forward: {counts}")
+        require(out.shape == x.shape and torch.isfinite(out).all().item(),
+                f"output {tuple(out.shape)} or non-finite values")
+        ref = forward(cpu_model, x[:1])
+        control = cpu_without_shift_mask(lambda: forward(cpu_model, x[:1]))
+        e_abs = check_case(ph, f"image 0 ({s}x{s})", out[:1], ref, tol, control)
+        ph.note(f"max error {e_abs * 255:.3f} gray levels (of 255)")
+        ms = model_timing(ph, gpu_model, xg, swinir_flops_per_lr_pixel(
+            window=7, upsampler="", upscale=1), card, f"B={b} {s}x{s}")
+
+        def two_forwards():
+            with torch.inference_mode():
+                gpu_model(xg)
+                gpu_model(xg)
+        ph.note(device_breakdown(two_forwards, 2, ms, "forward"))
+
+
+def phase_unfused(report: list, card: str, build_dir) -> None:
+    import numpy as np
+    import torch
+    from kair_tpu_torch.cli.test import SWINIR_X4, build_preset
+    from kair_tpu_torch.utils.summary import swinir_flops_per_lr_pixel
+
+    b, s, tol = 16, 128, 2e-2
+    with Phase("11 unfused") as ph:
+        with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+            path = f"{tmp}/swinir_m_x4_seed{SEED}.pth"
+            torch.save({"params": main_path_state_dict(SEED)}, path)
+            unfused, _, _ = build_preset("swinir_classical_x4", path, "cuda",
+                                         torch.bfloat16, fuse=False)
+            fused, _, _ = build_preset("swinir_classical_x4", path, "cuda",
+                                       torch.bfloat16, fuse=True)
+            cpu_model, _, _ = build_preset("swinir_classical_x4", path, "cpu",
+                                           torch.float32, fuse=False)
+        ph.note("SwinIR-M x4 (the main path's weights) through "
+                "cli.test.build_preset with fuse off: LN1, window-attention "
+                "kernel, residual, LN2 and MLP (cuBLAS), cuDNN tails; limit "
+                f"max_abs <= {tol} * max|ref| against the fused forward on "
+                "the batch and the f32 CPU run on a 64x64 crop, with the "
+                "dropped-mask control")
+        x = torch.rand(b, s, s, 3, generator=torch.Generator().manual_seed(SEED))
+        xg = x.to("cuda")
+        with LaunchCount() as lc:
+            out = forward(unfused, xg)
+        counts = lc.expect("unfused forward", window_msa_win=36)
+        for k in report:
+            if k["name"] == "window_msa_win":
+                k["launches"] = lc.counts["window_msa_win"]
+        ph.note(f"launches in one B={b} {s}x{s} forward: {counts}")
+        require(out.shape == (b, 4 * s, 4 * s, 3) and torch.isfinite(out).all().item(),
+                f"output {tuple(out.shape)} or non-finite values")
+        check_case(ph, "against the fused forward", out, forward(fused, xg), tol)
+        crop = x[:1, :64, :64].contiguous()
+        ref = forward(cpu_model, crop)
+        control = cpu_without_shift_mask(lambda: forward(cpu_model, crop))
+        check_case(ph, "64x64 crop against f32 CPU", forward(unfused, crop.cuda()),
+                   ref, tol, control)
+        model_timing(ph, unfused, xg, swinir_flops_per_lr_pixel(), card,
+                     f"unfused B={b} {s}x{s}")
+        model_timing(ph, fused, xg, swinir_flops_per_lr_pixel(), card,
+                     f"fused, same call, B={b} {s}x{s}")
+
+
+# KAIR 003_realSR_BSRGAN_DFOWMFC_s64w8_SwinIR-L_x4_GAN (main_test_swinir.py)
+SWINIR_L = dict(upscale=4, in_chans=3, embed_dim=240, depths=(6,) * 9,
+                num_heads=(8,) * 9, window_size=8, mlp_ratio=2.0,
+                upsampler="nearest+conv", resi_connection="3conv")
+NEAREST_CONV_HEAD = ("conv_before_upsample.0", "conv_up1", "conv_up2",
+                     "conv_hr", "conv_last")
+
+
+# the modules whose outputs phase 12 compares stage by stage
+SWINIR_L_STAGES = ("conv_first", *(f"layers.{i}" for i in range(9)), "norm",
+                   "conv_after_body", *NEAREST_CONV_HEAD)
+SWINIR_L_TAILS = (*(f"layers.{i}.conv" for i in range(9)), "conv_after_body")
+
+
+class stage_outputs(dict):
+    """While open, records the f32 CPU copy of each named module's output
+    of the model's next forward."""
+
+    def __init__(self, model, names):
+        super().__init__()
+        mods = dict(model.named_modules())
+        self.hooks = [mods[n].register_forward_hook(
+            lambda m, a, out, n=n: self.__setitem__(n, out.detach().float().cpu()))
+            for n in names]
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for hk in self.hooks:
+            hk.remove()
+        return False
+
+
+def with_f32_modules(gpu_model, cpu_model, body=(), head=()):
+    """A copy of the bf16 card model in which the named modules are the f32
+    CPU model's, moved to the card, with their input cast to f32: each of
+    ``body`` hands its output back in bf16 (the body's stream stays bf16),
+    the ``head`` keeps f32 to the end."""
+    import copy
+    import torch
+    model = copy.deepcopy(gpu_model)
+    for name in (*body, *head):
+        sub = copy.deepcopy(cpu_model.get_submodule(name)).to("cuda")
+        sub.register_forward_pre_hook(lambda m, a: tuple(t.float() for t in a))
+        if name in body:
+            sub.register_forward_hook(lambda m, a, out: out.to(torch.bfloat16))
+        parent, _, attr = name.rpartition(".")
+        setattr(model.get_submodule(parent) if parent else model, attr, sub)
+    return model
+
+
+def error_attribution(cpu_model, gpu_model, img, ref, ref_stages,
+                      gpu_stages) -> str:
+    """max_rel (of each tensor's own max|ref|) of the bf16 card run against
+    the f32 CPU run after each stage, and of the output with the 3conv
+    tails, the head's convs, both, or every conv computed in f32 on the
+    card (what is left then is the Swin blocks' and LayerNorms')."""
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    parts = ["after " + ", ".join(f"{n} {rel(gpu_stages[n], ref_stages[n]):.4g}"
+                                  for n in SWINIR_L_STAGES)]
+    for what, body, head in (
+            ("the 3conv tails", SWINIR_L_TAILS, ()),
+            ("the head's convs", (), NEAREST_CONV_HEAD),
+            ("tails and head", SWINIR_L_TAILS, NEAREST_CONV_HEAD),
+            ("every conv", ("conv_first",) + SWINIR_L_TAILS, NEAREST_CONV_HEAD)):
+        model = with_f32_modules(gpu_model, cpu_model, body, head)
+        parts.append(f"output max_rel with {what} in f32 "
+                     f"{rel(forward(model, img.cuda()), ref):.4g}")
+    return "; ".join(parts)
+
+
+def phase_swinir_l(card: str) -> None:
+    import numpy as np
+    import torch
+    from kair_tpu_torch.models.swinir import SwinIR
+    from kair_tpu_torch.utils.summary import swinir_flops_per_lr_pixel
+
+    b, s, tol = 4, 128, 2e-2
+    with Phase("12 swinir_l") as ph:
+        torch.manual_seed(SEED)
+        cpu_model = SwinIR(img_size=64, **SWINIR_L).eval()
+        sd = visible_state_dict(cpu_model, SEED + 8, he_convs=NEAREST_CONV_HEAD)
+        cpu_model.load_state_dict(sd)
+        gpu_model = SwinIR(img_size=64, **SWINIR_L)
+        gpu_model.load_state_dict(sd)
+        gpu_model = gpu_model.to("cuda", torch.bfloat16).eval()
+        ph.note(f"SwinIR-L x4 real-world SR ({sum(p.numel() for p in gpu_model.parameters())} "
+                "params; embed 240, depths 9x6, 8 heads, window 8, 3conv, "
+                "nearest+conv) bf16 on cuda; blocks by BLOCK_INIT, the head's "
+                f"convs He-normal (visible_state_dict); limit max_abs <= {tol} "
+                "* max|ref| against the f32 CPU run on a 64x64 image")
+        x = torch.rand(b, s, s, 3, generator=torch.Generator().manual_seed(SEED + 9))
+        xg = x.to("cuda")
+        with LaunchCount() as lc:
+            out = forward(gpu_model, xg)
+        counts = lc.expect("SwinIR-L forward", swin_block_2d=54)
+        ph.note(f"launches in one B={b} {s}x{s} forward: {counts}")
+        require(out.shape == (b, 4 * s, 4 * s, 3) and torch.isfinite(out).all().item(),
+                f"output {tuple(out.shape)} or non-finite values")
+        img = torch.from_numpy(smooth_image(64, 64, SEED + 300).astype(np.float32)
+                               / 255.0)[None]
+        with stage_outputs(cpu_model, SWINIR_L_STAGES) as ref_stages:
+            ref = forward(cpu_model, img)
+        control = cpu_without_shift_mask(lambda: forward(cpu_model, img))
+        with stage_outputs(gpu_model, SWINIR_L_STAGES) as gpu_stages:
+            got = forward(gpu_model, img.cuda())
+        check_case(ph, "64x64 image against f32 CPU", got, ref, tol, control)
+        ph.note("where the error is: " + error_attribution(
+            cpu_model, gpu_model, img, ref, ref_stages, gpu_stages))
+        model_timing(ph, gpu_model, xg, swinir_flops_per_lr_pixel(
+            240, (6,) * 9, 8, 8, 2.0, 64, 3, 4, "nearest+conv", "3conv"), card,
+            f"B={b} {s}x{s}")
 
 
 def main() -> int:
@@ -781,9 +1301,21 @@ def main() -> int:
         for line in _build.build_log().splitlines():
             if "registers" in line or "spill" in line:
                 ph.note(line.strip())
-        ph.note(f"shared memory: swin {lib.kair_swin_block_shared_bytes(180, 6, 368)} "
-                f"B, conv {lib.kair_conv3x3_shared_bytes(180)} B, swin backward "
-                f"{lib.kair_swin_block_bwd_shared_bytes(180, 6, 368)} B per block")
+        ph.note(f"shared memory per block: conv {lib.kair_conv3x3_shared_bytes(180)} "
+                f"B, swin backward {lib.kair_swin_block_bwd_shared_bytes(180, 6, 368)} B")
+        # the wrappers' checks mirror the kernels' layout arithmetic
+        from kair_tpu_torch.ops.kernels.swin_block import bwd_shared_bytes
+        from kair_tpu_torch.ops.kernels.window_msa import shared_bytes
+        for c, nh, hp in ((60, 6, 128), (180, 6, 368), (240, 8, 480)):
+            blk, att, bwd = (lib.kair_swin_block_shared_bytes(c, nh, hp),
+                             lib.kair_window_msa_shared_bytes(c, nh),
+                             lib.kair_swin_block_bwd_shared_bytes(c, nh, hp))
+            require((blk, att, bwd) == (shared_bytes(c, nh, hp),
+                                        shared_bytes(c, nh, 0, block=False),
+                                        bwd_shared_bytes(c, nh, hp)),
+                    f"shared-memory mirror differs from the kernels at C={c}")
+            ph.note(f"C={c}, {nh} heads: block {blk} B, attention {att} B, "
+                    f"backward {bwd} B")
 
     phase_swin(report)
     phase_conv(report)
@@ -791,6 +1323,11 @@ def main() -> int:
     phase_throughput(card)
     phase_swin_bwd(report)
     phase_train(report, card, _build.BUILD_DIR)
+    phase_swin_win(report)
+    phase_window_msa(report)
+    phase_jpeg_car(report, card)
+    phase_unfused(report, card, _build.BUILD_DIR)
+    phase_swinir_l(card)
     faulthandler.cancel_dump_traceback_later()
 
     log(card)

@@ -94,8 +94,9 @@ def swinir_from_jax(variables: Dict[str, Any], img_size: int = 64,
     SwinIR parameter tree, in the standard layout or the fuse_block=True one
     that the JAX trainer builds, → KAIR state dict,
     including the ``relative_position_index`` and ``attn_mask`` buffers a
-    KAIR model built with ``img_size`` holds. Supports the 1conv residual
-    and the pixelshuffle, pixelshuffledirect and denoise heads."""
+    KAIR model built with ``img_size`` holds. Supports the 1conv and 3conv
+    residuals and the pixelshuffle, pixelshuffledirect, nearest+conv and
+    denoise heads."""
     p = variables.get("params", variables)
     sd: Dict[str, torch.Tensor] = {}
     _conv(sd, "conv_first", p["conv_first"]["conv"])
@@ -130,12 +131,22 @@ def swinir_from_jax(variables: Dict[str, Any], img_size: int = 64,
             _ln(sd, f"{pre}.norm2", blk["norm2"])
             _dense(sd, f"{pre}.mlp.fc1", blk["fc1"])
             _dense(sd, f"{pre}.mlp.fc2", blk["fc2"])
-        if "conv" not in layer:
-            raise NotImplementedError("only resi_connection='1conv' is ported")
-        _conv(sd, f"layers.{il}.conv", layer["conv"]["conv"])
+        if "conv" in layer:                          # 1conv
+            _conv(sd, f"layers.{il}.conv", layer["conv"]["conv"])
+        else:                                        # 3conv: Sequential 0/2/4
+            for i, nm in enumerate(("conv_a", "conv_b", "conv_c")):
+                _conv(sd, f"layers.{il}.conv.{2 * i}", layer[nm]["conv"])
     _ln(sd, "norm", p["norm"])
-    _conv(sd, "conv_after_body", p["conv_after_body"]["conv"])
-    if "conv_before_upsample" in p:                  # pixelshuffle
+    if "conv_after_body" in p:
+        _conv(sd, "conv_after_body", p["conv_after_body"]["conv"])
+    else:
+        for i, nm in enumerate(("cab_a", "cab_b", "cab_c")):
+            _conv(sd, f"conv_after_body.{2 * i}", p[nm]["conv"])
+    if "conv_up1" in p:                              # nearest+conv
+        _conv(sd, "conv_before_upsample.0", p["conv_before_upsample"]["conv"])
+        for nm in ("conv_up1", "conv_up2", "conv_hr", "conv_last"):
+            _conv(sd, nm, p[nm]["conv"])
+    elif "conv_before_upsample" in p:                # pixelshuffle
         _conv(sd, "conv_before_upsample.0", p["conv_before_upsample"]["conv"])
         for i, up in _indexed(p, "upsample"):
             _conv(sd, f"upsample.{2 * i}", up["conv"])

@@ -236,7 +236,7 @@ class DatasetL(Dataset):
 # port that brings them (ROADMAP.md, Queue 1)
 LATER_SLICES = {
     "usrnet": "CNN zoo", "srmd": "CNN zoo", "dpsr": "CNN zoo",
-    "blindsr": "CNN zoo", "jpeg": "CNN zoo",
+    "blindsr": "CNN zoo",
     "dnpatch": "training (patch datasets)",
     "plainpatch": "training (patch datasets)",
     "spect": "SPECT", "spectpatch": "SPECT",
@@ -257,6 +257,9 @@ def define_dataset(opt_ds: dict) -> Dataset:
     }
     if t in table:
         return table[t](opt_ds)
+    if t == "jpeg":
+        from kair_tpu_torch.data.dataset_jpeg import DatasetJPEG
+        return DatasetJPEG(opt_ds)
     slice_name = LATER_SLICES.get(t) or ("video" if "video" in t else None)
     if slice_name:
         raise NotImplementedError(

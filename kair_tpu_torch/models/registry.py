@@ -32,8 +32,10 @@ def define_g(opt: dict) -> nn.Module:
     t = o["net_type"]
     if t == "swinir":
         from kair_tpu_torch.models.swinir import SwinIR
-        # fuse_block and use_pallas are JAX kernel switches: the port's
-        # SwinIR always takes its kernels where the geometry allows
+        # fuse_block absent or true: the fused block kernels (KAIR's own
+        # option files carry no such key); false: the unfused route, whose
+        # attention always runs its kernel on the card, so use_pallas, the
+        # JAX switch for that kernel, is accepted and needs no effect here
         return SwinIR(
             img_size=_get(o, "img_size", 64),
             in_chans=_get(o, "in_nc", 3),
@@ -46,7 +48,8 @@ def define_g(opt: dict) -> nn.Module:
             img_range=_get(o, "img_range", 1.0),
             upsampler=_get(o, "upsampler", ""),
             resi_connection=_get(o, "resi_connection", "1conv"),
-            use_checkpoint=bool(_get(o, "use_checkpoint", False)))
+            use_checkpoint=bool(_get(o, "use_checkpoint", False)),
+            fuse_block=bool(_get(o, "fuse_block", True)))
     if t in LATER_SLICES:
         raise NotImplementedError(
             f"netG [{t}] belongs to the {LATER_SLICES[t]} slice of the port, "

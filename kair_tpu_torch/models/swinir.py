@@ -3,25 +3,36 @@
 Counterpart of ``kair_tpu/models/swinir.py`` (reference: KAIR
 ``models/network_swinir.py:618-852``). The modules carry KAIR's names and
 parameter layouts (``layers.0.residual_group.blocks.0.attn.qkv.weight``, the
-``relative_position_index`` and ``attn_mask`` buffers, …), so a released
-``.pth`` loads with ``load_state_dict``.
+``relative_position_index`` and ``attn_mask`` buffers, ``conv.0/2/4`` of a
+``3conv`` tail, …), so a released ``.pth`` loads with ``load_state_dict``.
 
-In eval mode every Swin block whose window is 8 (H and W are multiples of
-it after ``pad_input``) runs as ONE fused block kernel with the cyclic shift
-folded into its read, and each RSTB tail (un-roll + conv3x3 + residual) plus
-``conv_after_body`` as ONE conv kernel: ``ops/kernels/swin_block.py`` and
-``conv_block.py``. On a CUDA tensor those are the hand-written kernels, on a
-CPU tensor their plain versions.
+Inference, ``fuse_block`` True (the default, as KAIR's option files carry
+no such key): every Swin block whose window ws ≤ 8 tiles the map (H and W
+are multiples of it after ``pad_input``) runs as ONE fused block kernel
+with the cyclic shift folded into its read — ``swin_block_2d``, kernel 1
+at ws 8, kernel A below it (ws 7 is the JPEG-CAR geometry) — and each
+``1conv`` RSTB tail (un-roll + conv3x3 + residual) plus ``conv_after_body``
+as ONE conv kernel: ``ops/kernels/swin_block.py`` and ``conv_block.py``.
+``fuse_block`` False is the unfused route (JAX ``fuse_block=False,
+use_pallas=True``): LN1 → the window-attention kernel ``window_msa_win``
+with the shift folded into its read and write → residual → LN2 → MLP
+(cuBLAS), and library conv tails. On a CUDA tensor those are the
+hand-written kernels, on a CPU tensor their plain versions.
 
 In training mode a block with an 8x8 window is rolled explicitly, runs as
 one autograd node (``swin_block_train``: the block kernel forward, the
 backward kernel ``swin_block_2d_bwd`` backward, at phase 0, as JAX trains,
-``kair_tpu/models/swinir.py:124-137``) and is rolled back; the RSTB tail is
-``F.conv2d`` + residual, as the JAX package leaves it to XLA in training.
-``use_checkpoint`` recomputes each RSTB in the backward
-(``torch.utils.checkpoint``, non-reentrant; JAX's ``nn.remat``). A window
-under 8 takes the composed PyTorch route (the block kernel's plain version,
-then the roll back) and says so once.
+``kair_tpu/models/swinir.py:124-137``) and is rolled back, whatever
+``fuse_block`` says; the RSTB tail is ``F.conv2d`` + residual, as the JAX
+package leaves it to XLA in training. ``use_checkpoint`` recomputes each
+RSTB in the backward (``torch.utils.checkpoint``, non-reentrant; JAX's
+``nn.remat``). A window that no kernel takes (training at a window under 8,
+or any window above 8) runs the block kernels' plain version, composed
+PyTorch, as the JAX package's ``_flat_block_xla`` does, and says so once.
+
+The head's normalisation and the final ``x + conv_last(res)`` (denoising,
+JPEG-CAR) or ``/ img_range + mean`` stay in f32 whatever the weights'
+type: at ``img_range`` 255 a bf16 step is one gray level.
 """
 
 from __future__ import annotations
@@ -35,22 +46,24 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from kair_tpu_torch.ops.blocks import Conv, pixel_shuffle
+from kair_tpu_torch.ops.blocks import Conv, pixel_shuffle, upsample_nearest
 from kair_tpu_torch.ops.kernels.swin_block import (WS, SwinBlockParams,
                                                     pack_swin_block,
                                                     swin_block_2d,
-                                                    swin_block_2d_reference,
-                                                    swin_block_train)
-from kair_tpu_torch.ops.kernels.window_msa import shift_mask_tensor
+                                                    swin_block_train,
+                                                    swin_block_win_reference)
+from kair_tpu_torch.ops.kernels.window_msa import (pack_window_msa,
+                                                   shift_mask_tensor,
+                                                   window_msa_win)
 from kair_tpu_torch.ops.window_attention import (relative_position_index,
                                                   shift_attn_mask)
 from kair_tpu_torch.utils.logger import warn_once
 
 
 def kernel_ok(ws: int, h: int, w: int) -> bool:
-    """Geometry that the fused block kernel takes: 8x8 windows tiling the
-    map (``ops/kernels/swin_block.py``)."""
-    return ws == WS and h % WS == 0 and w % WS == 0
+    """Geometry that the inference window kernels take: windows of at most
+    8x8 tiling the map (``ops/kernels/swin_block.py``, ``window_msa.py``)."""
+    return ws <= WS and h % ws == 0 and w % ws == 0
 
 
 class Mlp(nn.Module):
@@ -80,8 +93,10 @@ class SwinBlock(nn.Module):
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  num_heads: int, window_size: int, shift_size: int,
-                 mlp_ratio: float = 4.0, qkv_bias: bool = True):
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 fuse_block: bool = True):
         super().__init__()
+        self.fuse_block = fuse_block
         if min(input_resolution) <= window_size:
             shift_size, window_size = 0, min(input_resolution)
         self.num_heads = num_heads
@@ -111,17 +126,22 @@ class SwinBlock(nn.Module):
             m.fc2.weight, m.fc2.bias)
 
     @torch.no_grad()
-    def _packed(self, folded: bool = True):
-        """Kernel operands (the forward's folded pack, or the backward's),
-        rebuilt only when a parameter changes: an optimizer step bumps the
-        parameters' versions, so each step packs anew."""
+    def _packed(self, kind: str = "fwd"):
+        """Kernel operands — the block's folded pack ("fwd"), the
+        backward's ("bwd") or the attention kernel's ("msa") — rebuilt only
+        when a parameter changes: an optimizer step bumps the parameters'
+        versions, so each step packs anew."""
         key = tuple((t.data_ptr(), t._version) for t in self.parameters())
         if key != self._pack_key:
             self._packs, self._pack_key = {}, key
-        if folded not in self._packs:
-            self._packs[folded] = pack_swin_block(self.params(), self.num_heads,
-                                                  folded=folded)
-        return self._packs[folded]
+        if kind not in self._packs:
+            a = self.attn
+            self._packs[kind] = pack_window_msa(
+                a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias,
+                a.relative_position_bias_table, self.num_heads) \
+                if kind == "msa" else pack_swin_block(
+                    self.params(), self.num_heads, folded=kind == "fwd")
+        return self._packs[kind]
 
     def forward(self, x: torch.Tensor, phase_in: int = 0) -> torch.Tensor:
         b, h, w, c = x.shape
@@ -132,33 +152,48 @@ class SwinBlock(nn.Module):
             raise ValueError(f"input {h}x{w} is smaller than the block's "
                              f"window {self.window_size}")
         mask = shift_mask_tensor(h, w, ws, shift, x.device)
+        cuda = x.is_cuda
         if not self.training and kernel_ok(ws, h, w):
+            if not self.fuse_block:
+                if phase_in:
+                    raise ValueError("phase threading requires fuse_block")
+                return self._unfused(x, mask, ws, shift)
             # the cyclic shift is folded into the kernel's read
             # (phase = shift − phase_in); the output stays in this block's
             # phase and RSTB threads it to the next block
             return swin_block_2d(x, self.params(), self.num_heads, mask,
-                                 phase=shift - phase_in,
-                                 packed=self._packed() if x.is_cuda else None)
+                                 shift - phase_in, ws,
+                                 packed=self._packed() if cuda else None)
         if phase_in:
             raise ValueError("phase threading requires the fused block kernel")
-        if kernel_ok(ws, h, w):
+        if self.training and ws == WS and kernel_ok(ws, h, w):
             # training: explicit rolls around the differentiable block
             if shift:
                 x = torch.roll(x, (-shift, -shift), (1, 2))
-            cuda = x.is_cuda
             x = swin_block_train(
                 x, self.params(), self.num_heads, mask,
                 packed=self._packed() if cuda else None,
-                packed_bwd=self._packed(False) if cuda and torch.is_grad_enabled()
+                packed_bwd=self._packed("bwd") if cuda and torch.is_grad_enabled()
                 else None)
             return torch.roll(x, (shift, shift), (1, 2)) if shift else x
         warn_once(f"swin-composed-fallback-{h}x{w}x{ws}-{self.training}",
-                  f"SwinIR fused block kernels not used at {h}x{w}, window "
-                  f"{ws}, training={self.training} (they need window {WS}): "
-                  "composed PyTorch path")
-        x = swin_block_2d_reference(x, self.params(), self.num_heads, mask,
-                                    phase=shift, window=ws)
+                  f"SwinIR block kernels not used at {h}x{w}, window {ws}, "
+                  f"training={self.training} (inference takes windows up to "
+                  f"{WS}, training window {WS}): composed PyTorch path")
+        x = swin_block_win_reference(x, self.params(), self.num_heads, mask,
+                                     phase=shift, ws=ws)
         return torch.roll(x, (shift, shift), (1, 2)) if shift else x
+
+    def _unfused(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                 ws: int, shift: int) -> torch.Tensor:
+        """The unfused inference block: LN1, the window-attention kernel
+        (shift folded into its read and write), residual, LN2 → MLP."""
+        a, m = self.attn, self.mlp
+        x = x + window_msa_win(
+            self.norm1(x), a.qkv.weight, a.qkv.bias, a.proj.weight,
+            a.proj.bias, a.relative_position_bias_table, self.num_heads, mask,
+            shift, ws, packed=self._packed("msa") if x.is_cuda else None)
+        return x + m.fc2(F.gelu(m.fc1(self.norm2(x))))
 
 
 class BasicLayer(nn.Module):
@@ -169,38 +204,55 @@ class BasicLayer(nn.Module):
         self.blocks = nn.ModuleList(blocks)
 
 
+def residual_conv(dim: int, resi_connection: str) -> nn.Module:
+    """The conv at the end of an RSTB and after the body: one 3x3 conv
+    ("1conv"), or KAIR's 3x3 → 1x1 → 3x3 bottleneck at dim/4 with
+    LeakyReLU(0.2) ("3conv", network_swinir.py:469-473)."""
+    if resi_connection == "1conv":
+        return Conv(dim, dim, 3, 1, 1)
+    if resi_connection == "3conv":
+        return nn.Sequential(
+            Conv(dim, dim // 4, 3, 1, 1), nn.LeakyReLU(0.2, inplace=True),
+            Conv(dim // 4, dim // 4, 1, 1, 0), nn.LeakyReLU(0.2, inplace=True),
+            Conv(dim // 4, dim, 3, 1, 1))
+    raise ValueError(f"resi_connection={resi_connection!r}")
+
+
 class RSTB(nn.Module):
     """Residual Swin Transformer Block: depth SwinBlocks (alternating shift
     0, ws//2) + conv + residual (reference network_swinir.py:419-494)."""
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int], depth: int,
                  num_heads: int, window_size: int, mlp_ratio: float = 4.0,
-                 resi_connection: str = "1conv"):
+                 resi_connection: str = "1conv", fuse_block: bool = True):
         super().__init__()
-        if resi_connection != "1conv":
-            raise NotImplementedError(
-                f"resi_connection={resi_connection!r} is not ported yet "
-                "(later slice); the port has '1conv'")
         self.window_size = window_size
+        self.fuse_block = fuse_block
+        self.fused_tail = fuse_block and resi_connection == "1conv"
         self.residual_group = BasicLayer([
             SwinBlock(dim, input_resolution, num_heads, window_size,
-                      0 if i % 2 == 0 else window_size // 2, mlp_ratio)
+                      0 if i % 2 == 0 else window_size // 2, mlp_ratio,
+                      fuse_block=fuse_block)
             for i in range(depth)])
-        self.conv = Conv(dim, dim, 3, 1, 1)
+        self.conv = residual_conv(dim, resi_connection)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
         ws = min(h, w) if min(h, w) <= self.window_size else self.window_size
         # phase threading: each block's output stays in that block's shift
-        # phase; the tail un-rolls once, inside the conv kernel's read
-        use_phase = not self.training and kernel_ok(ws, h, w)
+        # phase; the tail un-rolls once, inside the conv kernel's read (or
+        # with one roll before a 3conv tail)
+        use_phase = (not self.training and self.fuse_block
+                     and kernel_ok(ws, h, w))
         res, phase = x, 0
         for blk in self.residual_group.blocks:
             res = blk(res, phase_in=phase)
             if use_phase:
                 phase = blk.shift_size if min(h, w) > self.window_size else 0
-        if not self.training:
+        if self.fused_tail and not self.training:
             return self.conv(res, residual=x, phase=phase)
+        if phase:
+            res = torch.roll(res, (phase, phase), (1, 2))
         return self.conv(res) + x
 
 
@@ -223,11 +275,11 @@ class SwinIR(nn.Module):
                  img_range: float = 1.0, upsampler: str = "",
                  resi_connection: str = "1conv", ape: bool = False,
                  patch_norm: bool = True, num_feat: int = 64,
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False, fuse_block: bool = True):
         super().__init__()
-        if upsampler not in ("pixelshuffle", "pixelshuffledirect", ""):
-            raise NotImplementedError(
-                f"upsampler={upsampler!r} is not ported yet (later slice)")
+        if upsampler not in ("pixelshuffle", "pixelshuffledirect",
+                             "nearest+conv", ""):
+            raise ValueError(f"upsampler={upsampler!r}")
         self.in_chans = in_chans
         self.window_size = window_size
         self.upscale = upscale
@@ -235,6 +287,7 @@ class SwinIR(nn.Module):
         self.upsampler = upsampler
         self.img_size = img_size
         self.use_checkpoint = use_checkpoint
+        self.fused_tail = fuse_block and resi_connection == "1conv"
         mean = (0.4488, 0.4371, 0.4040) if in_chans == 3 else (0.0,) * in_chans
         self.register_buffer("mean", torch.tensor(mean), persistent=False)
 
@@ -248,10 +301,10 @@ class SwinIR(nn.Module):
         res = (img_size, img_size)
         self.layers = nn.ModuleList([
             RSTB(embed_dim, res, d, nh, window_size, mlp_ratio,
-                 resi_connection)
+                 resi_connection, fuse_block)
             for d, nh in zip(depths, num_heads)])
         self.norm = nn.LayerNorm(embed_dim)
-        self.conv_after_body = Conv(embed_dim, embed_dim, 3, 1, 1)
+        self.conv_after_body = residual_conv(embed_dim, resi_connection)
 
         if upsampler == "pixelshuffle":
             self.conv_before_upsample = nn.Sequential(
@@ -271,6 +324,17 @@ class SwinIR(nn.Module):
             self.upsample = nn.Sequential(
                 Conv(embed_dim, in_chans * upscale ** 2, 3, 1, 1),
                 nn.PixelShuffle(upscale))
+        elif upsampler == "nearest+conv":
+            # real-world SR (network_swinir.py:763-771)
+            if upscale != 4:
+                raise ValueError("upsampler 'nearest+conv' supports x4 only, "
+                                 "as KAIR's")
+            self.conv_before_upsample = nn.Sequential(
+                Conv(embed_dim, num_feat, 3, 1, 1), nn.LeakyReLU(inplace=True))
+            self.conv_up1 = Conv(num_feat, num_feat, 3, 1, 1)
+            self.conv_up2 = Conv(num_feat, num_feat, 3, 1, 1)
+            self.conv_hr = Conv(num_feat, num_feat, 3, 1, 1)
+            self.conv_last = Conv(num_feat, in_chans, 3, 1, 1)
         else:
             self.conv_last = Conv(embed_dim, in_chans, 3, 1, 1)
         self.apply(self._init_weights)
@@ -307,30 +371,37 @@ class SwinIR(nn.Module):
             else:
                 feat = layer(feat)
         feat = self.norm(feat)
-        if not self.training:
+        if self.fused_tail and not self.training:
             return self.conv_after_body(feat, residual=feat0)
         return self.conv_after_body(feat) + feat0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC in (any float type), NHWC f32 out; the body runs in the
+        weights' type."""
         n, h, w, c = x.shape
         if h % self.window_size or w % self.window_size:
             raise ValueError("pad the input to window multiples first "
                              "(swinir.pad_input)")
-        mean = self.mean.to(x.dtype)
-        x = (x - mean) * self.img_range
+        mean = self.mean.float()
+        x = (x.float() - mean) * self.img_range
+        feat = self._features(self.conv_first(
+            x.to(self.conv_first.weight.dtype)))
         if self.upsampler == "pixelshuffle":
-            x = self._features(self.conv_first(x))
-            x = F.leaky_relu(self.conv_before_upsample[0](x), 0.01)
+            y = F.leaky_relu(self.conv_before_upsample[0](feat), 0.01)
             for m in self.upsample:
-                x = (pixel_shuffle(x, m.upscale_factor)
-                     if isinstance(m, nn.PixelShuffle) else m(x))
-            x = self.conv_last(x)
+                y = (pixel_shuffle(y, m.upscale_factor)
+                     if isinstance(m, nn.PixelShuffle) else m(y))
+            y = self.conv_last(y).float()
         elif self.upsampler == "pixelshuffledirect":
-            x = self._features(self.conv_first(x))
-            x = pixel_shuffle(self.upsample[0](x), self.upscale)
-        else:  # denoise / JPEG CAR
-            x = x + self.conv_last(self._features(self.conv_first(x)))
-        return x / self.img_range + mean
+            y = pixel_shuffle(self.upsample[0](feat), self.upscale).float()
+        elif self.upsampler == "nearest+conv":
+            y = F.leaky_relu(self.conv_before_upsample[0](feat), 0.01)
+            y = F.leaky_relu(self.conv_up1(upsample_nearest(y, 2)), 0.2)
+            y = F.leaky_relu(self.conv_up2(upsample_nearest(y, 2)), 0.2)
+            y = self.conv_last(F.leaky_relu(self.conv_hr(y), 0.2)).float()
+        else:  # denoise / JPEG CAR: the image residual in f32
+            y = x + self.conv_last(feat).float()
+        return y / self.img_range + mean
 
 
 def pad_input(x: np.ndarray, window_size: int) -> Tuple[np.ndarray, int, int]:

@@ -42,14 +42,22 @@ def round16(v: int) -> int:
     return (v + 15) // 16 * 16
 
 
+def align128(v: int) -> int:
+    """A shared-memory offset aligned as the kernels align their buffers."""
+    return (v + 127) // 128 * 128
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: (argument types, return type). Pointers and the stream
 # are c_void_p, sizes and phase c_int; a launch returns its cudaError_t.
 SIGNATURES = {
     # x, out, wqkv, bqkv, wp, bp, w1, b1, w2, b2, relbias, mask,
-    # B, H, W, C, NH, HP, phase, stream
-    "kair_swin_block_2d": ([_P] * 12 + [_I] * 7 + [_P], _I),
+    # B, H, W, C, NH, HP, phase, ws, stream
+    "kair_swin_block": ([_P] * 12 + [_I] * 8 + [_P], _I),
+    # y, out, wqkv, bqkv, wp, bp, relbias, mask, B, H, W, C, NH, phase, ws,
+    # stream
+    "kair_window_msa": ([_P] * 8 + [_I] * 7 + [_P], _I),
     # x, dy, wqkv, bqkv, wp, bp, w1, b1, w2, b2, ln, relbias, mask,
     # qkv_s, h1, ao, h2, g, dyp, dp, dx1, dqkv, part_ln, part_bias, part_w,
     # dx, dw, dln, dbias, B, H, W, C, NH, hidden, HP, K1, KG, N3, splits,
@@ -59,6 +67,7 @@ SIGNATURES = {
     # y, res, w, bias, out, B, H, W, C, phase, stream
     "kair_conv3x3_residual": ([_P] * 5 + [_I] * 5 + [_P], _I),
     "kair_swin_block_shared_bytes": ([_I] * 3, _I),      # C, NH, HP
+    "kair_window_msa_shared_bytes": ([_I] * 2, _I),      # C, NH
     "kair_swin_block_bwd_shared_bytes": ([_I] * 3, _I),  # C, NH, HP
     "kair_conv3x3_shared_bytes": ([_I], _I),             # C
     "kair_error_string": ([_I], ctypes.c_char_p),

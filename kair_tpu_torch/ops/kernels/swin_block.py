@@ -1,27 +1,34 @@
-"""Fused Swin-transformer block on the (B, H, W, C) map — CUDA kernel 1.
+"""Fused Swin-transformer block on the (B, H, W, C) map — CUDA kernels 1
+and A.
 
-Replaces ``kair_tpu/ops/pallas/swin_block.py :: swin_block_pallas_2d``
-(TPU body ``_kernel_2d`` :174 + ``_block_body`` :68) at inference:
+Kernel 1 replaces ``kair_tpu/ops/pallas/swin_block.py ::
+swin_block_pallas_2d`` (TPU body ``_kernel_2d`` :174 + ``_block_body`` :68)
+and kernel A replaces ``swin_block_pallas`` (:774, the window-pair
+``_kernel``) at inference:
 
     out = Block(roll(x, (−phase, −phase)))   written in the block's own
                                               (rolled) coordinates
 
-where Block is the windowed Swin block, ws=8: LN1 → W-MSA (rel-pos bias,
-0/−100 shift mask for shifted blocks) → +x → LN2 → fc1 → exact GELU → fc2
-→ +x. The kernel is ``csrc/swin_block.cu`` (its header gives the bound on
-the card and what the design does about it); ``swin_block_2d_reference``
-below is its plain PyTorch version.
+where Block is the windowed Swin block: LN1 → W-MSA (rel-pos bias, 0/−100
+shift mask for shifted blocks) → +x → LN2 → fc1 → exact GELU → fc2 → +x.
+``swin_block_2d`` takes any window ws ≤ 8 that tiles the map: kernel 1 at
+ws 8, kernel A below it (ws 7 is the JPEG-CAR SwinIR geometry), with the
+window's N = ws² tokens padded to 64 rows inside the kernel and the padded
+keys masked out. Both are instantiations of one template in
+``csrc/swin_block.cu`` behind one entry (its header gives the bound on the
+card and what the design does about it); ``swin_block_win_reference`` is
+their plain PyTorch version.
 
-``swin_block_2d`` launches the kernel for a CUDA tensor and uses the plain
-version only for a CPU tensor. It never falls back: a tensor the kernel
-does not take raises.
+The wrappers launch the kernel for a CUDA tensor and use the plain version
+only for a CPU tensor. They never fall back: a tensor the kernel does not
+take, a shared-memory layout over the card's limit included, raises.
 
 Training adds CUDA kernel 3, ``swin_block_2d_bwd``: the block's backward
 with the forward recomputed, replacing ``_fused_2d_bwd_pallas`` (TPU body
 ``_kernel_2d_bwd`` :219), in ``csrc/swin_block_bwd.cu``; its plain version
-is ``swin_block_2d_bwd_reference``. ``SwinBlockFunction`` ties the two
-kernels into one autograd node at phase 0, as ``_fused_2d`` (:490) does
-with its custom VJP: it saves only the block input and the parameters.
+is ``swin_block_2d_bwd_reference``. ``SwinBlockFunction`` ties kernels 1
+and 3 into one autograd node at phase 0, as ``_fused_2d`` (:490) does with
+its custom VJP: it saves only the block input and the parameters.
 """
 
 from __future__ import annotations
@@ -32,15 +39,15 @@ import torch
 import torch.nn.functional as F
 
 from kair_tpu_torch.ops.kernels import _build
-from kair_tpu_torch.ops.kernels.window_msa import (fold_ln_affine,
-                                                   rel_index_on, window_bias)
-from kair_tpu_torch.ops.window_attention import (relative_position_index,
-                                                  window_msa,
-                                                  window_partition,
+from kair_tpu_torch.ops.kernels.window_msa import (check_geometry,
+                                                   fold_ln_affine,
+                                                   pack_qkv_proj,
+                                                   rel_index_on, shared_bytes,
+                                                   table_window, window_bias)
+from kair_tpu_torch.ops.window_attention import (window_msa, window_partition,
                                                   window_reverse)
 
-WS = 8                      # the kernel's window: 8x8 = 64 tokens
-HD_MAX = 32                 # head dim is zero-padded to 32 in the kernel
+WS = 8                      # the 2-D kernel's window: 8x8 = 64 tokens
 
 
 class SwinBlockParams(NamedTuple):
@@ -93,34 +100,15 @@ def pack_swin_block(p: SwinBlockParams, num_heads: int,
 def _pack(p: SwinBlockParams, num_heads: int, dtype: torch.dtype,
           folded: bool) -> SwinBlockPack:
     c = p.qkv_weight.shape[1]
-    nh = num_heads
-    hd = c // nh
     cp = _build.round16(c)
     hidden = p.fc1_weight.shape[0]
     hp = _build.round16(hidden)
     dev = p.qkv_weight.device
     f32 = torch.float32
 
-    qkv_b = (p.qkv_bias if p.qkv_bias is not None
-             else torch.zeros(3 * c, device=dev))
-    if folded:
-        w, b = fold_ln_affine(p.qkv_weight, qkv_b, p.norm1_weight,
-                              p.norm1_bias)
-    else:
-        w, b = p.qkv_weight.float(), qkv_b.float()
-    wt = w.t().reshape(c, 3, nh, hd).clone()        # columns [q | k | v] x heads
-    b = b.reshape(3, nh, hd).clone()
-    if folded:
-        wt[:, 0] *= hd ** -0.5
-        b[0] *= hd ** -0.5
-    wqkv = torch.zeros(cp, nh, 3, HD_MAX, device=dev, dtype=f32)
-    wqkv[:c, :, :, :hd] = wt.permute(0, 2, 1, 3)
-    bqkv = torch.zeros(nh, 3, HD_MAX, device=dev, dtype=f32)
-    bqkv[:, :, :hd] = b.permute(1, 0, 2)
-
-    wp = torch.zeros(nh, HD_MAX, cp, device=dev, dtype=f32)
-    wp[:, :hd, :c] = p.proj_weight.float().t().reshape(nh, hd, c)
-
+    wqkv, bqkv, wp = pack_qkv_proj(
+        p.qkv_weight, p.qkv_bias, p.proj_weight, num_heads,
+        ln=(p.norm1_weight, p.norm1_bias) if folded else None, scale_q=folded)
     if folded:
         w1f, b1f = fold_ln_affine(p.fc1_weight, p.fc1_bias, p.norm2_weight,
                                   p.norm2_bias)
@@ -134,106 +122,122 @@ def _pack(p: SwinBlockParams, num_heads: int, dtype: torch.dtype,
     w2[:hidden, :c] = p.fc2_weight.float().t()
 
     return SwinBlockPack(
-        wqkv=wqkv.reshape(cp, nh * 3 * HD_MAX).to(dtype).contiguous(),
-        bqkv=bqkv.reshape(-1).contiguous(),
-        wp=wp.reshape(nh * HD_MAX, cp).to(dtype).contiguous(),
+        wqkv=wqkv.to(dtype).contiguous(), bqkv=bqkv.contiguous(),
+        wp=wp.to(dtype).contiguous(),
         bp=p.proj_bias.float().contiguous(),
         w1=w1.to(dtype).contiguous(), b1=b1,
         w2=w2.to(dtype).contiguous(),
         b2=p.fc2_bias.float().contiguous(),
-        relbias=window_bias(p.rel_table, nh, WS),
+        relbias=window_bias(p.rel_table, num_heads, table_window(p.rel_table)),
         hp=hp)
 
 
-def swin_block_2d_reference(x: torch.Tensor, p: SwinBlockParams,
-                            num_heads: int, mask: Optional[torch.Tensor] = None,
-                            phase: int = 0, window: int = WS) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, computed in f32 from the given
-    inputs (counterpart of ``_reference_2d`` :468 / ``_reference_block_tokens``
-    :415): roll, window partition, LN1, W-MSA with max-subtracted softmax,
-    residual, LN2, exact-GELU MLP, residual, window reverse. Returns
-    ``x.dtype``. ``window`` other than 8 is the model's composed route for
-    geometries the kernel does not take."""
+def swin_block_win_reference(x: torch.Tensor, p: SwinBlockParams,
+                             num_heads: int,
+                             mask: Optional[torch.Tensor] = None,
+                             phase: int = 0, ws: int = WS) -> torch.Tensor:
+    """Plain PyTorch version of the block kernels, computed in f32 from the
+    given inputs (counterpart of ``_reference_2d`` :468 /
+    ``_reference_block_tokens`` :415): roll, window partition, LN1, W-MSA
+    with max-subtracted softmax, residual, LN2, exact-GELU MLP, residual,
+    window reverse. Returns ``x.dtype``. Any window that tiles the map;
+    above 8 it is the model's composed route."""
     f = x.float()
     if phase:
         f = torch.roll(f, (-phase, -phase), (1, 2))
     b, h, w, c = f.shape
     y = F.layer_norm(f, (c,), p.norm1_weight.float(), p.norm1_bias.float(), 1e-5)
-    a = window_msa(window_partition(y, window), p.qkv_weight.float(),
+    a = window_msa(window_partition(y, ws), p.qkv_weight.float(),
                    None if p.qkv_bias is None else p.qkv_bias.float(),
                    p.proj_weight.float(), p.proj_bias.float(),
-                   p.rel_table.float(), relative_position_index(window, window),
+                   p.rel_table.float(), rel_index_on(ws, f.device),
                    num_heads, None if mask is None else mask.float())
-    x1 = f + window_reverse(a, window, h, w)
+    x1 = f + window_reverse(a, ws, h, w)
     z = F.layer_norm(x1, (c,), p.norm2_weight.float(), p.norm2_bias.float(), 1e-5)
     z = F.gelu(F.linear(z, p.fc1_weight.float(), p.fc1_bias.float()))
     return (x1 + F.linear(z, p.fc2_weight.float(), p.fc2_bias.float())).to(x.dtype)
 
 
-def _check_cuda_args(x, p, num_heads, mask):
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"swin_block_2d kernel takes bfloat16, got {x.dtype}")
-    if x.dim() != 4 or not x.is_contiguous():
-        raise ValueError("swin_block_2d expects a contiguous (B, H, W, C) tensor")
-    b, h, w, c = x.shape
-    if h % WS or w % WS:
-        raise ValueError(f"swin_block_2d needs H and W multiples of {WS}, "
-                         f"got {h}x{w}")
-    if c % 2 or c % num_heads or c // num_heads > HD_MAX:
-        raise ValueError(f"swin_block_2d needs an even C divisible by the "
-                         f"heads with head dim <= {HD_MAX} (C={c}, "
-                         f"heads={num_heads})")
-    if tuple(p.qkv_weight.shape) != (3 * c, c):
-        raise ValueError(f"qkv weight {tuple(p.qkv_weight.shape)} does not "
-                         f"match C={c}")
-    if p.rel_table.shape != ((2 * WS - 1) ** 2, num_heads):
-        raise ValueError("relative position table must be for an 8x8 window")
-    if mask is not None:
-        nw = (h // WS) * (w // WS)
-        if (tuple(mask.shape) != (nw, WS * WS, WS * WS)
-                or mask.dtype != torch.float32 or not mask.is_contiguous()
-                or mask.device != x.device):
-            raise ValueError(f"mask must be a contiguous f32 ({nw}, 64, 64) "
-                             f"tensor on {x.device}")
+def swin_block_2d_reference(x: torch.Tensor, p: SwinBlockParams,
+                            num_heads: int, mask: Optional[torch.Tensor] = None,
+                            phase: int = 0) -> torch.Tensor:
+    """Plain version of the 2-D kernel: ``swin_block_win_reference`` at
+    window 8."""
+    return swin_block_win_reference(x, p, num_heads, mask, phase, WS)
+
+
+def bwd_shared_bytes(c: int, nh: int, hp: int) -> int:
+    """Shared memory of the backward kernel's thread block (BwdSmem in
+    csrc/swin_block_bwd.cu), for the check before a launch."""
+    r16, a128 = _build.round16, _build.align128
+    ls = 64 + 4
+    la, lq, lh = max(r16(c), nh * 32) + 8, nh * 96 + 8, hp + 8
+    f = a128(max(64 * c * 4, a128(64 * la * 2) + 64 * ls * 4))
+    a = a128(f + max(64 * c * 4, 64 * ls * 4))
+    big = a128(a + max(64 * la * 2, 64 * ls * 4))
+    stage = a128(big + 64 * max(lq, lh) * 2)
+    cb = a128(stage + 16 * 256 * 4)
+    return cb + (nh * 96 + c + hp + c) * 4 + 4 * c * 4 + 4 * 64 * 4
+
+
+def _check_cuda_args(x, p, num_heads, mask, ws=WS, backward=False):
+    """Raise on what the block kernels do not take, the card's shared-
+    memory limit included (the forward's layout, or the backward's)."""
+    hp = _build.round16(p.fc1_weight.shape[0])
+    c = x.shape[-1]
+    smem = (bwd_shared_bytes(c, num_heads, hp) if backward
+            else shared_bytes(c, num_heads, hp))
+    check_geometry("swin_block_bwd" if backward else "swin_block", x,
+                   p.qkv_weight, num_heads, p.rel_table, mask, ws, smem)
 
 
 def swin_block_2d(x: torch.Tensor, p: SwinBlockParams, num_heads: int,
                   mask: Optional[torch.Tensor] = None, phase: int = 0,
-                  packed: Optional[SwinBlockPack] = None) -> torch.Tensor:
-    """Fused inference Swin block on (B, H, W, C), window 8.
+                  ws: int = WS, packed: Optional[SwinBlockPack] = None
+                  ) -> torch.Tensor:
+    """Fused inference Swin block on (B, H, W, C) for a window ws ≤ 8 that
+    tiles the map: kernel 1 at ws 8, kernel A below it (windows of N = ws²
+    tokens padded to 64 rows inside the kernel); one C entry,
+    ``kair_swin_block``, picks the instantiation.
 
     CPU tensor → the plain version. CUDA tensor → the kernel (bf16 only),
-    or an exception; ``packed`` is the cached ``pack_swin_block(p, nh)``."""
+    or an exception; ``packed`` is the cached ``pack_swin_block(p, nh)``.
+    A launch adds one to ``launches`` (ws 8) or ``launches_win`` (ws < 8)."""
     if x.device.type == "cpu":
-        return swin_block_2d_reference(x, p, num_heads, mask, phase)
-    _check_cuda_args(x, p, num_heads, mask)
+        return swin_block_win_reference(x, p, num_heads, mask, phase, ws)
+    _check_cuda_args(x, p, num_heads, mask, ws)
     pk = packed if packed is not None else pack_swin_block(p, num_heads)
     if pk.wqkv.dtype != torch.bfloat16 or pk.wqkv.device != x.device:
         raise ValueError("packed weights must be bf16 on the input's device")
     out = torch.empty_like(x)
-    _launch(_build.library(), x, out, pk, num_heads, mask, phase)
-    swin_block_2d.launches += 1
+    _launch(_build.library(), x, out, pk, num_heads, mask, phase, ws)
+    if ws == WS:
+        swin_block_2d.launches += 1
+    else:
+        swin_block_2d.launches_win += 1
     return out
 
 
 def _launch(lib, x: torch.Tensor, out: torch.Tensor, pk: SwinBlockPack,
-            num_heads: int, mask: Optional[torch.Tensor], phase: int) -> None:
-    """One launch of the kernel in ``lib`` on checked arguments; raises on a
-    CUDA error (oversized shared memory included)."""
+            num_heads: int, mask: Optional[torch.Tensor], phase: int,
+            ws: int = WS) -> None:
+    """One launch of ``kair_swin_block`` in ``lib`` on checked arguments;
+    raises on a CUDA error."""
     b, h, w, c = x.shape
     with torch.cuda.device(x.device):
-        err = lib.kair_swin_block_2d(
+        err = lib.kair_swin_block(
             x.data_ptr(), out.data_ptr(), pk.wqkv.data_ptr(),
             pk.bqkv.data_ptr(), pk.wp.data_ptr(), pk.bp.data_ptr(),
             pk.w1.data_ptr(), pk.b1.data_ptr(), pk.w2.data_ptr(),
             pk.b2.data_ptr(), pk.relbias.data_ptr(),
             None if mask is None else mask.data_ptr(),
-            b, h, w, c, num_heads, pk.hp, int(phase),
+            b, h, w, c, num_heads, pk.hp, int(phase), ws,
             torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "swin_block_2d")
+    _build.check(err, f"swin_block_2d (ws {ws})")
 
 
-swin_block_2d.launches = 0
+swin_block_2d.launches = 0          # kernel 1: ws 8
+swin_block_2d.launches_win = 0      # kernel A: ws < 8
 
 
 # ---------------------------------------------------------------------------
@@ -338,7 +342,7 @@ def swin_block_2d_bwd(x: torch.Tensor, dy: torch.Tensor, p: SwinBlockParams,
     ``pack_swin_block(p, nh, folded=False)``."""
     if x.device.type == "cpu":
         return swin_block_2d_bwd_reference(x, dy, p, num_heads, mask)
-    _check_cuda_args(x, p, num_heads, mask)
+    _check_cuda_args(x, p, num_heads, mask, backward=True)
     if (dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous()
             or dy.device != x.device):
         raise ValueError("dy must be a contiguous bf16 tensor shaped and "

@@ -5,10 +5,13 @@ JAX package).
 
 Host images are HWC (or HW) numpy arrays as in the reference; batches for
 the model are NHWC. ``augment_img`` is the training datasets' flip and
-rotation. Metric parity targets: PSNR utils_image.py:629-644, SSIM
-utils_image.py:650-697 (11x11 sigma 1.5 Gaussian, valid region), bicubic
-imresize utils_image.py:871-1014 (MATLAB antialiased kernel, symmetric
-boundary). ``cv2`` is imported only inside the file readers and writers.
+rotation; ``augment_nhwc`` and ``imresize_nhwc`` are its and the resize's
+counterparts on NHWC torch tensors. Metric parity targets: PSNR
+utils_image.py:629-644, SSIM utils_image.py:650-697 (11x11 sigma 1.5
+Gaussian, valid region), PSNR-B utils_image.py:700-780 (the JPEG-CAR
+metric: blocking-effect factor per channel), bicubic imresize
+utils_image.py:871-1014 (MATLAB antialiased kernel, symmetric boundary).
+``cv2`` is imported only inside the file readers and writers.
 """
 
 from __future__ import annotations
@@ -69,6 +72,14 @@ def single2uint(img: np.ndarray) -> np.ndarray:
     return np.uint8((np.clip(img, 0, 1) * 255.0).round())
 
 
+def uint162single(img: np.ndarray) -> np.ndarray:
+    return np.float32(img / 65535.0)
+
+
+def single2uint16(img: np.ndarray) -> np.ndarray:
+    return np.uint16((np.clip(img, 0, 1) * 65535.0).round())
+
+
 def hwc_to_nhwc(img: np.ndarray) -> np.ndarray:
     """HWC (or HW) float image -> 1xHxWxC."""
     if img.ndim == 2:
@@ -105,11 +116,56 @@ def augment_img(img: np.ndarray, mode: int = 0) -> np.ndarray:
     raise ValueError(f"bad augment mode {mode}")
 
 
+def inverse_augment_mode(mode: int) -> int:
+    """Mode that undoes ``augment_img(mode)`` (used by x8 self-ensemble)."""
+    return {0: 0, 1: 1, 2: 2, 3: 5, 4: 4, 5: 3, 6: 6, 7: 7}[mode]
+
+
+def augment_nhwc(x, mode: int):
+    """``augment_img`` on an NHWC torch tensor: the same flips and
+    rotations in the (H, W) plane, axes (1, 2)."""
+    import torch
+    rot = lambda t, k: torch.rot90(t, k, (1, 2))
+    flip = lambda t: torch.flip(t, (1,))
+    table = {0: lambda t: t, 1: lambda t: flip(rot(t, 1)), 2: flip,
+             3: lambda t: rot(t, 3), 4: lambda t: flip(rot(t, 2)),
+             5: lambda t: rot(t, 1), 6: lambda t: rot(t, 2),
+             7: lambda t: flip(rot(t, 3))}
+    if mode not in table:
+        raise ValueError(f"bad augment mode {mode}")
+    return table[mode](x)
+
+
 def modcrop(img: np.ndarray, scale: int) -> np.ndarray:
     """Crop so H and W are multiples of scale (reference: utils_image.py:500-513)."""
     img = np.copy(img)
     h, w = img.shape[:2]
     return img[: h - h % scale, : w - w % scale]
+
+
+def shave(img: np.ndarray, border: int = 0) -> np.ndarray:
+    img = np.copy(img)
+    h, w = img.shape[:2]
+    return img[border: h - border, border: w - border]
+
+
+def patches_from_image(img: np.ndarray, p_size: int = 512, p_overlap: int = 64,
+                       p_max: int = 800) -> List[np.ndarray]:
+    """Split a large image into overlapping patches for training
+    (reference: utils_image.py:100-116)."""
+    w, h = img.shape[:2]
+    patches = []
+    if w > p_max and h > p_max:
+        w1 = list(np.arange(0, w - p_size, p_size - p_overlap, dtype=np.int64))
+        h1 = list(np.arange(0, h - p_size, p_size - p_overlap, dtype=np.int64))
+        w1.append(w - p_size)
+        h1.append(h - p_size)
+        for i in w1:
+            for j in h1:
+                patches.append(img[i: i + p_size, j: j + p_size, ...])
+    else:
+        patches.append(img)
+    return patches
 
 
 def rgb2ycbcr(img: np.ndarray, only_y: bool = True) -> np.ndarray:
@@ -122,6 +178,39 @@ def rgb2ycbcr(img: np.ndarray, only_y: bool = True) -> np.ndarray:
     else:
         rlt = np.matmul(img, [[65.481, -37.797, 112.0], [128.553, -74.203, -93.786],
                               [24.966, 112.0, -18.214]]) / 255.0 + [16, 128, 128]
+    if in_img_type == np.uint8:
+        rlt = rlt.round()
+    else:
+        rlt = rlt / 255.0
+    return rlt.astype(in_img_type)
+
+
+def bgr2ycbcr(img: np.ndarray, only_y: bool = True) -> np.ndarray:
+    in_img_type = img.dtype
+    img = img.astype(np.float64)
+    if in_img_type != np.uint8:
+        img = img * 255.0
+    if only_y:
+        rlt = np.dot(img, [24.966, 128.553, 65.481]) / 255.0 + 16.0
+    else:
+        rlt = np.matmul(img, [[24.966, 112.0, -18.214], [128.553, -74.203, -93.786],
+                              [65.481, -37.797, 112.0]]) / 255.0 + [16, 128, 128]
+    if in_img_type == np.uint8:
+        rlt = rlt.round()
+    else:
+        rlt = rlt / 255.0
+    return rlt.astype(in_img_type)
+
+
+def ycbcr2rgb(img: np.ndarray) -> np.ndarray:
+    in_img_type = img.dtype
+    img = img.astype(np.float64)
+    if in_img_type != np.uint8:
+        img = img * 255.0
+    rlt = np.matmul(img, [[0.00456621, 0.00456621, 0.00456621],
+                          [0, -0.00153632, 0.00791071],
+                          [0.00625893, -0.00318811, 0]]) * 255.0 + [-222.921, 135.576, -276.836]
+    rlt = np.clip(rlt, 0, 255)
     if in_img_type == np.uint8:
         rlt = rlt.round()
     else:
@@ -194,6 +283,50 @@ def calculate_ssim(img1: np.ndarray, img2: np.ndarray, border: int = 0) -> float
         if img1.shape[2] == 1:
             return _ssim_single(np.squeeze(img1), np.squeeze(img2))
     raise ValueError("Wrong input image dimensions.")
+
+
+def _blocking_effect_factor(im: np.ndarray) -> float:
+    """BEF for one channel, im: HxW in [0,1] (reference: utils_image.py:700-738)."""
+    h, w = im.shape
+    block = 8
+    h_b = np.arange(7, w - 1, 8)
+    v_b = np.arange(7, h - 1, 8)
+    h_nb = np.setdiff1d(np.arange(0, w - 1), h_b)
+    v_nb = np.setdiff1d(np.arange(0, h - 1), v_b)
+
+    d_hb = ((im[:, h_b] - im[:, h_b + 1]) ** 2).sum()
+    d_vb = ((im[v_b, :] - im[v_b + 1, :]) ** 2).sum()
+    d_hnb = ((im[:, h_nb] - im[:, h_nb + 1]) ** 2).sum()
+    d_vnb = ((im[v_nb, :] - im[v_nb + 1, :]) ** 2).sum()
+
+    n_boundary_horiz = h * (w // block - 1)
+    n_boundary_vert = w * (h // block - 1)
+    boundary_diff = (d_hb + d_vb) / (n_boundary_horiz + n_boundary_vert)
+    n_nonboundary_horiz = h * (w - 1) - n_boundary_horiz
+    n_nonboundary_vert = w * (h - 1) - n_boundary_vert
+    nonboundary_diff = (d_hnb + d_vnb) / (n_nonboundary_horiz + n_nonboundary_vert)
+
+    scaler = np.log2(block) / np.log2(min(h, w))
+    bef = scaler * (boundary_diff - nonboundary_diff)
+    return float(bef) if boundary_diff > nonboundary_diff else 0.0
+
+
+def calculate_psnrb(img1: np.ndarray, img2: np.ndarray, border: int = 0) -> float:
+    """PSNR-B on [0,255] images (reference: utils_image.py:740-780)."""
+    if img1.shape != img2.shape:
+        raise ValueError("Input images must have the same dimensions.")
+    if img1.ndim == 2:
+        img1, img2 = img1[:, :, None], img2[:, :, None]
+    h, w = img1.shape[:2]
+    img1 = img1[border: h - border, border: w - border].astype(np.float64) / 255.0
+    img2 = img2[border: h - border, border: w - border].astype(np.float64) / 255.0
+
+    total = 0.0
+    for c in range(img1.shape[2]):
+        mse = np.mean((img1[:, :, c] - img2[:, :, c]) ** 2)
+        bef = _blocking_effect_factor(img1[:, :, c])
+        total += 10 * math.log10(1.0 / (mse + bef))
+    return total / img1.shape[2]
 
 
 def _cubic(x: np.ndarray) -> np.ndarray:
@@ -283,3 +416,30 @@ def imresize_np(img: np.ndarray, scale: float, antialiasing: bool = True) -> np.
     if squeeze:
         out2 = out2[:, :, 0]
     return out2
+
+
+def imresize_nhwc(x, scale: float, antialiasing: bool = True):
+    """MATLAB bicubic resize of an NHWC torch tensor, on its device and in
+    its dtype: the weights of ``resize_weights``, symmetric padding by
+    flipped edge slices, a gather and a contraction per axis (the numerics
+    of ``imresize_np``)."""
+    import torch
+
+    n, in_h, in_w, c = x.shape
+    out_h, out_w = math.ceil(in_h * scale), math.ceil(in_w * scale)
+
+    def axis(t, dim, in_len, out_len):
+        wt, idx, s, e = resize_weights(in_len, out_len, scale, antialiasing)
+        parts = [torch.flip(t.narrow(dim, 0, s), (dim,))] if s > 0 else []
+        parts.append(t)
+        if e > 0:
+            parts.append(torch.flip(t.narrow(dim, in_len - e, e), (dim,)))
+        t = torch.cat(parts, dim)
+        g = t.index_select(dim, torch.as_tensor(idx.reshape(-1), device=t.device))
+        g = g.unflatten(dim, idx.shape)                 # (..., out, P, ...)
+        wt = torch.as_tensor(wt, dtype=t.dtype, device=t.device)
+        shape = [1] * g.dim()
+        shape[dim], shape[dim + 1] = wt.shape
+        return (g * wt.reshape(shape)).sum(dim + 1)
+
+    return axis(axis(x, 1, in_h, out_h), 2, in_w, out_w)

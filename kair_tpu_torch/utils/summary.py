@@ -59,22 +59,41 @@ def swinir_block_bwd_flops_per_token(embed_dim: int = 180, window: int = 8,
     return recompute + backward
 
 
+def window_msa_flops_per_token(embed_dim: int = 180, window: int = 8) -> float:
+    """FLOP per token of window attention alone (``window_msa_win``): qkv
+    C·3C, scores and PV 2·N·C, proj C·C — 305,280 at SwinIR-M width."""
+    c, n = embed_dim, window * window
+    return 2.0 * (c * 3 * c + 2 * n * c + c * c)
+
+
 def swinir_flops_per_lr_pixel(embed_dim=180, depths=(6,) * 6, num_heads=6,
                               window=8, mlp_ratio=2.0, num_feat=64,
-                              in_chans=3, upscale=4) -> float:
-    """Analytic FLOP per LR pixel for SwinIR classical SR with the
-    pixelshuffle head (as bench.py counts it, on the unpadded head dim):
-    the blocks, per-RSTB conv3x3, conv_first/after_body and the head."""
-    c = embed_dim
+                              in_chans=3, upscale=4, upsampler="pixelshuffle",
+                              resi_connection="1conv") -> float:
+    """Analytic FLOP per LR pixel of SwinIR (as bench.py counts it, on the
+    unpadded head dim, real tokens only): the blocks, the RSTB and
+    after-body convs (one 3x3, or 3conv's 3x3 → 1x1 → 3x3 at C/4),
+    conv_first and the head: pixelshuffle, nearest+conv (x4) or the
+    denoising / JPEG-CAR conv_last."""
+    c, f = embed_dim, num_feat
     dense = sum(depths) * swinir_block_flops_per_token(
         c, num_heads, window, mlp_ratio) / 2.0
-    convs = 9 * (in_chans * c + len(depths) * c * c + c * c + c * num_feat)
-    s, f, area = upscale, num_feat, 1
-    while s > 1:
-        r = 3 if s % 3 == 0 else 2
-        # each upsample conv runs on `area` pixels per LR pixel
-        convs += 9 * f * (f * r * r) * area
-        area *= r * r
-        s //= r
-    convs += 9 * f * in_chans * upscale ** 2        # conv_last at HR size
+    tail = (9 * c * c if resi_connection == "1conv"
+            else 9 * c * (c // 4) + (c // 4) ** 2 + 9 * (c // 4) * c)
+    convs = 9 * in_chans * c + (len(depths) + 1) * tail
+    if upsampler == "pixelshuffle":
+        convs += 9 * c * f
+        s, area = upscale, 1
+        while s > 1:
+            r = 3 if s % 3 == 0 else 2
+            # each upsample conv runs on `area` pixels per LR pixel
+            convs += 9 * f * (f * r * r) * area
+            area *= r * r
+            s //= r
+        convs += 9 * f * in_chans * upscale ** 2    # conv_last at HR size
+    elif upsampler == "nearest+conv":
+        # conv_up1 at 2x, conv_up2, conv_hr and conv_last at 4x
+        convs += 9 * c * f + 9 * f * f * (4 + 16 + 16) + 9 * f * in_chans * 16
+    else:
+        convs += 9 * c * in_chans
     return 2.0 * (dense + convs)

@@ -157,7 +157,7 @@ def conv_inputs(b, h, w, c, seed=0):
     return y, r, k, bias
 
 
-@pytest.mark.parametrize("ws", [4, 8])
+@pytest.mark.parametrize("ws", [4, 7, 8])
 def test_window_bias_matches_jax_gather(ws):
     """The kernels' score bias (``window_bias``, gathered on the index cached
     on the table's device) and ``rel_pos_bias`` from the (N, N) index both
@@ -228,7 +228,7 @@ def _swin_args(shape=(1, 16, 16, 24), nh=4, dtype=torch.bfloat16):
 
 
 @pytest.mark.parametrize("case", ["f32", "h_not_8", "c_odd_heads", "qkv_shape",
-                                  "mask_shape", "noncontig"])
+                                  "mask_shape", "noncontig", "shared_memory"])
 def test_swin_wrapper_rejects_what_the_kernel_does_not_take(case):
     from kair_tpu_torch.ops.kernels.swin_block import _check_cuda_args
     x, p = _swin_args()
@@ -246,6 +246,9 @@ def test_swin_wrapper_rejects_what_the_kernel_does_not_take(case):
         mask = torch.zeros(3, 64, 64)
     elif case == "noncontig":
         x = x.transpose(1, 2)
+    elif case == "shared_memory":      # 16 heads of 30 at C=480: 373,248 B
+        x, p = _swin_args((1, 16, 16, 480), nh=16)
+        nh = 16
     with pytest.raises(err):
         _check_cuda_args(x, p, nh, mask)
 
