@@ -8,7 +8,8 @@ The main path is SwinIR-M ×4 classical-SR inference (embed 180, depths
 port's two hand-written kernels: the fused Swin block and the fused
 conv3x3 + residual tail; then training, then the rest of SwinIR's
 inference routes: JPEG-CAR at window 7 (the window-block kernel), the
-unfused route (the window-attention kernel) and SwinIR-L. Phases, one
+unfused route (the window-attention kernel) and SwinIR-L; then VRT video
+SR through the TMSA mutual block, self block and DCNv2 kernels. Phases, one
 flushed line each with its seconds:
 
   0 device      card name, power limit (nvidia-smi), torch and CUDA versions
@@ -61,6 +62,23 @@ flushed line each with its seconds:
                 128x128 forward; a 64x64 image against the f32 CPU run,
                 the error after each stage and with the 3conv tails and the
                 head's convs in f32; its time
+ 13 tmsa        the TMSA mutual block kernel against its plain version at
+                VRT-001's stage 1 (1x6x64x64, C=120, 6 heads) unshifted and
+                shifted (1,4,4), at stage 4 (1x6x8x8, shift (1,0,0)) and on
+                1x4x40x72 (odd window counts); dropped-mask control; time,
+                bound and the plain version's time
+ 14 self6       the self block kernel: wd 6 at C=120 and C=180, wd 1 at
+                C=180, wd 2 on a 1x2x64x64 clip, shifted (0,4,4) and not; the
+                same control and timings
+ 15 dcn         the DCNv2 kernel against the composed gather route at stage 1
+                (64x64, 120 -> 120, 12 groups), offsets with taps outside the
+                frame and fractional; control: the offsets dropped
+ 16 vrt         KAIR's 001_VRT_videosr_bi_REDS_6frames from a seeded .pth
+                through cli.test_video.build_task on a 1x6x64x64 clip: 42
+                TMSA, 38 self and 70 DCN launches, no composed call; against
+                the f32 CPU run (and out - base against its own max), the
+                error after each stage, the dropped-mask control; ms per
+                clip, frame-MP/s, MFU, device time by kernel
 
 Any failed check raises and the script exits non-zero; a watchdog ends a
 hung run with a traceback. The line before the last is one JSON object with
@@ -618,11 +636,14 @@ def kernel_name(key: str) -> str:
     return key.split("(")[0].split("<")[0].strip()[:60]
 
 
-def device_breakdown(fn, runs: int, ms: float, what: str) -> str:
+def device_breakdown(fn, runs: int, ms: float, what: str,
+                     host: bool = False) -> str:
     """Device time per run of ``fn`` (which does ``runs`` runs) by kernel,
     from torch.profiler, device events only (a CPU op that launched a
     ctypes-bound kernel would count that kernel's time again), and the
-    idle share against ``ms`` per run timed with CUDA events."""
+    idle share against ``ms`` per run timed with CUDA events. ``host``
+    adds the kernel launches per run and the host's busiest ops by their
+    own CPU time (what keeps an idle card waiting)."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -644,11 +665,20 @@ def device_breakdown(fn, runs: int, ms: float, what: str) -> str:
         return "the profiler saw no device time"
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    return (f"device time per {what} (profiler, {runs} runs): busy "
-            f"{busy:.2f} ms of the {ms:.2f} ms {what}, idle share "
-            f"{1 - busy / ms:.4f}; " + ", ".join(
-                f"{kernel_name(name)} {t:.2f} ms x{n}"
-                for t, n, name in rows[:8]))
+    out = (f"device time per {what} (profiler, {runs} runs): busy "
+           f"{busy:.2f} ms of the {ms:.2f} ms {what}, idle share "
+           f"{1 - busy / ms:.4f}; " + ", ".join(
+               f"{kernel_name(name)} {t:.2f} ms x{n}"
+               for t, n, name in rows[:8]))
+    if host:
+        cpu = sorted(((ev.self_cpu_time_total / 1e3 / runs, ev.count // runs,
+                       ev.key) for ev in prof.key_averages()
+                      if ev.device_type == torch.autograd.DeviceType.CPU),
+                     reverse=True)
+        out += (f"; {sum(r[1] for r in rows)} kernel launches per {what}; "
+                f"host self time per {what}: " + ", ".join(
+                    f"{name[:40]} {t:.2f} ms x{n}" for t, n, name in cpu[:8]))
+    return out
 
 
 def rel_norm(a: dict, b: dict, names) -> float:
@@ -1274,6 +1304,372 @@ def phase_swinir_l(card: str) -> None:
             f"B={b} {s}x{s}")
 
 
+# ---------------------------------------------------------------------------
+# VRT video SR (phases 13-16)
+# ---------------------------------------------------------------------------
+
+def win3d_params(c: int, nh: int, twd: int, mutual: bool, gen, device):
+    """Seeded f32 weights of one VRT transformer block (KAIR layout), scaled
+    so the scores are order 1, the rel-pos bias and the mask matter, and
+    every term of the block moves the output."""
+    import torch
+    from kair_tpu_torch.ops.window3d import Tmsa3dParams, sine_position_encoding
+    hid = 2 * c
+    r = lambda *s, k=1.0: (torch.randn(*s, generator=gen) * k).to(device)
+    s_in = c ** -0.5
+    return Tmsa3dParams(
+        r(3 * c, c, k=s_in), r(3 * c, k=0.1),
+        r(3 * c, c, k=s_in) if mutual else None,
+        r(3 * c, k=0.1) if mutual else None,
+        r(c, (2 if mutual else 1) * c, k=0.5 * s_in), r(c, k=0.1),
+        r((2 * twd - 1) * 225, nh),
+        torch.from_numpy(sine_position_encoding(8, 8, c // 2)).to(device)
+        if mutual else None,
+        1 + r(c, k=0.1), r(c, k=0.1), 1 + r(c, k=0.1), r(c, k=0.1),
+        r(hid, c, k=s_in), r(hid, k=0.1), r(hid, c, k=s_in), r(hid, k=0.1),
+        r(c, hid, k=0.5 * hid ** -0.5), r(c, k=0.1))
+
+
+def without_3d_mask(fn):
+    """fn() with the composed 3-D blocks' shift mask replaced by zeros."""
+    import torch
+    from kair_tpu_torch.ops import window3d
+    with_mask = window3d._mask_on
+    window3d._mask_on = lambda dhw, ws, ss, dev: torch.zeros_like(
+        with_mask(dhw, ws, ss, dev))
+    try:
+        return fn()
+    finally:
+        window3d._mask_on = with_mask
+
+
+def win3d_weight_bytes(p) -> int:
+    """Bytes of a block's parameters as the kernels read them: bf16
+    matrices, f32 vectors and table."""
+    mats = ("qkv_self_weight", "qkv_mut_weight", "proj_weight", "fc11_weight",
+            "fc12_weight", "fc2_weight")
+    return sum((2 if k in mats else 4) * t.numel()
+               for k, t in p._asdict().items() if t is not None)
+
+
+def phase_tmsa(report: list) -> None:
+    import torch
+    from kair_tpu_torch.ops.kernels.self6_block import pack_win3d
+    from kair_tpu_torch.ops.kernels.tmsa_block import (tmsa_block,
+                                                       tmsa_block_reference)
+    from kair_tpu_torch.utils.summary import tmsa_block_flops_per_token
+
+    c, nh = 120, 6
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 13)
+    p = win3d_params(c, nh, 2, True, gen, dev)
+    pk = pack_win3d(p, nh)
+    x = torch.randn(1, 6, 64, 64, c, generator=gen).to(dev, bf)
+    x4 = torch.randn(1, 6, 8, 8, c, generator=gen).to(dev, bf)
+    xodd = torch.randn(1, 4, 40, 72, c, generator=gen).to(dev, bf)
+    tol = 1e-2
+    with Phase("13 tmsa") as ph:
+        ph.note(f"TMSA mutual block kernel, (2,8,8) windows, C={c} nh={nh} "
+                f"hidden {2 * c} bf16; limit max_abs <= {tol} * max|ref| "
+                "against the f32 plain version on the same bf16 inputs; "
+                "control: the shifted cases' plain version without the mask")
+        errs = []
+        for xin, shift in ((x, (0, 0, 0)), (x, (1, 4, 4)), (x4, (1, 0, 0)),
+                           (xodd, (1, 4, 4))):
+            got = tmsa_block(xin, p, nh, shift, packed=pk)
+            ref = tmsa_block_reference(xin.float(), p, nh, shift)
+            torch.cuda.synchronize()
+            control = None if not any(shift) else without_3d_mask(
+                lambda: tmsa_block_reference(xin.float(), p, nh, shift))
+            errs.append(check_case(ph, f"{tuple(xin.shape[:4])} shift {shift}",
+                                   got, ref, tol, control))
+        ms = cuda_ms(lambda: tmsa_block(x, p, nh, (1, 4, 4), packed=pk))
+        plain_ms = cuda_ms(lambda: tmsa_block_reference(
+            x.float(), p, nh, (1, 4, 4)), warmup=1, reps=5)
+        tokens = x.numel() // c
+        flops = tokens * tmsa_block_flops_per_token(c)
+        nbytes = 2 * 2 * tokens * c + win3d_weight_bytes(p)
+        bms, by = bound_ms(flops, nbytes)
+        ms4 = cuda_ms(lambda: tmsa_block(x4, p, nh, (1, 0, 0), packed=pk))
+        ph.note(f"kernel {ms:.4f} ms (1x6x64x64 shifted, stage 1, median of "
+                f"10), {ms4:.4f} ms at stage 4 (1x6x8x8); plain f32 "
+                f"{plain_ms:.3f} ms; bound {bms:.4f} ms ({by}, "
+                f"{flops / 1e9:.2f} GFLOP), {bms / ms:.4f} of it; "
+                f"{flops / ms / 1e9:.1f} TFLOP/s")
+    report.append(dict(
+        name="tmsa_block", route="cuda",
+        source="kair_tpu_torch/csrc/tmsa_block.cu",
+        replaces="kair_tpu/ops/pallas/tmsa_block.py:253",
+        launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=None))
+
+
+def phase_self6(report: list) -> None:
+    import torch
+    from kair_tpu_torch.ops.kernels.self6_block import (
+        pack_win3d, self6_block, self6_block_reference)
+    from kair_tpu_torch.utils.summary import self_block_flops_per_token
+
+    nh = 6
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 14)
+    p120 = win3d_params(120, nh, 6, False, gen, dev)
+    p180 = win3d_params(180, nh, 6, False, gen, dev)
+    p180_1 = win3d_params(180, nh, 1, False, gen, dev)
+    x120 = torch.randn(1, 6, 64, 64, 120, generator=gen).to(dev, bf)
+    x180 = torch.randn(1, 6, 64, 64, 180, generator=gen).to(dev, bf)
+    x2 = torch.randn(1, 2, 64, 64, 120, generator=gen).to(dev, bf)
+    tol = 1e-2
+    with Phase("14 self6") as ph:
+        ph.note(f"self-attention (wd,8,8) block kernel, {nh} heads, hidden "
+                f"2C, bf16; limit max_abs <= {tol} * max|ref| against the f32 "
+                "plain version; control: the shifted cases without the mask")
+        errs = []
+        for xin, p, wd, shift in (
+                (x120, p120, 6, (0, 4, 4)), (x120, p120, 6, (0, 0, 0)),
+                (x180, p180, 6, (0, 4, 4)), (x180, p180, 6, (0, 0, 0)),
+                (x180, p180_1, 1, (0, 4, 4)), (x180, p180_1, 1, (0, 0, 0)),
+                (x2, p120, 2, (0, 4, 4))):
+            got = self6_block(xin, p, nh, wd, shift, packed=pack_win3d(p, nh))
+            ref = self6_block_reference(xin.float(), p, nh, wd, shift)
+            torch.cuda.synchronize()
+            control = None if not any(shift) else without_3d_mask(
+                lambda: self6_block_reference(xin.float(), p, nh, wd, shift))
+            errs.append(check_case(
+                ph, f"{tuple(xin.shape)} wd {wd} shift {shift}", got, ref, tol,
+                control))
+        times = {}
+        for what, xin, p, wd in (("C=120 wd 6", x120, p120, 6),
+                                 ("C=180 wd 6", x180, p180, 6),
+                                 ("C=180 wd 1", x180, p180_1, 1)):
+            pk = pack_win3d(p, nh)
+            times[what] = cuda_ms(lambda: self6_block(xin, p, nh, wd, (0, 4, 4),
+                                                      packed=pk))
+        pk = pack_win3d(p180, nh)
+        ms = times["C=180 wd 6"]
+        plain_ms = cuda_ms(lambda: self6_block_reference(
+            x180.float(), p180, nh, 6, (0, 4, 4)), warmup=1, reps=5)
+        tokens = x180.numel() // 180
+        flops = tokens * self_block_flops_per_token(180, 6)
+        nbytes = 2 * 2 * tokens * 180 + win3d_weight_bytes(p180)
+        bms, by = bound_ms(flops, nbytes)
+        ph.note("kernel " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+                + f" (1x6x64x64 shifted, median of 10); plain f32 (C=180 wd 6) "
+                f"{plain_ms:.3f} ms; bound {bms:.4f} ms ({by}, "
+                f"{flops / 1e9:.2f} GFLOP), {bms / ms:.4f} of it; "
+                f"{flops / ms / 1e9:.1f} TFLOP/s")
+    report.append(dict(
+        name="self6_block", route="cuda",
+        source="kair_tpu_torch/csrc/self6_block.cu",
+        replaces="kair_tpu/ops/pallas/self6_block.py:203",
+        launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=None))
+
+
+def phase_dcn(report: list) -> None:
+    import torch
+    from kair_tpu_torch.ops.kernels.dcn_block import (dcn_fused, dcn_reference,
+                                                      pack_dcn_weight)
+    from kair_tpu_torch.utils.summary import dcn_flops_per_pixel
+
+    c, dg, h, w = 120, 12, 64, 64
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 15)
+    x = torch.randn(1, h, w, c, generator=gen).to(dev, bf)
+    # offsets up to ±6 px with fractions: taps fall outside the frame and
+    # between pixels
+    off = ((torch.rand(1, h, w, dg * 18, generator=gen) * 12 - 6)).to(dev)
+    mask = torch.sigmoid(torch.randn(1, h, w, dg * 9, generator=gen)).to(dev)
+    weight = (torch.randn(c, c, 3, 3, generator=gen) * (9 * c) ** -0.5).to(dev)
+    bias = (torch.randn(c, generator=gen) * 0.1).to(dev)
+    pk = pack_dcn_weight(weight, dg)
+    tol = 1e-2
+    with Phase("15 dcn") as ph:
+        ph.note(f"DCNv2 kernel at stage 1 (64x64, {c}->{c}, dg {dg}), bf16 x, "
+                f"f32 offsets; limit max_abs <= {tol} * max|ref| against the "
+                "composed gather route in f32; control: the same conv with "
+                "the offsets dropped")
+        fy = (torch.arange(h, device=dev)[None, :, None, None] - 1
+              + off[..., 0::2])
+        outside = ((fy <= -1) | (fy >= h)).float().mean().item()
+        frac = (off.frac().abs() > 0.01).float().mean().item()
+        got = dcn_fused(x, off, mask, weight, bias, dg, packed=pk)
+        ref = dcn_reference(x.float(), off, mask, weight, bias, dg)
+        control = dcn_reference(x.float(), torch.zeros_like(off), mask,
+                                weight, bias, dg)
+        torch.cuda.synchronize()
+        err = check_case(ph, f"1x{h}x{w} ({outside:.3f} of the y taps outside "
+                         f"the frame, {frac:.3f} fractional)", got, ref, tol,
+                         control)
+        ms = cuda_ms(lambda: dcn_fused(x, off, mask, weight, bias, dg, packed=pk))
+        plain_ms = cuda_ms(lambda: dcn_reference(x.float(), off, mask, weight,
+                                                 bias, dg), warmup=1, reps=5)
+        flops = h * w * dcn_flops_per_pixel(c, c)
+        nbytes = (2 * x.numel() + 4 * (off.numel() + mask.numel() + c)
+                  + 2 * weight.numel() + 2 * h * w * c)
+        bms, by = bound_ms(flops, nbytes)
+        ph.note(f"kernel {ms:.4f} ms (median of 10); plain f32 {plain_ms:.3f} "
+                f"ms; bound {bms:.4f} ms ({by}, {flops / 1e9:.3f} GFLOP, "
+                f"{nbytes / 1e6:.2f} MB), {bms / ms:.4f} of it")
+    report.append(dict(
+        name="dcn_fused", route="cuda",
+        source="kair_tpu_torch/csrc/dcn_block.cu",
+        replaces="kair_tpu/ops/pallas/dcn_block.py:140",
+        launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=None))
+
+
+
+# KAIR 001_VRT_videosr_bi_REDS_6frames (main_test_vrt.py:158-165), through
+# cli.test_video.build_task; weights drawn so every block moves the output
+# and the shift mask matters (KAIR's init, Linear std 0.02, leaves the 80
+# blocks near the identity and the attention near uniform), and so the
+# head's output is not small against the bilinear base
+VRT_TASK = "001_VRT_videosr_bi_REDS_6frames"
+VRT_INIT = {  # suffix: (mean, std · fan_in^-½) for weights, (mean, std)
+    "attn.qkv_self.weight": (0.0, 1.2), "attn.qkv_mut.weight": (0.0, 1.2),
+    "attn.qkv_self.bias": (0.0, 0.1), "attn.qkv_mut.bias": (0.0, 0.1),
+    "attn.proj.weight": (0.0, 0.7), "attn.proj.bias": (0.0, 0.05),
+    "attn.relative_position_bias_table": (0.0, 1.0),
+    "norm1.weight": (1.0, 0.1), "norm1.bias": (0.0, 0.1),
+    "norm2.weight": (1.0, 0.1), "norm2.bias": (0.0, 0.1),
+    "mlp.fc11.weight": (0.0, 0.25), "mlp.fc12.weight": (0.0, 0.25),
+    "mlp.fc2.weight": (0.0, 0.2), "conv_offset.6.weight": (0.0, 0.01),
+    "conv_offset.6.bias": (0.0, 0.1), "conv_last.weight": (0.0, 0.3)}
+# conv weights take their std as it is (the head's widths are fixed)
+_FAN_IN_SCALED = ("qkv_self.weight", "qkv_mut.weight", "proj.weight",
+                  "fc11.weight", "fc12.weight", "fc2.weight")
+
+
+def vrt_state_dict(seed: int) -> dict:
+    """A seeded KAIR-keyed state dict of VRT-001."""
+    import torch
+    from kair_tpu_torch.cli.test_video import VRT_TASKS
+    from kair_tpu_torch.models.vrt import VRT
+    torch.manual_seed(seed)
+    model = VRT(**VRT_TASKS[VRT_TASK])
+    gen = torch.Generator().manual_seed(seed + 1)
+    sd = model.state_dict()
+    for k, v in sd.items():
+        for suffix, (mean, std) in VRT_INIT.items():
+            if k.endswith(suffix):
+                if suffix.endswith(_FAN_IN_SCALED):
+                    std = std / math.sqrt(v.shape[1])
+                sd[k] = mean + std * torch.randn(v.shape, generator=gen)
+    return sd
+
+
+def moving_clip(frames: int, h: int, w: int, seed: int):
+    """(1, frames, h, w, 3) f32: a smooth image panned 2 px down and 1 px
+    right per frame, with a little noise, so the flows are not zero."""
+    import numpy as np
+    img = smooth_image(h + 2 * frames, w + frames, seed) / 255.0
+    clip = np.stack([img[2 * t:2 * t + h, t:t + w] for t in range(frames)])
+    rng = np.random.RandomState(seed)
+    clip = np.clip(clip + rng.normal(0, 2 / 255, clip.shape), 0, 1)
+    return clip[None].astype(np.float32)
+
+
+def vrt_stages(model) -> tuple:
+    """VRT's stage outputs, for where an error arises: stage1-7, the
+    stage-8 head and groups, the final norm."""
+    return (*(f"stage{i}" for i in range(1, 8)), "stage8.0.2",
+            *(f"stage8.{i}" for i in range(1, len(model.stage8))), "norm")
+
+
+def phase_vrt(report: list, card: str) -> None:
+    import numpy as np
+    import torch
+    from kair_tpu_torch.cli.test_video import VRT_TASKS, build_task
+    from kair_tpu_torch.models import vrt as mvrt
+    from kair_tpu_torch.ops.blocks import resize_bilinear
+    from kair_tpu_torch.ops.kernels import dcn_block, self6_block, tmsa_block
+    from kair_tpu_torch.ops.warp import modulated_deform_conv
+    from kair_tpu_torch.utils.summary import peak_bf16_tflops, vrt_flops_per_clip
+
+    tol, tol_res = 2e-2, 5e-2
+    with Phase("16 vrt") as ph, tempfile.TemporaryDirectory() as tmp:
+        cfg = VRT_TASKS[VRT_TASK]
+        sd = vrt_state_dict(SEED + 16)
+        path = os.path.join(tmp, "vrt001.pth")
+        torch.save({"params": sd}, path)
+        fwd, sf, ws, _ = build_task(VRT_TASK, path)
+        model = fwd.model
+        off6 = model.stage1.pa_deform.conv_offset[6].weight
+        require(off6.abs().max().item() > 0, "pa_deform.conv_offset.6 is zero")
+        ph.note(f"KAIR {VRT_TASK} (embed 120/180, depths 8x7 + 4x6, 6 heads, "
+                "window (6,8,8), dg 12, pa_frames 2) from a seeded KAIR state "
+                "dict (.pth) through cli.test_video.build_task, bf16 on cuda, "
+                "SpyNet f32; conv_offset.6 nonzero: the offsets leave the "
+                "flows and the mask leaves 0.5")
+        lr = moving_clip(6, 64, 64, SEED + 17)
+        xg = torch.from_numpy(lr).cuda()
+        for f in (tmsa_block.tmsa_block, self6_block.self6_block,
+                  dcn_block.dcn_fused):
+            f.launches = 0
+        mvrt.TMSA.composed_calls = 0
+        modulated_deform_conv.composed_calls = 0
+        out = fwd(lr)
+        torch.cuda.synchronize()
+        counts = dict(tmsa=tmsa_block.tmsa_block.launches,
+                      self6=self6_block.self6_block.launches,
+                      dcn=dcn_block.dcn_fused.launches,
+                      composed_tmsa=mvrt.TMSA.composed_calls,
+                      composed_deform=modulated_deform_conv.composed_calls)
+        ph.note(f"launches in one 1x6x64x64 forward: {counts}")
+        require(counts == dict(tmsa=42, self6=38, dcn=70, composed_tmsa=0,
+                               composed_deform=0), f"launch counts {counts}")
+        for k in report:
+            k["launches"] = {"tmsa_block": counts["tmsa"],
+                             "self6_block": counts["self6"],
+                             "dcn_fused": counts["dcn"]}.get(k["name"],
+                                                             k["launches"])
+        require(out.shape == (1, 6, 256, 256, 3) and np.isfinite(out).all(),
+                f"output {out.shape} or non-finite values")
+
+        cpu = mvrt.VRT(**cfg)
+        cpu.load_state_dict(sd, strict=True)
+        cpu.eval()
+        x = torch.from_numpy(lr)
+        with stage_outputs(cpu, vrt_stages(cpu)) as ref_outs, torch.no_grad():
+            ref = cpu(x)
+        with torch.no_grad():
+            control = without_3d_mask(lambda: cpu(x))
+        base = resize_bilinear(x.reshape(6, 64, 64, 3), (256, 256)).reshape(
+            1, 6, 256, 256, 3)
+        got = torch.from_numpy(out)
+        # where the error arises, stage by stage (each of its own max)
+        with stage_outputs(model, vrt_stages(model)) as gpu_outs:
+            fwd(lr)
+        ph.note("error after each stage, of its own max: " + ", ".join(
+            f"{n} {compare(gpu_outs[n], ref_outs[n])[1]:.4f}" for n in ref_outs))
+        e_abs = check_case(ph, "1x6x64x64 output", got, ref, tol, control)
+        r_abs, r_rel, r_max, _ = compare(got - base, ref - base)
+        c_res = (control - ref).abs().max().item() / r_max
+        ph.note(f"out - base: max_abs {r_abs:.4g} max_rel {r_rel:.4g} (max|ref - "
+                f"base| {r_max:.3g}); mask effect max_rel {c_res:.4g}")
+        require(r_rel <= tol_res, f"out - base max_rel {r_rel:.4g} > {tol_res}")
+        require(c_res > tol_res and c_res > 3 * r_rel,
+                "the dropped-mask control is not above the out - base limit")
+
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: model(xg), warmup=2, reps=10)
+        flops = vrt_flops_per_clip()
+        peak = peak_bf16_tflops(torch.cuda.get_device_name(0))
+        tflops = flops / (ms / 1e3) / 1e12
+        ph.note(f"ms_per_clip {ms:.2f} (CUDA events, median of 10 after 2 "
+                f"warm-up), {6 * 64 * 64 / (ms / 1e3) / 1e6:.4f} LR frame-MP/s, "
+                f"{flops / 1e12:.3f} TFLOP per clip (utils/summary), "
+                f"{tflops:.1f} TFLOP/s, MFU "
+                f"{'n/a' if not peak else f'{tflops / peak:.4f}'} [{card}]")
+
+        def two_clips():
+            with torch.inference_mode():
+                model(xg)
+                model(xg)
+        ph.note(device_breakdown(two_clips, 2, ms, "clip", host=True))
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -1316,6 +1712,16 @@ def main() -> int:
                     f"shared-memory mirror differs from the kernels at C={c}")
             ph.note(f"C={c}, {nh} heads: block {blk} B, attention {att} B, "
                     f"backward {bwd} B")
+        from kair_tpu_torch.ops.kernels.self6_block import shared_bytes as win3d_bytes
+        for c, nh, hp in ((24, 2, 48), (120, 6, 240), (180, 6, 368)):
+            tm, s6 = (lib.kair_tmsa_block_shared_bytes(c, nh, hp),
+                      lib.kair_self6_block_shared_bytes(c, nh, hp))
+            require((tm, s6) == (win3d_bytes(c, nh, hp, 2),
+                                 win3d_bytes(c, nh, hp, 1)),
+                    f"VRT block shared-memory mirror differs at C={c}")
+            ph.note(f"C={c}, {nh} heads, hidden {hp}: TMSA block {tm} B, "
+                    f"self block {s6} B (largest pass)")
+        ph.note(f"DCN {lib.kair_dcn_shared_bytes()} B")
 
     phase_swin(report)
     phase_conv(report)
@@ -1328,6 +1734,10 @@ def main() -> int:
     phase_jpeg_car(report, card)
     phase_unfused(report, card, _build.BUILD_DIR)
     phase_swinir_l(card)
+    phase_tmsa(report)
+    phase_self6(report)
+    phase_dcn(report)
+    phase_vrt(report, card)
     faulthandler.cancel_dump_traceback_later()
 
     log(card)

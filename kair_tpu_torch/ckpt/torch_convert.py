@@ -3,9 +3,11 @@
 
 The port's modules carry KAIR's key names and layouts, so a released
 ``.pth`` loads with ``load_state_dict`` as it is; no conversion is needed in
-that direction. ``swinir_from_jax`` goes the other way: it turns a JAX
-SwinIR parameter tree (numpy leaves, the output of ``convert_swinir`` :353)
-back into a KAIR state dict, so JAX parameters can be carried across.
+that direction. ``swinir_from_jax``, ``vrt_from_jax`` and
+``spynet_from_jax`` go the other way: they turn a JAX parameter tree (numpy
+leaves, the output of ``convert_swinir`` :353, ``convert_vrt`` :486 or
+``convert_spynet`` :426, or a tree the JAX package initialised) back into a
+KAIR state dict, so JAX parameters can be carried across.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from kair_tpu_torch.ops.window3d import (rel_position_index_3d,
+                                         sine_position_encoding)
 from kair_tpu_torch.ops.window_attention import (relative_position_index,
                                                   shift_attn_mask)
 
@@ -155,4 +159,138 @@ def swinir_from_jax(variables: Dict[str, Any], img_size: int = 64,
         _conv(sd, "upsample.0", p["upsample_direct"]["conv"])
     else:                                            # denoise / JPEG CAR
         _conv(sd, "conv_last", p["conv_last"]["conv"])
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# SpyNet and VRT
+# ---------------------------------------------------------------------------
+
+def _conv3d(sd: Dict[str, torch.Tensor], name: str, leaf: Dict[str, Any]) -> None:
+    """flax HWIO kernel of a per-frame conv → KAIR's Conv3d (O, I, 1, kh, kw)."""
+    sd[f"{name}.weight"] = _t(np.asarray(leaf["kernel"]).transpose(3, 2, 0, 1)[
+        :, :, None])
+    sd[f"{name}.bias"] = _t(np.asarray(leaf["bias"]))
+
+
+def spynet_from_jax(variables: Dict[str, Any], prefix: str = ""
+                    ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_spynet``: ``basic{i}/conv{j}`` →
+    ``basic_module.{i}.basic_module.{2j}``, with the mean/std buffers."""
+    p = variables.get("params", variables)
+    sd: Dict[str, torch.Tensor] = {
+        f"{prefix}mean": torch.tensor([0.485, 0.456, 0.406]).view(1, 3, 1, 1),
+        f"{prefix}std": torch.tensor([0.229, 0.224, 0.225]).view(1, 3, 1, 1)}
+    for i in range(6):
+        for j in range(5):
+            _conv(sd, f"{prefix}basic_module.{i}.basic_module.{2 * j}",
+                  p[f"basic{i}"][f"conv{j}"]["conv"])
+    return sd
+
+
+def _index_tree(tree: Any, i: int) -> Any:
+    """Leaf i along the leading (scan) axis of every leaf."""
+    if isinstance(tree, dict):
+        return {k: _index_tree(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _tmsag_blocks(group: Dict[str, Any]):
+    """A JAX TMSAG subtree → its blocks in order: the scanned ``pairs/{a,b}``
+    (leaves stacked over depth/2) unstacked into blocks 2i and 2i+1, or the
+    per-block ``blk{j}`` of an odd depth."""
+    if "pairs" in group:
+        a, b = group["pairs"]["a"], group["pairs"]["b"]
+        n = np.asarray(a["norm1"]["scale"]).shape[0]
+        out = []
+        for i in range(n):
+            out += [_index_tree(a, i), _index_tree(b, i)]
+        return out
+    return [v for _, v in _indexed(group, "blk")]
+
+
+def _vrt_group(sd, pre: str, group: Dict[str, Any], ws, mut: bool) -> None:
+    for j, blk in enumerate(_tmsag_blocks(group)):
+        q = f"{pre}.blocks.{j}"
+        a = blk["attn"]
+        _ln(sd, f"{q}.norm1", blk["norm1"])
+        _ln(sd, f"{q}.norm2", blk["norm2"])
+        sd[f"{q}.attn.relative_position_bias_table"] = _t(
+            np.asarray(a["rel_bias_table"]))
+        sd[f"{q}.attn.relative_position_index"] = _t(
+            rel_position_index_3d(*ws).astype(np.int64))
+        names = ("qkv_self", "qkv_mut") if mut else ("qkv_self",)
+        for nm in names:
+            sd[f"{q}.attn.{nm}.weight"] = _t(np.asarray(a[f"{nm}_kernel"]).T)
+            if f"{nm}_bias" in a:
+                sd[f"{q}.attn.{nm}.bias"] = _t(np.asarray(a[f"{nm}_bias"]))
+        sd[f"{q}.attn.proj.weight"] = _t(np.asarray(a["proj_kernel"]).T)
+        sd[f"{q}.attn.proj.bias"] = _t(np.asarray(a["proj_bias"]))
+        if mut:
+            c = np.asarray(a["proj_bias"]).shape[0]
+            sd[f"{q}.attn.position_bias"] = _t(
+                sine_position_encoding(ws[1], ws[2], c // 2)[None])
+        for nm in ("fc11", "fc12", "fc2"):
+            _dense(sd, f"{q}.mlp.{nm}", blk["mlp"][nm])
+
+
+def vrt_from_jax(variables: Dict[str, Any], window_size=(6, 8, 8),
+                 indep_reconsts: Optional[tuple] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``kair_tpu.ckpt.torch_convert.convert_vrt``: a JAX VRT
+    parameter tree (scanned TMSAG pairs or per-block leaves) → KAIR state
+    dict with its buffers (``relative_position_index``, ``position_bias``,
+    SpyNet's ``mean``/``std``). ``window_size`` and ``indep_reconsts`` are
+    the model's (None: the last two stage-8 groups use per-frame windows)."""
+    p = variables.get("params", variables)
+    ws = tuple(window_size)
+    sd: Dict[str, torch.Tensor] = {}
+    _conv3d(sd, "conv_first", p["conv_first"]["conv"])
+    if "spynet" in p:
+        sd.update(spynet_from_jax(p["spynet"], "spynet."))
+    for i in range(1, 8):
+        st, pre = p[f"stage{i}"], f"stage{i}"
+        _ln(sd, f"{pre}.reshape.1", st["resh_norm"])
+        if "resh_linear" in st:
+            _dense(sd, f"{pre}.reshape.2", st["resh_linear"])
+        _vrt_group(sd, f"{pre}.residual_group1", st["group1"],
+                   (2,) + ws[1:], True)
+        _vrt_group(sd, f"{pre}.residual_group2", st["group2"], ws, False)
+        _dense(sd, f"{pre}.linear1", st["linear1"])
+        _dense(sd, f"{pre}.linear2", st["linear2"])
+        if "pa_deform" in st:
+            d = st["pa_deform"]
+            sd[f"{pre}.pa_deform.weight"] = _t(
+                np.asarray(d["dcn_kernel"]).transpose(3, 2, 0, 1))
+            sd[f"{pre}.pa_deform.bias"] = _t(np.asarray(d["dcn_bias"]))
+            for j in range(3):
+                _conv(sd, f"{pre}.pa_deform.conv_offset.{2 * j}",
+                      d[f"off{j}"]["conv"])
+            _conv(sd, f"{pre}.pa_deform.conv_offset.6", d["off3"])
+            for nm in ("fc11", "fc12", "fc2"):
+                _dense(sd, f"{pre}.pa_fuse.{nm}", st["pa_fuse"][nm])
+    _ln(sd, "stage8.0.1", p["stage8_norm"])
+    _dense(sd, "stage8.0.2", p["stage8_linear"])
+    tail = [v for _, v in _indexed(p, "stage8_")]
+    n_depths = 7 + len(tail)
+    indep = (tuple(range(n_depths - 2, n_depths)) if indep_reconsts is None
+             else tuple(indep_reconsts))
+    for k, blk in enumerate(tail):
+        w8 = (1,) + ws[1:] if 7 + k in indep else ws
+        _vrt_group(sd, f"stage8.{k + 1}.residual_group", blk["group"], w8,
+                   False)
+        _dense(sd, f"stage8.{k + 1}.linear", blk["linear"])
+    _ln(sd, "norm", p["norm"])
+    _dense(sd, "conv_after_body", p["conv_after_body"])
+    if "linear_fuse" in p:                       # frame interpolation
+        _conv(sd, "linear_fuse", p["linear_fuse"]["conv"])
+        _conv(sd, "conv_last", p["conv_last"]["conv"])
+        return sd
+    if "conv_before_upsample" in p:              # video SR
+        _conv3d(sd, "conv_before_upsample.0", p["conv_before_upsample"]["conv"])
+        ups = _indexed(p, "upsample")
+        for u, up in ups:
+            _conv3d(sd, f"upsample.{5 * u}", up["conv"])
+        _conv3d(sd, f"upsample.{5 * len(ups)}", p["upsample_tail"]["conv"])
+    _conv3d(sd, "conv_last", p["conv_last"]["conv"])
     return sd

@@ -83,4 +83,47 @@ __device__ void gemm_m64(const bf16* A, int lda, const bf16* __restrict__ B,
   }
 }
 
+
+// Two products of one A against B1 and B2 (the GEGLU MLP's fc11 and fc12):
+// epi(row, col, a1, a2) gets both sums of an element at once. stage holds
+// two f32 tiles per warp (2 * kStage floats).
+template <int NW, class Epi2>
+__device__ void gemm_m64_dual(const bf16* A, int lda, const bf16* __restrict__ B1,
+                              const bf16* __restrict__ B2, int ldb, int k_tiles,
+                              int n_tiles, float* stage, Epi2& epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int n = warp; n < n_tiles; n += NW) {
+    FragC acc1[4], acc2[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      wmma::fill_fragment(acc1[m], 0.0f);
+      wmma::fill_fragment(acc2[m], 0.0f);
+    }
+    for (int k = 0; k < k_tiles; ++k) {
+      FragB b1, b2;
+      wmma::load_matrix_sync(b1, B1 + (size_t)k * 16 * ldb + n * 16, ldb);
+      wmma::load_matrix_sync(b2, B2 + (size_t)k * 16 * ldb + n * 16, ldb);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        FragA a;
+        wmma::load_matrix_sync(a, A + m * 16 * lda + k * 16, lda);
+        wmma::mma_sync(acc1[m], a, b1, acc1[m]);
+        wmma::mma_sync(acc2[m], a, b2, acc2[m]);
+      }
+    }
+    const int r = lane >> 1, c0 = (lane & 1) * 8;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      wmma::store_matrix_sync(stage, acc1[m], 16, wmma::mem_row_major);
+      wmma::store_matrix_sync(stage + kStage, acc2[m], 16, wmma::mem_row_major);
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        epi(m * 16 + r, n * 16 + c0 + i, stage[r * 16 + c0 + i],
+            stage[kStage + r * 16 + c0 + i]);
+      __syncwarp();
+    }
+  }
+}
+
 }  // namespace kair

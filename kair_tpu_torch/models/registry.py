@@ -2,7 +2,7 @@
 ``kair_tpu/models/registry.py``; reference models/select_network.py:16-274).
 
 Keyed by the same ``net_type`` strings and hyper-parameter keys as the
-reference option files. This slice of the port builds SwinIR; every other
+reference option files. The port builds SwinIR and VRT so far; every other
 network raises NotImplementedError naming the slice that brings it.
 """
 
@@ -16,7 +16,7 @@ LATER_SLICES = {
     "msrresnet0": "CNN zoo", "msrresnet1": "CNN zoo", "rrdb": "CNN zoo",
     "rrdbnet": "CNN zoo", "rrdbnet_no_up": "CNN zoo", "imdn": "CNN zoo",
     "drunet": "CNN zoo", "usrnet": "CNN zoo",
-    "vrt": "video", "rvrt": "video", "spynet": "video",
+    "rvrt": "video", "spynet": "video",
 }
 
 
@@ -50,6 +50,28 @@ def define_g(opt: dict) -> nn.Module:
             resi_connection=_get(o, "resi_connection", "1conv"),
             use_checkpoint=bool(_get(o, "use_checkpoint", False)),
             fuse_block=bool(_get(o, "fuse_block", True)))
+    if t == "vrt":
+        from kair_tpu_torch.models.vrt import VRT
+        # fuse_block absent or true: the TMSA and self block kernels;
+        # deform_impl absent: "auto", the DCN kernel on the card. The
+        # checkpointing keys (use_checkpoint_attn/ffn) are for training,
+        # which this slice does not run.
+        depths = tuple(_get(o, "depths", [8] * 7 + [4] * 6))
+        return VRT(upscale=_get(o, "upscale", 4),
+                   in_chans=_get(o, "in_nc", 3), out_chans=_get(o, "out_nc", 3),
+                   img_size=tuple(_get(o, "img_size", [6, 64, 64])),
+                   window_size=tuple(_get(o, "window_size", [6, 8, 8])),
+                   depths=depths,
+                   indep_reconsts=o.get("indep_reconsts"),
+                   embed_dims=tuple(_get(o, "embed_dims",
+                                         [120] * 7 + [180] * 6)),
+                   num_heads=tuple(_get(o, "num_heads", [6] * len(depths))),
+                   pa_frames=_get(o, "pa_frames", 2),
+                   deformable_groups=_get(o, "deformable_groups", 16),
+                   nonblind_denoising=bool(_get(o, "nonblind_denoising",
+                                                False)),
+                   fuse_block=bool(_get(o, "fuse_block", True)),
+                   deform_impl=_get(o, "deform_impl", "auto"))
     if t in LATER_SLICES:
         raise NotImplementedError(
             f"netG [{t}] belongs to the {LATER_SLICES[t]} slice of the port, "

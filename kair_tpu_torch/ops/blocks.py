@@ -1,15 +1,18 @@
 """Network blocks for the port, NHWC (counterpart of ``kair_tpu/ops/blocks.py``).
 
-Only what SwinIR needs so far: ``pixel_shuffle`` (:40), ``upsample_nearest``
-(:60) and ``Conv`` (:91-135) with its fused-tail mode. Feature maps are
+What SwinIR and VRT need so far: ``pixel_shuffle`` (:40),
+``upsample_nearest`` (:60), ``resize_bilinear`` (:65) and ``Conv``
+(:91-135) with its fused-tail mode. Feature maps are
 (B, H, W, C) as in the JAX package; a ``Conv`` hands PyTorch's convolution a
 channels-last view of the same memory, so no copy is made on the card.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from functools import lru_cache
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -28,6 +31,45 @@ def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
 def upsample_nearest(x: torch.Tensor, r: int) -> torch.Tensor:
     """nn.Upsample(mode='nearest') on NHWC: out[i] = in[i // r]."""
     return x.repeat_interleave(r, dim=1).repeat_interleave(r, dim=2)
+
+
+@lru_cache(maxsize=64)
+def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) weights of ``jax.image.resize(method="bilinear")`` along
+    one axis: the triangle kernel at half-pixel centres, widened by the
+    factor when downsampling (antialiasing), each row normalised, rows whose
+    sample falls outside the input zeroed."""
+    scale = n_out / n_in
+    kscale = max(1.0 / scale, 1.0)
+    sample = (np.arange(n_out, dtype=np.float64) + 0.5) / scale - 0.5
+    dist = np.abs(sample[:, None] - np.arange(n_in)[None, :]) / kscale
+    wts = np.maximum(0.0, 1.0 - dist)
+    tot = wts.sum(1, keepdims=True)
+    wts = np.where(np.abs(tot) > 1000 * np.finfo(np.float32).eps,
+                   wts / np.where(tot != 0, tot, 1), 0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return (wts * inside[:, None]).astype(np.float32)
+
+
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of NHWC x to ``size`` with the JAX package's
+    semantics (``jax.image.resize``, half-pixel centres): equal to torch's
+    ``F.interpolate(mode="bilinear", align_corners=False)`` when upsampling,
+    antialiased when downsampling."""
+    h, w = x.shape[1:3]
+    if (h, w) == tuple(size):
+        return x
+    mh = _resize_on(h, size[0], str(x.device), x.dtype)
+    mw = _resize_on(w, size[1], str(x.device), x.dtype)
+    return torch.einsum("oh,nhwc,pw->nopc", mh, x, mw)
+
+
+@lru_cache(maxsize=64)
+def _resize_on(n_in: int, n_out: int, device: str, dtype) -> torch.Tensor:
+    # made once per device: a copy from the host at every call would wait
+    # for the card
+    with torch.inference_mode(False):
+        return torch.from_numpy(_resize_matrix(n_in, n_out)).to(device, dtype)
 
 
 class Conv(nn.Conv2d):

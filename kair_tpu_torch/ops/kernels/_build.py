@@ -66,10 +66,23 @@ SIGNATURES = {
                                _I),
     # y, res, w, bias, out, B, H, W, C, phase, stream
     "kair_conv3x3_residual": ([_P] * 5 + [_I] * 5 + [_P], _I),
+    # x, out, qkv, att, wqkv_s, bqkv_s, wqkv_m, bqkv_m, pos, ln1, ln2, wp,
+    # bp, w11, b11, w12, b12, w2, b2, rel_table, labels,
+    # B, D, H, W, C, NH, HP, sd, sh, sw, stream
+    "kair_tmsa_block": ([_P] * 21 + [_I] * 10 + [_P], _I),
+    # x, out, qkv, att, wqkv, bqkv, ln1, ln2, wp, bp, w11, b11, w12, b12,
+    # w2, b2, rel_table, labels, B, D, H, W, C, NH, HP, wd, twd, sd, sh, sw,
+    # stream
+    "kair_self6_block": ([_P] * 18 + [_I] * 12 + [_P], _I),
+    # x, off, mask, w, bias, out, N, H, W, Cin, Cout, DG, stream
+    "kair_dcn": ([_P] * 6 + [_I] * 6 + [_P], _I),
     "kair_swin_block_shared_bytes": ([_I] * 3, _I),      # C, NH, HP
     "kair_window_msa_shared_bytes": ([_I] * 2, _I),      # C, NH
     "kair_swin_block_bwd_shared_bytes": ([_I] * 3, _I),  # C, NH, HP
     "kair_conv3x3_shared_bytes": ([_I], _I),             # C
+    "kair_tmsa_block_shared_bytes": ([_I] * 3, _I),      # C, NH, HP
+    "kair_self6_block_shared_bytes": ([_I] * 3, _I),     # C, NH, HP
+    "kair_dcn_shared_bytes": ([], _I),
     "kair_error_string": ([_I], ctypes.c_char_p),
 }
 PROFILE_SIGNATURES = {

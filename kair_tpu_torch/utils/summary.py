@@ -97,3 +97,91 @@ def swinir_flops_per_lr_pixel(embed_dim=180, depths=(6,) * 6, num_heads=6,
     else:
         convs += 9 * c * in_chans
     return 2.0 * (dense + convs)
+
+
+def tmsa_block_flops_per_token(embed_dim: int = 120, mlp_ratio: float = 2.0
+                               ) -> float:
+    """FLOP per token of VRT's TMSA mutual block on (2, 8, 8) windows
+    (``ops/kernels/tmsa_block.py``): two qkv products C·3C, self scores and
+    PV over 128 keys, mutual over 64, a 2C x C proj, GEGLU (fc11, fc12
+    C·hidden, fc2 hidden·C) — 495,360 at VRT-001's C=120."""
+    c, hid = embed_dim, int(embed_dim * mlp_ratio)
+    return 2.0 * (2 * 3 * c * c + 2 * 128 * c + 2 * 64 * c + 2 * c * c
+                  + 3 * c * hid)
+
+
+def self_block_flops_per_token(embed_dim: int = 180, wd: int = 6,
+                               mlp_ratio: float = 2.0) -> float:
+    """FLOP per token of VRT's self-attention + GEGLU block on (wd, 8, 8)
+    windows (``ops/kernels/self6_block.py``): qkv C·3C, scores and PV over
+    64·wd keys, proj C·C, GEGLU — 924,480 at C=180, wd 6."""
+    c, n, hid = embed_dim, 64 * wd, int(embed_dim * mlp_ratio)
+    return 2.0 * (3 * c * c + 2 * n * c + c * c + 3 * c * hid)
+
+
+def dcn_flops_per_pixel(cin: int = 120, cout: int = 120, taps: int = 9
+                        ) -> float:
+    """FLOP per output pixel of a modulated deformable conv
+    (``ops/kernels/dcn_block.py``): the product of the K·Cin sampled columns
+    with the weight, 2·K·Cin·Cout (the bilinear taps and the mask add
+    ~7·K·Cin more, counted as well) — 266,760 at VRT-001's stage 1."""
+    return 2.0 * taps * cin * cout + 7.0 * taps * cin
+
+
+def vrt_flops_per_clip(frames: int = 6, h: int = 64, w: int = 64,
+                       embed_dims=(120,) * 7 + (180,) * 6,
+                       depths=(8,) * 7 + (4,) * 6, window=(6, 8, 8),
+                       mul_attn_ratio: float = 0.75, mlp_ratio: float = 2.0,
+                       pa_frames: int = 2, deformable_groups: int = 12,
+                       upscale: int = 4, num_feat: int = 64,
+                       in_chans: int = 3,
+                       indep_reconsts=(11, 12)) -> float:
+    """Analytic FLOP of one VRT forward on a (frames, h, w) LR clip, video
+    SR with pa_frames 2 (KAIR's 001 layout): the 7 U-shaped stages (reshape
+    linears, mutual and self blocks, linear1/2, the offset convs, the DCN,
+    the GEGLU fusion), stage 8's RTMSA tail, conv_first, conv_after_body
+    and the pixel-shuffle head. SpyNet, the warps and LayerNorms are not
+    counted (under 3% together). 001 at 1x6x64x64: ~1.10 TFLOP."""
+    scales = [1, 2, 4, 8, 4, 2, 1]
+    total = 0.0
+    c0 = embed_dims[0]
+    total += 2.0 * frames * h * w * 9 * (in_chans * (1 + 2 * 4)) * c0
+    for i in range(7):
+        c, s = embed_dims[i], scales[i]
+        px = frames * (h // s) * (w // s)
+        if i in (1, 2, 3):
+            total += 2.0 * px * 4 * embed_dims[i - 1] * c        # down linear
+        elif i in (4, 5, 6):
+            total += 2.0 * px * (embed_dims[i - 1] // 4) * c     # up linear
+        d1 = int(depths[i] * mul_attn_ratio)
+        wd = min(window[0], frames)
+        total += px * (d1 * tmsa_block_flops_per_token(c, mlp_ratio)
+                       + (depths[i] - d1)
+                       * self_block_flops_per_token(c, wd, mlp_ratio))
+        total += 2 * 2.0 * px * c * c                          # linear1, 2
+        if pa_frames:
+            # per aligned frame: offset convs (3C+2 → C → C → C → 27·dg),
+            # the DCN, for 2·(frames − 1) alignments; then the GEGLU fusion
+            pxf = (h // s) * (w // s)
+            n_al = 2 * (frames - 1)
+            cin_off = (pa_frames // 2) * (c + 2) + c
+            off = 2.0 * 9 * (cin_off * c + 2 * c * c + c * 27 * deformable_groups)
+            total += n_al * pxf * (off + dcn_flops_per_pixel(c * pa_frames // 2, c))
+            total += 2.0 * px * (2 * 3 * c * 3 * c + 3 * c * c)   # pa_fuse
+    c7, c8 = embed_dims[6], embed_dims[7]
+    px = frames * h * w
+    total += 2.0 * px * c7 * c8                                  # stage 8 head
+    for j in range(7, len(depths)):
+        cj = embed_dims[j]
+        wd = 1 if j in indep_reconsts else min(window[0], frames)
+        total += px * (depths[j] * self_block_flops_per_token(cj, wd, mlp_ratio)
+                       + 2.0 * cj * cj)
+    total += 2.0 * px * embed_dims[-1] * c0                      # conv_after_body
+    total += 2.0 * px * 9 * c0 * num_feat                        # conv_before_upsample
+    area, s = 1, upscale
+    while s > 1:
+        total += 2.0 * px * area * 9 * num_feat * num_feat * 4
+        area *= 4
+        s //= 2
+    total += 2.0 * px * area * 9 * num_feat * (num_feat + in_chans)  # tail, last
+    return total
