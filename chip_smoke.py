@@ -637,13 +637,14 @@ def kernel_name(key: str) -> str:
 
 
 def device_breakdown(fn, runs: int, ms: float, what: str,
-                     host: bool = False) -> str:
+                     host: bool = False, top: int = 8) -> str:
     """Device time per run of ``fn`` (which does ``runs`` runs) by kernel,
     from torch.profiler, device events only (a CPU op that launched a
     ctypes-bound kernel would count that kernel's time again), and the
     idle share against ``ms`` per run timed with CUDA events. ``host``
     adds the kernel launches per run and the host's busiest ops by their
-    own CPU time (what keeps an idle card waiting)."""
+    own CPU time (what keeps an idle card waiting); ``top`` kernels are
+    listed."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -669,7 +670,7 @@ def device_breakdown(fn, runs: int, ms: float, what: str,
            f"{busy:.2f} ms of the {ms:.2f} ms {what}, idle share "
            f"{1 - busy / ms:.4f}; " + ", ".join(
                f"{kernel_name(name)} {t:.2f} ms x{n}"
-               for t, n, name in rows[:8]))
+               for t, n, name in rows[:top]))
     if host:
         cpu = sorted(((ev.self_cpu_time_total / 1e3 / runs, ev.count // runs,
                        ev.key) for ev in prof.key_averages()
@@ -1354,7 +1355,7 @@ def win3d_weight_bytes(p) -> int:
 
 def phase_tmsa(report: list) -> None:
     import torch
-    from kair_tpu_torch.ops.kernels.self6_block import pack_win3d
+    from kair_tpu_torch.ops.kernels.win3d import pack_win3d
     from kair_tpu_torch.ops.kernels.tmsa_block import (tmsa_block,
                                                        tmsa_block_reference)
     from kair_tpu_torch.utils.summary import tmsa_block_flops_per_token
@@ -1398,7 +1399,7 @@ def phase_tmsa(report: list) -> None:
                 f"{flops / ms / 1e9:.1f} TFLOP/s")
     report.append(dict(
         name="tmsa_block", route="cuda",
-        source="kair_tpu_torch/csrc/tmsa_block.cu",
+        source="kair_tpu_torch/csrc/window3d_block.cu",
         replaces="kair_tpu/ops/pallas/tmsa_block.py:253",
         launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
         bound_ms=bms, bound_by=by, library_ms=None))
@@ -1406,8 +1407,9 @@ def phase_tmsa(report: list) -> None:
 
 def phase_self6(report: list) -> None:
     import torch
-    from kair_tpu_torch.ops.kernels.self6_block import (
-        pack_win3d, self6_block, self6_block_reference)
+    from kair_tpu_torch.ops.kernels.self6_block import (self6_block,
+                                                        self6_block_reference)
+    from kair_tpu_torch.ops.kernels.win3d import pack_win3d
     from kair_tpu_torch.utils.summary import self_block_flops_per_token
 
     nh = 6
@@ -1460,7 +1462,7 @@ def phase_self6(report: list) -> None:
                 f"{flops / ms / 1e9:.1f} TFLOP/s")
     report.append(dict(
         name="self6_block", route="cuda",
-        source="kair_tpu_torch/csrc/self6_block.cu",
+        source="kair_tpu_torch/csrc/window3d_block.cu",
         replaces="kair_tpu/ops/pallas/self6_block.py:203",
         launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
         bound_ms=bms, bound_by=by, library_ms=None))
@@ -1667,7 +1669,7 @@ def phase_vrt(report: list, card: str) -> None:
             with torch.inference_mode():
                 model(xg)
                 model(xg)
-        ph.note(device_breakdown(two_clips, 2, ms, "clip", host=True))
+        ph.note(device_breakdown(two_clips, 2, ms, "clip", host=True, top=12))
 
 
 def main() -> int:
@@ -1712,7 +1714,7 @@ def main() -> int:
                     f"shared-memory mirror differs from the kernels at C={c}")
             ph.note(f"C={c}, {nh} heads: block {blk} B, attention {att} B, "
                     f"backward {bwd} B")
-        from kair_tpu_torch.ops.kernels.self6_block import shared_bytes as win3d_bytes
+        from kair_tpu_torch.ops.kernels.win3d import shared_bytes as win3d_bytes
         for c, nh, hp in ((24, 2, 48), (120, 6, 240), (180, 6, 368)):
             tm, s6 = (lib.kair_tmsa_block_shared_bytes(c, nh, hp),
                       lib.kair_self6_block_shared_bytes(c, nh, hp))

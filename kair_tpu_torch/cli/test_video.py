@@ -77,12 +77,11 @@ RVRT_TASKS = (
 
 
 def build_task(task: str, model_path: str, device: Optional[str] = None,
-               dtype: Optional[torch.dtype] = None, fuse: bool = True,
-               deform: str = "auto"):
+               fuse: bool = True, deform: str = "auto"):
     """(forward, scale, window_size, nonblind) for a task preset. The VRT is
-    loaded from the KAIR ``.pth`` at ``model_path`` (strict), moved to
-    ``device`` in ``dtype`` (bf16 on the card, f32 on the CPU by default;
-    SpyNet stays f32). ``forward`` maps an NDHWC float32 numpy clip to the
+    loaded from the KAIR ``.pth`` at ``model_path`` (strict) and moved to
+    ``device``: bf16 on the card, which the kernels take, f32 on the CPU
+    (SpyNet stays f32). ``forward`` maps an NDHWC float32 numpy clip to the
     restored clip; ``forward.model`` is the module."""
     from kair_tpu_torch.ckpt.torch_convert import load_torch_state_dict
     from kair_tpu_torch.models.vrt import VRT, cast_for_inference
@@ -95,8 +94,7 @@ def build_task(task: str, model_path: str, device: Optional[str] = None,
         raise KeyError(f"unknown task '{task}'; known tasks: "
                        f"{sorted(VRT_TASKS) + list(RVRT_TASKS)}")
     dev = default_device(device)
-    if dtype is None:
-        dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     cfg = VRT_TASKS[task]
     model = VRT(**cfg, fuse_block=fuse, deform_impl=deform)
     sd = load_torch_state_dict(model_path, "params")

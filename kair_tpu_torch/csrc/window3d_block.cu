@@ -1,7 +1,30 @@
-// VRT's 3-D window transformer blocks, inference, bf16 (sm_90a): the three
-// passes that the TMSA mutual block (tmsa_block.cu) and the self-attention
-// (wd,8,8) block (self6_block.cu) share. Each C entry launches all three,
-// in order, on one stream:
+// VRT's 3-D window transformer blocks, inference, bf16 (sm_90a): the TMSA
+// mutual block on (2,8,8) windows (C entry kair_tmsa_block) and the
+// self-attention + GEGLU block on (wd,8,8) windows, wd in {6, 2, 1}
+// (kair_self6_block). Both run the same three passes, compiled here once
+// for each kind of block (template argument M, mutual):
+//
+// kair_tmsa_block replaces kair_tpu/ops/pallas/tmsa_block.py ::
+// tmsa_block_pallas (the pl.pallas_call of _impl, body _kernel):
+//   out = roll(Block(roll(x, -shift)), +shift),
+//   Block: h = LN1(x); s = self-MSA(h) over the window's 128 tokens (3-D
+//          rel-pos bias, shift mask); m = mutual MSA(h + sine pos): frame 2's
+//          queries attend frame 1's keys and values and the reverse, under the
+//          frame-1 block of the shift mask, the outputs landing on the query's
+//          own place in the other frame; x1 = x + proj([m | s]);
+//          out = x1 + fc2(GELU(fc11(LN2(x1))) * fc12(LN2(x1)))
+// with two qkv products in pass 1 and two branches (two query tiles each) in
+// pass 2.
+//
+// kair_self6_block replaces kair_tpu/ops/pallas/self6_block.py ::
+// self6_block_pallas (the pl.pallas_call of _impl, body _kernel): the second
+// (self-only) TMSAG of every VRT stage (wd 6, or 2 on a 2-frame clip) and the
+// RTMSA tail of stage 8 (wd 6, and wd 1 for the per-frame indep_reconsts):
+//   out = roll(Block(roll(x, -shift)), +shift),
+//   Block: x1 = x + proj(W-MSA(LN1(x)))   (3-D rel-pos bias, shift mask)
+//          out = x1 + fc2(GELU(fc11(LN2(x1))) * fc12(LN2(x1)))
+//
+// The passes, launched in order on one stream by each C entry:
 //
 //   pass 1  ln_qkv     per 64-pixel tile: LN1 (affine applied), the qkv
 //                      product, and for the mutual block LN1 + sine position
@@ -20,23 +43,37 @@
 // ((i*wd + t/64 + sd) mod D, (j*8 + t/8%8 + sh) mod H, (k*8 + t%8 + sw) mod W),
 // and its output goes back to that pixel, so
 //   out = roll(Block(roll(x, -shift)), +shift)
-// with no roll copy and no window partition or reverse.
+// with no roll copy and no window partition or reverse. A (6,8,8) window
+// holds 384 tokens: one head's f32 scores alone would be 590 KB, and every
+// head's q/k/v of a 128-token TMSA window ~147 KB, so pass 2 walks 64-key
+// tiles with an online softmax (running row max and sum) and never holds
+// more than a 64x64 tile of scores; the mask is built per element from the
+// tokens' region labels (8 patterns), never as an (nW, N, N) tensor.
 //
-// Layouts (prepared on the host, ops/kernels/tmsa_block.py and
-// self6_block.py): wqkv [CP][NH*96] bf16, per head [q|k|v] 32 columns each
-// (head dim zero-padded, the q scale folded in); wp [P*NH*32][CP] bf16 with
-// the mutual heads' rows first (KAIR's proj input is [mut | self]); w11, w12
-// [CP][HP], w2 [HP][CP] bf16; biases and LN parameters f32; the rel-pos table
-// ((2*twd-1)*15*15, NH) f32 as the model keeps it; labels [8][wd*64] int32.
-// P = 2 for the mutual block (self and mutual branches), 1 for self-only.
-#pragma once
-
+// Bound on the H100: at VRT-001's stage 1 the TMSA block (C=120, 6 heads,
+// hidden 240) does about 496 kFLOP per token (two qkv products, self scores
+// and PV over 128 keys, mutual over 64, a 2C x C proj, GEGLU) against 480
+// bytes of activations in and out, ~1,030 FLOP/byte; at stage 8 the self
+// block (C=180, wd 6, hidden 360) about 920 kFLOP per token against 720
+// bytes, ~1,280 FLOP/byte. Both are bound by tensor-core operations (about
+// 12 and 23 us for 1x6x64x64 at 989 TFLOP/s). What the design does about
+// it: every product runs on the tensor cores in bf16 with f32 sums, the
+// scores never leave shared memory, and the shift costs no copy. Its cost:
+// q/k/v and the attention output make one round trip through device memory
+// between the passes. WMMA, not wgmma/TMA: the simple first version
+// (PERF.md).
+//
+// Layouts (prepared on the host, ops/kernels/win3d.py): wqkv [CP][NH*96]
+// bf16, per head [q|k|v] 32 columns each (head dim zero-padded, the q scale
+// folded in); wp [P*NH*32][CP] bf16 with the mutual heads' rows first
+// (KAIR's proj input is [mut | self]); w11, w12 [CP][HP], w2 [HP][CP] bf16;
+// biases and LN parameters f32; the rel-pos table ((2*twd-1)*15*15, NH) f32
+// as the model keeps it; labels [8][wd*64] int32. P = 2 for the mutual block
+// (self and mutual branches), 1 for self-only.
 #include "common.cuh"
 
 namespace kair {
 namespace win3d {
-// Each source that includes this header gets its own copy of the kernels.
-namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -66,11 +103,11 @@ struct Args {
   const float* b2;
   const float* rel_table;  // [(2*twd-1)*225][NH]
   const int* labels;       // [8][wd*64], null when unshifted
-  int B, D, H, W, C, NH, HP, wd, twd, sd, sh, sw, mutual;
+  int B, D, H, W, C, NH, HP, wd, twd, sd, sh, sw;
 };
 
 // Shared-memory layouts of the three passes (byte offsets); the host
-// mirror is ops/kernels/self6_block.py::shared_bytes.
+// mirror is ops/kernels/win3d.py::shared_bytes.
 struct QkvSmem {
   int la, abuf, stage, total;
   __host__ __device__ QkvSmem(int C) {
@@ -135,7 +172,8 @@ __device__ void layernorm_affine64(Row row, int C, const float* ln, bf16* dst, i
 }
 
 // ---- pass 1: LN1 → qkv (and LN1 + pos → qkv_mut) ------------------------------
-__global__ void __launch_bounds__(kThreads) ln_qkv_kernel(Args a) {
+template <bool M>
+__device__ __forceinline__ void ln_qkv(const Args& a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int C = a.C, CP = round16(C), NH = a.NH;
   const QkvSmem L(C);
@@ -143,7 +181,7 @@ __global__ void __launch_bounds__(kThreads) ln_qkv_kernel(Args a) {
   const int warp = threadIdx.x >> 5;
   float* stage = reinterpret_cast<float*>(smem + L.stage) + warp * kStage;
   const size_t p0 = (size_t)blockIdx.x * 64;
-  const int QW = NH * 96, QKVW = (a.mutual ? 2 : 1) * QW;
+  const int QW = NH * 96, QKVW = (M ? 2 : 1) * QW;
 
   const bf16* x = a.x + p0 * C;
   auto xrow = [&](int t, int c) { return __bfloat162float(x[(size_t)t * C + c]); };
@@ -155,7 +193,7 @@ __global__ void __launch_bounds__(kThreads) ln_qkv_kernel(Args a) {
     qkv[(size_t)r * QKVW + c] = __float2bfloat16(v + bs[c]);
   };
   gemm_m64<kWarps>(abuf, L.la, a.wqkv_s, QW, CP / 16, QW / 16, stage, self_epi);
-  if (!a.mutual) return;
+  if (!M) return;
   __syncthreads();
   // + sine position of the token's place in its 8x8 window (shift folded)
   for (int i = threadIdx.x; i < 64 * C; i += kThreads) {
@@ -175,7 +213,8 @@ __global__ void __launch_bounds__(kThreads) ln_qkv_kernel(Args a) {
 }
 
 // ---- pass 2: windowed attention, one (window, head, 64-query tile) per block ----
-__global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
+template <bool M>
+__device__ __forceinline__ void attention(const Args& a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const AttnSmem L;
   bf16* Q = reinterpret_cast<bf16*>(smem + L.q);
@@ -186,7 +225,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
   float* O = reinterpret_cast<float*>(smem + L.o);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int NH = a.NH, wd = a.wd, N = wd * 64;
-  const int QT = a.mutual ? 4 : wd;               // query tiles per (window, head)
+  const int QT = M ? 4 : wd;               // query tiles per (window, head)
   const int nwd = a.D / wd, nwh = a.H / 8, nww = a.W / 8;
   int blk = blockIdx.x;
   const int qt = blk % QT;  blk /= QT;
@@ -195,13 +234,13 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
   const int wj = blk % nwh;  blk /= nwh;
   const int wi = blk % nwd;
   const int b = blk / nwd;
-  const bool mut = a.mutual && qt >= 2;
+  const bool mut = M && qt >= 2;
   const int tile = mut ? qt - 2 : qt;             // output (and mutual key) tile
   const int qtile = mut ? 1 - tile : tile;        // the queries' tile
-  const int QW = NH * 96, QKVW = (a.mutual ? 2 : 1) * QW;
-  const int AW = (a.mutual ? 2 : 1) * NH * 32;
+  const int QW = NH * 96, QKVW = (M ? 2 : 1) * QW;
+  const int AW = (M ? 2 : 1) * NH * 32;
   const int qcol = (mut ? QW : 0) + head * 96;
-  const int acol = (a.mutual && !mut ? NH * 32 : 0) + head * 32;
+  const int acol = (M && !mut ? NH * 32 : 0) + head * 32;
   // the window's shift-mask pattern: 4·is_last_d + 2·is_last_h + is_last_w
   const int* lab = a.labels ? a.labels + (4 * (wi == nwd - 1) + 2 * (wj == nwh - 1) +
                                           (wk == nww - 1)) * N
@@ -301,11 +340,12 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
 }
 
 // ---- pass 3: proj + residual, LN2, GEGLU, fc2 + residual -----------------------
-__global__ void __launch_bounds__(kThreads) proj_mlp_kernel(Args a) {
+template <bool M>
+__device__ __forceinline__ void proj_mlp(const Args& a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int C = a.C, CP = round16(C), NH = a.NH, HP = a.HP;
-  const int PA = (a.mutual ? 2 : 1) * NH * 32;
-  const MlpSmem L(C, NH, HP, a.mutual ? 2 : 1);
+  const int PA = (M ? 2 : 1) * NH * 32;
+  const MlpSmem L(C, NH, HP, M ? 2 : 1);
   bf16* at = reinterpret_cast<bf16*>(smem + L.at);
   float* x1 = reinterpret_cast<float*>(smem + L.x1);
   bf16* hbuf = reinterpret_cast<bf16*>(smem + L.hbuf);
@@ -348,32 +388,139 @@ __global__ void __launch_bounds__(kThreads) proj_mlp_kernel(Args a) {
   gemm_m64<kWarps>(hid, L.lh, a.w2, CP, HP / 16, CP / 16, stage, fc2_epi);
 }
 
+
+// One kernel per pass and kind of block, so a profile tells them apart.
+#define KAIR_WIN3D_PASS(name, pass, M)                                      \
+  __global__ void __launch_bounds__(kThreads) name(Args a) { pass<M>(a); }
+KAIR_WIN3D_PASS(tmsa_ln_qkv_kernel, ln_qkv, true)
+KAIR_WIN3D_PASS(tmsa_attention_kernel, attention, true)
+KAIR_WIN3D_PASS(tmsa_proj_mlp_kernel, proj_mlp, true)
+KAIR_WIN3D_PASS(self_ln_qkv_kernel, ln_qkv, false)
+KAIR_WIN3D_PASS(self_attention_kernel, attention, false)
+KAIR_WIN3D_PASS(self_proj_mlp_kernel, proj_mlp, false)
+#undef KAIR_WIN3D_PASS
+
 int shared_bytes(int C, int NH, int HP, int P) {
   return imax(imax(QkvSmem(C).total, AttnSmem().total), MlpSmem(C, NH, HP, P).total);
 }
 
+typedef void (*PassKernel)(Args);
+
 // The three passes in order on one stream; returns the first CUDA error.
-int launch(const Args& a, void* stream) {
-  const int P = a.mutual ? 2 : 1;
+int launch(const Args& a, bool mutual, void* stream) {
+  const int P = mutual ? 2 : 1;
   const int s1 = QkvSmem(a.C).total, s2 = AttnSmem().total;
   const int s3 = MlpSmem(a.C, a.NH, a.HP, P).total;
   if (imax(imax(s1, s2), s3) > kSmemLimit) return (int)cudaErrorInvalidConfiguration;
+  const PassKernel k1 = mutual ? tmsa_ln_qkv_kernel : self_ln_qkv_kernel;
+  const PassKernel k2 = mutual ? tmsa_attention_kernel : self_attention_kernel;
+  const PassKernel k3 = mutual ? tmsa_proj_mlp_kernel : self_proj_mlp_kernel;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if ((e = cudaFuncSetAttribute(ln_qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s1)) ||
-      (e = cudaFuncSetAttribute(attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s2)) ||
-      (e = cudaFuncSetAttribute(proj_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s3)))
+  if ((e = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, s1)) ||
+      (e = cudaFuncSetAttribute(k2, cudaFuncAttributeMaxDynamicSharedMemorySize, s2)) ||
+      (e = cudaFuncSetAttribute(k3, cudaFuncAttributeMaxDynamicSharedMemorySize, s3)))
     return (int)e;
   const unsigned tiles = (unsigned)((size_t)a.B * a.D * a.H * a.W / 64);
   const unsigned wins = (unsigned)a.B * (a.D / a.wd) * (a.H / 8) * (a.W / 8);
-  ln_qkv_kernel<<<tiles, kThreads, s1, st>>>(a);
+  k1<<<tiles, kThreads, s1, st>>>(a);
   if ((e = cudaGetLastError())) return (int)e;
-  attention_kernel<<<wins * a.NH * (a.mutual ? 4 : a.wd), kThreads, s2, st>>>(a);
+  k2<<<wins * a.NH * (mutual ? 4 : a.wd), kThreads, s2, st>>>(a);
   if ((e = cudaGetLastError())) return (int)e;
-  proj_mlp_kernel<<<tiles, kThreads, s3, st>>>(a);
+  k3<<<tiles, kThreads, s3, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
 }  // namespace win3d
 }  // namespace kair
+
+using namespace kair;
+
+extern "C" int kair_tmsa_block_shared_bytes(int C, int NH, int HP) {
+  return win3d::shared_bytes(C, NH, HP, 2);
+}
+
+extern "C" int kair_self6_block_shared_bytes(int C, int NH, int HP) {
+  return win3d::shared_bytes(C, NH, HP, 1);
+}
+
+// x, out, qkv scratch [T][2*NH*96], att scratch [T][2*NH*32], wqkv_s, bqkv_s,
+// wqkv_m, bqkv_m, pos [64][C], ln1, ln2, wp [2*NH*32][CP], bp, w11, b11, w12,
+// b12, w2, b2, rel_table [675][NH], labels [8][128] or null;
+// B, D, H, W, C, NH, HP, sd, sh, sw, stream
+extern "C" int kair_tmsa_block(const void* x, void* out, void* qkv, void* att,
+                               const void* wqkv_s, const void* bqkv_s,
+                               const void* wqkv_m, const void* bqkv_m, const void* pos,
+                               const void* ln1, const void* ln2, const void* wp,
+                               const void* bp, const void* w11, const void* b11,
+                               const void* w12, const void* b12, const void* w2,
+                               const void* b2, const void* rel_table, const void* labels,
+                               int B, int D, int H, int W, int C, int NH, int HP, int sd,
+                               int sh, int sw, void* stream) {
+  if (D % 2 || H % 8 || W % 8) return (int)cudaErrorInvalidValue;
+  win3d::Args a;
+  a.x = static_cast<const bf16*>(x);
+  a.out = static_cast<bf16*>(out);
+  a.qkv = static_cast<bf16*>(qkv);
+  a.att = static_cast<bf16*>(att);
+  a.wqkv_s = static_cast<const bf16*>(wqkv_s);
+  a.bqkv_s = static_cast<const float*>(bqkv_s);
+  a.wqkv_m = static_cast<const bf16*>(wqkv_m);
+  a.bqkv_m = static_cast<const float*>(bqkv_m);
+  a.pos = static_cast<const float*>(pos);
+  a.ln1 = static_cast<const float*>(ln1);
+  a.ln2 = static_cast<const float*>(ln2);
+  a.wp = static_cast<const bf16*>(wp);
+  a.bp = static_cast<const float*>(bp);
+  a.w11 = static_cast<const bf16*>(w11);
+  a.b11 = static_cast<const float*>(b11);
+  a.w12 = static_cast<const bf16*>(w12);
+  a.b12 = static_cast<const float*>(b12);
+  a.w2 = static_cast<const bf16*>(w2);
+  a.b2 = static_cast<const float*>(b2);
+  a.rel_table = static_cast<const float*>(rel_table);
+  a.labels = static_cast<const int*>(labels);
+  a.B = B; a.D = D; a.H = H; a.W = W; a.C = C; a.NH = NH; a.HP = HP;
+  a.wd = 2; a.twd = 2; a.sd = sd; a.sh = sh; a.sw = sw;
+  return win3d::launch(a, true, stream);
+}
+
+// x, out, qkv scratch [T][NH*96], att scratch [T][NH*32], wqkv, bqkv, ln1,
+// ln2, wp [NH*32][CP], bp, w11, b11, w12, b12, w2, b2,
+// rel_table [(2*twd-1)*225][NH], labels [8][wd*64] or null;
+// B, D, H, W, C, NH, HP, wd, twd, sd, sh, sw, stream
+extern "C" int kair_self6_block(const void* x, void* out, void* qkv, void* att,
+                                const void* wqkv, const void* bqkv, const void* ln1,
+                                const void* ln2, const void* wp, const void* bp,
+                                const void* w11, const void* b11, const void* w12,
+                                const void* b12, const void* w2, const void* b2,
+                                const void* rel_table, const void* labels, int B, int D,
+                                int H, int W, int C, int NH, int HP, int wd, int twd,
+                                int sd, int sh, int sw, void* stream) {
+  if (wd < 1 || twd < wd || D % wd || H % 8 || W % 8) return (int)cudaErrorInvalidValue;
+  win3d::Args a;
+  a.x = static_cast<const bf16*>(x);
+  a.out = static_cast<bf16*>(out);
+  a.qkv = static_cast<bf16*>(qkv);
+  a.att = static_cast<bf16*>(att);
+  a.wqkv_s = static_cast<const bf16*>(wqkv);
+  a.bqkv_s = static_cast<const float*>(bqkv);
+  a.wqkv_m = nullptr;
+  a.bqkv_m = nullptr;
+  a.pos = nullptr;
+  a.ln1 = static_cast<const float*>(ln1);
+  a.ln2 = static_cast<const float*>(ln2);
+  a.wp = static_cast<const bf16*>(wp);
+  a.bp = static_cast<const float*>(bp);
+  a.w11 = static_cast<const bf16*>(w11);
+  a.b11 = static_cast<const float*>(b11);
+  a.w12 = static_cast<const bf16*>(w12);
+  a.b12 = static_cast<const float*>(b12);
+  a.w2 = static_cast<const bf16*>(w2);
+  a.b2 = static_cast<const float*>(b2);
+  a.rel_table = static_cast<const float*>(rel_table);
+  a.labels = static_cast<const int*>(labels);
+  a.B = B; a.D = D; a.H = H; a.W = W; a.C = C; a.NH = NH; a.HP = HP;
+  a.wd = wd; a.twd = twd; a.sd = sd; a.sh = sh; a.sw = sw;
+  return win3d::launch(a, false, stream);
+}

@@ -39,8 +39,9 @@ import torch.nn.functional as F
 from kair_tpu_torch.models.spynet import SpyNet
 from kair_tpu_torch.ops.blocks import pixel_shuffle, resize_bilinear
 from kair_tpu_torch.ops.kernels.dcn_block import pack_dcn_weight
-from kair_tpu_torch.ops.kernels.self6_block import pack_win3d, self6_block
+from kair_tpu_torch.ops.kernels.self6_block import self6_block
 from kair_tpu_torch.ops.kernels.tmsa_block import tmsa_block
+from kair_tpu_torch.ops.kernels.win3d import pack_win3d
 from kair_tpu_torch.ops.warp import flow_warp, modulated_deform_conv
 from kair_tpu_torch.ops.window3d import (Tmsa3dParams, compute_mask_3d,
                                          compute_mask_labels_3d, geglu,

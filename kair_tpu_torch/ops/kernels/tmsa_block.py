@@ -10,9 +10,9 @@ on (B, D, H, W, C), where Block is LN1 → self-MSA over the window's 128
 tokens (3-D rel-pos bias, shift mask) and mutual MSA on LN1(x) + sine
 position (frame 2's queries on frame 1's keys and values and the reverse,
 under the frame-1 block of the mask) → proj of ``[mutual | self]`` → +x →
-LN2 → GEGLU → +x. The kernel runs the three passes of
-``csrc/window3d.cuh`` with both branches (the header of
-``csrc/tmsa_block.cu`` gives its bound on the card);
+LN2 → GEGLU → +x. The kernel is the mutual instance of the three passes
+in ``csrc/window3d_block.cu``, with both branches (its header gives the
+bound on the card; ``win3d.py`` the host side);
 ``tmsa_block_reference`` is its plain version, the composed block of
 ``ops/window3d.py`` in f32. The TPU kernel's rowsum lane, max-free softmax
 and −1e9 block-diagonal bias are TPU layout tricks: the kernel subtracts
@@ -30,8 +30,8 @@ import torch
 
 from kair_tpu_torch.ops import window3d
 from kair_tpu_torch.ops.kernels import _build
-from kair_tpu_torch.ops.kernels.self6_block import (Win3dPack, check_geometry,
-                                                    labels_on, pack_win3d)
+from kair_tpu_torch.ops.kernels.win3d import (Win3dPack, check_geometry,
+                                              labels_on, pack_win3d)
 from kair_tpu_torch.ops.window3d import Tmsa3dParams
 
 WS = (2, 8, 8)

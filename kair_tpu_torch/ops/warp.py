@@ -9,7 +9,10 @@ semantics.
 ``modulated_deform_conv``'s ``impl``:
   ``"fused"``   the port's CUDA kernel (``ops/kernels/dcn_block.py``), which
                 replaces the JAX package's fused Pallas kernel; on a CPU
-                tensor the kernel's plain version;
+                tensor the kernel's plain version. On a CUDA tensor a
+                geometry the kernel does not take raises; the kernel has no
+                counterpart of the Pallas kernel's ``MXU_MAX_HW`` limit, a
+                TPU workaround, so it takes maps of any size;
   ``"gather"``  the composed route: bilinear gathers per group and tap into
                 an im2col tensor, then one product with the weight (the JAX
                 package's XLA gather path); it is the kernel's plain version;
@@ -30,7 +33,6 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from kair_tpu_torch.utils.logger import warn_once
 
 
 def resolve_deform_impl(impl: str, device: torch.device) -> str:
@@ -164,10 +166,13 @@ def modulated_deform_conv(x: torch.Tensor, offset: torch.Tensor,
                                    dilation, dg):
             return dcn_block.dcn_fused(x, offset, mask, weight, bias, dg,
                                        packed)
-        warn_once(f"dcn-fused-{tuple(weight.shape)}-{stride}-{dilation}-{dg}",
-                  f"modulated_deform_conv impl='fused' does not take weight "
-                  f"{tuple(weight.shape)}, stride {stride}, dilation "
-                  f"{dilation}, {dg} groups: using the composed gather route")
+        if x.is_cuda:
+            raise ValueError(
+                f"the DCN kernel does not take weight {tuple(weight.shape)} "
+                f"on Cin={x.shape[-1]}, stride {stride}, padding {padding}, "
+                f"dilation {dilation}, {dg} groups (it takes 3x3, stride 1, "
+                f"padding 1, dilation 1, Cout <= {dcn_block.MAX_COUT}); use "
+                f"impl='gather' for the composed route")
     if x.is_cuda:
         modulated_deform_conv.composed_calls += 1
     kh, kw = weight.shape[2:]

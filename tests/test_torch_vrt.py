@@ -306,6 +306,26 @@ def test_deform_impl_resolution():
         twarp.resolve_deform_impl("mxu", torch.device("cpu"))
 
 
+def test_fused_deform_raises_on_the_card_where_the_kernel_does_not_take_it():
+    """impl 'fused' on a CUDA tensor with Cout=272 (over the kernel's 256)
+    raises rather than running the composed route; on the CPU the same call
+    is the kernel's plain version, the composed route."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((1, 8, 8, 12), np.float32))
+    off = torch.from_numpy(rng.standard_normal((1, 8, 8, 3 * 18), np.float32))
+    mask = torch.rand(1, 8, 8, 3 * 9)
+    weight = torch.from_numpy(rng.standard_normal((272, 12, 3, 3), np.float32))
+    with mock.patch.object(torch.Tensor, "is_cuda", property(lambda t: True)):
+        with pytest.raises(ValueError, match="does not take weight"):
+            twarp.modulated_deform_conv(x, off, mask, weight,
+                                        deformable_groups=3, impl="fused")
+    got = twarp.modulated_deform_conv(x, off, mask, weight,
+                                      deformable_groups=3, impl="fused")
+    want = twarp.modulated_deform_conv(x, off, mask, weight,
+                                       deformable_groups=3, impl="gather")
+    assert torch.equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # tiled inference and the test CLI against the JAX package
 # ---------------------------------------------------------------------------

@@ -35,9 +35,8 @@ from kair_tpu.ops.pallas.tmsa_block import (make_tmsa_biases,
                                             tmsa_mask_patterns)
 from kair_tpu.ops.warp import modulated_deform_conv as j_mdc
 from kair_tpu_torch.ops import window3d
-from kair_tpu_torch.ops.kernels import dcn_block, self6_block, tmsa_block
-from kair_tpu_torch.ops.kernels.self6_block import (labels_on, pack_win3d,
-                                                    shared_bytes)
+from kair_tpu_torch.ops.kernels import dcn_block, self6_block, tmsa_block, win3d
+from kair_tpu_torch.ops.kernels.win3d import labels_on, pack_win3d, shared_bytes
 from kair_tpu_torch.ops.kernels.window_msa import SMEM_LIMIT
 from kair_tpu_torch.ops.window3d import Tmsa3dParams
 
@@ -197,7 +196,7 @@ def test_dcn_plain_matches_pallas_and_gather():
 # ---------------------------------------------------------------------------
 
 def emulate_win3d(x, pk, nh, wd, twd, shift, labels, mutual):
-    """csrc/window3d.cuh's three passes in PyTorch, f32: per-pixel passes 1
+    """csrc/window3d_block.cu's three passes in PyTorch, f32: per-pixel passes 1
     and 3, pass 2 per (window, head, 64-query tile) with the shift folded
     into the indices and an online softmax over 64-key tiles."""
     b, d, h, w, c = x.shape
@@ -346,15 +345,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     x = torch.zeros(1, 6, 16, 16, C, dtype=torch.bfloat16)
     p = torch_params(block_weights(C, NH, 2, False, 0), C)
     with pytest.raises(ValueError, match="at least 6 deep"):
-        self6_block.check_geometry("self6_block", x, p, NH, 6, mutual=False)
+        win3d.check_geometry("self6_block", x, p, NH, 6, mutual=False)
     with pytest.raises(ValueError, match="wrong kind"):
-        self6_block.check_geometry("tmsa_block", x, p, NH, 2, mutual=True)
+        win3d.check_geometry("tmsa_block", x, p, NH, 2, mutual=True)
     with pytest.raises(ValueError, match="tiling"):
-        self6_block.check_geometry("self6_block", x[:, :, :12].contiguous(), p, NH, 2,
-                                   mutual=False)
+        win3d.check_geometry("self6_block", x[:, :, :12].contiguous(), p, NH, 2,
+                             mutual=False)
     with pytest.raises(TypeError):
-        self6_block.check_geometry("self6_block", x.float(), p, NH, 2,
-                                   mutual=False)
+        win3d.check_geometry("self6_block", x.float(), p, NH, 2,
+                             mutual=False)
     assert not dcn_block.dcn_supported(12, (8, 12, 3, 3), 2, 1, 1, 3)
     assert not dcn_block.dcn_supported(12, (300, 12, 3, 3), 1, 1, 1, 3)
     assert dcn_block.dcn_supported(120, (120, 120, 3, 3), 1, 1, 1, 12)
