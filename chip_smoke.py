@@ -9,8 +9,10 @@ port's two hand-written kernels: the fused Swin block and the fused
 conv3x3 + residual tail; then training, then the rest of SwinIR's
 inference routes: JPEG-CAR at window 7 (the window-block kernel), the
 unfused route (the window-attention kernel) and SwinIR-L; then VRT video
-SR through the TMSA mutual block, self block and DCNv2 kernels. Phases, one
-flushed line each with its seconds:
+SR through the TMSA mutual block, self block and DCNv2 kernels; then RVRT
+video SR through the STL2 block, the 2-D Swin block and the guided
+deformable attention kernels. Phases, one flushed line each with its
+seconds:
 
   0 device      card name, power limit (nvidia-smi), torch and CUDA versions
   1 build       the kernels, from csrc/, with one plain nvcc call
@@ -79,6 +81,22 @@ flushed line each with its seconds:
                 the f32 CPU run (and out - base against its own max), the
                 error after each stage, the dropped-mask control; ms per
                 clip, frame-MP/s, MFU, device time by kernel
+ 17 stl2        the RVRT STL2 block kernel against its plain version at
+                RVRT-001's call (1x2x64x64, C=144, shift (0,4,4) and none),
+                on 1x4x32x48 shift (1,4,4) and at C=192; the (1,8,8) block
+                through the 2-D Swin kernel with its 3-D table (1x8x64x64);
+                dropped-mask controls; time, bound and plain time
+ 18 gda         the GDA kernel against the f32 gather route at RVRT-001's
+                call (q 2x64x64x288, un-rotated K/V, 12 heads = groups),
+                taps outside the frame and fractional; control: the offsets
+                dropped; time, bound and plain time
+ 19 rvrt        KAIR's 001_RVRT_videosr_bi_REDS_30frames from a seeded .pth
+                through cli.test_video.build_task on a 1x8x64x64 clip: 4
+                Swin-block, 64 STL2 and 12 GDA launches, no composed call;
+                against the f32 CPU run (and out - base), the error after
+                each branch, the dropped-mask control; ms per clip,
+                frame-MP/s, MFU, device and host time by kernel; one timed
+                1x16x128x128 tile (the CLI's default spatial tile)
 
 Any failed check raises and the script exits non-zero; a watchdog ends a
 hung run with a traceback. The line before the last is one JSON object with
@@ -157,11 +175,13 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 10) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound_ms(flops: float, nbytes: float):
-    """(least time in ms, what bounds it) at the H100 SXM's published peaks."""
+def bound_ms(flops: float, nbytes: float, rate: str = "bf16"):
+    """(least time in ms, what bounds it) at the H100 SXM's published peaks;
+    ``rate`` "bf16" (tensor cores) or "fp32" (outside them) for the
+    operations."""
     from kair_tpu_torch.utils.summary import PEAKS
     pk = PEAKS["H100 SXM"]
-    t_ops = flops / (pk["bf16_tflops"] * 1e12) * 1e3
+    t_ops = flops / (pk[f"{rate}_tflops"] * 1e12) * 1e3
     t_mem = nbytes / (pk["hbm_tbps"] * 1e12) * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
@@ -1672,6 +1692,306 @@ def phase_vrt(report: list, card: str) -> None:
         ph.note(device_breakdown(two_clips, 2, ms, "clip", host=True, top=12))
 
 
+# ---------------------------------------------------------------------------
+# RVRT video SR (phases 17-19)
+# ---------------------------------------------------------------------------
+
+def stl_params(c: int, nh: int, twd: int, gen, device):
+    """Seeded f32 weights of one RVRT STL block (self-only, plain MLP), as
+    ``win3d_params`` draws them."""
+    p = win3d_params(c, nh, twd, False, gen, device)
+    return p._replace(fc12_weight=None, fc12_bias=None)
+
+
+def phase_stl2(report: list) -> None:
+    import torch
+    from kair_tpu_torch.models.vrt import TMSA
+    from kair_tpu_torch.ops.kernels.stl2_block import (stl2_block,
+                                                       stl2_block_reference)
+    from kair_tpu_torch.ops.kernels.win3d import pack_win3d
+    from kair_tpu_torch.ops.window3d import tmsa_composed
+    from kair_tpu_torch.utils.summary import stl_block_flops_per_token
+
+    nh = 6
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 17)
+    p144 = stl_params(144, nh, 2, gen, dev)
+    p192 = stl_params(192, nh, 2, gen, dev)
+    p1 = stl_params(144, nh, 1, gen, dev)
+    x = torch.randn(1, 2, 64, 64, 144, generator=gen).to(dev, bf)
+    x4 = torch.randn(1, 4, 32, 48, 144, generator=gen).to(dev, bf)
+    x192 = torch.randn(1, 2, 64, 64, 192, generator=gen).to(dev, bf)
+    x8 = torch.randn(1, 8, 64, 64, 144, generator=gen).to(dev, bf)
+    tol = 1e-2
+    with Phase("17 stl2") as ph:
+        ph.note(f"RVRT STL2 block kernel, (2,8,8) windows, {nh} heads, hidden "
+                f"2C, plain GELU MLP, bf16; limit max_abs <= {tol} * max|ref| "
+                "against the f32 plain version (max-subtracted softmax) on the "
+                "same bf16 inputs; control: the shifted cases without the mask")
+        errs = []
+        for xin, p, shift in ((x, p144, (0, 4, 4)), (x, p144, (0, 0, 0)),
+                              (x4, p144, (1, 4, 4)), (x192, p192, (0, 4, 4))):
+            got = stl2_block(xin, p, nh, shift, packed=pack_win3d(p, nh))
+            ref = stl2_block_reference(xin.float(), p, nh, shift)
+            torch.cuda.synchronize()
+            control = None if not any(shift) else without_3d_mask(
+                lambda: stl2_block_reference(xin.float(), p, nh, shift))
+            errs.append(check_case(
+                ph, f"{tuple(xin.shape)} shift {shift}", got, ref, tol, control))
+        # the (1,8,8) STL blocks: the 2-D Swin block kernel on the 8 frames,
+        # through the model's route, against the 3-D composed block
+        blk = TMSA(144, nh, (1, 8, 8), (0, 4, 4), mut_attn=False, geglu=False)
+        a, m = blk.attn, blk.mlp
+        with torch.no_grad():
+            for dst, src in ((a.qkv_self.weight, p1.qkv_self_weight),
+                             (a.qkv_self.bias, p1.qkv_self_bias),
+                             (a.proj.weight, p1.proj_weight),
+                             (a.proj.bias, p1.proj_bias),
+                             (a.relative_position_bias_table, p1.rel_table),
+                             (blk.norm1.weight, p1.norm1_weight),
+                             (blk.norm1.bias, p1.norm1_bias),
+                             (blk.norm2.weight, p1.norm2_weight),
+                             (blk.norm2.bias, p1.norm2_bias),
+                             (m.fc1.weight, p1.fc11_weight),
+                             (m.fc1.bias, p1.fc11_bias),
+                             (m.fc2.weight, p1.fc2_weight),
+                             (m.fc2.bias, p1.fc2_bias)):
+                dst.copy_(src)
+        blk = blk.to(dev, bf).eval()
+        pb = blk.params()
+        with torch.inference_mode():
+            got = blk(x8)
+        ref = tmsa_composed(x8.float(), pb.float(), nh, (1, 8, 8), (0, 4, 4))
+        control = without_3d_mask(lambda: tmsa_composed(
+            x8.float(), pb.float(), nh, (1, 8, 8), (0, 4, 4)))
+        check_case(ph, "(1,8,8) block on 1x8x64x64 C=144 through swin_block_2d "
+                   "(3-D table), shift (0,4,4)", got, ref, tol, control)
+        pk = pack_win3d(p144, nh)
+        ms = cuda_ms(lambda: stl2_block(x, p144, nh, (0, 4, 4), packed=pk))
+        plain_ms = cuda_ms(lambda: stl2_block_reference(
+            x.float(), p144, nh, (0, 4, 4)), warmup=1, reps=5)
+        tokens = x.numel() // 144
+        flops = tokens * stl_block_flops_per_token(144, 128)
+        nbytes = 2 * 2 * tokens * 144 + win3d_weight_bytes(p144)
+        bms, by = bound_ms(flops, nbytes)
+        with torch.inference_mode():
+            ms1 = cuda_ms(lambda: blk(x8))
+        ph.note(f"kernel {ms:.4f} ms (1x2x64x64 C=144 shifted, RVRT-001's call, "
+                f"median of 10); plain f32 {plain_ms:.3f} ms; bound {bms:.4f} ms "
+                f"({by}, {flops / 1e9:.3f} GFLOP), {bms / ms:.4f} of it; "
+                f"{flops / ms / 1e9:.1f} TFLOP/s; (1,8,8) block on 1x8x64x64 "
+                f"through swin_block_2d {ms1:.4f} ms")
+    report.append(dict(
+        name="stl2_block", route="cuda",
+        source="kair_tpu_torch/csrc/window3d_block.cu",
+        replaces="kair_tpu/ops/pallas/stl_block.py:110",
+        launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=None))
+
+
+def phase_gda(report: list) -> None:
+    import torch
+    from kair_tpu_torch.ops.kernels.gda_block import gda_fused, gda_reference
+    from kair_tpu_torch.utils.summary import gda_flops_per_pixel
+
+    b, t, clip, h, w, c2, dg = 1, 2, 2, 64, 64, 288, 12
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 18)
+    q = torch.randn(b * t, h, w, c2, generator=gen).to(dev, bf)
+    k = torch.randn(b, clip, h, w, c2, generator=gen).to(dev, bf)
+    v = torch.randn(b, clip, h, w, c2, generator=gen).to(dev, bf)
+    # offsets up to ±12 px with fractions: taps fall outside the frame and
+    # between pixels (RVRT's are 10·tanh(·) + the flow)
+    off = (torch.rand(b * t, clip, h, w, dg * 18, generator=gen) * 24 - 12).to(dev)
+    tol = 1e-2
+    with Phase("18 gda") as ph:
+        ph.note(f"GDA kernel at RVRT-001's call (q {b * t}x{h}x{w}x{c2}, K/V "
+                f"{b}x{clip}x{h}x{w}x{c2} un-rotated, {dg} heads = groups, 3x3 "
+                f"taps), bf16 q/k/v, f32 offsets; limit max_abs <= {tol} * "
+                "max|ref| against the composed gather route in f32; control: "
+                "the offsets dropped")
+        ky = (torch.arange(9, device=dev) // 3 - 1).repeat(clip * dg)
+        fy = (torch.arange(h, device=dev)[None, None, :, None, None]
+              + ky.view(clip, dg * 9)[None, :, None, None, :]
+              + off[..., 0::2])
+        outside = ((fy <= -1) | (fy >= h)).float().mean().item()
+        frac = (off.frac().abs() > 0.01).float().mean().item()
+        got = gda_fused(q, k, v, off, (3, 3), dg, dg)
+        ref = gda_reference(q.float(), k.float(), v.float(), off, (3, 3), dg,
+                            dg)
+        control = gda_reference(q.float(), k.float(), v.float(),
+                                torch.zeros_like(off), (3, 3), dg, dg)
+        torch.cuda.synchronize()
+        err = check_case(ph, f"{outside:.3f} of the y taps outside the frame, "
+                         f"{frac:.3f} fractional", got, ref, tol, control)
+        ms = cuda_ms(lambda: gda_fused(q, k, v, off, (3, 3), dg, dg))
+        plain_ms = cuda_ms(lambda: gda_reference(
+            q.float(), k.float(), v.float(), off, (3, 3), dg, dg),
+            warmup=1, reps=5)
+        flops = b * t * h * w * gda_flops_per_pixel(c2, clip * 9)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * off.numel()
+        bms, by = bound_ms(flops, nbytes, rate="fp32")
+        ph.note(f"kernel {ms:.4f} ms (median of 10); plain f32 {plain_ms:.3f} "
+                f"ms; bound {bms:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP at the "
+                f"f32 rate, {nbytes / 1e6:.2f} MB), {bms / ms:.4f} of it")
+    report.append(dict(
+        name="gda_fused", route="cuda",
+        source="kair_tpu_torch/csrc/gda_block.cu",
+        replaces="kair_tpu/ops/pallas/gda_block.py:178",
+        launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=None))
+
+
+# KAIR 001_RVRT_videosr_bi_REDS_30frames (main_test_rvrt.py:141-147) through
+# cli.test_video.build_task, weights drawn as VRT_INIT draws them, the
+# offset nets' last conv nonzero so the offsets leave the flows
+RVRT_TASK = "001_RVRT_videosr_bi_REDS_30frames"
+RVRT_INIT = {**{k: v for k, v in VRT_INIT.items() if not k.startswith(
+                 ("mlp.", "conv_offset", "attn.qkv_mut"))},
+             "mlp.fc1.weight": (0.0, 0.5), "mlp.fc2.weight": (0.0, 0.3),
+             "conv_offset.10.weight": (0.0, 0.01),
+             "conv_offset.10.bias": (0.0, 0.1)}
+_RVRT_FAN_IN = _FAN_IN_SCALED + ("fc1.weight",)
+RVRT_BRANCHES = ("feat_extract", "backbone.backward_1", "backbone.forward_1",
+                 "backbone.backward_2", "backbone.forward_2", "reconstruction")
+
+
+def rvrt_state_dict(seed: int) -> dict:
+    """A seeded KAIR-keyed state dict of RVRT-001."""
+    import torch
+    from kair_tpu_torch.cli.test_video import RVRT_TASKS
+    from kair_tpu_torch.models.rvrt import RVRT
+    torch.manual_seed(seed)
+    sd = RVRT(**RVRT_TASKS[RVRT_TASK]).state_dict()
+    gen = torch.Generator().manual_seed(seed + 1)
+    for k, v in sd.items():
+        for suffix, (mean, std) in RVRT_INIT.items():
+            if k.endswith(suffix):
+                if suffix.endswith(_RVRT_FAN_IN):
+                    std = std / math.sqrt(v.shape[1])
+                sd[k] = mean + std * torch.randn(v.shape, generator=gen)
+    return sd
+
+
+def without_rvrt_masks(fn):
+    """fn() with the shift mask left out of RVRT's blocks: the composed 3-D
+    blocks' and the (1, 8, 8) blocks' 2-D one."""
+    from kair_tpu_torch.models import vrt as mvrt
+    with_mask = mvrt.shift_mask_tensor
+    mvrt.shift_mask_tensor = lambda *a: None
+    try:
+        return without_3d_mask(fn)
+    finally:
+        mvrt.shift_mask_tensor = with_mask
+
+
+def phase_rvrt(report: list, card: str) -> None:
+    import numpy as np
+    import torch
+    from kair_tpu_torch.cli.test_video import RVRT_TASKS, build_task
+    from kair_tpu_torch.models import vrt as mvrt
+    from kair_tpu_torch.models.rvrt import RVRT
+    from kair_tpu_torch.ops.blocks import resize_bilinear
+    from kair_tpu_torch.ops.deform_attn import deform_attention
+    from kair_tpu_torch.ops.kernels import gda_block, stl2_block, swin_block
+    from kair_tpu_torch.utils.summary import peak_bf16_tflops, rvrt_flops_per_clip
+
+    tol, tol_res = 2e-2, 5e-2
+    d, s = 8, 64
+    with Phase("19 rvrt") as ph, tempfile.TemporaryDirectory() as tmp:
+        cfg = RVRT_TASKS[RVRT_TASK]
+        sd = rvrt_state_dict(SEED + 19)
+        path = os.path.join(tmp, "rvrt001.pth")
+        torch.save({"params": sd}, path)
+        fwd, sf, ws, _ = build_task(RVRT_TASK, path)
+        model = fwd.model
+        ph.note(f"KAIR {RVRT_TASK} (embed 144, num_blocks (1,2,1), depths "
+                "(2,2,2), 6 heads, window (2,8,8), clip 2, 12 groups = heads) "
+                "from a seeded KAIR state dict (.pth) through cli.test_video."
+                "build_task, bf16 on cuda, SpyNet and the offsets f32; "
+                "conv_offset.10 nonzero: the offsets leave the flows")
+        lr = moving_clip(d, s, s, SEED + 20)
+        xg = torch.from_numpy(lr).cuda()
+        # the main path: every count to 0 just before it, read just after
+        for f, attr in ((swin_block.swin_block_2d, "launches"),
+                        (swin_block.swin_block_2d, "launches_win"),
+                        (stl2_block.stl2_block, "launches"),
+                        (gda_block.gda_fused, "launches")):
+            setattr(f, attr, 0)
+        mvrt.TMSA.composed_calls = 0
+        deform_attention.composed_calls = 0
+        out = fwd(lr)
+        torch.cuda.synchronize()
+        counts = dict(swin=swin_block.swin_block_2d.launches,
+                      swin_win=swin_block.swin_block_2d.launches_win,
+                      stl2=stl2_block.stl2_block.launches,
+                      gda=gda_block.gda_fused.launches,
+                      composed_tmsa=mvrt.TMSA.composed_calls,
+                      composed_deform=deform_attention.composed_calls)
+        ph.note(f"launches in one 1x{d}x{s}x{s} forward: {counts}")
+        require(counts == dict(swin=4, swin_win=0, stl2=64, gda=12,
+                               composed_tmsa=0, composed_deform=0),
+                f"launch counts {counts}")
+        for k in report:
+            k["launches"] = {"stl2_block": counts["stl2"],
+                             "gda_fused": counts["gda"]}.get(k["name"],
+                                                             k["launches"])
+        require(out.shape == (1, d, 4 * s, 4 * s, 3) and np.isfinite(out).all(),
+                f"output {out.shape} or non-finite values")
+
+        cpu = RVRT(**cfg)
+        cpu.load_state_dict(sd, strict=True)
+        cpu.eval()
+        x = torch.from_numpy(lr)
+        with stage_outputs(cpu, RVRT_BRANCHES) as ref_outs, torch.no_grad():
+            ref = cpu(x)
+        with torch.no_grad():
+            control = without_rvrt_masks(lambda: cpu(x))
+        base = resize_bilinear(x.reshape(d, s, s, 3), (4 * s, 4 * s)).reshape(
+            1, d, 4 * s, 4 * s, 3)
+        got = torch.from_numpy(out)
+        with stage_outputs(model, RVRT_BRANCHES) as gpu_outs:
+            fwd(lr)
+        ph.note("error after each branch (its last clip), of its own max: "
+                + ", ".join(f"{n} {compare(gpu_outs[n], ref_outs[n])[1]:.4f}"
+                            for n in ref_outs))
+        check_case(ph, f"1x{d}x{s}x{s} output", got, ref, tol, control)
+        r_abs, r_rel, r_max, _ = compare(got - base, ref - base)
+        c_res = (control - ref).abs().max().item() / r_max
+        ph.note(f"out - base: max_abs {r_abs:.4g} max_rel {r_rel:.4g} (max|ref - "
+                f"base| {r_max:.3g}); mask effect max_rel {c_res:.4g}")
+        require(r_rel <= tol_res, f"out - base max_rel {r_rel:.4g} > {tol_res}")
+        require(c_res > tol_res and c_res > 3 * r_rel,
+                "the dropped-mask control is not above the out - base limit")
+
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: model(xg), warmup=2, reps=10)
+        flops = rvrt_flops_per_clip(d, s, s)
+        peak = peak_bf16_tflops(torch.cuda.get_device_name(0))
+        tflops = flops / (ms / 1e3) / 1e12
+        ph.note(f"ms_per_clip {ms:.2f} (1x{d}x{s}x{s}, CUDA events, median of "
+                f"10 after 2 warm-up), {d * s * s / (ms / 1e3) / 1e6:.4f} LR "
+                f"frame-MP/s, {flops / 1e12:.4f} TFLOP per clip (utils/summary)"
+                f", {tflops:.1f} TFLOP/s, MFU "
+                f"{'n/a' if not peak else f'{tflops / peak:.4f}'} [{card}]")
+
+        def two_clips():
+            with torch.inference_mode():
+                model(xg)
+                model(xg)
+        ph.note(device_breakdown(two_clips, 2, ms, "clip", host=True, top=12))
+        # the CLI's default spatial tile (--tile 40 128 128 on 16 frames)
+        xt = torch.from_numpy(moving_clip(16, 128, 128, SEED + 21)).cuda()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            ms_t = cuda_ms(lambda: model(xt), warmup=1, reps=3)
+        tflops_t = rvrt_flops_per_clip(16, 128, 128) / (ms_t / 1e3) / 1e12
+        ph.note(f"1x16x128x128 tile: {ms_t:.2f} ms (median of 3), "
+                f"{16 * 128 * 128 / (ms_t / 1e3) / 1e6:.4f} LR frame-MP/s, MFU "
+                f"{'n/a' if not peak else f'{tflops_t / peak:.4f}'}; peak "
+                f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -1696,9 +2016,15 @@ def main() -> int:
         lib = _build.library()
         ph.note(f"{_build.library_path().name}: one nvcc call, "
                 f"{len(_build.sources())} sources")
-        for line in _build.build_log().splitlines():
-            if "registers" in line or "spill" in line:
-                ph.note(line.strip())
+        # ptxas -v: one "Used N registers" and one spill line per kernel
+        log_lines = _build.build_log().splitlines()
+        regs = [int(l.split("Used ")[1].split()[0]) for l in log_lines
+                if "Used " in l and "registers" in l]
+        spills = sum(int(l.split("bytes spill stores")[0].split(",")[-1])
+                     for l in log_lines if "bytes spill stores" in l)
+        ph.note(f"ptxas: {len(regs)} kernels, registers {min(regs, default=0)}"
+                f"-{max(regs, default=0)} per thread, {spills} bytes of spill "
+                "stores in all")
         ph.note(f"shared memory per block: conv {lib.kair_conv3x3_shared_bytes(180)} "
                 f"B, swin backward {lib.kair_swin_block_bwd_shared_bytes(180, 6, 368)} B")
         # the wrappers' checks mirror the kernels' layout arithmetic
@@ -1723,6 +2049,11 @@ def main() -> int:
                     f"VRT block shared-memory mirror differs at C={c}")
             ph.note(f"C={c}, {nh} heads, hidden {hp}: TMSA block {tm} B, "
                     f"self block {s6} B (largest pass)")
+        for c, nh, hp in ((144, 6, 288), (192, 6, 384)):
+            st = lib.kair_stl2_block_shared_bytes(c, nh, hp)
+            require(st == win3d_bytes(c, nh, hp, 1),
+                    f"STL2 block shared-memory mirror differs at C={c}")
+            ph.note(f"C={c}, {nh} heads, hidden {hp}: STL2 block {st} B")
         ph.note(f"DCN {lib.kair_dcn_shared_bytes()} B")
 
     phase_swin(report)
@@ -1740,6 +2071,9 @@ def main() -> int:
     phase_self6(report)
     phase_dcn(report)
     phase_vrt(report, card)
+    phase_stl2(report)
+    phase_gda(report)
+    phase_rvrt(report, card)
     faulthandler.cancel_dump_traceback_later()
 
     log(card)

@@ -3,11 +3,12 @@
 
 The port's modules carry KAIR's key names and layouts, so a released
 ``.pth`` loads with ``load_state_dict`` as it is; no conversion is needed in
-that direction. ``swinir_from_jax``, ``vrt_from_jax`` and
-``spynet_from_jax`` go the other way: they turn a JAX parameter tree (numpy
-leaves, the output of ``convert_swinir`` :353, ``convert_vrt`` :486 or
-``convert_spynet`` :426, or a tree the JAX package initialised) back into a
-KAIR state dict, so JAX parameters can be carried across.
+that direction. ``swinir_from_jax``, ``vrt_from_jax``, ``rvrt_from_jax``
+and ``spynet_from_jax`` go the other way: they turn a JAX parameter tree
+(numpy leaves, the output of ``convert_swinir`` :353, ``convert_vrt`` :486,
+``convert_rvrt`` :602 or ``convert_spynet`` :426, or a tree the JAX package
+initialised) back into a KAIR state dict, so JAX parameters can be carried
+across.
 """
 
 from __future__ import annotations
@@ -292,5 +293,75 @@ def vrt_from_jax(variables: Dict[str, Any], window_size=(6, 8, 8),
         for u, up in ups:
             _conv3d(sd, f"upsample.{5 * u}", up["conv"])
         _conv3d(sd, f"upsample.{5 * len(ups)}", p["upsample_tail"]["conv"])
+    _conv3d(sd, "conv_last", p["conv_last"]["conv"])
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# RVRT
+# ---------------------------------------------------------------------------
+
+def _rvrt_input_conv(sd, pre: str, tree: Dict[str, Any], ws) -> None:
+    """A JAX RSTBWithInputConv (``conv_in``, ``norm_in``, ``rstb{i}``,
+    ``norm_out``) → KAIR's ``main.{1,3,5.i,7}``; its STL blocks carry the
+    plain MLP (``mlp.fc1``, ``mlp.fc2``)."""
+    _conv3d(sd, f"{pre}.main.1", tree["conv_in"]["conv"])
+    _ln(sd, f"{pre}.main.3", tree["norm_in"])
+    _ln(sd, f"{pre}.main.7", tree["norm_out"])
+    for i, rstb in _indexed(tree, "rstb"):
+        q = f"{pre}.main.5.{i}"
+        for j, blk in enumerate(_tmsag_blocks(rstb["group"])):
+            b = f"{q}.residual_group.blocks.{j}"
+            a = blk["attn"]
+            _ln(sd, f"{b}.norm1", blk["norm1"])
+            _ln(sd, f"{b}.norm2", blk["norm2"])
+            sd[f"{b}.attn.relative_position_bias_table"] = _t(
+                np.asarray(a["rel_bias_table"]))
+            sd[f"{b}.attn.relative_position_index"] = _t(
+                rel_position_index_3d(*ws).astype(np.int64))
+            sd[f"{b}.attn.qkv_self.weight"] = _t(np.asarray(a["qkv_self_kernel"]).T)
+            if "qkv_self_bias" in a:
+                sd[f"{b}.attn.qkv_self.bias"] = _t(np.asarray(a["qkv_self_bias"]))
+            sd[f"{b}.attn.proj.weight"] = _t(np.asarray(a["proj_kernel"]).T)
+            sd[f"{b}.attn.proj.bias"] = _t(np.asarray(a["proj_bias"]))
+            _dense(sd, f"{b}.mlp.fc1", blk["mlp_fc1"])
+            _dense(sd, f"{b}.mlp.fc2", blk["mlp_fc2"])
+        _dense(sd, f"{q}.linear", rstb["linear"])
+
+
+def rvrt_from_jax(variables: Dict[str, Any], window_size=(2, 8, 8)
+                  ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``kair_tpu.ckpt.torch_convert.convert_rvrt`` (:602): a
+    JAX RVRT parameter tree (scanned STL pairs or per-block leaves) → KAIR
+    state dict with its buffers (``relative_position_index``, SpyNet's
+    ``mean``/``std``). ``window_size`` is the model's; the feature
+    extraction and the reconstruction use its (1, h, w) slice."""
+    p = variables.get("params", variables)
+    ws = tuple(window_size)
+    ws1 = (1,) + ws[1:]
+    sd: Dict[str, torch.Tensor] = {}
+    sd.update(spynet_from_jax(p["spynet"], "spynet."))
+    if "down0" in p:                             # deblurring / denoising head
+        _conv3d(sd, "feat_extract.1", p["down0"]["conv"])
+        _conv3d(sd, "feat_extract.3", p["down1"]["conv"])
+        _rvrt_input_conv(sd, "feat_extract.6", p["feat_extract"], ws1)
+    else:
+        _rvrt_input_conv(sd, "feat_extract", p["feat_extract"], ws1)
+    for module in ("backward_1", "forward_1", "backward_2", "forward_2"):
+        d, pre = p[f"deform_{module}"], f"deform_align.{module}"
+        for i in range(5):
+            _conv3d(sd, f"{pre}.conv_offset.{2 * i}", d[f"off{i}"]["conv"])
+        _conv3d(sd, f"{pre}.conv_offset.10", d["off5"])
+        for ours, theirs in (("proj_q", "proj_q.1"), ("proj_k", "proj_k.1"),
+                             ("proj_v", "proj_v.1"), ("proj", "proj.1"),
+                             ("mlp_fc1", "mlp.1.fc1"), ("mlp_fc2", "mlp.1.fc2")):
+            _dense(sd, f"{pre}.{theirs}", d[ours])
+        _rvrt_input_conv(sd, f"backbone.{module}", p[f"backbone_{module}"], ws)
+    _rvrt_input_conv(sd, "reconstruction", p["reconstruction"], ws1)
+    _conv3d(sd, "conv_before_upsampler.0", p["conv_before_upsampler"]["conv"])
+    ups = _indexed(p, "upsampler")
+    for u, up in ups:
+        _conv3d(sd, f"upsampler.{5 * u}", up["conv"])
+    _conv3d(sd, f"upsampler.{5 * len(ups)}", p["upsampler_tail"]["conv"])
     _conv3d(sd, "conv_last", p["conv_last"]["conv"])
     return sd

@@ -1,19 +1,24 @@
 """Video restoration testing entry (counterpart of
-``kair_tpu/cli/test_video.py``; KAIR main_test_vrt.py:24-157): pick a VRT
-task preset, load the released KAIR ``.pth`` as it is, choose the test
-dataset from the folder name, run temporally and spatially tiled inference
-(``eval/video_test``), report PSNR/SSIM (and on the Y channel).
+``kair_tpu/cli/test_video.py``; KAIR main_test_vrt.py:24-157 and
+main_test_rvrt.py:24-140): pick a VRT or RVRT task preset, load the released
+KAIR ``.pth`` as it is, choose the test dataset from the folder name, run
+temporally and spatially tiled inference (``eval/video_test``), report
+PSNR/SSIM (and on the Y channel).
 
     python -m kair_tpu_torch.cli.test_video \
         --task 001_VRT_videosr_bi_REDS_6frames \
         --model_path model_zoo/vrt/001_VRT_videosr_bi_REDS_6frames.pth \
         --folder_lq testsets/REDS4/sharp_bicubic --folder_gt testsets/REDS4/GT \
         --tile 40 128 128 --tile_overlap 2 20 20
+    python -m kair_tpu_torch.cli.test_video \
+        --task 001_RVRT_videosr_bi_REDS_30frames \
+        --model_path model_zoo/rvrt/001_RVRT_videosr_bi_REDS_30frames.pth \
+        --folder_lq testsets/REDS4/sharp_bicubic --folder_gt testsets/REDS4/GT
 
-Runs on the card in bf16 through the port's kernels (the TMSA and self
-blocks, the DCN) unless ``--device cpu`` (f32, their plain versions);
-``--fuse off`` and ``--deform gather`` take the composed routes, the JAX
-package's XLA routes. The RVRT presets come with the next slice of the port.
+Runs on the card in bf16 through the port's kernels (VRT: the TMSA and self
+blocks, the DCN; RVRT: the STL blocks, the 2-D Swin block, the GDA) unless
+``--device cpu`` (f32, their plain versions); ``--fuse off`` and
+``--deform gather`` take the composed routes, the JAX package's XLA routes.
 """
 
 from __future__ import annotations
@@ -67,36 +72,46 @@ VRT_TASKS = {
         num_heads=(6,) * 11, pa_frames=0, indep_reconsts=()),
 }
 
-# KAIR main_test_rvrt.py:141-198: the next slice of the port
-RVRT_TASKS = (
-    "001_RVRT_videosr_bi_REDS_30frames", "002_RVRT_videosr_bi_Vimeo_14frames",
-    "003_RVRT_videosr_bd_Vimeo_14frames",
-    "004_RVRT_videodeblurring_DVD_16frames",
-    "005_RVRT_videodeblurring_GoPro_16frames",
-    "006_RVRT_videodenoising_DAVIS_16frames")
+# task → RVRT configuration (KAIR main_test_rvrt.py:141-198)
+_RVRT_SR = dict(upscale=4, clip_size=2, window_size=(2, 8, 8),
+                num_blocks=(1, 2, 1), depths=(2, 2, 2),
+                embed_dims=(144, 144, 144), num_heads=(6, 6, 6),
+                inputconv_groups=(1, 1, 1, 1, 1, 1), deformable_groups=12,
+                attention_heads=12)
+_RVRT_DEBLUR = dict(_RVRT_SR, upscale=1, embed_dims=(192, 192, 192),
+                    inputconv_groups=(1, 3, 3, 3, 3, 3))
+RVRT_TASKS = {
+    "001_RVRT_videosr_bi_REDS_30frames": _RVRT_SR,
+    "002_RVRT_videosr_bi_Vimeo_14frames": _RVRT_SR,
+    "003_RVRT_videosr_bd_Vimeo_14frames": _RVRT_SR,
+    "004_RVRT_videodeblurring_DVD_16frames": _RVRT_DEBLUR,
+    "005_RVRT_videodeblurring_GoPro_16frames": _RVRT_DEBLUR,
+    "006_RVRT_videodenoising_DAVIS_16frames": dict(
+        _RVRT_DEBLUR, inputconv_groups=(1, 3, 4, 6, 8, 4),
+        nonblind_denoising=True),
+}
 
 
 def build_task(task: str, model_path: str, device: Optional[str] = None,
                fuse: bool = True, deform: str = "auto"):
-    """(forward, scale, window_size, nonblind) for a task preset. The VRT is
-    loaded from the KAIR ``.pth`` at ``model_path`` (strict) and moved to
-    ``device``: bf16 on the card, which the kernels take, f32 on the CPU
-    (SpyNet stays f32). ``forward`` maps an NDHWC float32 numpy clip to the
-    restored clip; ``forward.model`` is the module."""
+    """(forward, scale, window_size, nonblind) for a task preset. The VRT or
+    RVRT is loaded from the KAIR ``.pth`` at ``model_path`` (strict) and
+    moved to ``device``: bf16 on the card, which the kernels take, f32 on
+    the CPU (SpyNet stays f32). ``forward`` maps an NDHWC float32 numpy clip
+    to the restored clip; ``forward.model`` is the module. ``deform`` is the
+    DCN's route for VRT, the GDA's for RVRT."""
     from kair_tpu_torch.ckpt.torch_convert import load_torch_state_dict
+    from kair_tpu_torch.models.rvrt import RVRT
     from kair_tpu_torch.models.vrt import VRT, cast_for_inference
 
-    if task in RVRT_TASKS:
-        raise NotImplementedError(
-            f"task {task} runs RVRT, which belongs to the next slice of the "
-            "port (ROADMAP Queue 2: stl2_block_pallas and gda_fused)")
-    if task not in VRT_TASKS:
+    if task not in VRT_TASKS and task not in RVRT_TASKS:
         raise KeyError(f"unknown task '{task}'; known tasks: "
-                       f"{sorted(VRT_TASKS) + list(RVRT_TASKS)}")
+                       f"{sorted(VRT_TASKS) + sorted(RVRT_TASKS)}")
     dev = default_device(device)
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    cfg = VRT_TASKS[task]
-    model = VRT(**cfg, fuse_block=fuse, deform_impl=deform)
+    net, cfg = (VRT, VRT_TASKS[task]) if task in VRT_TASKS else \
+        (RVRT, RVRT_TASKS[task])
+    model = net(**cfg, fuse_block=fuse, deform_impl=deform)
     sd = load_torch_state_dict(model_path, "params")
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
                           strict=True)
@@ -156,12 +171,13 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default) or cpu")
     parser.add_argument("--fuse", choices=["on", "off"], default="on",
-                        help="the TMSA and self block kernels (on) or the "
-                             "composed blocks (off)")
+                        help="the window block kernels (on) or the composed "
+                             "blocks (off)")
     parser.add_argument("--deform", choices=["auto", "fused", "gather", "mxu"],
                         default="auto",
-                        help="DCN route: the kernel (fused; auto on the card) "
-                             "or the composed gather")
+                        help="VRT's DCN or RVRT's GDA route: the kernel "
+                             "(fused; auto on the card) or the composed "
+                             "gather")
     parser.add_argument("--save_result", action="store_true")
     parser.add_argument("--results", type=str, default="results")
     args = parser.parse_args(argv)

@@ -1,8 +1,10 @@
-// VRT's 3-D window transformer blocks, inference, bf16 (sm_90a): the TMSA
-// mutual block on (2,8,8) windows (C entry kair_tmsa_block) and the
-// self-attention + GEGLU block on (wd,8,8) windows, wd in {6, 2, 1}
-// (kair_self6_block). Both run the same three passes, compiled here once
-// for each kind of block (template argument M, mutual):
+// The 3-D window transformer blocks of VRT and RVRT, inference, bf16
+// (sm_90a): VRT's TMSA mutual block on (2,8,8) windows (C entry
+// kair_tmsa_block), VRT's self-attention + GEGLU block on (wd,8,8) windows,
+// wd in {6, 2, 1} (kair_self6_block), and RVRT's self-only STL block on
+// (2,8,8) windows with a plain GELU MLP (kair_stl2_block). All three run the
+// same three passes, compiled here once for each kind of block (template
+// argument KIND: kTmsa, kSelf, kStl2):
 //
 // kair_tmsa_block replaces kair_tpu/ops/pallas/tmsa_block.py ::
 // tmsa_block_pallas (the pl.pallas_call of _impl, body _kernel):
@@ -24,6 +26,15 @@
 //   Block: x1 = x + proj(W-MSA(LN1(x)))   (3-D rel-pos bias, shift mask)
 //          out = x1 + fc2(GELU(fc11(LN2(x1))) * fc12(LN2(x1)))
 //
+// kair_stl2_block replaces kair_tpu/ops/pallas/stl_block.py ::
+// stl2_block_pallas (the pl.pallas_call of _impl, body _stl2_kernel): the
+// STL blocks of RVRT's four propagation backbones (network_rvrt.py:337-358),
+// the self block at wd 2 with KAIR's plain Mlp:
+//   Block: x1 = x + proj(W-MSA(LN1(x)))   (3-D rel-pos bias, shift mask)
+//          out = x1 + fc2(GELU(fc1(LN2(x1))))
+// Passes 1 and 2 are the self block's; pass 3 runs one product, fc1, with
+// the exact GELU in its epilogue, in place of the GEGLU's two.
+//
 // The passes, launched in order on one stream by each C entry:
 //
 //   pass 1  ln_qkv     per 64-pixel tile: LN1 (affine applied), the qkv
@@ -34,8 +45,9 @@
 //                      relative-position bias gathered from the table and the
 //                      0/-100 shift mask built from per-token region labels;
 //                      the head's output to a second scratch map
-//   pass 3  proj_mlp   per 64-pixel tile: proj + residual (f32), LN2, GEGLU
-//                      (fc11, fc12, exact GELU), fc2 + residual → out
+//   pass 3  proj_mlp   per 64-pixel tile: proj + residual (f32), LN2, the
+//                      MLP (GEGLU: fc11, fc12, exact GELU; plain: fc1, exact
+//                      GELU), fc2 + residual → out
 //
 // Passes 1 and 3 are per token, so they run over the map in memory order;
 // only pass 2 sees windows. The block's cyclic shift (sd, sh, sw) is folded
@@ -55,21 +67,24 @@
 // and PV over 128 keys, mutual over 64, a 2C x C proj, GEGLU) against 480
 // bytes of activations in and out, ~1,030 FLOP/byte; at stage 8 the self
 // block (C=180, wd 6, hidden 360) about 920 kFLOP per token against 720
-// bytes, ~1,280 FLOP/byte. Both are bound by tensor-core operations (about
-// 12 and 23 us for 1x6x64x64 at 989 TFLOP/s). What the design does about
-// it: every product runs on the tensor cores in bf16 with f32 sums, the
-// scores never leave shared memory, and the shift costs no copy. Its cost:
-// q/k/v and the attention output make one round trip through device memory
-// between the passes. WMMA, not wgmma/TMA: the simple first version
+// bytes, ~1,280 FLOP/byte; RVRT-001's STL2 block (C=144, hidden 288) about
+// 406 kFLOP per token against 576 bytes, ~700 FLOP/byte. All are bound by
+// tensor-core operations (about 12, 23 and 3.4 us for their calls at
+// 1x6x64x64, 1x6x64x64 and 1x2x64x64 at 989 TFLOP/s). What the design does
+// about it: every product runs on the tensor cores in bf16 with f32 sums,
+// the scores never leave shared memory, and the shift costs no copy. Its
+// cost: q/k/v and the attention output make one round trip through device
+// memory between the passes. WMMA, not wgmma/TMA: the simple first version
 // (PERF.md).
 //
 // Layouts (prepared on the host, ops/kernels/win3d.py): wqkv [CP][NH*96]
 // bf16, per head [q|k|v] 32 columns each (head dim zero-padded, the q scale
 // folded in); wp [P*NH*32][CP] bf16 with the mutual heads' rows first
-// (KAIR's proj input is [mut | self]); w11, w12 [CP][HP], w2 [HP][CP] bf16;
-// biases and LN parameters f32; the rel-pos table ((2*twd-1)*15*15, NH) f32
-// as the model keeps it; labels [8][wd*64] int32. P = 2 for the mutual block
-// (self and mutual branches), 1 for self-only.
+// (KAIR's proj input is [mut | self]); w11, w12 [CP][HP] (w11 is fc1 of the
+// plain MLP, w12 unused), w2 [HP][CP] bf16; biases and LN parameters f32;
+// the rel-pos table ((2*twd-1)*15*15, NH) f32 as the model keeps it; labels
+// [8][wd*64] int32. P = 2 for the mutual block (self and mutual branches), 1
+// for self-only.
 #include "common.cuh"
 
 namespace kair {
@@ -80,6 +95,13 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 8;                      // bf16 row padding (16 bytes)
 constexpr int kSmemLimit = 232448;           // H100 opt-in bytes per block
 constexpr float kNegBig = -1e30f;
+
+// The kinds of block: which passes' branches a kernel is compiled with.
+enum Kind { kTmsa, kSelf, kStl2 };
+template <int K> struct KindOf {
+  static constexpr bool mutual = K == kTmsa;   // the mutual branch
+  static constexpr bool gated = K != kStl2;    // GEGLU, else the plain MLP
+};
 
 struct Args {
   const bf16* x;
@@ -97,7 +119,7 @@ struct Args {
   const float* bp;
   const bf16* w11;
   const float* b11;
-  const bf16* w12;
+  const bf16* w12;         // GEGLU only
   const float* b12;
   const bf16* w2;
   const float* b2;
@@ -172,8 +194,9 @@ __device__ void layernorm_affine64(Row row, int C, const float* ln, bf16* dst, i
 }
 
 // ---- pass 1: LN1 → qkv (and LN1 + pos → qkv_mut) ------------------------------
-template <bool M>
+template <int KIND>
 __device__ __forceinline__ void ln_qkv(const Args& a) {
+  constexpr bool M = KindOf<KIND>::mutual;
   extern __shared__ __align__(128) unsigned char smem[];
   const int C = a.C, CP = round16(C), NH = a.NH;
   const QkvSmem L(C);
@@ -213,8 +236,9 @@ __device__ __forceinline__ void ln_qkv(const Args& a) {
 }
 
 // ---- pass 2: windowed attention, one (window, head, 64-query tile) per block ----
-template <bool M>
+template <int KIND>
 __device__ __forceinline__ void attention(const Args& a) {
+  constexpr bool M = KindOf<KIND>::mutual;
   extern __shared__ __align__(128) unsigned char smem[];
   const AttnSmem L;
   bf16* Q = reinterpret_cast<bf16*>(smem + L.q);
@@ -339,9 +363,10 @@ __device__ __forceinline__ void attention(const Args& a) {
   }
 }
 
-// ---- pass 3: proj + residual, LN2, GEGLU, fc2 + residual -----------------------
-template <bool M>
+// ---- pass 3: proj + residual, LN2, GEGLU or plain MLP, fc2 + residual ----------
+template <int KIND>
 __device__ __forceinline__ void proj_mlp(const Args& a) {
+  constexpr bool M = KindOf<KIND>::mutual;
   extern __shared__ __align__(128) unsigned char smem[];
   const int C = a.C, CP = round16(C), NH = a.NH, HP = a.HP;
   const int PA = (M ? 2 : 1) * NH * 32;
@@ -372,13 +397,22 @@ __device__ __forceinline__ void proj_mlp(const Args& a) {
   layernorm_affine64(x1row, C, a.ln2, hbuf, L.la);
   __syncthreads();
   const float* b11 = a.b11;
-  const float* b12 = a.b12;
-  auto geglu_epi = [&](int r, int c, float u, float g) {
-    u += b11[c];
-    hid[r * L.lh + c] = __float2bfloat16(
-        0.5f * u * (1.f + erff(u * 0.70710678118654752f)) * (g + b12[c]));
-  };
-  gemm_m64_dual<kWarps>(hbuf, L.la, a.w11, a.w12, HP, CP / 16, HP / 16, stage, geglu_epi);
+  if constexpr (KindOf<KIND>::gated) {
+    const float* b12 = a.b12;
+    auto geglu_epi = [&](int r, int c, float u, float g) {
+      u += b11[c];
+      hid[r * L.lh + c] = __float2bfloat16(
+          0.5f * u * (1.f + erff(u * 0.70710678118654752f)) * (g + b12[c]));
+    };
+    gemm_m64_dual<kWarps>(hbuf, L.la, a.w11, a.w12, HP, CP / 16, HP / 16, stage,
+                          geglu_epi);
+  } else {                                          // fc1 → exact GELU
+    auto gelu_epi = [&](int r, int c, float u) {
+      u += b11[c];
+      hid[r * L.lh + c] = __float2bfloat16(0.5f * u * (1.f + erff(u * 0.70710678118654752f)));
+    };
+    gemm_m64<kWarps>(hbuf, L.la, a.w11, HP, CP / 16, HP / 16, stage, gelu_epi);
+  }
   __syncthreads();
   bf16* out = a.out + p0 * C;
   const float* b2 = a.b2;
@@ -390,14 +424,17 @@ __device__ __forceinline__ void proj_mlp(const Args& a) {
 
 
 // One kernel per pass and kind of block, so a profile tells them apart.
-#define KAIR_WIN3D_PASS(name, pass, M)                                      \
-  __global__ void __launch_bounds__(kThreads) name(Args a) { pass<M>(a); }
-KAIR_WIN3D_PASS(tmsa_ln_qkv_kernel, ln_qkv, true)
-KAIR_WIN3D_PASS(tmsa_attention_kernel, attention, true)
-KAIR_WIN3D_PASS(tmsa_proj_mlp_kernel, proj_mlp, true)
-KAIR_WIN3D_PASS(self_ln_qkv_kernel, ln_qkv, false)
-KAIR_WIN3D_PASS(self_attention_kernel, attention, false)
-KAIR_WIN3D_PASS(self_proj_mlp_kernel, proj_mlp, false)
+#define KAIR_WIN3D_PASS(name, pass, KIND)                                   \
+  __global__ void __launch_bounds__(kThreads) name(Args a) { pass<KIND>(a); }
+KAIR_WIN3D_PASS(tmsa_ln_qkv_kernel, ln_qkv, kTmsa)
+KAIR_WIN3D_PASS(tmsa_attention_kernel, attention, kTmsa)
+KAIR_WIN3D_PASS(tmsa_proj_mlp_kernel, proj_mlp, kTmsa)
+KAIR_WIN3D_PASS(self_ln_qkv_kernel, ln_qkv, kSelf)
+KAIR_WIN3D_PASS(self_attention_kernel, attention, kSelf)
+KAIR_WIN3D_PASS(self_proj_mlp_kernel, proj_mlp, kSelf)
+KAIR_WIN3D_PASS(stl2_ln_qkv_kernel, ln_qkv, kStl2)
+KAIR_WIN3D_PASS(stl2_attention_kernel, attention, kStl2)
+KAIR_WIN3D_PASS(stl2_proj_mlp_kernel, proj_mlp, kStl2)
 #undef KAIR_WIN3D_PASS
 
 int shared_bytes(int C, int NH, int HP, int P) {
@@ -407,14 +444,17 @@ int shared_bytes(int C, int NH, int HP, int P) {
 typedef void (*PassKernel)(Args);
 
 // The three passes in order on one stream; returns the first CUDA error.
-int launch(const Args& a, bool mutual, void* stream) {
+int launch(const Args& a, Kind kind, void* stream) {
+  const bool mutual = kind == kTmsa;
   const int P = mutual ? 2 : 1;
   const int s1 = QkvSmem(a.C).total, s2 = AttnSmem().total;
   const int s3 = MlpSmem(a.C, a.NH, a.HP, P).total;
   if (imax(imax(s1, s2), s3) > kSmemLimit) return (int)cudaErrorInvalidConfiguration;
-  const PassKernel k1 = mutual ? tmsa_ln_qkv_kernel : self_ln_qkv_kernel;
-  const PassKernel k2 = mutual ? tmsa_attention_kernel : self_attention_kernel;
-  const PassKernel k3 = mutual ? tmsa_proj_mlp_kernel : self_proj_mlp_kernel;
+  static const PassKernel passes[3][3] = {
+      {tmsa_ln_qkv_kernel, tmsa_attention_kernel, tmsa_proj_mlp_kernel},
+      {self_ln_qkv_kernel, self_attention_kernel, self_proj_mlp_kernel},
+      {stl2_ln_qkv_kernel, stl2_attention_kernel, stl2_proj_mlp_kernel}};
+  const PassKernel k1 = passes[kind][0], k2 = passes[kind][1], k3 = passes[kind][2];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if ((e = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, s1)) ||
@@ -441,6 +481,10 @@ extern "C" int kair_tmsa_block_shared_bytes(int C, int NH, int HP) {
 }
 
 extern "C" int kair_self6_block_shared_bytes(int C, int NH, int HP) {
+  return win3d::shared_bytes(C, NH, HP, 1);
+}
+
+extern "C" int kair_stl2_block_shared_bytes(int C, int NH, int HP) {
   return win3d::shared_bytes(C, NH, HP, 1);
 }
 
@@ -482,7 +526,7 @@ extern "C" int kair_tmsa_block(const void* x, void* out, void* qkv, void* att,
   a.labels = static_cast<const int*>(labels);
   a.B = B; a.D = D; a.H = H; a.W = W; a.C = C; a.NH = NH; a.HP = HP;
   a.wd = 2; a.twd = 2; a.sd = sd; a.sh = sh; a.sw = sw;
-  return win3d::launch(a, true, stream);
+  return win3d::launch(a, win3d::kTmsa, stream);
 }
 
 // x, out, qkv scratch [T][NH*96], att scratch [T][NH*32], wqkv, bqkv, ln1,
@@ -522,5 +566,44 @@ extern "C" int kair_self6_block(const void* x, void* out, void* qkv, void* att,
   a.labels = static_cast<const int*>(labels);
   a.B = B; a.D = D; a.H = H; a.W = W; a.C = C; a.NH = NH; a.HP = HP;
   a.wd = wd; a.twd = twd; a.sd = sd; a.sh = sh; a.sw = sw;
-  return win3d::launch(a, false, stream);
+  return win3d::launch(a, win3d::kSelf, stream);
+}
+
+// x, out, qkv scratch [T][NH*96], att scratch [T][NH*32], wqkv, bqkv, ln1,
+// ln2, wp [NH*32][CP], bp, w1 [CP][HP], b1, w2 [HP][CP], b2,
+// rel_table [(2*twd-1)*225][NH], labels [8][128] or null;
+// B, D, H, W, C, NH, HP, twd, sd, sh, sw, stream
+extern "C" int kair_stl2_block(const void* x, void* out, void* qkv, void* att,
+                               const void* wqkv, const void* bqkv, const void* ln1,
+                               const void* ln2, const void* wp, const void* bp,
+                               const void* w1, const void* b1, const void* w2,
+                               const void* b2, const void* rel_table, const void* labels,
+                               int B, int D, int H, int W, int C, int NH, int HP, int twd,
+                               int sd, int sh, int sw, void* stream) {
+  if (twd < 2 || D % 2 || H % 8 || W % 8) return (int)cudaErrorInvalidValue;
+  win3d::Args a;
+  a.x = static_cast<const bf16*>(x);
+  a.out = static_cast<bf16*>(out);
+  a.qkv = static_cast<bf16*>(qkv);
+  a.att = static_cast<bf16*>(att);
+  a.wqkv_s = static_cast<const bf16*>(wqkv);
+  a.bqkv_s = static_cast<const float*>(bqkv);
+  a.wqkv_m = nullptr;
+  a.bqkv_m = nullptr;
+  a.pos = nullptr;
+  a.ln1 = static_cast<const float*>(ln1);
+  a.ln2 = static_cast<const float*>(ln2);
+  a.wp = static_cast<const bf16*>(wp);
+  a.bp = static_cast<const float*>(bp);
+  a.w11 = static_cast<const bf16*>(w1);
+  a.b11 = static_cast<const float*>(b1);
+  a.w12 = nullptr;
+  a.b12 = nullptr;
+  a.w2 = static_cast<const bf16*>(w2);
+  a.b2 = static_cast<const float*>(b2);
+  a.rel_table = static_cast<const float*>(rel_table);
+  a.labels = static_cast<const int*>(labels);
+  a.B = B; a.D = D; a.H = H; a.W = W; a.C = C; a.NH = NH; a.HP = HP;
+  a.wd = 2; a.twd = twd; a.sd = sd; a.sh = sh; a.sw = sw;
+  return win3d::launch(a, win3d::kStl2, stream);
 }

@@ -2,8 +2,8 @@
 ``kair_tpu/models/registry.py``; reference models/select_network.py:16-274).
 
 Keyed by the same ``net_type`` strings and hyper-parameter keys as the
-reference option files. The port builds SwinIR and VRT so far; every other
-network raises NotImplementedError naming the slice that brings it.
+reference option files. The port builds SwinIR, VRT and RVRT so far; every
+other network raises NotImplementedError naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ LATER_SLICES = {
     "msrresnet0": "CNN zoo", "msrresnet1": "CNN zoo", "rrdb": "CNN zoo",
     "rrdbnet": "CNN zoo", "rrdbnet_no_up": "CNN zoo", "imdn": "CNN zoo",
     "drunet": "CNN zoo", "usrnet": "CNN zoo",
-    "rvrt": "video", "spynet": "video",
+    "spynet": "video",
 }
 
 
@@ -72,6 +72,26 @@ def define_g(opt: dict) -> nn.Module:
                                                 False)),
                    fuse_block=bool(_get(o, "fuse_block", True)),
                    deform_impl=_get(o, "deform_impl", "auto"))
+    if t == "rvrt":
+        from kair_tpu_torch.models.rvrt import RVRT
+        # as for VRT: fuse_block absent or true, the STL block kernels;
+        # deform_impl absent, "auto" (the GDA kernel on the card)
+        return RVRT(upscale=_get(o, "upscale", 4),
+                    clip_size=_get(o, "clip_size", 2),
+                    window_size=tuple(_get(o, "window_size", [2, 8, 8])),
+                    num_blocks=tuple(_get(o, "num_blocks", [1, 2, 1])),
+                    depths=tuple(_get(o, "depths", [2, 2, 2])),
+                    embed_dims=tuple(_get(o, "embed_dims", [144, 144, 144])),
+                    num_heads=tuple(_get(o, "num_heads", [6, 6, 6])),
+                    inputconv_groups=tuple(_get(o, "inputconv_groups",
+                                                [1] * 6)),
+                    deformable_groups=_get(o, "deformable_groups", 12),
+                    attention_heads=_get(o, "attention_heads", 12),
+                    attention_window=tuple(_get(o, "attention_window", [3, 3])),
+                    nonblind_denoising=bool(_get(o, "nonblind_denoising",
+                                                 False)),
+                    fuse_block=bool(_get(o, "fuse_block", True)),
+                    deform_impl=_get(o, "deform_impl", "auto"))
     if t in LATER_SLICES:
         raise NotImplementedError(
             f"netG [{t}] belongs to the {LATER_SLICES[t]} slice of the port, "

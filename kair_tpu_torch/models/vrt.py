@@ -12,14 +12,16 @@ released ``.pth`` loads with ``load_state_dict(strict=True)``.
 Inference with ``fuse_block`` (the default) mirrors the JAX package's
 ``TMSA.__call__`` dispatch: a mutual block on (2, 8, 8) windows that tile
 the clip runs ``tmsa_block``; a self-only block on (wd, 8, 8) windows with
-wd dividing D runs ``self6_block``; each with its cyclic shift folded into
-the kernel's indices. On a CUDA tensor those are the hand-written kernels,
-on a CPU tensor their plain versions. Any other geometry (or
-``fuse_block=False``, or training) takes the composed block of
-``ops/window3d.py``; on the card each such call adds one to
-``TMSA.composed_calls``. The flow-guided deformable alignment runs
-``ops/warp.modulated_deform_conv`` with ``deform_impl`` ("auto": the DCN
-kernel on the card).
+wd dividing D runs ``self6_block``; RVRT's self-only blocks with a plain
+MLP (``geglu=False``) run ``stl2_block`` on (2, 8, 8) windows and the 2-D
+``swin_block_2d`` on (1, 8, 8) ones (per-frame windows: the frames fold
+into the batch); each with its cyclic shift folded into the kernel's
+indices. On a CUDA tensor those are the hand-written kernels, on a CPU
+tensor their plain versions. Any other geometry (or ``fuse_block=False``,
+or training) takes the composed block of ``ops/window3d.py``; on the card
+each such call adds one to ``TMSA.composed_calls``. The flow-guided
+deformable alignment runs ``ops/warp.modulated_deform_conv`` with
+``deform_impl`` ("auto": the DCN kernel on the card).
 
 SpyNet, the flows and the deformable offsets stay in f32 whatever the
 model's type (``cast_for_inference``): a bf16 flow of 20 px is off by up to
@@ -40,7 +42,12 @@ from kair_tpu_torch.models.spynet import SpyNet
 from kair_tpu_torch.ops.blocks import pixel_shuffle, resize_bilinear
 from kair_tpu_torch.ops.kernels.dcn_block import pack_dcn_weight
 from kair_tpu_torch.ops.kernels.self6_block import self6_block
+from kair_tpu_torch.ops.kernels.stl2_block import stl2_block
+from kair_tpu_torch.ops.kernels.swin_block import (SwinBlockParams,
+                                                    pack_swin_block,
+                                                    swin_block_2d)
 from kair_tpu_torch.ops.kernels.tmsa_block import tmsa_block
+from kair_tpu_torch.ops.kernels.window_msa import shift_mask_tensor
 from kair_tpu_torch.ops.kernels.win3d import pack_win3d
 from kair_tpu_torch.ops.warp import flow_warp, modulated_deform_conv
 from kair_tpu_torch.ops.window3d import (Tmsa3dParams, compute_mask_3d,
@@ -62,16 +69,19 @@ def nhwc_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 
 class FrameConv(nn.Conv3d):
     """KAIR's Conv3d with a (1, kh, kw) kernel: a 2-D conv on every frame of
-    (B, D, H, W, C); the weight keeps its (O, I, 1, kh, kw) shape."""
+    (B, D, H, W, C); the weight keeps its (O, I/groups, 1, kh, kw) shape."""
 
-    def __init__(self, cin: int, cout: int, k: int = 3):
-        super().__init__(cin, cout, (1, k, k), padding=(0, k // 2, k // 2))
+    def __init__(self, cin: int, cout: int, k: int = 3, stride: int = 1,
+                 groups: int = 1):
+        super().__init__(cin, cout, (1, k, k), (1, stride, stride),
+                         padding=(0, k // 2, k // 2), groups=groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, d, h, w, c = x.shape
         y = F.conv2d(x.reshape(b * d, h, w, c).permute(0, 3, 1, 2),
-                     self.weight[:, :, 0], self.bias, 1, self.padding[1:])
-        return y.permute(0, 2, 3, 1).reshape(b, d, h, w, -1)
+                     self.weight[:, :, 0], self.bias, self.stride[1:],
+                     self.padding[1:], 1, self.groups)
+        return y.permute(0, 2, 3, 1).reshape(b, d, *y.shape[2:], -1)
 
 
 class _Packed:
@@ -102,6 +112,18 @@ class GEGLU(nn.Module):
                      self.fc12.bias, self.fc2.weight, self.fc2.bias)
 
 
+class Mlp(nn.Module):
+    """KAIR Mlp (``network_rvrt.py:443-463``): fc2(GELU(fc1(x)))."""
+
+    def __init__(self, cin: int, hidden: int, cout: int):
+        super().__init__()
+        self.fc1 = nn.Linear(cin, hidden)
+        self.fc2 = nn.Linear(hidden, cout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
 class WindowAttention3D(nn.Module):
     """KAIR WindowAttention (:588-686): parameters and buffers only; the
     computation is ``ops/window3d.window_attention_3d`` or a kernel."""
@@ -124,54 +146,75 @@ class WindowAttention3D(nn.Module):
 
 
 class TMSA(_Packed, nn.Module):
-    """One (shifted) 3-D window block (KAIR :728-850)."""
+    """One (shifted) 3-D window block (KAIR :728-850); ``geglu=False`` is
+    RVRT's STL, self-only with KAIR's plain Mlp (``network_rvrt.py:
+    337-358``)."""
 
     composed_calls = 0          # card calls of the composed route
 
     def __init__(self, dim: int, num_heads: int, window_size=(6, 8, 8),
                  shift_size=(0, 0, 0), mut_attn: bool = True,
                  mlp_ratio: float = 2.0, qkv_bias: bool = True,
-                 fuse_block: bool = True):
+                 fuse_block: bool = True, geglu: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.window_size = tuple(window_size)
         self.shift_size = tuple(shift_size)
         self.mut_attn = mut_attn
         self.fuse_block = fuse_block
+        self.geglu = geglu
         self.norm1 = nn.LayerNorm(dim)
         self.attn = WindowAttention3D(dim, window_size, num_heads, qkv_bias,
                                       mut_attn)
         self.norm2 = nn.LayerNorm(dim)
-        self.mlp = GEGLU(dim, int(dim * mlp_ratio), dim)
+        hidden = int(dim * mlp_ratio)
+        self.mlp = GEGLU(dim, hidden, dim) if geglu else Mlp(dim, hidden, dim)
 
     def params(self) -> Tmsa3dParams:
         a, m = self.attn, self.mlp
         mut = self.mut_attn
+        fc1, fc12 = (m.fc11, m.fc12) if self.geglu else (m.fc1, None)
         return Tmsa3dParams(
             a.qkv_self.weight, a.qkv_self.bias,
             a.qkv_mut.weight if mut else None, a.qkv_mut.bias if mut else None,
             a.proj.weight, a.proj.bias, a.relative_position_bias_table,
             a.position_bias[0] if mut else None,
             self.norm1.weight, self.norm1.bias, self.norm2.weight,
-            self.norm2.bias, m.fc11.weight, m.fc11.bias, m.fc12.weight,
-            m.fc12.bias, m.fc2.weight, m.fc2.bias)
+            self.norm2.bias, fc1.weight, fc1.bias,
+            None if fc12 is None else fc12.weight,
+            None if fc12 is None else fc12.bias, m.fc2.weight, m.fc2.bias)
 
-    def kernel_route(self, d: int, h: int, w: int, ws) -> Optional[str]:
-        """The kernel that takes this geometry ("tmsa", "self6") or None,
-        as ``kair_tpu/models/vrt.py TMSA.__call__`` (:318-352) decides."""
+    def kernel_route(self, d: int, h: int, w: int, ws, ss=(0, 0, 0)
+                     ) -> Optional[str]:
+        """The kernel that takes this geometry ("tmsa", "self6", "stl2",
+        "stl1") or None, as ``kair_tpu/models/vrt.py TMSA.__call__``
+        (:318-352) decides. The JAX package's (1, 8, 8) conditions W%16 == 0
+        and W <= strip_w_max(C) are the TPU strip kernel's VMEM limits and
+        have no counterpart here; the 2-D kernel takes one shift for both
+        axes, so (1, 8, 8) needs the h and w shifts equal, and one 8x8
+        table, so a block whose own window is one frame deep."""
         if not self.fuse_block or self.training or h % 8 or w % 8:
             return None
-        if self.mut_attn and tuple(ws) == (2, 8, 8) and d % 2 == 0:
-            return "tmsa"
-        if not self.mut_attn and tuple(ws[1:]) == (8, 8) and d % ws[0] == 0:
-            return "self6"
+        if self.mut_attn:
+            return "tmsa" if self.geglu and tuple(ws) == (2, 8, 8) \
+                and d % 2 == 0 else None
+        if self.geglu:
+            return "self6" if tuple(ws[1:]) == (8, 8) and d % ws[0] == 0 \
+                else None
+        if tuple(ws) == (2, 8, 8) and d % 2 == 0:
+            return "stl2"
+        if self.window_size == (1, 8, 8) and tuple(ws) == (1, 8, 8) \
+                and ss[1] == ss[2]:
+            return "stl1"
         return None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, d, h, w, c = x.shape
         ws, ss = get_window_size((d, h, w), self.window_size, self.shift_size)
         p = self.params()
-        route = self.kernel_route(d, h, w, ws)
+        route = self.kernel_route(d, h, w, ws, ss)
+        if route == "stl1":
+            return self._stl1(x, p, ss[1])
         pk = (self.packed(lambda: pack_win3d(p, self.num_heads))
               if route and x.is_cuda else None)
         if route == "tmsa":
@@ -179,9 +222,32 @@ class TMSA(_Packed, nn.Module):
         if route == "self6":
             return self6_block(x.contiguous(), p, self.num_heads, ws[0], ss,
                                packed=pk)
+        if route == "stl2":
+            return stl2_block(x.contiguous(), p, self.num_heads, ss, packed=pk)
         if x.is_cuda:
             TMSA.composed_calls += 1
         return tmsa_composed(x, p, self.num_heads, ws, ss)
+
+    def _stl1(self, x: torch.Tensor, p: Tmsa3dParams, shift: int
+              ) -> torch.Tensor:
+        """A (1, 8, 8) STL block as the 2-D Swin block on (B·D, H, W, C), at
+        phase = the (h, w) shift, with the block's 3-D table:
+        ``rel_position_index_3d(1, 8, 8)`` is the 2-D index. The kernel
+        writes the block in its rolled coordinates; one roll puts it
+        back."""
+        b, d, h, w, c = x.shape
+        sp = SwinBlockParams(
+            p.qkv_self_weight, p.qkv_self_bias, p.proj_weight, p.proj_bias,
+            p.rel_table, p.norm1_weight, p.norm1_bias, p.norm2_weight,
+            p.norm2_bias, p.fc11_weight, p.fc11_bias, p.fc2_weight, p.fc2_bias)
+        pk = (self.packed(lambda: pack_swin_block(sp, self.num_heads))
+              if x.is_cuda else None)
+        mask = shift_mask_tensor(h, w, 8, shift, x.device)
+        y = swin_block_2d(x.reshape(b * d, h, w, c).contiguous(), sp,
+                          self.num_heads, mask, shift, packed=pk)
+        if shift:
+            y = torch.roll(y, (shift, shift), (1, 2))
+        return y.reshape(b, d, h, w, c)
 
 
 class TMSAG(nn.Module):
@@ -190,13 +256,14 @@ class TMSAG(nn.Module):
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size,
                  shift_size=None, mut_attn: bool = True, mlp_ratio: float = 2.0,
-                 qkv_bias: bool = True, fuse_block: bool = True):
+                 qkv_bias: bool = True, fuse_block: bool = True,
+                 geglu: bool = True):
         super().__init__()
         ss = (tuple(i // 2 for i in window_size) if shift_size is None
               else tuple(shift_size))
         self.blocks = nn.ModuleList([
             TMSA(dim, num_heads, window_size, (0, 0, 0) if i % 2 == 0 else ss,
-                 mut_attn, mlp_ratio, qkv_bias, fuse_block)
+                 mut_attn, mlp_ratio, qkv_bias, fuse_block, geglu)
             for i in range(depth)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -619,10 +686,11 @@ class VRT(nn.Module):
 
 def cast_for_inference(model: nn.Module, device, dtype: torch.dtype
                        ) -> nn.Module:
-    """Move a VRT to ``device`` in ``dtype`` for inference, SpyNet in f32:
-    its weights go straight to f32 on the device, never through ``dtype``
-    (bf16-rounded SpyNet weights moved the flows by up to 3e-3 px, enough
-    to flip the nearest-pixel pre-warp where a flow is near an integer)."""
+    """Move a VRT or RVRT to ``device`` in ``dtype`` for inference, SpyNet
+    in f32: its weights go straight to f32 on the device, never through
+    ``dtype`` (bf16-rounded SpyNet weights moved the flows by up to 3e-3
+    px, enough to flip the nearest-pixel pre-warp where a flow is near an
+    integer)."""
     for name, child in model.named_children():
         child.to(device=device,
                  dtype=torch.float32 if name == "spynet" else dtype)

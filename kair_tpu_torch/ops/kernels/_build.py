@@ -74,14 +74,20 @@ SIGNATURES = {
     # w2, b2, rel_table, labels, B, D, H, W, C, NH, HP, wd, twd, sd, sh, sw,
     # stream
     "kair_self6_block": ([_P] * 18 + [_I] * 12 + [_P], _I),
+    # x, out, qkv, att, wqkv, bqkv, ln1, ln2, wp, bp, w1, b1, w2, b2,
+    # rel_table, labels, B, D, H, W, C, NH, HP, twd, sd, sh, sw, stream
+    "kair_stl2_block": ([_P] * 16 + [_I] * 11 + [_P], _I),
     # x, off, mask, w, bias, out, N, H, W, Cin, Cout, DG, stream
     "kair_dcn": ([_P] * 6 + [_I] * 6 + [_P], _I),
+    # q, k, v, off, out, Bq, frames, clip, H, W, C, DG, kh, kw, stream
+    "kair_gda": ([_P] * 5 + [_I] * 9 + [_P], _I),
     "kair_swin_block_shared_bytes": ([_I] * 3, _I),      # C, NH, HP
     "kair_window_msa_shared_bytes": ([_I] * 2, _I),      # C, NH
     "kair_swin_block_bwd_shared_bytes": ([_I] * 3, _I),  # C, NH, HP
     "kair_conv3x3_shared_bytes": ([_I], _I),             # C
     "kair_tmsa_block_shared_bytes": ([_I] * 3, _I),      # C, NH, HP
     "kair_self6_block_shared_bytes": ([_I] * 3, _I),     # C, NH, HP
+    "kair_stl2_block_shared_bytes": ([_I] * 3, _I),      # C, NH, HP
     "kair_dcn_shared_bytes": ([], _I),
     "kair_error_string": ([_I], ctypes.c_char_p),
 }

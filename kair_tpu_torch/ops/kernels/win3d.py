@@ -1,6 +1,7 @@
-"""Host side of VRT's two window-block kernels (``csrc/window3d_block.cu``):
-the TMSA mutual block (``tmsa_block.py``) and the self-attention (wd, 8, 8)
-block (``self6_block.py``).
+"""Host side of the three window-block kernels (``csrc/window3d_block.cu``):
+VRT's TMSA mutual block (``tmsa_block.py``) and self-attention (wd, 8, 8)
+block (``self6_block.py``), and RVRT's self-only (2, 8, 8) STL block with a
+plain GELU MLP (``stl2_block.py``).
 
 ``pack_win3d`` relays a block's parameters into the kernels' operands,
 ``labels_on`` gives the shift mask as region labels, ``check_geometry``
@@ -35,7 +36,8 @@ STAGE = 256                 # f32 staging floats per warp and tile
 def shared_bytes(c: int, nh: int, hp: int, p: int) -> int:
     """Bytes of shared memory the largest of the three passes asks (the
     QkvSmem / AttnSmem / MlpSmem layouts of csrc/window3d_block.cu); ``p`` = 2
-    for the mutual block, 1 for self-only."""
+    for the mutual block, 1 for self-only (the GEGLU and the plain MLP use
+    one layout)."""
     r16, a128 = _build.round16, _build.align128
     la = r16(c) + 8
     qkv = a128(64 * la * 2) + WARPS * STAGE * 4
@@ -63,10 +65,10 @@ class Win3dPack(NamedTuple):
     ln2: torch.Tensor
     wp: torch.Tensor        # (P*nh*32, CP) bf16, mutual heads first
     bp: torch.Tensor        # (C,) f32
-    w11: torch.Tensor       # (CP, HP) bf16
+    w11: torch.Tensor       # (CP, HP) bf16; fc1 of a plain MLP
     b11: torch.Tensor       # (HP,) f32
-    w12: torch.Tensor
-    b12: torch.Tensor
+    w12: Optional[torch.Tensor]     # None for a plain MLP
+    b12: Optional[torch.Tensor]
     w2: torch.Tensor        # (HP, CP) bf16
     b2: torch.Tensor        # (C,) f32
     rel_table: torch.Tensor     # f32, contiguous
@@ -91,6 +93,7 @@ def _pack(p: Tmsa3dParams, nh: int, dtype: torch.dtype) -> Win3dPack:
     hp = _build.round16(hidden)
     dev, f32 = p.qkv_self_weight.device, torch.float32
     mutual = p.qkv_mut_weight is not None
+    gated = p.fc12_weight is not None
     proj_self = p.proj_weight[:, c:] if mutual else p.proj_weight
     wqkv_s, bqkv_s, wp = pack_qkv_proj(p.qkv_self_weight, p.qkv_self_bias,
                                        proj_self, nh)
@@ -120,7 +123,8 @@ def _pack(p: Tmsa3dParams, nh: int, dtype: torch.dtype) -> Win3dPack:
         ln2=torch.stack([p.norm2_weight, p.norm2_bias]).float().contiguous(),
         wp=wp.to(dtype).contiguous(), bp=p.proj_bias.float().contiguous(),
         w11=mat(p.fc11_weight, cp, hp), b11=vec(p.fc11_bias, hp),
-        w12=mat(p.fc12_weight, cp, hp), b12=vec(p.fc12_bias, hp),
+        w12=mat(p.fc12_weight, cp, hp) if gated else None,
+        b12=vec(p.fc12_bias, hp) if gated else None,
         w2=mat(p.fc2_weight, hp, cp), b2=p.fc2_bias.float().contiguous(),
         rel_table=p.rel_table.float().contiguous(), hp=hp)
 
@@ -142,11 +146,14 @@ def _labels_on(dhw, ws, ss, device: str) -> torch.Tensor:
 
 
 def check_geometry(name: str, x: torch.Tensor, p: Tmsa3dParams,
-                   num_heads: int, wd: int, mutual: bool) -> int:
+                   num_heads: int, wd: int, mutual: bool,
+                   gated: bool = True) -> int:
     """Raise on what the window kernels do not take; returns the table's
     window depth. bf16, contiguous (B, D, H, W, C) with (wd, 8, 8) windows
     tiling it, head dim ≤ 32, a table for 8x8 windows at least wd deep, the
-    mutual block's parameters, and a layout within the card's opt-in limit."""
+    parameters of the kernel's kind of block (mutual or not, GEGLU
+    (``gated``) or plain MLP), and a layout within the card's opt-in
+    limit."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name} kernel takes bfloat16, got {x.dtype}")
     if x.dim() != 5 or not x.is_contiguous():
@@ -167,8 +174,9 @@ def check_geometry(name: str, x: torch.Tensor, p: Tmsa3dParams,
         raise ValueError(f"{name} needs a relative position table for 8x8 "
                          f"windows at least {wd} deep and {num_heads} heads, "
                          f"got {tuple(p.rel_table.shape)}")
-    if mutual != (p.qkv_mut_weight is not None) or (
-            mutual and tuple(p.proj_weight.shape) != (c, 2 * c)):
+    if (mutual != (p.qkv_mut_weight is not None)
+            or gated != (p.fc12_weight is not None)
+            or (mutual and tuple(p.proj_weight.shape) != (c, 2 * c))):
         raise ValueError(f"{name}: parameters of the wrong kind of block")
     hp = _build.round16(p.fc11_weight.shape[0])
     smem = shared_bytes(c, num_heads, hp, 2 if mutual else 1)

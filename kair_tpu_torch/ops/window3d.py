@@ -4,10 +4,13 @@ Counterpart of ``kair_tpu/models/vrt.py:48-393``: the numpy geometry
 (``get_window_size``, ``compute_mask_3d``, ``compute_mask_labels_3d``,
 ``rel_position_index_3d``, ``sine_position_encoding``), window partition and
 reverse on (B, D, H, W, C), and the composed TMSA block (LN1 → joint self +
-mutual window attention → residual → LN2 → GEGLU → residual) as KAIR
-computes it (``network_vrt.py:588-850``). ``models/vrt.py`` runs the composed
-block for a geometry that no kernel takes; the kernels' plain versions
-(``ops/kernels/tmsa_block.py``, ``self6_block.py``) are this block in f32.
+mutual window attention → residual → LN2 → MLP → residual) as KAIR
+computes it (``network_vrt.py:588-850``). The MLP is VRT's GEGLU, or for
+RVRT's self-only STL blocks (``network_rvrt.py:337-358``) the plain
+fc1 → exact GELU → fc2 (``Tmsa3dParams.fc12_weight`` None).
+``models/vrt.py`` runs the composed block for a geometry that no kernel
+takes; the kernels' plain versions (``ops/kernels/tmsa_block.py``,
+``self6_block.py``, ``stl2_block.py``) are this block in f32.
 
 Two quirks of KAIR are kept: the mutual branch's mask is the window mask's
 top-left ``[:N/2, :N/2]`` block, and the projection's input is
@@ -144,7 +147,9 @@ def window_reverse_3d(xw: torch.Tensor, ws, d, h, w) -> torch.Tensor:
 
 class Tmsa3dParams(NamedTuple):
     """One TMSA block's parameters in KAIR's layout (``nn.Linear`` weights
-    (out, in)); the mutual fields are None for a self-only block."""
+    (out, in)); the mutual fields are None for a self-only block. A plain
+    MLP (RVRT's ``mlp.fc1``/``mlp.fc2``) keeps fc1 in the fc11 fields and
+    None in the fc12 fields."""
     qkv_self_weight: torch.Tensor       # (3C, C)
     qkv_self_bias: Optional[torch.Tensor]
     qkv_mut_weight: Optional[torch.Tensor]
@@ -157,10 +162,10 @@ class Tmsa3dParams(NamedTuple):
     norm1_bias: torch.Tensor
     norm2_weight: torch.Tensor
     norm2_bias: torch.Tensor
-    fc11_weight: torch.Tensor           # (hidden, C)
+    fc11_weight: torch.Tensor           # (hidden, C); fc1 of a plain MLP
     fc11_bias: torch.Tensor
-    fc12_weight: torch.Tensor
-    fc12_bias: torch.Tensor
+    fc12_weight: Optional[torch.Tensor]     # None: the plain MLP
+    fc12_bias: Optional[torch.Tensor]
     fc2_weight: torch.Tensor            # (C, hidden)
     fc2_bias: torch.Tensor
 
@@ -231,16 +236,22 @@ def window_attention_3d(xw: torch.Tensor, p: Tmsa3dParams, num_heads: int,
 
 
 def geglu(x: torch.Tensor, w11, b11, w12, b12, w2, b2) -> torch.Tensor:
-    """KAIR Mlp_GEGLU (:560-586): fc2(GELU(fc11(x)) · fc12(x)), exact GELU."""
-    return F.linear(F.gelu(F.linear(x, w11, b11)) * F.linear(x, w12, b12), w2, b2)
+    """KAIR Mlp_GEGLU (:560-586): fc2(GELU(fc11(x)) · fc12(x)), exact GELU;
+    with ``w12`` None the plain MLP fc2(GELU(fc1(x))) (KAIR Mlp,
+    ``network_rvrt.py:443-463``), fc1 in ``w11``."""
+    h = F.gelu(F.linear(x, w11, b11))
+    if w12 is not None:
+        h = h * F.linear(x, w12, b12)
+    return F.linear(h, w2, b2)
 
 
 def tmsa_composed(x: torch.Tensor, p: Tmsa3dParams, num_heads: int,
                   ws: Sequence[int], ss: Sequence[int]) -> torch.Tensor:
     """One TMSA block on (B, D, H, W, C) with the (already clamped) window
     ws and shift ss, composed of PyTorch ops (KAIR TMSA.forward, :778-850;
-    the JAX package's XLA route): pads to the window, rolls, masks, and
-    crops back, so any geometry runs."""
+    RVRT's STL, ``network_rvrt.py:337-358``, with a plain MLP; the JAX
+    package's XLA route): pads to the window, rolls, masks, and crops back,
+    so any geometry runs."""
     b, d, h, w, c = x.shape
     ws, ss = tuple(ws), tuple(ss)
     y = F.layer_norm(x, (c,), p.norm1_weight, p.norm1_bias, 1e-5)

@@ -13,9 +13,10 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
-# dense bf16 tensor-core TFLOP/s and device-memory TB/s, by device name
+# dense bf16 tensor-core TFLOP/s, f32 TFLOP/s outside the tensor cores and
+# device-memory TB/s, by device name
 PEAKS: Dict[str, Dict[str, float]] = {
-    "H100 SXM": {"bf16_tflops": 989.0, "hbm_tbps": 3.35},
+    "H100 SXM": {"bf16_tflops": 989.0, "fp32_tflops": 67.0, "hbm_tbps": 3.35},
 }
 
 
@@ -184,4 +185,74 @@ def vrt_flops_per_clip(frames: int = 6, h: int = 64, w: int = 64,
         area *= 4
         s //= 2
     total += 2.0 * px * area * 9 * num_feat * (num_feat + in_chans)  # tail, last
+    return total
+
+
+def stl_block_flops_per_token(embed_dim: int = 144, n: int = 128,
+                              mlp_ratio: float = 2.0) -> float:
+    """FLOP per token of RVRT's self-only STL block over n-token windows
+    with the plain MLP (``ops/kernels/stl2_block.py`` at n = 128, the 2-D
+    Swin block at 64): qkv C·3C, scores and PV over n keys, proj C·C, fc1
+    and fc2 C·hidden each — 405,504 at RVRT-001's C=144, n = 128."""
+    c, hid = embed_dim, int(embed_dim * mlp_ratio)
+    return 2.0 * (3 * c * c + 2 * n * c + c * c + 2 * c * hid)
+
+
+def gda_flops_per_pixel(channels: int = 288, taps: int = 18) -> float:
+    """FLOP per query pixel of guided deformable attention
+    (``ops/kernels/gda_block.py``) over ``channels`` (RVRT's 2C) and ``taps``
+    (clip·kh·kw) samples: per channel and tap the bilinear samples of k and
+    v (four corners each, a multiply and an add per corner), the score's
+    multiply-add and the value's — 103,680 at RVRT-001 (2C = 288, 18 taps).
+    The kernel does them in f32 outside the tensor cores."""
+    return 20.0 * channels * taps
+
+
+def rvrt_flops_per_clip(frames: int = 8, h: int = 64, w: int = 64,
+                        embed_dims=(144, 144, 144), depths=(2, 2, 2),
+                        num_blocks=(1, 2, 1), clip_size: int = 2,
+                        mlp_ratio: float = 2.0, attention_window=(3, 3),
+                        deformable_groups: int = 12, upscale: int = 4, inputconv_groups=(1,) * 6,
+                        num_feat: int = 64, in_chans: int = 3) -> float:
+    """Analytic FLOP of one RVRT forward on a (frames, h, w) clip (KAIR's
+    layout, ``models/rvrt.py``): the feature extraction (the x1 models' two
+    stride-2 convs first), the four branches' backbones (input conv, STL2
+    blocks, RSTB linears) on every frame and their guided deformable
+    attention on every clip after the first (offset net, q/k/v
+    projections, the attention, proj, MLP), the reconstruction and the x4
+    pixel-shuffle head. SpyNet, the warps and LayerNorms are not counted.
+    001 at 1x8x64x64: ~21.2 MFLOP per LR pixel, ~0.695 TFLOP."""
+    e0, e1, e2 = embed_dims
+    g = inputconv_groups
+    feat_px = (h if upscale == 4 else h // 4) * (w if upscale == 4 else w // 4)
+    px = frames * feat_px
+    conv = lambda cin, cout, k, groups=1: 2.0 * k * k * cin * cout / groups
+
+    def rstb_conv(cin, c, groups, depth, blocks, n):
+        return (conv(cin, c, 3, groups) + blocks * (
+            depth * stl_block_flops_per_token(c, n, mlp_ratio) + 2.0 * c * c))
+
+    total = 0.0
+    if upscale != 4:                  # two stride-2 convs at 1/2 and 1/4 size
+        total += frames * (h // 2) * (w // 2) * conv(in_chans, e0, 3)
+        total += px * conv(e0, e0, 3)
+        total += px * rstb_conv(e0, e0, g[0], depths[0], num_blocks[0], 64)
+    else:
+        total += px * rstb_conv(in_chans, e0, g[0], depths[0], num_blocks[0], 64)
+    k = attention_window[0] * attention_window[1]
+    aligned = frames - clip_size       # query frames of the clips after the first
+    gda = (conv(e1 * (1 + clip_size) + 2 * clip_size, 64, 1)
+           + 4 * conv(64, 64, 3)
+           + conv(64, clip_size * deformable_groups * k * 2, 1)
+           + 3 * 2.0 * e1 * 2 * e1 + gda_flops_per_pixel(2 * e1, clip_size * k)
+           + 2.0 * 2 * e1 * e1 + 2 * 2.0 * e1 * 2 * e1)
+    for i in range(4):
+        total += px * rstb_conv(e0 + (i + 1) * e1, e1, g[i + 1], depths[1],
+                                num_blocks[1], 128)
+        total += aligned * feat_px * gda
+    total += px * rstb_conv(e0 + 4 * e1, e2, g[5], depths[2], num_blocks[2], 64)
+    total += px * conv(e2, num_feat, 1)
+    total += px * conv(num_feat, 4 * num_feat, 3)               # upsampler 0
+    total += 4 * px * conv(num_feat, 4 * num_feat, 3)           # upsampler 1
+    total += 16 * px * (conv(num_feat, num_feat, 3) + conv(num_feat, 3, 3))
     return total

@@ -367,7 +367,7 @@ def test_no_card_raises(tmp_path, hr_dir, monkeypatch):
 
 
 @pytest.mark.parametrize("what,name", [
-    ("net", "dncnn"), ("net", "rvrt"), ("dataset", "usrnet"),
+    ("net", "dncnn"), ("net", "spynet"), ("dataset", "usrnet"),
     ("dataset", "videorecurrenttraindataset"), ("dataset", "dnpatch"),
     ("trainer", "gan"), ("trainer", "vrt")])
 def test_later_slices_raise_naming_their_slice(what, name):

@@ -405,8 +405,8 @@ def test_build_task_loads_a_kair_pth(tmp_path):
     x = np.random.RandomState(5).rand(1, 4, 64, 64, 3).astype(np.float32)
     np.testing.assert_allclose(fwd(x), _forward(model, x), atol=1e-6)
     assert (sf, tuple(ws), nonblind) == (4, (2, 8, 8), False)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tcli.build_task("001_RVRT_videosr_bi_REDS_30frames", str(path), "cpu")
+    with pytest.raises(KeyError, match="unknown task"):
+        tcli.build_task("010_VRT_unknown", str(path), "cpu")
 
 
 def test_define_g_builds_vrt_001_from_the_option_file():

@@ -198,7 +198,8 @@ def test_dcn_plain_matches_pallas_and_gather():
 def emulate_win3d(x, pk, nh, wd, twd, shift, labels, mutual):
     """csrc/window3d_block.cu's three passes in PyTorch, f32: per-pixel passes 1
     and 3, pass 2 per (window, head, 64-query tile) with the shift folded
-    into the indices and an online softmax over 64-key tiles."""
+    into the indices and an online softmax over 64-key tiles; pass 3's MLP
+    is the GEGLU, or the plain fc1 → GELU of a pack without fc12."""
     b, d, h, w, c = x.shape
     xf = x.reshape(-1, c)
     qw, p = nh * 96, 2 if mutual else 1
@@ -269,7 +270,7 @@ def emulate_win3d(x, pk, nh, wd, twd, shift, labels, mutual):
     z = F.pad(F.layer_norm(x1, (c,), pk.ln2[0], pk.ln2[1], 1e-5),
               (0, pk.w11.shape[0] - c))
     u = z @ pk.w11 + pk.b11
-    hid = F.gelu(u) * (z @ pk.w12 + pk.b12)
+    hid = F.gelu(u) if pk.w12 is None else F.gelu(u) * (z @ pk.w12 + pk.b12)
     return (x1 + (hid @ pk.w2)[:, :c] + pk.b2).reshape(x.shape)
 
 
