@@ -11,8 +11,9 @@ inference routes: JPEG-CAR at window 7 (the window-block kernel), the
 unfused route (the window-attention kernel) and SwinIR-L; then VRT video
 SR through the TMSA mutual block, self block and DCNv2 kernels; then RVRT
 video SR through the STL2 block, the 2-D Swin block and the guided
-deformable attention kernels. Phases, one flushed line each with its
-seconds:
+deformable attention kernels; then VRT-001 training with its alignment
+sampled by the bilinear sampler's forward and backward kernels. Phases,
+one flushed line each with its seconds:
 
   0 device      card name, power limit (nvidia-smi), torch and CUDA versions
   1 build       the kernels, from csrc/, with one plain nvcc call
@@ -97,6 +98,28 @@ seconds:
                 each branch, the dropped-mask control; ms per clip,
                 frame-MP/s, MFU, device and host time by kernel; one timed
                 1x16x128x128 tile (the CLI's default spatial tile)
+ 20 bilin       the bilinear sampler's forward and backward kernels against
+                their plain version (f32 on the card) at VRT-001's stage-1
+                call at batch 8 (G=96, 64x64, Cs=10, R=36,864) and an RVRT
+                GDA call (Cs=48), feat bf16 and f32, taps fractional, in the
+                zero ring, far outside and on integers (dfy, dfx exactly 0
+                there); control: coordinates moved by 0.37 px; times, bounds,
+                the plain version's and F.grid_sample's forward and backward
+ 21 vrt_train   VRT-001 training from the shipped option file
+                (options/vrt/001_train_vrt_videosr_bi_reds_6frames.json)
+                through config.parse -> cli.train.build_trainer ->
+                VideoTrainer, bf16, deform_impl "mxu", batches of 8 from the
+                port's Loader over seeded moving 6-frame clips: (a) one
+                gradient at B=1 against the f32 composed route on the card
+                (over all, per part, the flow group), with a dropped-mask
+                control; (b) 84 TMSA, 76 self, 70 + 70 bilinear launches per
+                step (remat recomputes the blocks), no DCN launch, no composed
+                call; (c) 2 warm-up and 3 timed steps: ms per step, clips/s,
+                LR frame-MP/s, MFU, peak memory; (d) spynet and pa_deform
+                bit-equal before fix_iter, the rest moved; (f) device time per
+                step by kernel; (g) save and resume; (e) the option file's
+                "auto" route (DCN kernel, composed backward) on the same
+                batches
 
 Any failed check raises and the script exits non-zero; a watchdog ends a
 hung run with a traceback. The line before the last is one JSON object with
@@ -645,9 +668,10 @@ def seeded_train_weights(model, seed: int) -> dict:
 
 
 def grads_of(trainer, batch) -> dict:
+    import torch
     trainer.compute_grads(batch)
-    return {n: p.grad.detach().float().cpu()
-            for n, p in trainer.model.named_parameters()}
+    return {n: (torch.zeros_like(p) if p.grad is None else p.grad)
+            .detach().float().cpu() for n, p in trainer.model.named_parameters()}
 
 
 def kernel_name(key: str) -> str:
@@ -1992,6 +2016,428 @@ def phase_rvrt(report: list, card: str) -> None:
                 f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+# ---------------------------------------------------------------------------
+# VRT-001 training on the "mxu" alignment route (phases 20-21)
+# ---------------------------------------------------------------------------
+
+def bilin_coords(g: int, r: int, h: int, w: int, gen, device):
+    """(fy, fx) f32 (G, R): mostly fractional taps over the frame and its
+    zero ring, an eighth far outside, an eighth of the rows on exact
+    integers (y on the first eighth, x on the second)."""
+    import torch
+    fy = torch.rand(g, r, generator=gen) * (h + 4) - 2.5
+    fx = torch.rand(g, r, generator=gen) * (w + 4) - 2.5
+    far = slice(r // 4, r // 4 + r // 8)
+    fy[:, far] = fy[:, far] * 6 - 3 * h
+    fx[:, far] = fx[:, far] * 6 - 3 * w
+    fy[:, :r // 8] = fy[:, :r // 8].round()
+    fx[:, r // 8:r // 4] = fx[:, r // 8:r // 4].round()
+    return fy.to(device), fx.to(device)
+
+
+def phase_bilin(report: list) -> dict:
+    """The bilinear sampler's forward and backward kernels against their
+    plain version (f32 on the card) at VRT-001's stage-1 call at the option
+    file's batch 8 and at an RVRT GDA call; returns the two report rows."""
+    import torch
+    from kair_tpu_torch.ops.kernels.bilin_sample import (
+        bilinear_bwd, bilinear_bwd_reference, bilinear_fwd, bilinear_reference)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 20)
+    limits = {torch.bfloat16: (1e-2, 2e-2), torch.float32: (1e-5, 1e-5)}
+    shapes = (("VRT-001 stage 1, B=8 (12 groups of 120)", 96, 64, 64, 10,
+               9 * 64 * 64),
+              ("RVRT-001 GDA (k|v of a 24-channel group)", 48, 64, 64, 48,
+               9 * 64 * 64))
+    rows = {}
+    with Phase("20 bilin") as ph:
+        ph.note("limits: forward max_rel <= 1e-2 (bf16) / 1e-5 (f32), each "
+                "backward tensor <= 2e-2 (bf16) / 1e-5 (f32) of its max|ref| "
+                "against the plain version in f32 (dfeat is an f32 atomic "
+                "sum, its order varies); dfy (dfx) exactly 0 on integer y "
+                "(x) rows; control: the plain version at coordinates moved by "
+                "0.37 px exceeds every limit")
+        for what, g, h, w, cs, r in shapes:
+            fy, fx = bilin_coords(g, r, h, w, gen, dev)
+            for dt in (torch.bfloat16, torch.float32):
+                tol_f, tol_b = limits[dt]
+                feat = torch.randn(g, h, w, cs, generator=gen).to(dev, dt)
+                dout = torch.randn(g, r, cs, generator=gen).to(dev, dt)
+                got = bilinear_fwd(feat, fy, fx)
+                gb = bilinear_bwd(feat, fy, fx, dout)
+                ref = bilinear_reference(feat.float(), fy, fx)
+                rb = bilinear_bwd_reference(feat.float(), fy, fx, dout.float())
+                moved = (bilinear_reference(feat.float(), fy + 0.37, fx + 0.37),
+                         *bilinear_bwd_reference(feat.float(), fy + 0.37,
+                                                 fx + 0.37, dout.float()))
+                torch.cuda.synchronize()
+                errs, ctrl = [], []
+                for name, a, b, c, tol in zip(
+                        ("out", "dfeat", "dfy", "dfx"), (got, *gb), (ref, *rb),
+                        moved, (tol_f, tol_b, tol_b, tol_b)):
+                    e_abs, e_rel, ref_max, _ = compare(a, b)
+                    c_rel = (c - b).abs().max().item() / ref_max
+                    require(e_rel <= tol, f"{what} {dt} {name}: max_rel "
+                            f"{e_rel:.4g} > {tol}")
+                    require(c_rel > tol and c_rel > 3 * e_rel,
+                            f"{what} {dt} {name}: the moved-coordinate control "
+                            f"{c_rel:.4g} is not above the limit and 3x the "
+                            "error")
+                    errs.append((name, e_abs, e_rel))
+                    ctrl.append(c_rel)
+                require(bool((gb[1][:, :r // 8] == 0).all())
+                        and bool((gb[2][:, r // 8:r // 4] == 0).all()),
+                        f"{what} {dt}: dfy/dfx not 0 on integer coordinates")
+                ph.note(f"{what} G={g} {h}x{w} Cs={cs} R={r} {dt}: " + ", ".join(
+                    f"{n} max_rel {e:.3g}" for n, _, e in errs)
+                    + "; control max_rel " + "/".join(f"{c:.3g}" for c in ctrl))
+                if dt != torch.bfloat16:
+                    continue
+                # times at the main path's type; the library yardstick is
+                # F.grid_sample (bilinear, zeros, align_corners) and its
+                # backward on the NCHW layout, its grid in the input's type
+                # (it takes no other)
+                ms_f = cuda_ms(lambda: bilinear_fwd(feat, fy, fx))
+                ms_b = cuda_ms(lambda: bilinear_bwd(feat, fy, fx, dout))
+                plain_f = cuda_ms(lambda: bilinear_reference(feat, fy, fx),
+                                  warmup=1, reps=5)
+                plain_b = cuda_ms(lambda: bilinear_bwd_reference(
+                    feat, fy, fx, dout), warmup=1, reps=5)
+                inp = feat.permute(0, 3, 1, 2).contiguous()
+                grid = torch.stack([2 * fx / (w - 1) - 1, 2 * fy / (h - 1) - 1],
+                                   -1)[:, None].to(dt).contiguous()
+                gout = dout.permute(0, 2, 1)[:, :, None].contiguous()
+                lib_f = cuda_ms(lambda: torch.nn.functional.grid_sample(
+                    inp, grid, mode="bilinear", padding_mode="zeros",
+                    align_corners=True))
+                lib_b = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+                    gout, inp, grid, 0, 0, True, [True, True]))
+                fb = feat.element_size()
+                n_in = g * h * w * cs * fb + 2 * g * r * 4
+                bytes_f = n_in + g * r * cs * fb
+                bytes_b = n_in + g * r * cs * fb + g * h * w * cs * fb + 2 * g * r * 4
+                ops_f = g * r * (8.0 * cs + 12)
+                ops_b = g * r * (24.0 * cs + 12)
+                (bf, byf), (bb, byb) = (bound_ms(ops_f, bytes_f, "fp32"),
+                                        bound_ms(ops_b, bytes_b, "fp32"))
+                ph.note(f"{what}, bf16: forward {ms_f:.4f} ms (plain f32 "
+                        f"{plain_f:.3f}, grid_sample {lib_f:.4f}, bound "
+                        f"{bf:.4f} ({byf}, {bytes_f / 1e6:.1f} MB), {bf / ms_f:.4f} "
+                        f"of it); backward {ms_b:.4f} ms (plain {plain_b:.3f}, "
+                        f"grid_sampler_2d_backward {lib_b:.4f}, bound {bb:.4f} "
+                        f"({byb}, {bytes_b / 1e6:.1f} MB), {bb / ms_b:.4f} of it)")
+                if what.startswith("VRT-001"):
+                    rows["fwd"] = dict(
+                        name="bilinear_fwd", route="cuda",
+                        source="kair_tpu_torch/csrc/bilin_sample.cu",
+                        replaces="kair_tpu/ops/pallas/bilin_mm.py:197",
+                        launches=None, max_abs_err=errs[0][1], ms=ms_f,
+                        plain_ms=plain_f, bound_ms=bf, bound_by=byf,
+                        library_ms=lib_f)
+                    rows["bwd"] = dict(
+                        name="bilinear_bwd", route="cuda",
+                        source="kair_tpu_torch/csrc/bilin_sample.cu",
+                        replaces="kair_tpu/ops/pallas/bilin_mm.py:312",
+                        launches=None,
+                        max_abs_err=max(e for _, e, _ in errs[1:]), ms=ms_b,
+                        plain_ms=plain_b, bound_ms=bb, bound_by=byb,
+                        library_ms=lib_b)
+    report += [rows["fwd"], rows["bwd"]]
+    return rows
+
+
+VRT_TRAIN_OPTION = "options/vrt/001_train_vrt_videosr_bi_reds_6frames.json"
+# phase 21 (a): limits on the relative norm of the gradient error (over all
+# parameters and over the flow group; at any one part of the network). Read
+# on an H100 (PERF.md, PR 9): 0.0123 over all, 0.0263 over the flow group,
+# 0.0636 at the worst part (stage 4); the control without the shift masks
+# 0.160, 0.405 and 0.096-0.745 by part
+TRAIN_GRAD_LIMITS = (5e-2, 1.5e-1)
+
+
+def vrt_train_options(tmp: str, deform: str):
+    """The shipped VRT-001 option file, parsed by the port, its output paths
+    and clip folders moved into `tmp`, ``deform_impl`` set to `deform`."""
+    from kair_tpu_torch import config
+    raw = config.load_json_with_comments(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), VRT_TRAIN_OPTION))
+    raw["path"]["root"] = os.path.join(tmp, "runs")
+    train = raw["datasets"]["train"]
+    train["dataroot_gt"] = os.path.join(tmp, "gt")
+    train["dataroot_lq"] = os.path.join(tmp, "lq")
+    train["meta_info_file"] = None
+    del raw["datasets"]["test"]          # REDS4 is not in the repository
+    raw["netG"]["deform_impl"] = deform
+    path = os.path.join(tmp, f"vrt001_{deform}.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return config.parse(path)
+
+
+def seeded_clip_dataset(ds_opt, tmp: str, clips: int = 4, frames: int = 12,
+                        size: int = 320):
+    """The port's VideoRecurrentTrainDataset over `clips` seeded moving
+    clips: empty frame files name the frames in `tmp` (the folder scan), and
+    the ``read_uint`` hook draws each frame (the card has no cv2): a smooth
+    image panned 2 px down and 1 px right per frame, the LQ frame its 4x4
+    block mean."""
+    import numpy as np
+    from kair_tpu_torch.data.dataset_video import VideoRecurrentTrainDataset
+    for sub in ("gt", "lq"):
+        for c in range(clips):
+            d = os.path.join(tmp, sub, f"{c:03d}")
+            os.makedirs(d, exist_ok=True)
+            for t in range(frames):
+                open(os.path.join(d, f"{t:08d}.png"), "w").close()
+    sf = ds_opt["scale"]
+
+    class SeededClips(VideoRecurrentTrainDataset):
+        cache: dict = {}
+        images: dict = {}
+
+        def read_uint(self, path):
+            if path not in self.cache:
+                parts = str(path).split(os.sep)
+                sub, clip, t = parts[-3], int(parts[-2]), int(parts[-1][:8])
+                if clip not in self.images:
+                    self.images[clip] = smooth_image(size + 2 * frames,
+                                                     size + frames,
+                                                     SEED + 210 + clip)
+                gt = self.images[clip][2 * t:2 * t + size, t:t + size]
+                if sub == "lq":
+                    gt = gt.reshape(size // sf, sf, size // sf, sf, 3).mean(
+                        (1, 3)).round().astype(np.uint8)
+                self.cache[path] = gt
+            return self.cache[path]
+
+    return SeededClips(ds_opt)
+
+
+def param_groups_rel(a: dict, b: dict) -> dict:
+    """The relative gradient norm by part of VRT: SpyNet, each stage, stage
+    8, the rest; and over the flow group (spynet, pa_deform) and all."""
+    parts = {}
+    for n in b:
+        head = n.split(".")[0]
+        key = head if head.startswith(("stage", "spynet")) else "rest"
+        parts.setdefault(key, []).append(n)
+    out = {k: rel_norm(a, b, v) for k, v in sorted(parts.items())}
+    out["flow group"] = rel_norm(a, b, [n for n in b
+                                        if "spynet" in n or "deform" in n])
+    out["all"] = rel_norm(a, b, list(b))
+    return out
+
+
+def model_grads(model, loss_fn, batch) -> dict:
+    """f32 gradients of loss_fn(model(L), H) for every parameter (zeros where
+    a parameter takes none)."""
+    import torch
+    model.zero_grad(set_to_none=True)
+    dev = next(model.parameters()).device
+    loss = loss_fn(model(torch.from_numpy(batch["L"]).to(dev)).float(),
+                   torch.from_numpy(batch["H"]).to(dev))
+    loss.backward()
+    return {n: (torch.zeros_like(p) if p.grad is None else p.grad)
+            .detach().float().cpu() for n, p in model.named_parameters()}
+
+
+def phase_vrt_train(report: list, card: str, build_dir) -> None:
+    import numpy as np
+    import torch
+    from kair_tpu_torch import config
+    from kair_tpu_torch.cli.train import build_trainer
+    from kair_tpu_torch.data.base import Loader
+    from kair_tpu_torch.models import vrt as mvrt
+    from kair_tpu_torch.models.registry import define_g
+    from kair_tpu_torch.ops.kernels import (bilin_sample, dcn_block,
+                                            self6_block, tmsa_block)
+    from kair_tpu_torch.ops.warp import modulated_deform_conv
+    from kair_tpu_torch.train.video import VideoTrainer
+    from kair_tpu_torch.utils.summary import peak_bf16_tflops, vrt_flops_per_clip
+
+    tol_global, tol_part = TRAIN_GRAD_LIMITS
+    warmup, timed = 2, 3
+    counters = ((tmsa_block.tmsa_block, "tmsa"), (self6_block.self6_block, "self6"),
+                (bilin_sample.bilinear_fwd, "bilin_fwd"),
+                (bilin_sample.bilinear_bwd, "bilin_bwd"),
+                (dcn_block.dcn_fused, "dcn"))
+
+    def zero_counts():
+        for f, _ in counters:
+            f.launches = 0
+        mvrt.TMSA.composed_calls = 0
+        modulated_deform_conv.composed_calls = 0
+
+    def read_counts():
+        out = {k: f.launches for f, k in counters}
+        out["composed_tmsa"] = mvrt.TMSA.composed_calls
+        out["composed_deform"] = modulated_deform_conv.composed_calls
+        return out
+
+    def timed_steps(trainer, batches):
+        for bt in batches[:warmup]:
+            trainer.train_step(bt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        s.record()
+        losses = [trainer.train_step(bt)["G_loss"]
+                  for bt in batches[warmup:warmup + timed]]
+        e.record()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        vals = [float(v) for v in losses]
+        require(all(math.isfinite(v) for v in vals), f"losses {vals}")
+        return s.elapsed_time(e) / timed, counts, vals, \
+            torch.cuda.max_memory_allocated()
+
+    with Phase("21 vrt_train") as ph, \
+            tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        opt = vrt_train_options(tmp, "mxu")
+        ds_opt = opt["datasets"]["train"]
+        bs, net, ot = ds_opt["dataloader_batch_size"], opt["netG"], opt["train"]
+        trainer = build_trainer(opt, dtype=torch.bfloat16)
+        require(isinstance(trainer, VideoTrainer), f"{type(trainer).__name__}")
+        sd = vrt_state_dict(SEED + 21)
+        trainer.model.load_state_dict(sd, strict=True)
+        ph.note(f"{VRT_TRAIN_OPTION} through config.parse -> cli.train."
+                f"build_trainer -> VideoTrainer, bf16 autocast over f32: embed "
+                f"{net['embed_dims'][0]}x7 + {net['embed_dims'][-1]}x6, depths "
+                f"{net['depths']}, window {net['window_size']}, dg "
+                f"{net['deformable_groups']}, use_checkpoint_attn "
+                f"{net['use_checkpoint_attn']}, deform_impl 'mxu' (the option "
+                f"file's 'auto' in (e)); {ot['G_lossfn_type']}, Adam "
+                f"{ot['G_optimizer_lr']}, fix_iter {ot['fix_iter']} over "
+                f"{ot['fix_keys']} at x{ot['fix_lr_mul']}; "
+                f"{sum(p.numel() for p in trainer.model.parameters())} params "
+                "drawn by VRT_INIT (conv_offset.6 nonzero: fractional taps)")
+        loader = Loader(seeded_clip_dataset(ds_opt, tmp), bs, seed=SEED)
+        batches, epoch = [], 0
+        while len(batches) < warmup + timed + 1:
+            batches += [{k: v for k, v in bt.items() if isinstance(v, np.ndarray)}
+                        for bt in loader.epoch(epoch)]
+            epoch += 1
+        gs, sf, nf = ds_opt["gt_size"], opt["scale"], ds_opt["num_frame"]
+        require(batches[0]["L"].shape == (bs, nf, gs // sf, gs // sf, 3)
+                and batches[0]["H"].shape == (bs, nf, gs, gs, 3),
+                f"batch shapes {batches[0]['L'].shape} {batches[0]['H'].shape}")
+
+        # (a) one gradient at B=1 against the f32 composed route on the card
+        small = {k: v[:1] for k, v in batches[0].items()}
+        g_card = grads_of(trainer, small)
+        ref_opt = {**opt, "netG": {**net, "fuse_block": False,
+                                   "deform_impl": "gather"}}
+        ref = define_g(ref_opt).cuda().train()
+        ref.load_state_dict(sd, strict=True)
+        g_ref = model_grads(ref, trainer.loss_fn, small)
+        g_ctrl = without_3d_mask(lambda: model_grads(ref, trainer.loss_fn, small))
+        del ref
+        err, ctrl = param_groups_rel(g_card, g_ref), param_groups_rel(g_ctrl, g_ref)
+        worst = max((k for k in err if k not in ("all", "flow group")),
+                    key=err.get)
+        ph.note("(a) gradient at B=1, bf16 kernels vs the f32 composed route "
+                "(fuse_block off, gather sampler) on the card, relative norm: "
+                + ", ".join(f"{k} {v:.4g}" for k, v in err.items())
+                + f" (limits {tol_global} over all and the flow group, "
+                f"{tol_part} a part); control, the f32 route without the shift "
+                "masks: " + ", ".join(f"{k} {v:.4g}" for k, v in ctrl.items()))
+        require(err["all"] <= tol_global and err["flow group"] <= tol_global,
+                f"gradient error {err['all']:.4g} / flow group "
+                f"{err['flow group']:.4g} > {tol_global}")
+        require(err[worst] <= tol_part, f"{worst}: {err[worst]:.4g} > {tol_part}")
+        require(all(ctrl[k] > tol_global and ctrl[k] > 3 * err[k]
+                    for k in ("all", "flow group")),
+                "the dropped-mask control is not above the global limit and 3x "
+                "the error, over all and over the flow group")
+
+        # (b)-(d) the main path: timed steps on the mxu route
+        flow = {n: p.detach().clone() for n, p in trainer.model.named_parameters()
+                if "spynet" in n or "deform" in n}
+        rest = {n: p.detach().clone() for n, p in trainer.model.named_parameters()
+                if n not in flow}
+        ms, counts, losses, mem = timed_steps(trainer, batches)
+        per = {k: v // timed for k, v in counts.items()}
+        want = dict(tmsa=84, self6=76, bilin_fwd=70, bilin_bwd=70, dcn=0,
+                    composed_tmsa=0, composed_deform=0)
+        ph.note(f"(b) launches per step over {timed} timed steps: {per} "
+                "(TMSA and self: 42 + 38 forward and as many again in the "
+                "remat recompute; their backward is the composed route's "
+                "autograd)")
+        require(per == want and all(v % timed == 0 for v in counts.values()),
+                f"launch counts {counts} in {timed} steps, want {want} per step")
+        for k in report:
+            if k["name"] == "bilinear_fwd":
+                k["launches"] = counts["bilin_fwd"]
+            elif k["name"] == "bilinear_bwd":
+                k["launches"] = counts["bilin_bwd"]
+        lr_px = bs * nf * (gs // sf) ** 2
+        flops = 3 * vrt_flops_per_clip(frames=nf, h=gs // sf, w=gs // sf) * bs
+        peak = peak_bf16_tflops(torch.cuda.get_device_name(0))
+        mfu = flops / (ms / 1e3) / 1e12 / peak if peak else None
+        ph.note(f"(c) mxu route, batch {bs} of {nf}x{gs // sf}x{gs // sf}: "
+                f"losses {losses[0]:.4g} .. {losses[-1]:.4g}; ms_per_step "
+                f"{ms:.2f} (mean of {timed} after {warmup} warm-up, CUDA "
+                f"events), {bs / (ms / 1e3):.3f} clips/s, "
+                f"{lr_px / (ms / 1e3) / 1e6:.4f} LR frame-MP/s, training MFU "
+                f"{'n/a' if mfu is None else f'{mfu:.4f}'} (3x the "
+                f"{flops / 3 / bs / 1e12:.3f} TFLOP forward per clip, "
+                f"recompute not counted); peak memory {mem / 2 ** 30:.2f} GiB "
+                f"[{card}]")
+        params = dict(trainer.model.named_parameters())
+        frozen = all(torch.equal(params[n], v) for n, v in flow.items())
+        moved = sum(not torch.equal(params[n], v) for n, v in rest.items())
+        ph.note(f"(d) after {warmup + timed} updates (fix_iter "
+                f"{ot['fix_iter']}): {len(flow)} flow-group tensors bit-equal: "
+                f"{frozen}; {moved} of {len(rest)} other tensors moved")
+        require(frozen and moved == len(rest),
+                "the flow group moved or another parameter did not")
+
+        # (f) where a step's device time goes
+        ph.note("(f) " + device_breakdown(
+            lambda: trainer.train_step(batches[warmup]), 1, ms, "step",
+            top=16))
+
+        # (g) save, then resume in a fresh trainer
+        models = opt["path"]["models"]
+        paths = trainer.save(models, trainer.step)
+        fresh = build_trainer(opt, dtype=torch.bfloat16)
+        step, g_path = config.find_last_checkpoint(models, "G")
+        fresh.resume(g_path, step)
+        a, b = trainer.model.state_dict(), fresh.model.state_dict()
+        require(step == trainer.step == fresh.step and a.keys() == b.keys()
+                and all(torch.equal(a[k], b[k]) for k in a),
+                f"resumed model differs (step {step})")
+        so, sf_ = trainer.optimizer.state_dict(), fresh.optimizer.state_dict()
+        require(so["param_groups"] == sf_["param_groups"] and all(
+            torch.equal(v.cpu(), sf_["state"][i][k].cpu())
+            for i, st in so["state"].items() for k, v in st.items()),
+            "resumed optimizer state differs")
+        ph.note(f"(g) saved {', '.join(os.path.basename(p) for p in paths)}; "
+                "a fresh trainer resumed with equal parameters and optimizer "
+                "state (both groups)")
+        del trainer, fresh
+        torch.cuda.empty_cache()
+
+        # (e) the option file's own "auto" route: the DCN kernel forward
+        # with the composed route's backward
+        auto = build_trainer(vrt_train_options(tmp, "auto"),
+                             dtype=torch.bfloat16)
+        auto.model.load_state_dict(sd, strict=True)
+        ms_a, counts_a, losses_a, mem_a = timed_steps(auto, batches)
+        per_a = {k: v // timed for k, v in counts_a.items()}
+        want_a = {**want, "bilin_fwd": 0, "bilin_bwd": 0, "dcn": 70}
+        require(per_a == want_a, f"auto route counts {counts_a}, want {want_a}")
+        ph.note(f"(e) 'auto' route (DCN kernel, composed backward), same "
+                f"batches: launches per step {per_a}; ms_per_step {ms_a:.2f} "
+                f"against mxu {ms:.2f}; peak memory {mem_a / 2 ** 30:.2f} GiB")
+        del auto
+        torch.cuda.empty_cache()
+
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -2074,6 +2520,8 @@ def main() -> int:
     phase_stl2(report)
     phase_gda(report)
     phase_rvrt(report, card)
+    phase_bilin(report)
+    phase_vrt_train(report, card, _build.BUILD_DIR)
     faulthandler.cancel_dump_traceback_later()
 
     log(card)

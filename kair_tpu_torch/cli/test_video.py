@@ -18,7 +18,8 @@ PSNR/SSIM (and on the Y channel).
 Runs on the card in bf16 through the port's kernels (VRT: the TMSA and self
 blocks, the DCN; RVRT: the STL blocks, the 2-D Swin block, the GDA) unless
 ``--device cpu`` (f32, their plain versions); ``--fuse off`` and
-``--deform gather`` take the composed routes, the JAX package's XLA routes.
+``--deform gather`` take the composed routes, the JAX package's XLA routes;
+``--deform mxu`` samples the alignment through the bilinear sampler kernels.
 """
 
 from __future__ import annotations
@@ -145,8 +146,8 @@ def select_dataset(args):
     if "videofi" in args.task and any(k in lq for k in ("davis", "ucf101",
                                                          "vid4")):
         raise NotImplementedError(
-            "the DAVIS/UCF101/Vid4 frame-interpolation test sets come with "
-            "the video-training slice of the port")
+            "the DAVIS/UCF101/Vid4 frame-interpolation test sets are a "
+            "later slice of the port (ROADMAP Queue 1)")
     if args.folder_gt is not None:
         return dv.VideoRecurrentTestDataset({
             "dataroot_gt": args.folder_gt, "dataroot_lq": args.folder_lq,
@@ -176,8 +177,8 @@ def main(argv=None):
     parser.add_argument("--deform", choices=["auto", "fused", "gather", "mxu"],
                         default="auto",
                         help="VRT's DCN or RVRT's GDA route: the kernel "
-                             "(fused; auto on the card) or the composed "
-                             "gather")
+                             "(fused; auto on the card), the composed "
+                             "gather, or the bilinear sampler kernels (mxu)")
     parser.add_argument("--save_result", action="store_true")
     parser.add_argument("--results", type=str, default="results")
     args = parser.parse_args(argv)

@@ -4,6 +4,10 @@
     python -m kair_tpu_torch.cli.train \
         --opt options/swinir/train_swinir_sr_classical_x4.json --dtype bf16
 
+``model: "vrt"`` trains through ``train/video.VideoTrainer`` (e.g.
+``options/vrt/001_train_vrt_videosr_bi_reds_6frames.json``) and evaluates
+video test sets with ``evaluate_video``.
+
 Runs on the card in bf16 (autocast over f32 parameters); ``--device cpu``
 runs the kernels' plain versions on the CPU, where ``--dtype f32`` is the
 usual choice. Checkpoints are KAIR's tagged state dicts under
@@ -60,10 +64,51 @@ def evaluate(trainer: PlainTrainer, test_loader: Loader, border: int = 0,
     return float(np.mean(psnrs)), float(np.mean(ssims))
 
 
-def evaluate_video(*args, **kwargs):
-    raise NotImplementedError(
-        "video evaluation belongs to the video slice of the port, not "
-        "ported yet")
+def evaluate_video(trainer: PlainTrainer, test_loader: Loader, opt: dict,
+                   logger=None, use_ema: bool = True):
+    """Per-folder tiled video evaluation (counterpart of the JAX package's
+    ``evaluate_video``; reference main_train_vrt.py:205-246): clips of
+    ``val.num_frame_testing`` frames, patches of ``val.size_patch_testing``,
+    PSNR/SSIM per frame averaged per folder, then over folders. The EMA
+    copy when there is one; on the card a bf16 copy (SpyNet in f32, as
+    ``cli.test_video`` serves it), on the CPU an f32 copy."""
+    import copy
+    from kair_tpu_torch.eval.video_test import test_video
+    from kair_tpu_torch.models.vrt import cast_for_inference
+
+    val = opt.get("val") or {}
+    ws = tuple((opt.get("netG") or {}).get("window_size") or (6, 8, 8))
+    sf = opt.get("scale") or 1
+    src = trainer.ema if (use_ema and trainer.ema is not None) else trainer.model
+    dt = torch.bfloat16 if trainer.device.type == "cuda" else torch.float32
+    net = cast_for_inference(copy.deepcopy(src), trainer.device, dt)
+
+    def fwd(a):
+        with torch.inference_mode():
+            return net(torch.from_numpy(np.ascontiguousarray(a)).to(
+                trainer.device)).float()
+
+    psnrs, ssims = [], []
+    for batch in test_loader.epoch(0):
+        out = test_video(
+            fwd, batch["L"], sf=sf, window_size=ws,
+            num_frame_testing=val.get("num_frame_testing") or 0,
+            num_frame_overlapping=val.get("num_frame_overlapping") or 2,
+            size_patch_testing=val.get("size_patch_testing") or 0,
+            patch_overlap=val.get("overlap_size") or 20)
+        folder = batch.get("folder", ["?"])[0]
+        gts = [(np.clip(batch["H"][0, i], 0, 1) * 255.0).round().astype(np.uint8)
+               for i in range(out.shape[1])]
+        outs = [im.nhwc_to_uint(out[:, i]) for i in range(out.shape[1])]
+        psnr = float(np.mean([im.calculate_psnr(e, g, border=0)
+                              for e, g in zip(outs, gts)]))
+        ssim = float(np.mean([im.calculate_ssim(e, g, border=0)
+                              for e, g in zip(outs, gts)]))
+        psnrs.append(psnr)
+        ssims.append(ssim)
+        if logger:
+            logger.info(f"  {folder:20s} PSNR: {psnr:.2f} dB; SSIM: {ssim:.4f}")
+    return float(np.mean(psnrs)), float(np.mean(ssims))
 
 
 def main(json_path: Optional[str] = None, argv=None) -> PlainTrainer:
@@ -98,16 +143,17 @@ def main(json_path: Optional[str] = None, argv=None) -> PlainTrainer:
                     "the option file's batch")
 
     train_loader = test_loader = None
+    test_is_video = False
     for phase, ds_opt in opt["datasets"].items():
         if phase == "train":
             train_loader = make_train_loader(
                 ds_opt, ds_opt.get("dataloader_batch_size") or 16, seed=seed,
                 info=logger.info)
         elif phase == "test":
-            if "video" in (ds_opt.get("dataset_type") or "").lower():
-                evaluate_video()
             test_loader = Loader(define_dataset(ds_opt), 1, shuffle=False,
                                  drop_last=False)
+            test_is_video = "video" in (ds_opt.get("dataset_type")
+                                        or "").lower()
     if train_loader is None:
         raise ValueError(f"{args.opt}: no 'train' entry under 'datasets'")
 
@@ -152,7 +198,11 @@ def main(json_path: Optional[str] = None, argv=None) -> PlainTrainer:
                     for tag in ("G", "E", "optimizerG"):
                         ck.prune_old(models, tag, current_step)
             if current_step % checkpoint_test == 0 and test_loader is not None:
-                psnr, ssim = evaluate(trainer, test_loader, border=border)
+                if test_is_video:
+                    psnr, ssim = evaluate_video(trainer, test_loader, opt,
+                                                logger)
+                else:
+                    psnr, ssim = evaluate(trainer, test_loader, border=border)
                 logger.info(f"<epoch:{epoch:3d}, iter:{current_step:8,d}, "
                             f"Average PSNR : {psnr:<.2f}dB, SSIM : {ssim:<.4f}")
 

@@ -260,6 +260,18 @@ def define_dataset(opt_ds: dict) -> Dataset:
     if t == "jpeg":
         from kair_tpu_torch.data.dataset_jpeg import DatasetJPEG
         return DatasetJPEG(opt_ds)
+    video = {"videorecurrenttraindataset": "VideoRecurrentTrainDataset",
+             "video_train": "VideoRecurrentTrainDataset",
+             "videorecurrenttestdataset": "VideoRecurrentTestDataset",
+             "video_test": "VideoRecurrentTestDataset",
+             "singlevideorecurrenttestdataset":
+                 "SingleVideoRecurrentTestDataset",
+             "video_test_single": "SingleVideoRecurrentTestDataset",
+             "videotestvimeo90kdataset": "VideoTestVimeo90KDataset",
+             "video_test_vimeo": "VideoTestVimeo90KDataset"}
+    if t in video:
+        from kair_tpu_torch.data import dataset_video
+        return getattr(dataset_video, video[t])(opt_ds)
     slice_name = LATER_SLICES.get(t) or ("video" if "video" in t else None)
     if slice_name:
         raise NotImplementedError(

@@ -53,9 +53,9 @@ def define_g(opt: dict) -> nn.Module:
     if t == "vrt":
         from kair_tpu_torch.models.vrt import VRT
         # fuse_block absent or true: the TMSA and self block kernels;
-        # deform_impl absent: "auto", the DCN kernel on the card. The
-        # checkpointing keys (use_checkpoint_attn/ffn) are for training,
-        # which this slice does not run.
+        # deform_impl absent: "auto", the DCN kernel on the card;
+        # use_checkpoint_attn: recompute the block pairs in training (the
+        # JAX package's remat; use_checkpoint_ffn is not read there either)
         depths = tuple(_get(o, "depths", [8] * 7 + [4] * 6))
         return VRT(upscale=_get(o, "upscale", 4),
                    in_chans=_get(o, "in_nc", 3), out_chans=_get(o, "out_nc", 3),
@@ -71,7 +71,8 @@ def define_g(opt: dict) -> nn.Module:
                    nonblind_denoising=bool(_get(o, "nonblind_denoising",
                                                 False)),
                    fuse_block=bool(_get(o, "fuse_block", True)),
-                   deform_impl=_get(o, "deform_impl", "auto"))
+                   deform_impl=_get(o, "deform_impl", "auto"),
+                   remat=bool(_get(o, "use_checkpoint_attn", False)))
     if t == "rvrt":
         from kair_tpu_torch.models.rvrt import RVRT
         # as for VRT: fuse_block absent or true, the STL block kernels;

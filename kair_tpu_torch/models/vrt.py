@@ -17,11 +17,21 @@ MLP (``geglu=False``) run ``stl2_block`` on (2, 8, 8) windows and the 2-D
 ``swin_block_2d`` on (1, 8, 8) ones (per-frame windows: the frames fold
 into the batch); each with its cyclic shift folded into the kernel's
 indices. On a CUDA tensor those are the hand-written kernels, on a CPU
-tensor their plain versions. Any other geometry (or ``fuse_block=False``,
-or training) takes the composed block of ``ops/window3d.py``; on the card
-each such call adds one to ``TMSA.composed_calls``. The flow-guided
-deformable alignment runs ``ops/warp.modulated_deform_conv`` with
-``deform_impl`` ("auto": the DCN kernel on the card).
+tensor their plain versions. Any other geometry (or ``fuse_block=False``)
+takes the composed block of ``ops/window3d.py``; on the card each such call
+adds one to ``TMSA.composed_calls``. The flow-guided deformable alignment
+runs ``ops/warp.modulated_deform_conv`` with ``deform_impl`` ("auto": the
+DCN kernel on the card; "mxu": the bilinear sampler kernels).
+
+Training takes VRT's kernel routes too, as the JAX package does
+(``kair_tpu/models/vrt.py:316-330``): with grad enabled the TMSA and self
+blocks run ``tmsa_block_train`` / ``self6_block_train`` and the DCN
+``dcn_train`` (the kernel forward, the composed route's backward). RVRT's
+STL blocks have no training route yet and take the composed block in
+training. ``remat`` (KAIR's ``use_checkpoint_attn``) recomputes each pair
+of blocks of every TMSAG in the backward (``torch.utils.checkpoint``,
+non-reentrant; each block alone when the depth is odd), the units of the
+JAX package's ``nn.remat`` (:598-642).
 
 SpyNet, the flows and the deformable offsets stay in f32 whatever the
 model's type (``cast_for_inference``): a bf16 flow of 20 px is off by up to
@@ -37,16 +47,18 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from kair_tpu_torch.models.spynet import SpyNet
 from kair_tpu_torch.ops.blocks import pixel_shuffle, resize_bilinear
 from kair_tpu_torch.ops.kernels.dcn_block import pack_dcn_weight
-from kair_tpu_torch.ops.kernels.self6_block import self6_block
+from kair_tpu_torch.ops.kernels.self6_block import (self6_block,
+                                                    self6_block_train)
 from kair_tpu_torch.ops.kernels.stl2_block import stl2_block
 from kair_tpu_torch.ops.kernels.swin_block import (SwinBlockParams,
                                                     pack_swin_block,
                                                     swin_block_2d)
-from kair_tpu_torch.ops.kernels.tmsa_block import tmsa_block
+from kair_tpu_torch.ops.kernels.tmsa_block import tmsa_block, tmsa_block_train
 from kair_tpu_torch.ops.kernels.window_msa import shift_mask_tensor
 from kair_tpu_torch.ops.kernels.win3d import pack_win3d
 from kair_tpu_torch.ops.warp import flow_warp, modulated_deform_conv
@@ -192,8 +204,10 @@ class TMSA(_Packed, nn.Module):
         and W <= strip_w_max(C) are the TPU strip kernel's VMEM limits and
         have no counterpart here; the 2-D kernel takes one shift for both
         axes, so (1, 8, 8) needs the h and w shifts equal, and one 8x8
-        table, so a block whose own window is one frame deep."""
-        if not self.fuse_block or self.training or h % 8 or w % 8:
+        table, so a block whose own window is one frame deep. In training
+        VRT's blocks keep their routes; RVRT's STL blocks (no training
+        route yet) take the composed block."""
+        if not self.fuse_block or h % 8 or w % 8:
             return None
         if self.mut_attn:
             return "tmsa" if self.geglu and tuple(ws) == (2, 8, 8) \
@@ -201,6 +215,8 @@ class TMSA(_Packed, nn.Module):
         if self.geglu:
             return "self6" if tuple(ws[1:]) == (8, 8) and d % ws[0] == 0 \
                 else None
+        if self.training:
+            return None
         if tuple(ws) == (2, 8, 8) and d % 2 == 0:
             return "stl2"
         if self.window_size == (1, 8, 8) and tuple(ws) == (1, 8, 8) \
@@ -217,11 +233,13 @@ class TMSA(_Packed, nn.Module):
             return self._stl1(x, p, ss[1])
         pk = (self.packed(lambda: pack_win3d(p, self.num_heads))
               if route and x.is_cuda else None)
+        grad = torch.is_grad_enabled()
         if route == "tmsa":
-            return tmsa_block(x.contiguous(), p, self.num_heads, ss, packed=pk)
+            fn = tmsa_block_train if grad else tmsa_block
+            return fn(x.contiguous(), p, self.num_heads, ss, packed=pk)
         if route == "self6":
-            return self6_block(x.contiguous(), p, self.num_heads, ws[0], ss,
-                               packed=pk)
+            fn = self6_block_train if grad else self6_block
+            return fn(x.contiguous(), p, self.num_heads, ws[0], ss, packed=pk)
         if route == "stl2":
             return stl2_block(x.contiguous(), p, self.num_heads, ss, packed=pk)
         if x.is_cuda:
@@ -252,13 +270,15 @@ class TMSA(_Packed, nn.Module):
 
 class TMSAG(nn.Module):
     """Blocks alternating no shift / shift (KAIR :855-948), a Python loop
-    over ``blocks.N``."""
+    over ``blocks.N``; with ``remat``, in training each pair of blocks (each
+    block when the depth is odd) is recomputed in the backward."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size,
                  shift_size=None, mut_attn: bool = True, mlp_ratio: float = 2.0,
                  qkv_bias: bool = True, fuse_block: bool = True,
-                 geglu: bool = True):
+                 geglu: bool = True, remat: bool = False):
         super().__init__()
+        self.remat = remat
         ss = (tuple(i // 2 for i in window_size) if shift_size is None
               else tuple(shift_size))
         self.blocks = nn.ModuleList([
@@ -267,7 +287,18 @@ class TMSAG(nn.Module):
             for i in range(depth)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for blk in self.blocks:
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            for blk in self.blocks:
+                x = blk(x)
+            return x
+        n = 2 if len(self.blocks) % 2 == 0 else 1
+        for i in range(0, len(self.blocks), n):
+            x = torch.utils.checkpoint.checkpoint(
+                self._run, x, i, i + n, use_reentrant=False)
+        return x
+
+    def _run(self, x: torch.Tensor, i: int, j: int) -> torch.Tensor:
+        for blk in self.blocks[i:j]:
             x = blk(x)
         return x
 
@@ -277,11 +308,12 @@ class RTMSA(nn.Module):
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size,
                  mlp_ratio: float = 2.0, qkv_bias: bool = True,
-                 fuse_block: bool = True):
+                 fuse_block: bool = True, remat: bool = False):
         super().__init__()
         self.residual_group = TMSAG(dim, depth, num_heads, window_size,
                                     mut_attn=False, mlp_ratio=mlp_ratio,
-                                    qkv_bias=qkv_bias, fuse_block=fuse_block)
+                                    qkv_bias=qkv_bias, fuse_block=fuse_block,
+                                    remat=remat)
         self.linear = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -345,7 +377,8 @@ class Stage(nn.Module):
                  mlp_ratio: float = 2.0, qkv_bias: bool = True,
                  pa_frames: int = 2, deformable_groups: int = 16,
                  reshape: str = "none", max_residue_magnitude: float = 10.0,
-                 fuse_block: bool = True, deform_impl: str = "auto"):
+                 fuse_block: bool = True, deform_impl: str = "auto",
+                 remat: bool = False):
         super().__init__()
         self.mode = reshape
         self.pa_frames = pa_frames
@@ -362,11 +395,13 @@ class Stage(nn.Module):
         self.residual_group1 = TMSAG(dim, d1, num_heads,
                                      (2, window_size[1], window_size[2]),
                                      mut_attn=True, mlp_ratio=mlp_ratio,
-                                     qkv_bias=qkv_bias, fuse_block=fuse_block)
+                                     qkv_bias=qkv_bias, fuse_block=fuse_block,
+                                     remat=remat)
         self.linear1 = nn.Linear(dim, dim)
         self.residual_group2 = TMSAG(dim, depth - d1, num_heads, window_size,
                                      mut_attn=False, mlp_ratio=mlp_ratio,
-                                     qkv_bias=qkv_bias, fuse_block=fuse_block)
+                                     qkv_bias=qkv_bias, fuse_block=fuse_block,
+                                     remat=remat)
         self.linear2 = nn.Linear(dim, dim)
         if pa_frames:
             self.pa_deform = DCNv2PackFlowGuided(
@@ -497,7 +532,7 @@ class VRT(nn.Module):
                  qkv_bias: bool = True, num_feat: int = 64,
                  pa_frames: int = 2, deformable_groups: int = 16,
                  nonblind_denoising: bool = False, fuse_block: bool = True,
-                 deform_impl: str = "auto"):
+                 deform_impl: str = "auto", remat: bool = False):
         super().__init__()
         self.upscale = upscale
         self.in_chans = in_chans
@@ -518,7 +553,7 @@ class VRT(nn.Module):
                 e[i - 1] if i else e[0], e[i], depths[i], num_heads[i],
                 window_size, mul_attn_ratio, mlp_ratio, qkv_bias, pa_frames,
                 deformable_groups, reshapes[i], 10.0 / scales[i], fuse_block,
-                deform_impl))
+                deform_impl, remat))
         indep = (tuple(range(len(depths) - 2, len(depths)))
                  if indep_reconsts is None else tuple(indep_reconsts))
         self.stage8 = nn.ModuleList([nn.Sequential(
@@ -527,7 +562,7 @@ class VRT(nn.Module):
         for j in range(7, len(depths)):
             ws8 = (1,) + window_size[1:] if j in indep else window_size
             self.stage8.append(RTMSA(e[j], depths[j], num_heads[j], ws8,
-                                     mlp_ratio, qkv_bias, fuse_block))
+                                     mlp_ratio, qkv_bias, fuse_block, remat))
         self.norm = nn.LayerNorm(e[-1])
         self.conv_after_body = nn.Linear(e[-1], e[0])
         if not pa_frames:

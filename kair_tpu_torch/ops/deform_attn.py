@@ -18,7 +18,11 @@ attention of the one query over its S keys.
   ``"auto"``    on a CUDA tensor the kernel where heads == groups, else the
                 gather route, as the JAX package routes it (:73-82); the
                 gather route on a CPU tensor;
-  ``"mxu"``     the JAX package's ``bilinear_sample_mm`` sampler, not ported.
+  ``"mxu"``     the JAX package's ``bilinear_sample_mm`` route (:83-99):
+                per (batch, clip frame, group) one slab holding that group's
+                k and v channels side by side, sampled at K·H·W rows by the
+                bilinear kernels (``ops/kernels/bilin_sample.py``; the plain
+                versions on a CPU tensor), then the attention.
 Each run of the composed route on a CUDA tensor adds one to
 ``deform_attention.composed_calls``.
 
@@ -48,6 +52,57 @@ def rotate_kv(kv: torch.Tensor, frames: int) -> torch.Tensor:
     return kv[:, idx].reshape(b * frames, clip, *kv.shape[2:])
 
 
+def _attend(q: torch.Tensor, k_s: torch.Tensor, v_s: torch.Tensor,
+            heads: int) -> torch.Tensor:
+    """Per-pixel attention of q (B, H, W, C) over its S samples k_s, v_s
+    (B, H, W, S, C): softmax in f32, in the inputs' type otherwise."""
+    b, h, w, c = q.shape
+    s, hd = k_s.shape[3], c // heads
+    qh = q.reshape(b, h, w, heads, 1, hd) * hd ** -0.5
+    kh_ = k_s.reshape(b, h, w, s, heads, hd).transpose(3, 4)  # (B,H,W,nh,S,hd)
+    vh_ = v_s.reshape(b, h, w, s, heads, hd).transpose(3, 4)
+    attn = torch.softmax((qh @ kh_.transpose(-1, -2)).float(), -1).to(q.dtype)
+    return (attn @ vh_).reshape(b, h, w, c)
+
+
+def _tap_offsets(kernel, dev):
+    kh, kw = kernel
+    taps = torch.arange(kh * kw, device=dev)
+    return ((taps // kw - kh // 2).float(), (taps % kw - kw // 2).float())
+
+
+def deform_attention_mxu(q: torch.Tensor, k_feat: torch.Tensor,
+                         v_feat: torch.Tensor, offset: torch.Tensor,
+                         kernel: Tuple[int, int], heads: int, dg: int
+                         ) -> torch.Tensor:
+    """The "mxu" route: k and v of a group sampled together by the bilinear
+    kernels from one (B·clip·dg, H, W, 2·cg) slab per KV frame and group,
+    rows tap-major, then the attention."""
+    from kair_tpu_torch.ops.kernels.bilin_sample import bilinear_sample
+    frames = q.shape[0] // k_feat.shape[0]
+    if frames > 1:
+        k_feat, v_feat = rotate_kv(k_feat, frames), rotate_kv(v_feat, frames)
+    b, h, w, c = q.shape
+    clip = k_feat.shape[1]
+    K = kernel[0] * kernel[1]
+    cg = c // dg
+    both = torch.cat([k_feat.reshape(b, clip, h, w, dg, cg),
+                      v_feat.reshape(b, clip, h, w, dg, cg)], -1)
+    slabs = both.permute(0, 1, 4, 2, 3, 5).reshape(b * clip * dg, h, w, 2 * cg)
+    ky, kx = _tap_offsets(kernel, q.device)
+    off = offset.float().reshape(b, clip, h, w, dg, K, 2).permute(
+        0, 1, 4, 5, 2, 3, 6)                                 # (B,n,g,K,H,W,2)
+    gy = torch.arange(h, device=q.device, dtype=torch.float32)[:, None]
+    gx = torch.arange(w, device=q.device, dtype=torch.float32)
+    fy = (gy + ky[:, None, None] + off[..., 0]).reshape(b * clip * dg, -1)
+    fx = (gx + kx[:, None, None] + off[..., 1]).reshape(b * clip * dg, -1)
+    s = bilinear_sample(slabs, fy, fx).reshape(b, clip, dg, K, h, w, 2 * cg)
+    s = s.permute(0, 4, 5, 1, 3, 2, 6)                       # (B,H,W,n,K,g,·)
+    k_s = s[..., :cg].reshape(b, h, w, clip * K, c)
+    v_s = s[..., cg:].reshape(b, h, w, clip * K, c)
+    return _attend(q, k_s, v_s, heads)
+
+
 def deform_attention_gather(q: torch.Tensor, k_feat: torch.Tensor,
                             v_feat: torch.Tensor, offset: torch.Tensor,
                             kernel: Tuple[int, int], heads: int, dg: int
@@ -61,14 +116,12 @@ def deform_attention_gather(q: torch.Tensor, k_feat: torch.Tensor,
         k_feat, v_feat = rotate_kv(k_feat, frames), rotate_kv(v_feat, frames)
     b, h, w, c = q.shape
     clip = k_feat.shape[1]
-    kh, kw = kernel
-    K = kh * kw
-    cg, hd = c // dg, c // heads
+    K = kernel[0] * kernel[1]
+    cg = c // dg
     dev, f = q.device, offset.dtype
     gy = torch.arange(h, device=dev, dtype=f)[:, None, None]
     gx = torch.arange(w, device=dev, dtype=f)[None, :, None]
-    ky = (torch.arange(K, device=dev) // kw - kh // 2).to(f)
-    kx = (torch.arange(K, device=dev) % kw - kw // 2).to(f)
+    ky, kx = (t.to(f) for t in _tap_offsets(kernel, dev))
     off = offset.reshape(b, clip, h, w, dg, K, 2)
     k_parts, v_parts = [], []
     for n in range(clip):
@@ -85,12 +138,7 @@ def deform_attention_gather(q: torch.Tensor, k_feat: torch.Tensor,
         v_parts.append(torch.cat(vs, -1))
     k_s = torch.cat(k_parts, 3)                              # (B, H, W, S, C)
     v_s = torch.cat(v_parts, 3)
-    S = clip * K
-    qh = q.reshape(b, h, w, heads, 1, hd) * hd ** -0.5
-    kh_ = k_s.reshape(b, h, w, S, heads, hd).transpose(3, 4)  # (B,H,W,nh,S,hd)
-    vh_ = v_s.reshape(b, h, w, S, heads, hd).transpose(3, 4)
-    attn = torch.softmax((qh @ kh_.transpose(-1, -2)).float(), -1).to(q.dtype)
-    return (attn @ vh_).reshape(b, h, w, c)
+    return _attend(q, k_s, v_s, heads)
 
 
 def deform_attention(q: torch.Tensor, k_feat: torch.Tensor,
@@ -103,15 +151,19 @@ def deform_attention(q: torch.Tensor, k_feat: torch.Tensor,
     from kair_tpu_torch.ops.kernels import gda_block
     dg = deformable_groups
     if impl == "mxu":
-        raise NotImplementedError(
-            "deform_impl 'mxu' is the bilinear_sample_mm sampler "
-            "(kair_tpu/ops/pallas/bilin_mm.py), not ported yet (ROADMAP "
-            "Queue 2); use 'fused' or 'gather'")
+        return deform_attention_mxu(q, k_feat, v_feat, offset, kernel, heads,
+                                    dg)
     if impl not in ("auto", "fused", "gather"):
         raise ValueError(f"unknown deform impl {impl!r}")
     supported = gda_block.gda_supported(q.shape[-1], heads, dg, kernel,
                                         k_feat.shape[1])
     if impl == "fused" or (impl == "auto" and q.is_cuda and supported):
+        if q.is_cuda and torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k_feat, v_feat, offset)):
+            raise NotImplementedError(
+                "the GDA kernel has no backward (RVRT training is a later "
+                "slice of the port); use deform_impl 'mxu' or 'gather' to "
+                "train")
         if supported or not q.is_cuda:
             return gda_block.gda_fused(q, k_feat, v_feat, offset, kernel,
                                        heads, dg)

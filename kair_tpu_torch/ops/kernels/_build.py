@@ -81,6 +81,10 @@ SIGNATURES = {
     "kair_dcn": ([_P] * 6 + [_I] * 6 + [_P], _I),
     # q, k, v, off, out, Bq, frames, clip, H, W, C, DG, kh, kw, stream
     "kair_gda": ([_P] * 5 + [_I] * 9 + [_P], _I),
+    # feat, fy, fx, out, G, H, W, Cs, R, bf16, stream
+    "kair_bilin_fwd": ([_P] * 4 + [_I] * 6 + [_P], _I),
+    # feat, fy, fx, dout, dfeat, dfy, dfx, G, H, W, Cs, R, bf16, stream
+    "kair_bilin_bwd": ([_P] * 7 + [_I] * 6 + [_P], _I),
     "kair_swin_block_shared_bytes": ([_I] * 3, _I),      # C, NH, HP
     "kair_window_msa_shared_bytes": ([_I] * 2, _I),      # C, NH
     "kair_swin_block_bwd_shared_bytes": ([_I] * 3, _I),  # C, NH, HP

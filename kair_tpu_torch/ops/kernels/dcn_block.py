@@ -13,6 +13,12 @@ Layouts are the JAX package's: x (N, H, W, Cin), offsets (N, H, W,
 dg·9·2) with (Δy, Δx) per tap, mask (N, H, W, dg·9) after the sigmoid;
 the weight is KAIR's (Cout, Cin, 3, 3). A CPU tensor takes the plain
 version; a CUDA tensor the kernel, or an exception.
+
+``dcn_train`` is the training route (JAX ``dcn_block.py:166-190``): the
+kernel forward, and a backward that is autograd through the composed gather
+route recomputed from the saved x, offsets, mask, weight and bias. The JAX
+package has no backward kernel for this block: its backward is XLA code,
+whose counterpart here is that autograd.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 
 from kair_tpu_torch.ops import warp
 from kair_tpu_torch.ops.kernels import _build
+from kair_tpu_torch.ops.kernels.recompute import composed_vjp
 
 ROWS = 32                   # output pixels per thread block
 MAX_COUT = 256              # 8 warps x 2 column tiles of 16
@@ -113,3 +120,37 @@ def dcn_fused(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
 
 
 dcn_fused.launches = 0
+
+
+class DcnFunction(torch.autograd.Function):
+    """``dcn_fused`` forward; backward by autograd through the composed
+    route (``warp.deform_columns`` and the weight product) recomputed
+    from the saved inputs, under the forward's autocast state. On the card
+    x runs in bf16 whatever it arrives in, and dx goes back in x's type."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, x, offset, mask, weight, bias, dg, packed):
+        ctx.dg, ctx.x_dtype = dg, x.dtype
+        xin = x.to(torch.bfloat16).contiguous() if x.is_cuda else x
+        ctx.save_for_backward(xin, offset, mask, weight, bias)
+        return dcn_fused(xin, offset, mask, weight, bias, dg, packed)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dy):
+        def composed(x, offset, mask, weight, bias):
+            cols = warp.deform_columns(x, offset, mask, 3, 3, 1, 1, 1, ctx.dg)
+            out = cols @ warp.deform_weight_matrix(weight, ctx.dg).to(cols.dtype)
+            return out if bias is None else out + bias.to(out.dtype)
+
+        dx, *rest = composed_vjp(composed, ctx.saved_tensors,
+                                 ctx.needs_input_grad[:5], dy)
+        return (None if dx is None else dx.to(ctx.x_dtype), *rest, None, None)
+
+
+def dcn_train(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+              weight: torch.Tensor, bias: Optional[torch.Tensor], dg: int,
+              packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable ``dcn_fused``: ``DcnFunction``."""
+    return DcnFunction.apply(x, offset, mask, weight, bias, dg, packed)

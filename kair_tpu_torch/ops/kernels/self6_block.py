@@ -15,7 +15,9 @@ TMSA block); ``self6_block_reference`` is its plain version, the composed
 block of ``ops/window3d.py`` in f32.
 
 A CPU tensor takes the plain version; a CUDA tensor the kernel, or an
-exception. Nothing falls back.
+exception. Nothing falls back. ``self6_block_train`` is the training route
+(JAX ``self6_block.py:301-325``): the kernel forward and autograd through
+the composed block recomputed from the saved input and parameters.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from kair_tpu_torch.ops import window3d
 from kair_tpu_torch.ops.kernels import _build
+from kair_tpu_torch.ops.kernels.recompute import composed_vjp
 from kair_tpu_torch.ops.kernels.win3d import (Win3dPack, check_geometry,
                                               labels_on, pack_win3d)
 from kair_tpu_torch.ops.window3d import Tmsa3dParams
@@ -77,3 +80,38 @@ def self6_block(x: torch.Tensor, p: Tmsa3dParams, num_heads: int, wd: int,
 
 
 self6_block.launches = 0
+
+
+class Self6BlockFunction(torch.autograd.Function):
+    """``self6_block`` forward; backward by autograd through
+    ``window3d.tmsa_composed`` at window (wd, 8, 8), recomputed from the
+    saved x and parameters under the forward's autocast state (as
+    ``TmsaBlockFunction``)."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, x, num_heads, wd, shift, packed, *params):
+        ctx.num_heads, ctx.wd, ctx.shift = num_heads, wd, tuple(shift)
+        ctx.x_dtype = x.dtype
+        xin = x.to(torch.bfloat16).contiguous() if x.is_cuda else x
+        ctx.save_for_backward(xin, *params)
+        return self6_block(xin, Tmsa3dParams(*params), num_heads, wd, shift,
+                           packed=packed)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dy):
+        needs = ctx.needs_input_grad[:1] + ctx.needs_input_grad[5:]
+        dx, *grads = composed_vjp(
+            lambda x, *p: window3d.tmsa_composed(
+                x, Tmsa3dParams(*p), ctx.num_heads, (ctx.wd, 8, 8), ctx.shift),
+            ctx.saved_tensors, needs, dy)
+        return (None if dx is None else dx.to(ctx.x_dtype), None, None, None,
+                None, *grads)
+
+
+def self6_block_train(x: torch.Tensor, p: Tmsa3dParams, num_heads: int,
+                      wd: int, shift: Sequence[int] = (0, 0, 0),
+                      packed: Optional[Win3dPack] = None) -> torch.Tensor:
+    """Differentiable ``self6_block``: ``Self6BlockFunction``."""
+    return Self6BlockFunction.apply(x, num_heads, wd, tuple(shift), packed, *p)

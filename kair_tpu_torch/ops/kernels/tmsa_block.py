@@ -19,7 +19,11 @@ and −1e9 block-diagonal bias are TPU layout tricks: the kernel subtracts
 the running row max and gives each branch its own key tiles.
 
 A CPU tensor takes the plain version; a CUDA tensor the kernel, or an
-exception.
+exception. ``tmsa_block_train`` is the training route (JAX
+``tmsa_block.py:365-392``): the kernel forward, whose online softmax
+subtracts the row max as the JAX training forward's ``safe=True`` does, and
+autograd through the composed block recomputed from the saved input and
+parameters (the JAX remat profile: only x is saved).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 
 from kair_tpu_torch.ops import window3d
 from kair_tpu_torch.ops.kernels import _build
+from kair_tpu_torch.ops.kernels.recompute import composed_vjp
 from kair_tpu_torch.ops.kernels.win3d import (Win3dPack, check_geometry,
                                               labels_on, pack_win3d)
 from kair_tpu_torch.ops.window3d import Tmsa3dParams
@@ -85,3 +90,38 @@ def tmsa_block(x: torch.Tensor, p: Tmsa3dParams, num_heads: int,
 
 
 tmsa_block.launches = 0
+
+
+class TmsaBlockFunction(torch.autograd.Function):
+    """``tmsa_block`` forward; backward by autograd through
+    ``window3d.tmsa_composed`` recomputed from the saved x and parameters
+    under the forward's autocast state. On the card x runs in bf16 whatever
+    it arrives in (the kernel takes bf16; the f32 parameters get f32
+    grads) and dx goes back in x's type."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, x, num_heads, shift, packed, *params):
+        ctx.num_heads, ctx.shift, ctx.x_dtype = num_heads, tuple(shift), x.dtype
+        xin = x.to(torch.bfloat16).contiguous() if x.is_cuda else x
+        ctx.save_for_backward(xin, *params)
+        return tmsa_block(xin, Tmsa3dParams(*params), num_heads, shift,
+                          packed=packed)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dy):
+        needs = ctx.needs_input_grad[:1] + ctx.needs_input_grad[4:]
+        dx, *grads = composed_vjp(
+            lambda x, *p: window3d.tmsa_composed(x, Tmsa3dParams(*p),
+                                                 ctx.num_heads, WS, ctx.shift),
+            ctx.saved_tensors, needs, dy)
+        return (None if dx is None else dx.to(ctx.x_dtype), None, None, None,
+                *grads)
+
+
+def tmsa_block_train(x: torch.Tensor, p: Tmsa3dParams, num_heads: int,
+                     shift: Sequence[int] = (0, 0, 0),
+                     packed: Optional[Win3dPack] = None) -> torch.Tensor:
+    """Differentiable ``tmsa_block``: ``TmsaBlockFunction``."""
+    return TmsaBlockFunction.apply(x, num_heads, tuple(shift), packed, *p)

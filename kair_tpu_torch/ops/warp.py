@@ -17,9 +17,16 @@ semantics.
                 an im2col tensor, then one product with the weight (the JAX
                 package's XLA gather path); it is the kernel's plain version;
   ``"auto"``    ``"fused"`` on a CUDA tensor, ``"gather"`` on a CPU one;
-  ``"mxu"``     the JAX package's ``bilinear_sample_mm`` sampler, not ported.
+  ``"mxu"``     the JAX package's ``bilinear_sample_mm`` route: the samples
+                come from the bilinear kernels (``ops/kernels/
+                bilin_sample.py``; forward and backward, the plain versions
+                on a CPU tensor), rows tap-major per (image, group), then the
+                mask and one product with the weight (``torch.matmul``, as
+                the JAX package leaves it to XLA).
 Each run of the composed route on a CUDA tensor adds one to
-``modulated_deform_conv.composed_calls``.
+``modulated_deform_conv.composed_calls``. In training (grad enabled) the
+``"fused"`` route runs ``dcn_block.dcn_train``: the kernel forward and the
+composed route's backward, as the JAX package's custom VJP does.
 
 The weight is KAIR's (Cout, Cin, kh, kw); the offsets are (N, Ho, Wo,
 dg·K·2) with each tap's (Δy, Δx) pair, and the mask (N, Ho, Wo, dg·K),
@@ -34,18 +41,12 @@ import torch
 import torch.nn.functional as F
 
 
-
 def resolve_deform_impl(impl: str, device: torch.device) -> str:
-    """'auto' → 'fused' on the card (the port's kernel), 'gather' on the CPU;
-    'mxu' raises: that sampler is ROADMAP Queue 2 item 8, not ported."""
-    if impl == "mxu":
-        raise NotImplementedError(
-            "deform_impl 'mxu' is the bilinear_sample_mm sampler "
-            "(kair_tpu/ops/pallas/bilin_mm.py), not ported yet (ROADMAP "
-            "Queue 2 item 8); use 'fused' or 'gather'")
+    """'auto' → 'fused' on the card (the port's kernel), 'gather' on the
+    CPU; 'fused', 'gather' and 'mxu' as they are."""
     if impl == "auto":
         return "fused" if torch.device(device).type == "cuda" else "gather"
-    if impl not in ("fused", "gather"):
+    if impl not in ("fused", "gather", "mxu"):
         raise ValueError(f"unknown deform impl {impl!r}")
     return impl
 
@@ -141,6 +142,35 @@ def deform_columns(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     return torch.cat(cols, -1)
 
 
+def deform_columns_mxu(x: torch.Tensor, offset: torch.Tensor,
+                       mask: torch.Tensor, kh: int, kw: int, stride: int,
+                       padding: int, dilation: int, dg: int) -> torch.Tensor:
+    """``deform_columns`` through the bilinear kernels (the JAX package's
+    "mxu" route, ``kair_tpu/ops/warp.py:234-253``): one (N·dg, H, W, cg)
+    slab per image and group, sampled at K·Ho·Wo rows ordered tap-major,
+    times the mask."""
+    from kair_tpu_torch.ops.kernels.bilin_sample import bilinear_sample
+    n, h, w, cin = x.shape
+    k = kh * kw
+    cg = cin // dg
+    ho = (h + 2 * padding - dilation * (kh - 1) - 1) // stride + 1
+    wo = (w + 2 * padding - dilation * (kw - 1) - 1) // stride + 1
+    dev, f = x.device, torch.float32
+    base_y = (torch.arange(ho, device=dev, dtype=f) * stride - padding)[:, None]
+    base_x = torch.arange(wo, device=dev, dtype=f) * stride - padding
+    ky = ((torch.arange(k, device=dev) // kw).to(f) * dilation)[:, None, None]
+    kx = ((torch.arange(k, device=dev) % kw).to(f) * dilation)[:, None, None]
+    off = offset.float().reshape(n, ho, wo, dg, k, 2).permute(0, 3, 4, 1, 2, 5)
+    fy = (base_y + ky + off[..., 0]).reshape(n * dg, k * ho * wo)
+    fx = (base_x + kx + off[..., 1]).reshape(n * dg, k * ho * wo)
+    slabs = x.reshape(n, h, w, dg, cg).permute(0, 3, 1, 2, 4).reshape(
+        n * dg, h, w, cg)
+    s = bilinear_sample(slabs, fy, fx).reshape(n, dg, k, ho, wo, cg)
+    m = mask.reshape(n, ho, wo, dg, k).permute(0, 3, 4, 1, 2)[..., None]
+    s = s * m.to(s.dtype)
+    return s.permute(0, 3, 4, 1, 2, 5).reshape(n, ho, wo, dg * k * cg)
+
+
 def deform_weight_matrix(weight: torch.Tensor, dg: int) -> torch.Tensor:
     """KAIR's (Cout, Cin, kh, kw) weight as the (dg·K·cg, Cout) matrix that
     the columns of ``deform_columns`` multiply."""
@@ -161,11 +191,18 @@ def modulated_deform_conv(x: torch.Tensor, offset: torch.Tensor,
     from kair_tpu_torch.ops.kernels import dcn_block
     impl = resolve_deform_impl(impl, x.device)
     dg = deformable_groups
+    kh, kw = weight.shape[2:]
+    if impl == "mxu":
+        cols = deform_columns_mxu(x, offset, mask, kh, kw, stride, padding,
+                                  dilation, dg)
+        out = cols @ deform_weight_matrix(weight, dg).to(cols.dtype)
+        return out if bias is None else out + bias.to(out.dtype)
     if impl == "fused":
         if dcn_block.dcn_supported(x.shape[-1], weight.shape, stride, padding,
                                    dilation, dg):
-            return dcn_block.dcn_fused(x, offset, mask, weight, bias, dg,
-                                       packed)
+            fn = (dcn_block.dcn_train if torch.is_grad_enabled()
+                  else dcn_block.dcn_fused)
+            return fn(x, offset, mask, weight, bias, dg, packed)
         if x.is_cuda:
             raise ValueError(
                 f"the DCN kernel does not take weight {tuple(weight.shape)} "
@@ -175,7 +212,6 @@ def modulated_deform_conv(x: torch.Tensor, offset: torch.Tensor,
                 f"impl='gather' for the composed route")
     if x.is_cuda:
         modulated_deform_conv.composed_calls += 1
-    kh, kw = weight.shape[2:]
     cols = deform_columns(x, offset, mask, kh, kw, stride, padding, dilation, dg)
     out = cols @ deform_weight_matrix(weight, dg).to(cols.dtype)
     return out if bias is None else out + bias.to(out.dtype)

@@ -1,5 +1,5 @@
 """Trainer registry (counterpart of ``kair_tpu/train/select.py``; reference
-models/select_model.py:9-33)."""
+models/select_model.py:9-33): plain | plain2 | plain4 | vrt."""
 
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ FEED_KEYS = {
     "plain2": ("C",),
     "plain4": ("k", "sf", "sigma"),
 }
-LATER_SLICES = {"gan": "GAN", "vrt": "video"}
+LATER_SLICES = {"gan": "GAN"}
 
 
 def define_trainer(opt: dict, dtype: Optional[torch.dtype] = None,
@@ -24,6 +24,9 @@ def define_trainer(opt: dict, dtype: Optional[torch.dtype] = None,
         from kair_tpu_torch.train.trainer import PlainTrainer
         return PlainTrainer(opt, extra_keys=FEED_KEYS[model], dtype=dtype,
                             device=device)
+    if model == "vrt":
+        from kair_tpu_torch.train.video import VideoTrainer
+        return VideoTrainer(opt, dtype=dtype, device=device)
     if model in LATER_SLICES:
         raise NotImplementedError(
             f"model [{model}] trainer belongs to the {LATER_SLICES[model]} "

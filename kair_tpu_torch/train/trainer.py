@@ -130,11 +130,15 @@ class PlainTrainer:
         loss.backward()
         return loss.detach()
 
+    def group_lr(self, group: dict) -> float:
+        """The lr of a parameter group for the next update."""
+        return self.schedule(self.step)
+
     @torch.no_grad()
     def apply_update(self) -> None:
         """lr from the schedule, clipping, the optimizer step, EMA."""
         for group in self.optimizer.param_groups:
-            group["lr"] = self.schedule(self.step)
+            group["lr"] = self.group_lr(group)
         if self.clip > 0:
             clip_by_global_norm([p.grad for p in self.model.parameters()
                                  if p.grad is not None], self.clip)

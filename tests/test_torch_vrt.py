@@ -302,8 +302,10 @@ def test_geometries_jax_sends_to_xla_take_the_composed_route():
 def test_deform_impl_resolution():
     assert twarp.resolve_deform_impl("auto", torch.device("cpu")) == "gather"
     assert twarp.resolve_deform_impl("auto", torch.device("cuda")) == "fused"
-    with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
-        twarp.resolve_deform_impl("mxu", torch.device("cpu"))
+    for impl in ("mxu", "fused", "gather"):
+        assert twarp.resolve_deform_impl(impl, torch.device("cpu")) == impl
+    with pytest.raises(ValueError, match="unknown deform impl"):
+        twarp.resolve_deform_impl("scatter", torch.device("cpu"))
 
 
 def test_fused_deform_raises_on_the_card_where_the_kernel_does_not_take_it():
