@@ -21,7 +21,11 @@ one flushed line each with its seconds:
                 at the main path's 1x64x72, and at SwinIR-L's width (B=4,
                 128x128, C=240, 8 heads, hidden 480), shifted and not, with
                 the dropped-mask control
-  3 conv3x3     the same for the conv kernel, plus the F.conv2d yardstick
+  3 conv3x3     the conv kernel (wgmma, weights staged by bulk copies) against
+                its plain version at SwinIR-M's B=16 128x128 C=180 (phases 0
+                and 4), the main path's LR 1x64x72, JPEG-CAR's 8x126x126 and
+                C=60, with a wrong-phase control; at the SwinIR-M and JPEG-CAR
+                shapes its ms and TFLOP/s beside F.conv2d + add and the bound
   4 main_path   a seeded KAIR-keyed state dict → .pth → cli.test.build_preset
                 → test_pad → model on the card, for a 256x256 and a 256x280
                 HR image (LR 64x64, and 64x70 padded to 64x72); kernel launch
@@ -100,8 +104,9 @@ one flushed line each with its seconds:
                 1x16x128x128 tile (the CLI's default spatial tile)
  20 bilin       the bilinear sampler's forward and backward kernels against
                 their plain version (f32 on the card) at VRT-001's stage-1
-                call at batch 8 (G=96, 64x64, Cs=10, R=36,864) and an RVRT
-                GDA call (Cs=48), feat bf16 and f32, taps fractional, in the
+                call at batch 8 (G=96, 64x64, Cs=10, R=36,864), an RVRT
+                GDA call (Cs=48) and an odd Cs=3 (the forward's narrowest
+                vectors), feat bf16 and f32, taps fractional, in the
                 zero ring, far outside and on integers (dfy, dfx exactly 0
                 there); control: coordinates moved by 0.37 px; times, bounds,
                 the plain version's and F.grid_sample's forward and backward
@@ -129,6 +134,7 @@ Needs a CUDA card and the CUDA toolkit (nvcc); imports nothing of JAX.
 
 from __future__ import annotations
 
+import ctypes
 import faulthandler
 import json
 import math
@@ -321,63 +327,93 @@ def phase_swin(report: list) -> None:
         bound_ms=bms, bound_by=by, library_ms=None))
 
 
-def phase_conv(report: list) -> None:
+def conv_case(b: int, h: int, w: int, c: int, gen, dev):
+    """Seeded bf16 y, res, weight (std 1/sqrt(9C)), bias and the packed
+    weight of one conv call."""
     import torch
-    import torch.nn.functional as F
-    from kair_tpu_torch.ops.kernels.conv_block import (
-        conv3x3_residual, conv3x3_residual_reference, pack_conv3x3)
-
-    b, h, w, c = 16, 128, 128, 180
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(SEED + 1)
+    from kair_tpu_torch.ops.kernels.conv_block import pack_conv3x3
     y = torch.randn(b, h, w, c, generator=gen).to(dev, torch.bfloat16)
     res = torch.randn(b, h, w, c, generator=gen).to(dev, torch.bfloat16)
     wt = (torch.randn(c, c, 3, 3, generator=gen) / math.sqrt(9 * c)).to(
         dev, torch.bfloat16)
     bias = (torch.randn(c, generator=gen) * 0.1).to(dev, torch.bfloat16)
-    wpk = pack_conv3x3(wt)
+    return y, res, wt, bias, pack_conv3x3(wt)
+
+
+def phase_conv(report: list) -> None:
+    import torch
+    import torch.nn.functional as F
+    from kair_tpu_torch.ops.kernels.conv_block import (
+        conv3x3_residual, conv3x3_residual_reference)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 1)
     tol = 1e-2
+    # (what, B, H, W, C, phase, timed): SwinIR-M's tail (phases 0 and 4,
+    # unshifted and shifted), the main path's LR 64x72 (a partial column
+    # tile), JPEG-CAR's B=8 126x126 (ragged rows and columns), the
+    # lightweight width C=60 (N chunk 64) and SwinIR-L's width C=240 (two N
+    # chunks of 128, the epilogue from registers; no model path runs it, as
+    # SwinIR-L's tails are 3conv, but the wrapper takes every even C)
+    cases = (("SwinIR-M", 16, 128, 128, 180, 0, True),
+             ("SwinIR-M", 16, 128, 128, 180, 4, False),
+             ("main path LR", 1, 64, 72, 180, 4, False),
+             ("JPEG-CAR", 8, 126, 126, 180, 3, True),
+             ("lightweight", 16, 128, 128, 60, 4, False),
+             ("SwinIR-L width", 8, 64, 72, 240, 4, False))
     with Phase("3 conv3x3") as ph:
-        ph.note(f"B={b} {h}x{w} C={c} bf16; cudnn.allow_tf32="
-                f"{torch.backends.cudnn.allow_tf32} matmul.allow_tf32="
-                f"{torch.backends.cuda.matmul.allow_tf32} float32_matmul_"
-                f"precision={torch.get_float32_matmul_precision()}; limit max_abs <= "
-                f"{tol} * max|ref| (bf16 output rounding, f32 accumulation "
-                "in another order)")
-        # the last case is the main path's LR 64x72 (a partial column tile)
-        y72, r72 = y[:1, :64, :72].contiguous(), res[:1, :64, :72].contiguous()
-        errs = []
-        for yin, rin, phase in ((y, res, 0), (y, res, 4), (y72, r72, 4)):
-            got = conv3x3_residual(yin, rin, wt, bias, phase, packed_weight=wpk)
-            ref = conv3x3_residual_reference(yin.float(), rin.float(), wt, bias,
+        ph.note(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+                f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+                f"float32_matmul_precision={torch.get_float32_matmul_precision()}; "
+                f"limit max_abs <= {tol} * max|ref| (bf16 output rounding, "
+                "f32 accumulation in another order); control: the plain "
+                "version at phase + 1 exceeds the limit")
+        errs, row = [], None
+        for what, b, h, w, c, phase, timed in cases:
+            y, res, wt, bias, wpk = conv_case(b, h, w, c, gen, dev)
+            got = conv3x3_residual(y, res, wt, bias, phase, packed_weight=wpk)
+            ref = conv3x3_residual_reference(y.float(), res.float(), wt, bias,
                                              phase)
+            wrong = conv3x3_residual_reference(y.float(), res.float(), wt,
+                                               bias, phase + 1)
             torch.cuda.synchronize()
             e_abs, e_rel, ref_max, e_mean = compare(got, ref)
-            what = f"{tuple(yin.shape[:3])} phase {phase}"
-            ph.note(f"{what}: max_abs {e_abs:.4g} max_rel {e_rel:.4g} "
-                    f"mean_abs {e_mean:.3g} (max|ref| {ref_max:.3g})")
-            require(e_rel <= tol, f"conv3x3_residual {what} max_rel "
+            c_rel = compare(wrong, ref)[1]
+            shape = f"{what} {b}x{h}x{w} C={c} phase {phase}"
+            ph.note(f"{shape}: max_abs {e_abs:.4g} max_rel {e_rel:.4g} "
+                    f"mean_abs {e_mean:.3g} (max|ref| {ref_max:.3g}); control "
+                    f"{c_rel:.4g}")
+            require(e_rel <= tol, f"conv3x3_residual {shape} max_rel "
                     f"{e_rel:.4g} > {tol}")
+            require(c_rel > tol, f"conv3x3_residual {shape}: the wrong-phase "
+                    f"control {c_rel:.4g} is not above the limit")
             errs.append(e_abs)
-        ms = cuda_ms(lambda: conv3x3_residual(y, res, wt, bias, 0,
-                                              packed_weight=wpk))
-        plain_ms = cuda_ms(lambda: conv3x3_residual_reference(
-            y.float(), res.float(), wt, bias, 0), warmup=1, reps=5)
-        # yardstick only, never used by the port: cuDNN channels-last bf16
-        y_cl, r_cl = y.permute(0, 3, 1, 2), res.permute(0, 3, 1, 2)
-        lib_ms = cuda_ms(lambda: F.conv2d(y_cl, wt, bias, padding=1).add_(r_cl))
-        flops = 2.0 * b * h * w * 9 * c * c
-        nbytes = 3 * 2 * b * h * w * c + 2 * 9 * c * c + 2 * c
-        bms, by = bound_ms(flops, nbytes)
-        ph.note(f"kernel {ms:.3f} ms; plain f32 {plain_ms:.3f} ms; F.conv2d "
-                f"bf16 channels-last + add {lib_ms:.3f} ms; bound {bms:.4f} ms "
-                f"({by}); {flops / ms / 1e9:.1f} TFLOP/s")
+            if not timed:
+                continue
+            ms = cuda_ms(lambda: conv3x3_residual(y, res, wt, bias, phase,
+                                                  packed_weight=wpk))
+            # yardstick only, never used by the port: cuDNN channels-last bf16
+            y_cl, r_cl = y.permute(0, 3, 1, 2), res.permute(0, 3, 1, 2)
+            lib_ms = cuda_ms(lambda: F.conv2d(y_cl, wt, bias, padding=1)
+                             .add_(r_cl))
+            flops = 2.0 * b * h * w * 9 * c * c
+            nbytes = 3 * 2 * b * h * w * c + 2 * 9 * c * c + 2 * c
+            bms, by = bound_ms(flops, nbytes)
+            ph.note(f"{shape}: kernel {ms:.4f} ms, {flops / ms / 1e9:.1f} "
+                    f"TFLOP/s; F.conv2d bf16 channels-last + add {lib_ms:.4f} "
+                    f"ms; bound {bms:.4f} ms ({by}); kernel / cuDNN "
+                    f"{ms / lib_ms:.3f}")
+            if row is None:
+                plain_ms = cuda_ms(lambda: conv3x3_residual_reference(
+                    y.float(), res.float(), wt, bias, phase), warmup=1, reps=5)
+                ph.note(f"{shape}: plain f32 {plain_ms:.3f} ms")
+                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                           library_ms=lib_ms)
     report.append(dict(
         name="conv3x3_residual", route="cuda",
         source="kair_tpu_torch/csrc/conv_block.cu",
         replaces="kair_tpu/ops/pallas/conv_block.py:94",
-        launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-        bound_ms=bms, bound_by=by, library_ms=lib_ms))
+        launches=None, max_abs_err=max(errs), **row))
 
 
 def smooth_image(h: int, w: int, seed: int):
@@ -2041,7 +2077,8 @@ def phase_bilin(report: list) -> dict:
     file's batch 8 and at an RVRT GDA call; returns the two report rows."""
     import torch
     from kair_tpu_torch.ops.kernels.bilin_sample import (
-        bilinear_bwd, bilinear_bwd_reference, bilinear_fwd, bilinear_reference)
+        bilinear_bwd, bilinear_bwd_reference, bilinear_fwd, bilinear_reference,
+        vector_bytes)
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 20)
@@ -2049,7 +2086,8 @@ def phase_bilin(report: list) -> dict:
     shapes = (("VRT-001 stage 1, B=8 (12 groups of 120)", 96, 64, 64, 10,
                9 * 64 * 64),
               ("RVRT-001 GDA (k|v of a 24-channel group)", 48, 64, 64, 48,
-               9 * 64 * 64))
+               9 * 64 * 64),
+              ("odd Cs (2- and 4-byte vectors)", 24, 64, 64, 3, 9 * 64 * 64))
     rows = {}
     with Phase("20 bilin") as ph:
         ph.note("limits: forward max_rel <= 1e-2 (bf16) / 1e-5 (f32), each "
@@ -2121,7 +2159,8 @@ def phase_bilin(report: list) -> dict:
                 ops_b = g * r * (24.0 * cs + 12)
                 (bf, byf), (bb, byb) = (bound_ms(ops_f, bytes_f, "fp32"),
                                         bound_ms(ops_b, bytes_b, "fp32"))
-                ph.note(f"{what}, bf16: forward {ms_f:.4f} ms (plain f32 "
+                vec = vector_bytes(cs, feat.element_size())
+                ph.note(f"{what}, bf16, {vec}-byte vectors: forward {ms_f:.4f} ms (plain f32 "
                         f"{plain_f:.3f}, grid_sample {lib_f:.4f}, bound "
                         f"{bf:.4f} ({byf}, {bytes_f / 1e6:.1f} MB), {bf / ms_f:.4f} "
                         f"of it); backward {ms_b:.4f} ms (plain {plain_b:.3f}, "
@@ -2473,6 +2512,17 @@ def main() -> int:
                 "stores in all")
         ph.note(f"shared memory per block: conv {lib.kair_conv3x3_shared_bytes(180)} "
                 f"B, swin backward {lib.kair_swin_block_bwd_shared_bytes(180, 6, 368)} B")
+        from kair_tpu_torch.ops.kernels import conv_block
+        for c in (6, 60, 180, 240, 370):
+            plan = (ctypes.c_int * 4)()
+            lib.kair_conv3x3_plan(c, plan)
+            mirror = (*conv_block.conv_plan(c), conv_block.stage_bytes(c))
+            require(tuple(plan) == mirror and lib.kair_conv3x3_shared_bytes(c)
+                    == conv_block.shared_bytes(c),
+                    f"conv plan mirror differs from the kernel at C={c}")
+        ph.note("conv plan (NT, N chunks, K chunks, stage bytes) at C=180: "
+                f"{conv_block.conv_plan(180)} {conv_block.stage_bytes(180)} B; "
+                "the Python mirror equals the kernel's at C=6, 60, 180, 240, 370")
         # the wrappers' checks mirror the kernels' layout arithmetic
         from kair_tpu_torch.ops.kernels.swin_block import bwd_shared_bytes
         from kair_tpu_torch.ops.kernels.window_msa import shared_bytes

@@ -29,9 +29,31 @@
 // The TPU kernel's 2-hot matmuls, hat-weight matrices, lane padding
 // (_pad_cs), MXU_MAX_HW size gate and row tiles are TPU gather workarounds;
 // on Hopper the sample is a direct gather through L1/L2, for frames of any
-// size. Design: kLanes = 8 threads share one row; each computes the row's
-// four corner weights once and takes the channels c = lane, lane + 8, ...,
-// so neighbouring threads read neighbouring channels of a corner pixel.
+// size; the forward keeps a corner's pixel index, slab folded in, in 32 bits,
+// so it takes G*H*W < 2^31 pixels in all (the wrapper checks).
+//
+// Forward design: a warp takes 64 consecutive rows. Each lane reads two
+// rows' fy and fx (coalesced) and computes their four corners once, into
+// shared memory (pixel index with the slab folded in, weight). The channels
+// move in vectors, the widest the rows' byte alignment allows (the wrapper
+// picks it: 16 B at Cs=48 bf16, 4 B (bf16x2) at VRT's Cs=10 bf16, whose
+// 20-byte pixels are only 4-byte aligned, 2 or 4 B for an odd Cs); a row is
+// V = Cs / vector items. The warp walks its rows' (row, vector) items: an
+// item reads its row's corners from shared memory, one vector of each corner
+// pixel, sums in f32 and stores one vector. The rows are consecutive in
+// out, so a store instruction writes 32 consecutive vectors (whole sectors,
+// no staging), and the lanes of a row read neighbouring vectors of a corner
+// pixel. feat (7.9 MB at VRT-001) stays in L2. At random coordinates (the
+// card check's) the gathers bound it: each load instruction touches about
+// seven cache lines, about 5.8 L1 wavefronts a row with the corner reads from
+// shared memory, at about one a clock per SM. Pairing the x-neighbours in
+// one load, or the corners in registers passed by shuffles, measured slower.
+// (The first version gave each row 8 lanes, whatever Cs, each recomputing
+// the corners and moving 2-byte scalars: 0.267 ms at VRT's call.)
+//
+// Backward design: kLanes = 8 threads share one row; each computes the row's
+// four corner weights and takes the channels c = lane, lane + 8, ..., so
+// neighbouring threads read neighbouring channels of a corner pixel.
 // The backward adds each corner's share of dout into an f32 dfeat with
 // atomicAdd (the order of that sum varies from run to run: the f32 sum of a
 // few dozen terms moves in its last bits), and sums dfy and dfx over the
@@ -84,23 +106,70 @@ __device__ __forceinline__ Corners corners(float fy, float fx, int H, int W) {
   return k;
 }
 
-template <class T>
+// A vector of VB bytes as one load or store.
+template <int VB> struct Raw;
+template <> struct Raw<16> { typedef uint4 t; };
+template <> struct Raw<8> { typedef uint2 t; };
+template <> struct Raw<4> { typedef unsigned t; };
+template <> struct Raw<2> { typedef unsigned short t; };
+
+constexpr int kWarpsFwd = kThreads / 32;
+constexpr int kRowsPerWarp = 64;                // forward rows per warp
+
+template <class T, int VB>
 __global__ void __launch_bounds__(kThreads)
 bilin_fwd_kernel(const T* __restrict__ feat, const float* __restrict__ fy,
                  const float* __restrict__ fx, T* __restrict__ out, int H, int W, int Cs,
                  long long R, long long rows) {
-  const long long row = (long long)blockIdx.x * kRowsPerBlock + threadIdx.x / kLanes;
-  const int lane = threadIdx.x % kLanes;
-  if (row >= rows) return;
-  const long long g = row / R;
-  const Corners k = corners(fy[row], fx[row], H, W);
-  const T* f = feat + g * H * W * Cs;
-  T* o = out + row * Cs;
-  for (int c = lane; c < Cs; c += kLanes) {
-    float v = 0.f;
+  constexpr int N = VB / (int)sizeof(T);         // channels per vector
+  typedef typename Raw<VB>::t V;
+  // per warp: its rows' corner pixels (slab folded in) and weights
+  __shared__ int4 cpix[kWarpsFwd][kRowsPerWarp];
+  __shared__ float4 cwt[kWarpsFwd][kRowsPerWarp];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long base = ((long long)blockIdx.x * kWarpsFwd + warp) * kRowsPerWarp;
+  if (base >= rows) return;                      // uniform over the warp
 #pragma unroll
-    for (int i = 0; i < 4; ++i) v += k.w[i] * to_f(f[(long long)k.p[i] * Cs + c]);
-    o[c] = from_f<T>(v);
+  for (int l = lane; l < kRowsPerWarp; l += 32) {
+    const long long row = base + l;
+    int4 pix = make_int4(0, 0, 0, 0);
+    float4 wt = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < rows) {
+      const Corners k = corners(fy[row], fx[row], H, W);
+      const int g0 = (int)(row / R) * H * W;
+      pix = make_int4(g0 + k.p[0], g0 + k.p[1], g0 + k.p[2], g0 + k.p[3]);
+      wt = make_float4(k.w[0], k.w[1], k.w[2], k.w[3]);
+    }
+    cpix[warp][l] = pix;
+    cwt[warp][l] = wt;
+  }
+  __syncwarp();
+  const int nv = Cs / N;                         // vectors per row
+  const int items = (int)min((long long)kRowsPerWarp, rows - base) * nv;
+  const V* fv = reinterpret_cast<const V*>(feat);
+  V* ov = reinterpret_cast<V*>(out + base * Cs);
+#pragma unroll 4
+  for (int it = lane; it < items; it += 32) {
+    const int r = it / nv, v = it - r * nv;
+    const int4 q = cpix[warp][r];
+    const float4 c = cwt[warp][r];
+    const int qi[4] = {q.x, q.y, q.z, q.w};
+    const float ci[4] = {c.x, c.y, c.z, c.w};
+    float acc[N];
+#pragma unroll
+    for (int n = 0; n < N; ++n) acc[n] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const V raw = fv[(long long)qi[i] * nv + v];
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int n = 0; n < N; ++n) acc[n] += ci[i] * to_f(e[n]);
+    }
+    V o;
+    T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+    for (int n = 0; n < N; ++n) oe[n] = from_f<T>(acc[n]);
+    ov[it] = o;
   }
 }
 
@@ -153,23 +222,46 @@ unsigned grid_of(long long rows) {
 
 }  // namespace
 
+template <class T, int VB>
+void launch_fwd(const void* feat, const float* fy, const float* fx, void* out, int H, int W,
+                int Cs, long long R, long long rows, cudaStream_t s) {
+  const long long per_block = (long long)kWarpsFwd * kRowsPerWarp;
+  const unsigned grid = (unsigned)((rows + per_block - 1) / per_block);
+  bilin_fwd_kernel<T, VB><<<grid, kThreads, 0, s>>>(static_cast<const T*>(feat), fy, fx,
+                                                    static_cast<T*>(out), H, W, Cs, R, rows);
+}
+
 // feat [G][H][W][Cs], fy, fx [G][R] f32, out [G][R][Cs]; feat and out f32
-// (bf16 = 0) or bf16 (bf16 = 1); G, H, W, Cs, R, bf16, stream
+// (bf16 = 0) or bf16 (bf16 = 1); vec: bytes per vector (2 (bf16 only), 4, 8
+// or 16), dividing a pixel's bytes, feat and out aligned to it;
+// G, H, W, Cs, R, bf16, vec, stream
 extern "C" int kair_bilin_fwd(const void* feat, const void* fy, const void* fx, void* out,
-                              int G, int H, int W, int Cs, int R, int bf16_io,
+                              int G, int H, int W, int Cs, int R, int bf16_io, int vec,
                               void* stream) {
   if (G < 0 || H < 1 || W < 1 || Cs < 1 || R < 0) return (int)cudaErrorInvalidValue;
+  const int es = bf16_io ? 2 : 4;
+  if (vec < es || vec > 16 || (vec & (vec - 1)) || (Cs * es) % vec ||
+      ((size_t)feat | (size_t)out) % vec || (long long)G * H * W >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
   const long long rows = (long long)G * R;
   if (rows == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* y = static_cast<const float*>(fy);
   const float* x = static_cast<const float*>(fx);
-  if (bf16_io)
-    bilin_fwd_kernel<bf16><<<grid_of(rows), kThreads, 0, s>>>(
-        static_cast<const bf16*>(feat), y, x, static_cast<bf16*>(out), H, W, Cs, R, rows);
-  else
-    bilin_fwd_kernel<float><<<grid_of(rows), kThreads, 0, s>>>(
-        static_cast<const float*>(feat), y, x, static_cast<float*>(out), H, W, Cs, R, rows);
+  if (bf16_io) {
+    switch (vec) {
+      case 2: launch_fwd<bf16, 2>(feat, y, x, out, H, W, Cs, R, rows, s); break;
+      case 4: launch_fwd<bf16, 4>(feat, y, x, out, H, W, Cs, R, rows, s); break;
+      case 8: launch_fwd<bf16, 8>(feat, y, x, out, H, W, Cs, R, rows, s); break;
+      default: launch_fwd<bf16, 16>(feat, y, x, out, H, W, Cs, R, rows, s);
+    }
+  } else {
+    switch (vec) {
+      case 4: launch_fwd<float, 4>(feat, y, x, out, H, W, Cs, R, rows, s); break;
+      case 8: launch_fwd<float, 8>(feat, y, x, out, H, W, Cs, R, rows, s); break;
+      default: launch_fwd<float, 16>(feat, y, x, out, H, W, Cs, R, rows, s);
+    }
+  }
   return (int)cudaGetLastError();
 }
 

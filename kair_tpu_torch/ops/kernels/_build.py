@@ -16,7 +16,8 @@ compiler's output; nothing falls back.
 
 Nothing here runs at import time: the first kernel launch builds and loads.
 ``library(profile=True)`` builds the same sources with ``-DKAIR_PROFILE``
-into a library of its own, for ``cli/profile_swin_block.py`` only.
+into a library of its own, for ``cli/profile_swin_block.py`` and
+``cli/profile_conv.py`` only.
 """
 
 from __future__ import annotations
@@ -81,14 +82,15 @@ SIGNATURES = {
     "kair_dcn": ([_P] * 6 + [_I] * 6 + [_P], _I),
     # q, k, v, off, out, Bq, frames, clip, H, W, C, DG, kh, kw, stream
     "kair_gda": ([_P] * 5 + [_I] * 9 + [_P], _I),
-    # feat, fy, fx, out, G, H, W, Cs, R, bf16, stream
-    "kair_bilin_fwd": ([_P] * 4 + [_I] * 6 + [_P], _I),
+    # feat, fy, fx, out, G, H, W, Cs, R, bf16, vec, stream
+    "kair_bilin_fwd": ([_P] * 4 + [_I] * 7 + [_P], _I),
     # feat, fy, fx, dout, dfeat, dfy, dfx, G, H, W, Cs, R, bf16, stream
     "kair_bilin_bwd": ([_P] * 7 + [_I] * 6 + [_P], _I),
     "kair_swin_block_shared_bytes": ([_I] * 3, _I),      # C, NH, HP
     "kair_window_msa_shared_bytes": ([_I] * 2, _I),      # C, NH
     "kair_swin_block_bwd_shared_bytes": ([_I] * 3, _I),  # C, NH, HP
     "kair_conv3x3_shared_bytes": ([_I], _I),             # C
+    "kair_conv3x3_plan": ([_I, _P], _I),                 # C, dst (host i32[4])
     "kair_tmsa_block_shared_bytes": ([_I] * 3, _I),      # C, NH, HP
     "kair_self6_block_shared_bytes": ([_I] * 3, _I),     # C, NH, HP
     "kair_stl2_block_shared_bytes": ([_I] * 3, _I),      # C, NH, HP
@@ -97,6 +99,7 @@ SIGNATURES = {
 }
 PROFILE_SIGNATURES = {
     "kair_swin_stage_cycles": ([_P], _I),                # dst (host u64[10])
+    "kair_conv_stage_cycles": ([_P, _I], _I),    # dst (host u64[4]), products_only
 }
 
 _lock = threading.Lock()

@@ -8,7 +8,9 @@ f32 pixel coordinates fy, fx (G, R) → (G, R, Cs) in feat's type, a corner
 outside the frame reading 0. It is the ``deform_impl`` "mxu" sampler of
 ``ops/warp.modulated_deform_conv`` and ``ops/deform_attn.deform_attention``.
 The kernels are ``csrc/bilin_sample.cu`` (its header gives the bound on the
-card and the design): a direct gather, for frames of any size; the TPU
+card and the design): a direct gather, for frames of any size, the
+forward in vectors of ``vector_bytes`` with 32-bit pixel indices (G·H·W <
+2^31, ``FWD_MAX_PIXELS``); the TPU
 kernel's 2-hot matmuls, lane padding and ``MXU_MAX_HW`` gate are TPU
 workarounds and have no counterpart here.
 
@@ -107,22 +109,44 @@ def _check(feat, fy, fx, dout=None) -> None:
         raise ValueError("bilinear kernels take contiguous tensors")
 
 
+# the forward's corner pixel index, slab folded in, is a 32-bit int
+FWD_MAX_PIXELS = 2 ** 31
+
+
+def vector_bytes(cs: int, elem_bytes: int, *ptrs: int) -> int:
+    """Bytes the forward kernel moves per load and store: the widest power
+    of two up to 16 that divides a pixel's bytes (Cs · elem_bytes) and the
+    pointers, at least one element (16 at Cs=48 bf16, 4 at Cs=10 bf16, 2 at
+    Cs=3 bf16)."""
+    vb = 16
+    while vb > elem_bytes and ((cs * elem_bytes) % vb
+                               or any(p % vb for p in ptrs)):
+        vb //= 2
+    return vb
+
+
 def bilinear_fwd(feat: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor
                  ) -> torch.Tensor:
     """Samples (G, R, Cs) in feat's type. CPU tensor → the plain version;
-    CUDA tensor → the forward kernel (f32 or bf16 feat, f32 coordinates),
-    or an exception. A launch adds one to ``launches``."""
+    CUDA tensor → the forward kernel (f32 or bf16 feat, f32 coordinates,
+    G·H·W < ``FWD_MAX_PIXELS``), or an exception. A launch adds one to
+    ``launches``."""
     if feat.device.type == "cpu":
         return bilinear_reference(feat, fy, fx)
     _check(feat, fy, fx)
     g, h, w, cs = feat.shape
+    if g * h * w >= FWD_MAX_PIXELS:
+        raise ValueError(f"bilinear forward kernel takes G*H*W < 2^31 pixels, "
+                         f"got {g * h * w}")
     r = fy.shape[1]
     out = torch.empty(g, r, cs, dtype=feat.dtype, device=feat.device)
+    vec = vector_bytes(cs, feat.element_size(), feat.data_ptr(),
+                       out.data_ptr())
     lib = _build.library()
     with torch.cuda.device(feat.device):
         err = lib.kair_bilin_fwd(
             feat.data_ptr(), fy.data_ptr(), fx.data_ptr(), out.data_ptr(),
-            g, h, w, cs, r, int(feat.dtype == torch.bfloat16),
+            g, h, w, cs, r, int(feat.dtype == torch.bfloat16), vec,
             torch.cuda.current_stream(feat.device).cuda_stream)
     _build.check(err, "bilinear_fwd")
     bilinear_fwd.launches += 1

@@ -14,10 +14,12 @@
   gradients, against the JAX "mxu" routes in interpret mode (atol 2e-5 on
   outputs, the JAX test's; 1e-4 on gradients, sums of a few hundred f32
   products) and against the port's "gather" route.
-* A numpy replay of the CUDA kernels' thread mapping (8 lanes a row,
-  channels strided by 8, corner clamping, the atomic dfeat sum, the xor
-  reduction of dfy and dfx) against the plain versions, atol 1e-5. The
-  kernels themselves run only on the card (chip_smoke.py phase 20).
+* A numpy replay of the CUDA kernels' thread mapping (the forward's 64-row
+  warps with corners once per row and (row, vector) items at the widths
+  bf16 and f32 take; the backward's 8 lanes a row, channels strided by 8,
+  corner clamping, the atomic dfeat sum, the xor reduction of dfy and dfx)
+  against the plain versions, atol 1e-5. The kernels themselves run only on
+  the card (chip_smoke.py phase 20).
 """
 
 from unittest import mock
@@ -235,6 +237,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     bs._check(f, y, y, torch.zeros(2, 5, 3))
 
 
+def test_forward_refuses_2_31_pixels():
+    """The forward kernel's pixel index is 32-bit: G*H*W < 2^31 (checked
+    before anything is allocated; the meta device holds no data)."""
+    f = torch.empty(2 ** 15, 256, 256, 1, dtype=torch.bfloat16, device="meta")
+    y = torch.empty(2 ** 15, 1, device="meta")
+    with pytest.raises(ValueError, match="2\\^31"):
+        bs.bilinear_fwd(f, y, y)
+
+
 # ---------------------------------------------------------------------------
 # a replay of the CUDA kernels' thread mapping
 # ---------------------------------------------------------------------------
@@ -242,16 +253,67 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 LANES, THREADS = 8, 256
 
 
-def emulate_bilin(feat, fy, fx, dout):
-    """csrc/bilin_sample.cu in numpy, thread by thread: row = block·32 +
-    thread/8, lane = thread % 8 takes channels lane, lane + 8, ...; corners
-    from the clamped floor; the forward's four-term sum; the backward's
-    atomic adds into f32 dfeat and the per-lane dfy/dfx partials reduced by
-    xor over the 8 lanes."""
+def _corners_of(fy, fx, h, w):
+    """The kernel's corners(): flat pixel, weight and validity of the four
+    corners, from the clamped floor, and the fractions."""
+    y, x = np.float32(fy), np.float32(fx)
+    y0f, x0f = np.floor(y), np.floor(x)
+    ty, tx = np.float32(y - y0f), np.float32(x - x0f)
+    y0 = int(min(max(y0f, -2), h))
+    x0 = int(min(max(x0f, -2), w))
+    wy, wx = (1 - ty, ty), (1 - tx, tx)
+    p, wt, inside = [], [], []
+    for i in range(2):
+        for j in range(2):
+            ok = 0 <= y0 + i < h and 0 <= x0 + j < w
+            inside.append(ok)
+            p.append((y0 + i) * w + x0 + j if ok else 0)
+            wt.append(np.float32(wy[i] * wx[j]) if ok else 0.0)
+    return p, wt, inside, ty, tx, wy, wx
+
+
+def emulate_bilin_fwd(feat, fy, fx, elem_bytes, rows_per_warp=64):
+    """The forward kernel in numpy, warp by warp: a warp takes 64 rows; lane
+    l computes the corners of rows l and l + 32 (slab folded into the pixel
+    index) into the warp's shared arrays; V = Cs / (vector_bytes /
+    elem_bytes) vectors a row; lane l then takes items l, l + 32, ... of the
+    rows' (row, vector) items, reads the four corners' vectors at (pixel · V
+    + v) and stores vector item (the warp's first row · V + item) of out."""
     g, h, w, cs = feat.shape
     r = fy.shape[1]
     rows = g * r
-    out = np.zeros((g * r, cs), np.float32)
+    n = bs.vector_bytes(cs, elem_bytes) // elem_bytes
+    nv = cs // n
+    fvec = feat.reshape(g * h * w * nv, n)
+    ovec = np.full((rows * nv, n), np.nan, np.float32)
+    for base in range(0, rows, rows_per_warp):
+        cpix = np.zeros((rows_per_warp, 4), np.int64)
+        cwt = np.zeros((rows_per_warp, 4), np.float32)
+        nrows = min(rows_per_warp, rows - base)
+        for lane in range(32):
+            for row in range(lane, nrows, 32):
+                gi, ri = divmod(base + row, r)
+                p, wt, _, _, _, _, _ = _corners_of(fy[gi, ri], fx[gi, ri], h, w)
+                cpix[row] = [gi * h * w + q for q in p]
+                cwt[row] = wt
+        for lane in range(32):
+            for it in range(lane, nrows * nv, 32):
+                row, v = divmod(it, nv)
+                acc = np.zeros(n, np.float32)
+                for i in range(4):
+                    acc += cwt[row, i] * fvec[cpix[row, i] * nv + v]
+                ovec[base * nv + it] = acc
+    return ovec.reshape(g, r, cs)
+
+
+def emulate_bilin(feat, fy, fx, dout):
+    """The backward kernel in numpy, thread by thread: row = block·32 +
+    thread/8, lane = thread % 8 takes channels lane, lane + 8, ...; corners
+    from the clamped floor; atomic adds into f32 dfeat and the per-lane
+    dfy/dfx partials reduced by xor over the 8 lanes."""
+    g, h, w, cs = feat.shape
+    r = fy.shape[1]
+    rows = g * r
     dfeat = np.zeros((g, h * w, cs), np.float32)
     dfy = np.zeros(rows, np.float32)
     dfx = np.zeros(rows, np.float32)
@@ -264,23 +326,11 @@ def emulate_bilin(feat, fy, fx, dout):
             if row >= rows:
                 continue
             gi, ri = divmod(row, r)
-            y, x = np.float32(fy[gi, ri]), np.float32(fx[gi, ri])
-            y0f, x0f = np.floor(y), np.floor(x)
-            ty, tx = np.float32(y - y0f), np.float32(x - x0f)
-            y0 = int(min(max(y0f, -2), h))
-            x0 = int(min(max(x0f, -2), w))
-            wy, wx = (1 - ty, ty), (1 - tx, tx)
-            p, wt, inside = [], [], []
-            for i in range(2):
-                for j in range(2):
-                    ok = 0 <= y0 + i < h and 0 <= x0 + j < w
-                    inside.append(ok)
-                    p.append((y0 + i) * w + x0 + j if ok else 0)
-                    wt.append(np.float32(wy[i] * wx[j]) if ok else 0.0)
+            p, wt, inside, ty, tx, wy, wx = _corners_of(fy[gi, ri], fx[gi, ri],
+                                                        h, w)
             sy = np.float32(1.0 if ty > 0 else 0.0)
             sx = np.float32(1.0 if tx > 0 else 0.0)
             for c in range(lane, cs, LANES):
-                out[row, c] = sum(wt[i] * flat[gi, p[i], c] for i in range(4))
                 go = d[row, c]
                 v = [flat[gi, p[i], c] if inside[i] else 0.0 for i in range(4)]
                 for i in range(4):
@@ -294,20 +344,33 @@ def emulate_bilin(feat, fy, fx, dout):
             row = blk * (THREADS // LANES) + tid // LANES
             if row < rows:
                 dfy[row], dfx[row] = part[tid]
-    return (out.reshape(g, r, cs), dfeat.reshape(g, h, w, cs),
-            dfy.reshape(g, r), dfx.reshape(g, r))
+    return (dfeat.reshape(g, h, w, cs), dfy.reshape(g, r), dfx.reshape(g, r))
 
 
 @pytest.mark.parametrize("g,h,w,cs,r", [(2, 6, 7, 10, 37), (1, 5, 9, 17, 20),
-                                        (3, 4, 4, 3, 11)])
+                                        (3, 4, 4, 3, 11), (2, 5, 6, 48, 45)])
 def test_kernel_thread_mapping_matches_plain(g, h, w, cs, r):
+    """The forward's (row, vector) items at the vector widths of bf16 (2 B
+    elements) and f32 (4 B): Cs=3 → 2 / 4 B, Cs=10 → 4 / 8 B, Cs=17 → 2 /
+    4 B, Cs=48 → 16 / 16 B; row counts not a multiple of 64. The
+    backward's 8-lane mapping."""
     rng = np.random.default_rng(7)
     feat = rng.standard_normal((g, h, w, cs)).astype(np.float32)
     fy, fx = _rand_coords(rng, g, r, h, w)
     fx[:, r // 4:r // 2] = np.round(fx[:, r // 4:r // 2])
     dout = rng.standard_normal((g, r, cs)).astype(np.float32)
-    got = emulate_bilin(feat, fy, fx, dout)
     want = (bs.bilinear_reference(_t(feat), _t(fy), _t(fx)),
             *bs.bilinear_bwd_reference(_t(feat), _t(fy), _t(fx), _t(dout)))
-    for a, b in zip(got, want):
+    for elem_bytes in (2, 4):
+        got = emulate_bilin_fwd(feat, fy, fx, elem_bytes)
+        np.testing.assert_allclose(got, want[0].numpy(), rtol=TOL, atol=TOL)
+    for a, b in zip(emulate_bilin(feat, fy, fx, dout), want[1:]):
         np.testing.assert_allclose(a, b.numpy(), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("cs,elem_bytes,ptrs,want", [
+    (10, 2, (), 4), (48, 2, (), 16), (3, 2, (), 2), (10, 4, (), 8),
+    (48, 4, (), 16), (3, 4, (), 4), (48, 2, (1024, 4104), 8)])
+def test_forward_vector_width(cs, elem_bytes, ptrs, want):
+    """The widest vector that divides a pixel's bytes and every pointer."""
+    assert bs.vector_bytes(cs, elem_bytes, *ptrs) == want

@@ -17,7 +17,8 @@ import kair_tpu_torch
 from kair_tpu_torch.ops.kernels import _build
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "kair_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "kair_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "ab_kernels.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "kair_tpu")
 LAZY_ONLY = ("cv2", "triton", "torch.utils.cpp_extension")
 

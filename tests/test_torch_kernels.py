@@ -9,10 +9,12 @@
   GELU, a max-subtracted softmax and explicit LN affines. The Pallas kernel
   stores a shifted block's score bias in bf16, so the test's bias table
   holds bf16-representable values, which that storage keeps exact.
-* The CUDA kernels' operand layouts (``pack_swin_block``, ``pack_conv3x3``)
-  and index arithmetic (shift read, window order, halo) replayed in PyTorch
-  from the packed operands, against the plain versions (f32 packs, atol
-  1e-4). The kernels themselves run only on the card (chip_smoke.py).
+* The CUDA kernels' operand layouts (``pack_swin_block``, ``pack_conv3x3``'s
+  swizzled weight stages) and index arithmetic (shift read, window order,
+  halo buffers, tile walk) replayed in PyTorch from the packed operands,
+  against the plain versions (f32 packs, atol 1e-4); the conv kernel's
+  shared-memory arithmetic. The kernels themselves run only on the card
+  (chip_smoke.py).
 * The wrappers take the plain version for CPU tensors and never count a
   launch there.
 """
@@ -27,9 +29,12 @@ import kair_tpu.ops.pallas.conv_block as jcb
 import kair_tpu.ops.pallas.swin_block as jsb
 from kair_tpu.ops.window_attention import (relative_position_index,
                                            shift_attn_mask)
-from kair_tpu_torch.ops.kernels.conv_block import (conv3x3_residual,
+from kair_tpu_torch.ops.kernels.conv_block import (HALO_LD, HALO_PIX, KC,
+                                                   SMEM_LIMIT, _swizzle_cols,
+                                                   conv3x3_residual,
                                                    conv3x3_residual_reference,
-                                                   pack_conv3x3)
+                                                   conv_plan, pack_conv3x3,
+                                                   shared_bytes, stage_bytes)
 from kair_tpu_torch.ops.kernels.swin_block import (SwinBlockParams,
                                                    pack_swin_block,
                                                    swin_block_2d,
@@ -184,23 +189,60 @@ def test_conv_reference_matches_pallas(b, h, w, c, phase):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
+def unpack_conv_stages(wpk, c):
+    """The packed weight's stages back in plain (n, k) order: (N chunks,
+    K chunks, 9, NT, 64), undoing the 128-byte swizzle of each row."""
+    nt, ncs, kcs = conv_plan(c)
+    idx = _swizzle_cols(nt).expand(wpk.shape)
+    return torch.gather(wpk.float(), -1, idx).reshape(ncs, kcs, 9, nt, KC)
+
+
 def emulate_conv_kernel(y, res, wpk, bias, phase):
-    """csrc/conv_block.cu on the packed weight: un-rolled pixel (i, j) reads
-    y[(i - phase) % H, (j - phase) % W], zero halo at the un-rolled border,
-    nine taps as shifted views times wpk[tap] ([c_in][c_out])."""
+    """csrc/conv_block.cu on the packed stages, tile by tile: tiles of 6 x 32
+    pixels; per tile and 64-channel K chunk a halo buffer of 8 x 34 pixels x
+    HALO_LD (the un-rolled source, zeros outside the frame and past C);
+    warpgroup g's A row m at the kernel's element offset ((2g + m // 32) * 34
+    + m % 32 + tap row * 34 + tap column) * HALO_LD; nine taps times the
+    unswizzled stage (NT x 64, K-major) per N chunk; the epilogue adds bias
+    and residual where the pixel and channel exist."""
     b, h, w, c = y.shape
-    cp = wpk.shape[1]
+    nt, ncs, kcs = conv_plan(c)
+    stages = unpack_conv_stages(wpk, c)
     rows = (torch.arange(h) - phase) % h
     cols = (torch.arange(w) - phase) % w
-    halo = torch.zeros(b, h + 2, w + 2, cp)
-    halo[:, 1:h + 1, 1:w + 1, :c] = y[:, rows][:, :, cols]
-    acc = sum(halo[:, t // 3:t // 3 + h, t % 3:t % 3 + w] @ wpk[t].float()
-              for t in range(9))
-    return acc[..., :c] + bias + res
+    th, tw = -(-h // 6) * 6, -(-w // 32) * 32
+    src = torch.zeros(b, th + 2, tw + 2, kcs * KC)
+    src[:, 1:h + 1, 1:w + 1, :c] = y[:, rows][:, :, cols]
+    m = torch.arange(64)
+    a_rows = [((2 * g + m // 32) * 34 + m % 32) * HALO_LD for g in range(3)]
+    out = torch.zeros(b, th, tw, ncs * nt)
+    for bi in range(b):
+        for i0 in range(0, h, 6):
+            for j0 in range(0, w, 32):
+                for nc in range(ncs):
+                    acc = torch.zeros(3, 64, nt)
+                    for kc in range(kcs):
+                        halo = torch.zeros(HALO_PIX, HALO_LD)
+                        halo[:, :KC] = src[bi, i0:i0 + 8, j0:j0 + 34,
+                                           kc * KC:(kc + 1) * KC].reshape(-1, KC)
+                        flat = halo.reshape(-1)
+                        for tap in range(9):
+                            shift = (tap // 3 * 34 + tap % 3) * HALO_LD
+                            for g in range(3):
+                                at = (a_rows[g] + shift)[:, None] + torch.arange(KC)
+                                acc[g] += flat[at] @ stages[nc, kc, tap].T
+                    for g in range(3):
+                        out[bi, i0 + 2 * g + m // 32, j0 + m % 32,
+                            nc * nt:(nc + 1) * nt] = acc[g]
+    return out[:, :h, :w, :c] + bias + res
 
 
-@pytest.mark.parametrize("b,h,w,c,phase", CONV_CASES + [(1, 8, 72, 10, 3)])
+@pytest.mark.parametrize("b,h,w,c,phase", CONV_CASES + [
+    (1, 8, 72, 10, 3), (1, 8, 72, 60, 5), (2, 7, 40, 180, 3),
+    (1, 6, 16, 240, 1)])
 def test_conv_kernel_layout_matches_reference(b, h, w, c, phase):
+    """At C = 10, 24, 60 (NT 64), 180 (NT 184) and 240 (two N chunks of
+    128), tiles ragged in H and W."""
     y, r, k, bias = conv_inputs(b, h, w, c, seed=1)
     t = torch.from_numpy
     weight = t(k.transpose(3, 2, 0, 1).copy())
@@ -208,6 +250,24 @@ def test_conv_kernel_layout_matches_reference(b, h, w, c, phase):
     got = emulate_conv_kernel(t(y), t(r), wpk, t(bias), phase)
     want = conv3x3_residual_reference(t(y), t(r), weight, t(bias), phase)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("c,plan,want", [
+    (6, (64, 1, 1), 106488), (60, (64, 1, 1), 127224),
+    (180, (184, 1, 3), 219384), (240, (128, 2, 4), 128760),
+    (368, (184, 2, 6), 150264), (370, (128, 3, 6), 128760)])
+def test_conv_shared_memory_arithmetic(c, plan, want):
+    """ConvPlan's arithmetic (csrc/conv_block.cu): the N chunks, the K
+    chunks and the bytes of the layout (the staging buffers only with one N
+    chunk); weight stages and halo buffers are 16-byte multiples (bulk and
+    cp.async copies) and stages 1024-byte multiples (swizzle atoms); every
+    C fits the card's opt-in limit."""
+    assert conv_plan(c) == plan
+    assert shared_bytes(c) == want <= SMEM_LIMIT
+    assert stage_bytes(c) % 1024 == 0 and (HALO_PIX * HALO_LD * 2) % 16 == 0
+    wpk = pack_conv3x3(torch.zeros(c, c, 3, 3))
+    assert tuple(wpk.shape) == (plan[1] * plan[2] * 9, plan[0], KC)
+    assert wpk.shape[1] * wpk.shape[2] * 2 == stage_bytes(c)
 
 
 def test_conv_wrapper_takes_plain_version_on_cpu():
@@ -269,3 +329,36 @@ def test_conv_wrapper_rejects_what_the_kernel_does_not_take(case):
         weight = torch.zeros(6, 6, 1, 1)
     with pytest.raises(err):
         _check_cuda_args(y, res, weight, bias)
+
+
+def _offset(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """A contiguous copy of t whose data starts nbytes past an aligned one."""
+    k = nbytes // t.element_size()
+    return torch.zeros(t.numel() + k, dtype=t.dtype)[k:].view(t.shape)
+
+
+@pytest.mark.parametrize("case", ["aligned", "y_c6_at_4", "packed_weight",
+                                  "y_at_4", "res_at_2", "bias_at_4", "pixels"])
+def test_conv_wrapper_refuses_misaligned_operands(case):
+    from kair_tpu_torch.ops.kernels.conv_block import _check_alignment
+    c = 6 if case == "y_c6_at_4" else 8
+    y = res = torch.zeros(1, 8, 8, c, dtype=torch.bfloat16)
+    wpk, bias32 = pack_conv3x3(torch.zeros(c, c, 3, 3)), torch.zeros(c)
+    if case == "y_c6_at_4":           # C % 4 != 0: 4-byte halo copies
+        y = _offset(y, 4)
+    elif case == "packed_weight":
+        wpk = _offset(wpk, 8)
+    elif case == "y_at_4":
+        y = _offset(y, 4)
+    elif case == "res_at_2":
+        res = _offset(res, 2)
+    elif case == "bias_at_4":
+        bias32 = _offset(bias32, 4)
+    elif case == "pixels":            # 2^31 pixels: 32-bit offsets
+        y = res = torch.empty(2 ** 15, 256, 256, c, dtype=torch.bfloat16,
+                              device="meta")
+    if case in ("aligned", "y_c6_at_4"):
+        _check_alignment(y, res, wpk, bias32)
+    else:
+        with pytest.raises(ValueError, match="aligned|2\\^31"):
+            _check_alignment(y, res, wpk, bias32)
