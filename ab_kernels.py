@@ -1,11 +1,14 @@
-"""Time the conv tail and the bilinear sampler of two checkouts on one card.
+"""Time the Swin-block, conv-tail and bilinear-sampler kernels of two
+checkouts on one card.
 
     python3 ab_kernels.py <other checkout>
 
-Runs phase 3 (``conv3x3``) and phase 20 (``bilin``) of each checkout's own
-``chip_smoke.py``, each in a fresh process whose working directory is that
-checkout (so each builds and loads its own kernels), in turns: other, this,
-this, other. It prints the card's name and power limit, then each run's
+Runs phases 2 (``swin_block``, the block at window 8), 3 (``conv3x3``), 8
+(``swin_win``, the block below window 8), 9 (``window_msa``, attention
+only) and 20 (``bilin``) of each checkout's own ``chip_smoke.py``, each
+checkout in a fresh process whose working directory is that checkout (so
+each builds and loads its own kernels), in turns: other, this, this,
+other. It prints the card's name and power limit, then each run's
 phase lines: kernel, plain-version and library times, bounds and errors, as
 that checkout's phases report them. Comparing two kernel versions is only
 sound inside one such call, on one card.
@@ -26,7 +29,10 @@ torch.set_float32_matmul_precision("highest")
 import chip_smoke
 from kair_tpu_torch.ops.kernels import _build
 _build.library()
+chip_smoke.phase_swin([])
 chip_smoke.phase_conv([])
+chip_smoke.phase_swin_win([])
+chip_smoke.phase_window_msa([])
 chip_smoke.phase_bilin([])
 """
 

@@ -17,10 +17,12 @@ one flushed line each with its seconds:
 
   0 device      card name, power limit (nvidia-smi), torch and CUDA versions
   1 build       the kernels, from csrc/, with one plain nvcc call
-  2 swin_block  kernel against its plain version at B=16, 128x128, C=180,
-                at the main path's 1x64x72, and at SwinIR-L's width (B=4,
-                128x128, C=240, 8 heads, hidden 480), shifted and not, with
-                the dropped-mask control
+  2 swin_block  kernel (wgmma, a bulk-copied weight ring two windows share)
+                against its plain version at B=16, 128x128, C=180, at the
+                main path's 1x64x72, on 1x56x72 (63 windows: the persistent
+                walk's ragged end), and at SwinIR-L's width (B=4, 128x128,
+                C=240, 8 heads, hidden 480), shifted and not, with the
+                dropped-mask control
   3 conv3x3     the conv kernel (wgmma, weights staged by bulk copies) against
                 its plain version at SwinIR-M's B=16 128x128 C=180 (phases 0
                 and 4), the main path's LR 1x64x72, JPEG-CAR's 8x126x126 and
@@ -49,9 +51,9 @@ one flushed line each with its seconds:
                 device time per step by kernel, from torch.profiler
   8 swin_win    the window-block kernel (windows up to 8, padded to 64 rows)
                 against its plain version: window 7 at B=8, 126x126, C=180,
-                shifted (phase 3) and not; window 4 on 1x12x20 and window 7
-                on 1x21x35 (odd window counts); dropped-mask control; time
-                and bound
+                shifted (phase 3) and not; window 4 on 1x12x20, window 7 on
+                1x21x35 and 1x49x63 (odd window counts, 63 the ragged end of
+                a walk); dropped-mask control; time and bound
   9 window_msa  the window-attention kernel against the composed window_msa
                 at B=16, 128x128, C=180, with and without the mask and the
                 qkv bias; the same control; time and bound
@@ -262,10 +264,13 @@ def phase_swin(report: list) -> None:
                 "max|ref| (qkv, probabilities and MLP hidden are stored in "
                 "bf16, f32 accumulation; plain version in f32 from the same "
                 "bf16 inputs)")
-        # the main path's second image: LR 64x72, a width of 8 mod 16
+        # the main path's second image: LR 64x72, a width of 8 mod 16; and
+        # 63 windows, an odd count (one warpgroup of the last pair idles)
         x72 = x[:1, :64, :72].contiguous()
+        x56 = x[:1, :56, :72].contiguous()
         cases = [(x, 0, None), (x, 4, mask), (x, -4, None),
-                 (x72, 4, shift_mask_tensor(64, 72, 8, 4, dev))]
+                 (x72, 4, shift_mask_tensor(64, 72, 8, 4, dev)),
+                 (x56, 4, shift_mask_tensor(56, 72, 8, 4, dev))]
         errs = []
         for xin, phase, m in cases:
             got = swin_block_2d(xin, p, nh, m, phase, packed=pk)
@@ -321,7 +326,7 @@ def phase_swin(report: list) -> None:
                 f"{flops / ms / 1e9:.1f} TFLOP/s")
     report.append(dict(
         name="swin_block_2d", route="cuda",
-        source="kair_tpu_torch/csrc/swin_block.cu",
+        source="kair_tpu_torch/csrc/swin_block_wgmma.cu",
         replaces="kair_tpu/ops/pallas/swin_block.py:701",
         launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
         bound_ms=bms, bound_by=by, library_ms=None))
@@ -964,6 +969,7 @@ def phase_swin_win(report: list) -> None:
     x = torch.randn(8, 126, 126, c, generator=gen).to(dev, bf)
     x21 = torch.randn(1, 21, 35, c, generator=gen).to(dev, bf)
     x12 = torch.randn(1, 12, 20, c, generator=gen).to(dev, bf)
+    x63 = torch.randn(1, 49, 63, c, generator=gen).to(dev, bf)
     mask = shift_mask_tensor(126, 126, 7, 3, dev)
     tol = 1e-2
     with Phase("8 swin_win") as ph:
@@ -973,7 +979,8 @@ def phase_swin_win(report: list) -> None:
                 "without the mask")
         errs = []
         for xin, p, ws, phase in ((x, p7, 7, 3), (x, p7, 7, 0),
-                                  (x21, p7, 7, 3), (x12, p4, 4, 2)):
+                                  (x21, p7, 7, 3), (x12, p4, 4, 2),
+                                  (x63, p7, 7, 3)):
             h, w = xin.shape[1:3]
             m = shift_mask_tensor(h, w, ws, phase, dev)
             got = swin_block_2d(xin, p, nh, m, phase, ws,
@@ -1000,7 +1007,7 @@ def phase_swin_win(report: list) -> None:
                 f"{bms / ms:.4f} of it; {flops / ms / 1e9:.1f} TFLOP/s")
     report.append(dict(
         name="swin_block_win", route="cuda",
-        source="kair_tpu_torch/csrc/swin_block.cu",
+        source="kair_tpu_torch/csrc/swin_block_wgmma.cu",
         replaces="kair_tpu/ops/pallas/swin_block.py:843",
         launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
         bound_ms=bms, bound_by=by, library_ms=None))
@@ -2524,18 +2531,25 @@ def main() -> int:
                 f"{conv_block.conv_plan(180)} {conv_block.stage_bytes(180)} B; "
                 "the Python mirror equals the kernel's at C=6, 60, 180, 240, 370")
         # the wrappers' checks mirror the kernels' layout arithmetic
-        from kair_tpu_torch.ops.kernels.swin_block import bwd_shared_bytes
+        from kair_tpu_torch.ops.kernels.swin_block import (block_plan,
+                                                            bwd_shared_bytes)
         from kair_tpu_torch.ops.kernels.window_msa import shared_bytes
-        for c, nh, hp in ((60, 6, 128), (180, 6, 368), (240, 8, 480)):
+        for c, nh, hp in ((24, 4, 48), (60, 6, 128), (144, 6, 288),
+                          (180, 6, 368), (240, 8, 480)):
             blk, att, bwd = (lib.kair_swin_block_shared_bytes(c, nh, hp),
                              lib.kair_window_msa_shared_bytes(c, nh),
                              lib.kair_swin_block_bwd_shared_bytes(c, nh, hp))
-            require((blk, att, bwd) == (shared_bytes(c, nh, hp),
-                                        shared_bytes(c, nh, 0, block=False),
-                                        bwd_shared_bytes(c, nh, hp)),
+            plan = (ctypes.c_int * 5)()
+            lib.kair_swin_block_plan(c, nh, hp, plan)
+            bp = block_plan(c, nh, hp)
+            require(tuple(plan) == (bp.nt, bp.kc, bp.ring, bp.stages, bp.slot)
+                    and (blk, att, bwd) == (bp.smem,
+                                            shared_bytes(c, nh, 0, block=False),
+                                            bwd_shared_bytes(c, nh, hp)),
                     f"shared-memory mirror differs from the kernels at C={c}")
-            ph.note(f"C={c}, {nh} heads: block {blk} B, attention {att} B, "
-                    f"backward {bwd} B")
+            ph.note(f"C={c}, {nh} heads: block {blk} B (NT {bp.nt}, ring "
+                    f"{bp.ring} x {bp.slot} B, {bp.stages} stages a window "
+                    f"pair), attention {att} B, backward {bwd} B")
         from kair_tpu_torch.ops.kernels.win3d import shared_bytes as win3d_bytes
         for c, nh, hp in ((24, 2, 48), (120, 6, 240), (180, 6, 368)):
             tm, s6 = (lib.kair_tmsa_block_shared_bytes(c, nh, hp),

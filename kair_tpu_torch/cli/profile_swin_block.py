@@ -1,36 +1,53 @@
-"""Per-stage cycle profile of the fused Swin-block kernel on the card.
+"""Where the fused Swin-block kernel's cycles go, on the card: the wgmma
+design (``csrc/swin_block_wgmma.cu``) beside the WMMA design it replaced.
 
-    python -m kair_tpu_torch.cli.profile_swin_block [--batch 16] [--size 128]
+    python -m kair_tpu_torch.cli.profile_swin_block [--reps 10]
 
 Builds ``csrc/`` with ``-DKAIR_PROFILE`` into a library of its own (the
-normal build has no marks), runs the kernel at SwinIR-M width (C=180, 6
-heads, hidden 360, bf16) on a seeded B×size×size map, shifted (phase +4,
-shift mask) and unshifted, and prints the SM clock cycles that each stage
-took per thread block, averaged over the blocks of ``--reps`` launches, with
-each stage's share, beside the card's name and power limit. Every thread
-block waits at a barrier before each mark, so a stage's count includes its
-slowest warp's wait.
+normal build has no marks and no WMMA block) and runs both designs at
+SwinIR-M width (C=180, 6 heads, hidden 360, bf16, seeded): B=16 of
+128×128 at window 8 and B=8 of 126×126 at window 7 (JPEG-CAR), shifted
+(with the shift mask). For each it prints, beside the card's name and power
+limit:
+
+* the wgmma design: its time in the profile build (CUDA events, median of
+  ``--reps``) in full, with the products only (the weight ring and the
+  qkv, proj, fc1 and fc2 wgmmas, nothing else) and without the attention
+  core (score bias, k and v^T stores, QK^T, softmax, PV); and, with the
+  stage marks on, the SM clock cycles that thread 0 of consumer warpgroup 0
+  of each thread block spent in each stage (load + LN1, waiting for a
+  weight stage, qkv, attention, proj, LN2, MLP, store), averaged over the
+  blocks, with each stage's share;
+* the WMMA design: the cycles that each thread block (one window) spent in
+  each of its ten stages, after a barrier each, and its time in full and
+  in its products-only mode (the four weight products alone, with
+  epilogues that store nothing), and the products' share of the time.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import statistics
 import subprocess
 
 import torch
 
 from kair_tpu_torch.ops.kernels import _build
 from kair_tpu_torch.ops.kernels.swin_block import (SwinBlockParams, _launch,
+                                                    grid_blocks,
                                                     pack_swin_block)
 from kair_tpu_torch.ops.kernels.window_msa import shift_mask_tensor
 
-STAGES = ("load", "LN1", "qkv", "QK", "softmax", "PV", "proj", "LN2",
-          "fc1", "fc2")
+STAGES = ("load+LN1", "ring wait", "qkv", "attention", "proj", "LN2", "MLP",
+          "store")
+STAGES_V1 = ("load", "LN1", "qkv", "QK", "softmax", "PV", "proj", "LN2",
+             "fc1", "fc2")
+SHAPES = (("SwinIR-M ws 8", 16, 128, 8, 4), ("JPEG-CAR ws 7", 8, 126, 7, 3))
 
 
-def seeded_params(c: int, nh: int, hidden: int, seed: int,
-                  device) -> SwinBlockParams:
+def seeded_params(c: int, nh: int, hidden: int, seed: int, device,
+                  ws: int = 8) -> SwinBlockParams:
     g = torch.Generator().manual_seed(seed)
 
     def rnd(*shape, std=0.05, mean=0.0):
@@ -39,14 +56,48 @@ def seeded_params(c: int, nh: int, hidden: int, seed: int,
 
     return SwinBlockParams(
         rnd(3 * c, c, std=0.1), rnd(3 * c), rnd(c, c), rnd(c),
-        rnd(225, nh, std=0.5), rnd(c, mean=1.0), rnd(c), rnd(c, mean=1.0),
-        rnd(c), rnd(hidden, c), rnd(hidden), rnd(c, hidden), rnd(c))
+        rnd((2 * ws - 1) ** 2, nh, std=0.5), rnd(c, mean=1.0), rnd(c),
+        rnd(c, mean=1.0), rnd(c), rnd(hidden, c), rnd(hidden), rnd(c, hidden),
+        rnd(c))
+
+
+def timed(fn, reps: int) -> float:
+    """Median ms of fn() by CUDA events, after two warm-up runs."""
+    for _ in range(2):
+        fn()
+    pairs = []
+    for _ in range(reps):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def launch_v1(lib, x, out, pk, nh, mask, phase, ws) -> None:
+    """One launch of the WMMA block (profile build only)."""
+    b, h, w, c = x.shape
+    err = lib.kair_swin_block_v1(
+        x.data_ptr(), out.data_ptr(), pk.wqkv.data_ptr(), pk.bqkv.data_ptr(),
+        pk.wp.data_ptr(), pk.bp.data_ptr(), pk.w1.data_ptr(),
+        pk.b1.data_ptr(), pk.w2.data_ptr(), pk.b2.data_ptr(),
+        pk.relbias.data_ptr(), None if mask is None else mask.data_ptr(),
+        b, h, w, c, nh, pk.hp, int(phase), ws,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "swin_block_v1")
+
+
+def split(counts, names, blocks: float) -> str:
+    per_block = [v / blocks for v in counts]
+    total = sum(per_block)
+    return f"{total:.0f} cycles/block: " + ", ".join(
+        f"{n} {v:.0f} ({v / total:.3f})" for n, v in zip(names, per_block))
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--batch", type=int, default=16)
-    ap.add_argument("--size", type=int, default=128)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -56,31 +107,51 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     dev = torch.device("cuda")
-    c, nh, hidden, s = 180, 6, 360, args.size
-    p = seeded_params(c, nh, hidden, args.seed, dev)
-    pk = pack_swin_block(p, nh)
-    g = torch.Generator().manual_seed(args.seed + 1)
-    x = torch.randn(args.batch, s, s, c, generator=g).to(dev, torch.bfloat16)
-    out = torch.empty_like(x)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    c, nh, hidden = 180, 6, 360
     lib = _build.library(profile=True)
-    counts = (ctypes.c_ulonglong * len(STAGES))()
-    blocks = args.batch * (s // 8) ** 2 * args.reps
-    print(f"{card}; B={args.batch} {s}x{s} C={c} nh={nh} hidden={hidden} "
-          f"bf16, {args.reps} launches of {blocks // args.reps} blocks")
-    for name, phase, mask in (("shifted", 4, shift_mask_tensor(s, s, 8, 4, dev)),
-                              ("plain", 0, None)):
-        _launch(lib, x, out, pk, nh, mask, phase)         # warm-up
-        torch.cuda.synchronize()
-        _build.check(lib.kair_swin_stage_cycles(counts), "stage counters")
-        for _ in range(args.reps):
-            _launch(lib, x, out, pk, nh, mask, phase)
-        torch.cuda.synchronize()
-        _build.check(lib.kair_swin_stage_cycles(counts), "stage counters")
-        per_block = [v / blocks for v in counts]
-        total = sum(per_block)
-        print(f"{name}: {total:.0f} cycles/block: " + ", ".join(
-            f"{st} {v:.0f} ({v / total:.1%})"
-            for st, v in zip(STAGES, per_block)), flush=True)
+    wg = (ctypes.c_ulonglong * len(STAGES))()
+    v1 = (ctypes.c_ulonglong * len(STAGES_V1))()
+    print(f"{card}; C={c} nh={nh} hidden={hidden} bf16, shifted, {args.reps} "
+          "launches per reading")
+    for what, b, s, ws, phase in SHAPES:
+        p = seeded_params(c, nh, hidden, args.seed, dev, ws)
+        pk = pack_swin_block(p, nh)
+        g = torch.Generator().manual_seed(args.seed + 1)
+        x = torch.randn(b, s, s, c, generator=g).to(dev, torch.bfloat16)
+        out = torch.empty_like(x)
+        mask = shift_mask_tensor(s, s, ws, phase, dev)
+        windows = b * (s // ws) ** 2
+        runs = args.reps + 2
+
+        ms = {}
+        for mode in (0, 1, 2, 4):   # full, products only, no attention core, marks
+            _build.check(lib.kair_swin_wg_cycles(wg, mode), "counters")
+            ms[mode] = timed(lambda: _launch(lib, x, out, pk, nh, mask, phase,
+                                             ws), args.reps)
+            _build.check(lib.kair_swin_wg_cycles(wg, mode), "counters")
+        reset = (ctypes.c_ulonglong * len(STAGES))()
+        _build.check(lib.kair_swin_wg_cycles(reset, 0), "counters")
+        print(f"{what} B={b} {s}x{s}, wgmma: {windows} windows on "
+              f"{grid_blocks(windows, sms)} blocks; {ms[0]:.4f} ms, products "
+              f"only {ms[1]:.4f} ms ({ms[1] / ms[0]:.3f}), without the "
+              f"attention core {ms[2]:.4f} ms ({ms[2] / ms[0]:.3f}); with the "
+              f"marks {ms[4]:.4f} ms, warpgroup 0 "
+              + split(wg, STAGES, grid_blocks(windows, sms) * runs), flush=True)
+
+        res = {}
+        for mode in (0, 1):                 # full, products only
+            _build.check(lib.kair_swin_stage_cycles(v1, mode), "counters")
+            res[mode] = timed(lambda: launch_v1(lib, x, out, pk, nh, mask,
+                                                phase, ws), args.reps)
+            _build.check(lib.kair_swin_stage_cycles(v1, mode), "counters")
+            if mode == 0:
+                line = split(v1, STAGES_V1, windows * runs)
+        reset = (ctypes.c_ulonglong * len(STAGES_V1))()
+        _build.check(lib.kair_swin_stage_cycles(reset, 0), "counters")
+        print(f"{what} B={b} {s}x{s}, WMMA: {res[0]:.4f} ms, products only "
+              f"{res[1]:.4f} ms ({res[1] / res[0]:.3f} of the time); {line}",
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -1,15 +1,13 @@
-// Fused Swin-transformer windows, inference, bf16 (sm_90a): two entries
-// built from one kernel template, three instantiations.
+// Fused Swin-transformer windows, inference, bf16 (sm_90a): the first,
+// WMMA design, one kernel template.
 //
-// kair_swin_block      the whole block on ws x ws windows, ws <= 8. At ws 8
-//                      it launches the instantiation with the window fixed at
-//                      compile time, which replaces kair_tpu/ops/pallas/
-//                      swin_block.py :: swin_block_pallas_2d (_kernel_2d +
-//                      _block_body); below 8 the one that takes ws at run
-//                      time, which replaces swin_block.py :: swin_block_pallas
-//                      (the pair _kernel; ws 7 is the JPEG-CAR geometry).
 // kair_window_msa      replaces kair_tpu/ops/pallas/window_msa.py ::
-//                      window_msa_pallas: attention only, on an LN1 output.
+//                      window_msa_pallas: attention only, on an LN1 output
+//                      (the BLOCK = false instantiation, kernel B).
+// kair_swin_block_v1   the whole block on ws x ws windows (BLOCK = true), as
+//                      kair_swin_block first ran it; compiled only into
+//                      the -DKAIR_PROFILE library, where cli/profile_swin_block
+//                      sets it beside its successor, swin_block_wgmma.cu.
 //
 // The block computes
 //
@@ -42,7 +40,8 @@
 // with f32 accumulation. One thread block of 16 warps per window, weights
 // read from L2 (about 0.6 MB in bf16 at C=180), shared-memory rows padded
 // against bank conflicts. This is the simple first version: WMMA rather
-// than wgmma/TMA, one block per SM, so it runs far from its bound (PERF.md).
+// than wgmma/TMA, one block per SM, so it runs far from its bound (PERF.md;
+// the block itself now runs in swin_block_wgmma.cu).
 //
 // Layouts (prepared on the host, ops/kernels/swin_block.py::pack_swin_block
 // and ops/kernels/window_msa.py::pack_window_msa):
@@ -138,9 +137,13 @@ struct SwinSmem {
 // its previous mark to that stage's counter. The normal build has no marks.
 // Stages: 0 load, 1 LN1, 2 qkv, 3 QK^T, 4 softmax, 5 PV, 6 proj, 7 LN2,
 // 8 fc1 + GELU, 9 fc2 + store (3-5 summed over the heads).
+// g_swin_mode 1 (the block only): the four weight products alone, each
+// with an epilogue that stores nothing (their WMMA tiles still pass through
+// the staging area), on whatever shared memory holds.
 #ifdef KAIR_PROFILE
 constexpr int kStages = 10;
 __device__ unsigned long long g_stage_cycles[kStages];
+__device__ int g_swin_mode;
 #define PROF_START() long long prof_t = clock64()
 #define PROF_MARK(i)                                                       \
   do {                                                                     \
@@ -223,6 +226,20 @@ __global__ void __launch_bounds__(kThreads) swin_window_kernel(SwinArgs a) {
     const int c = wrap(wc * ws + t % ws + a.phase, W);
     return ((size_t)b * H + r) * W + c;
   };
+
+#ifdef KAIR_PROFILE
+  if (BLOCK && g_swin_mode == 1) {
+    auto none = [](int, int, float) {};
+    gemm_m64<kWarps>(abuf, LA, a.wqkv, QW, CP / 16, QW / 16, stage, none);
+    __syncthreads();
+    gemm_m64<kWarps>(abuf, LA, a.wp, CP, NH * 2, CP / 16, stage, none);
+    __syncthreads();
+    gemm_m64<kWarps>(abuf, LA, a.w1, HP, CP / 16, HP / 16, stage, none);
+    __syncthreads();
+    gemm_m64<kWarps>(hid, LH, a.w2, CP, HP / 16, CP / 16, stage, none);
+    return;
+  }
+#endif
 
   // ---- biases; the window (shift folded into the read) ------------------------
   for (int i = tid; i < QW; i += kThreads) bqkv[i] = a.bqkv[i];
@@ -420,24 +437,8 @@ SwinArgs block_args(const void* x, void* out, const void* wqkv, const void* bqkv
 
 }  // namespace
 
-extern "C" int kair_swin_block_shared_bytes(int C, int NH, int HP) {
-  return SwinSmem(C, NH, HP, true).total;
-}
-
 extern "C" int kair_window_msa_shared_bytes(int C, int NH) {
   return SwinSmem(C, NH, 0, false).total;
-}
-
-extern "C" int kair_swin_block(const void* x, void* out, const void* wqkv,
-                               const void* bqkv, const void* wp, const void* bp,
-                               const void* w1, const void* b1, const void* w2,
-                               const void* b2, const void* relbias, const void* mask,
-                               int B, int H, int W, int C, int NH, int HP, int phase,
-                               int ws, void* stream) {
-  if (ws < 1 || ws > 8) return (int)cudaErrorInvalidValue;
-  const SwinArgs a = block_args(x, out, wqkv, bqkv, wp, bp, w1, b1, w2, b2, relbias,
-                                mask, B, H, W, C, NH, HP, phase, ws);
-  return ws == 8 ? launch<8, true>(a, stream) : launch<0, true>(a, stream);
 }
 
 extern "C" int kair_window_msa(const void* y, void* out, const void* wqkv,
@@ -452,12 +453,30 @@ extern "C" int kair_window_msa(const void* y, void* out, const void* wqkv,
 }
 
 #ifdef KAIR_PROFILE
-// Copies the stage counters to dst[kStages] (host) and zeroes them.
-extern "C" int kair_swin_stage_cycles(unsigned long long* dst) {
+// The WMMA block, for the profile only: x, out, wqkv, bqkv, wp, bp, w1, b1,
+// w2, b2 in pack_swin_block's layout, relbias, mask.
+extern "C" int kair_swin_block_v1(const void* x, void* out, const void* wqkv,
+                                  const void* bqkv, const void* wp, const void* bp,
+                                  const void* w1, const void* b1, const void* w2,
+                                  const void* b2, const void* relbias, const void* mask,
+                                  int B, int H, int W, int C, int NH, int HP, int phase,
+                                  int ws, void* stream) {
+  if (ws < 1 || ws > 8) return (int)cudaErrorInvalidValue;
+  const SwinArgs a = block_args(x, out, wqkv, bqkv, wp, bp, w1, b1, w2, b2, relbias,
+                                mask, B, H, W, C, NH, HP, phase, ws);
+  return ws == 8 ? launch<8, true>(a, stream) : launch<0, true>(a, stream);
+}
+
+// Copies the stage counters to dst[kStages] (host), zeroes them and sets
+// the mode (0 full, 1 the block's products only) for the launches that
+// follow.
+extern "C" int kair_swin_stage_cycles(unsigned long long* dst, int mode) {
   cudaError_t e = cudaMemcpyFromSymbol(dst, g_stage_cycles, sizeof(g_stage_cycles));
   if (e != cudaSuccess) return (int)e;
   static const unsigned long long zero[kStages] = {};
-  return (int)cudaMemcpyToSymbol(g_stage_cycles, zero, sizeof(zero));
+  e = cudaMemcpyToSymbol(g_stage_cycles, zero, sizeof(zero));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaMemcpyToSymbol(g_swin_mode, &mode, sizeof(int));
 }
 #endif
 

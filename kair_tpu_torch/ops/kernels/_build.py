@@ -53,9 +53,9 @@ _I = ctypes.c_int
 # C entry points: (argument types, return type). Pointers and the stream
 # are c_void_p, sizes and phase c_int; a launch returns its cudaError_t.
 SIGNATURES = {
-    # x, out, wqkv, bqkv, wp, bp, w1, b1, w2, b2, relbias, mask,
+    # x, out, stages, bqkv, bp, b1, b2, relbias, mask,
     # B, H, W, C, NH, HP, phase, ws, stream
-    "kair_swin_block": ([_P] * 12 + [_I] * 8 + [_P], _I),
+    "kair_swin_block": ([_P] * 9 + [_I] * 8 + [_P], _I),
     # y, out, wqkv, bqkv, wp, bp, relbias, mask, B, H, W, C, NH, phase, ws,
     # stream
     "kair_window_msa": ([_P] * 8 + [_I] * 7 + [_P], _I),
@@ -87,6 +87,7 @@ SIGNATURES = {
     # feat, fy, fx, dout, dfeat, dfy, dfx, G, H, W, Cs, R, bf16, stream
     "kair_bilin_bwd": ([_P] * 7 + [_I] * 6 + [_P], _I),
     "kair_swin_block_shared_bytes": ([_I] * 3, _I),      # C, NH, HP
+    "kair_swin_block_plan": ([_I] * 3 + [_P], _I),       # C, NH, HP, dst (i32[5])
     "kair_window_msa_shared_bytes": ([_I] * 2, _I),      # C, NH
     "kair_swin_block_bwd_shared_bytes": ([_I] * 3, _I),  # C, NH, HP
     "kair_conv3x3_shared_bytes": ([_I], _I),             # C
@@ -98,7 +99,10 @@ SIGNATURES = {
     "kair_error_string": ([_I], ctypes.c_char_p),
 }
 PROFILE_SIGNATURES = {
-    "kair_swin_stage_cycles": ([_P], _I),                # dst (host u64[10])
+    # the WMMA block (swin_block.cu): the first kair_swin_block's arguments
+    "kair_swin_block_v1": ([_P] * 12 + [_I] * 8 + [_P], _I),
+    "kair_swin_stage_cycles": ([_P, _I], _I),    # dst (host u64[10]), products_only
+    "kair_swin_wg_cycles": ([_P, _I], _I),               # dst (host u64[8]), mode
     "kair_conv_stage_cycles": ([_P, _I], _I),    # dst (host u64[4]), products_only
 }
 

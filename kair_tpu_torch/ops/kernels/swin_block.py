@@ -11,13 +11,15 @@ and kernel A replaces ``swin_block_pallas`` (:774, the window-pair
 
 where Block is the windowed Swin block: LN1 → W-MSA (rel-pos bias, 0/−100
 shift mask for shifted blocks) → +x → LN2 → fc1 → exact GELU → fc2 → +x.
-``swin_block_2d`` takes any window ws ≤ 8 that tiles the map: kernel 1 at
-ws 8, kernel A below it (ws 7 is the JPEG-CAR SwinIR geometry), with the
+``swin_block_2d`` takes any window ws ≤ 8 that tiles the map (kernel 1 at
+ws 8, kernel A below it; ws 7 is the JPEG-CAR SwinIR geometry), with the
 window's N = ws² tokens padded to 64 rows inside the kernel and the padded
-keys masked out. Both are instantiations of one template in
-``csrc/swin_block.cu`` behind one entry (its header gives the bound on the
-card and what the design does about it); ``swin_block_win_reference`` is
-their plain PyTorch version.
+keys masked out. Both are one kernel, ``csrc/swin_block_wgmma.cu`` (its
+header gives the bound on the card and what the design does about it): wgmma products fed by a ring of bulk-copied weight stages that two
+windows share. ``pack_block_stages`` writes those stages from
+``pack_swin_block``'s matrices, ``block_plan`` mirrors the kernel's layout
+arithmetic and ``window_walk`` its persistent walk over the windows;
+``swin_block_win_reference`` is the plain PyTorch version.
 
 The wrappers launch the kernel for a CUDA tensor and use the plain version
 only for a CPU tensor. They never fall back: a tensor the kernel does not
@@ -33,16 +35,18 @@ its custom VJP: it saves only the block input and the parameters.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from kair_tpu_torch.ops.kernels import _build
-from kair_tpu_torch.ops.kernels.window_msa import (check_geometry,
+from kair_tpu_torch.ops.kernels.window_msa import (SMEM_LIMIT,
+                                                   check_geometry,
                                                    fold_ln_affine,
                                                    pack_qkv_proj,
-                                                   rel_index_on, shared_bytes,
+                                                   rel_index_on,
                                                    table_window, window_bias)
 from kair_tpu_torch.ops.window_attention import (window_msa, window_partition,
                                                   window_reverse)
@@ -80,6 +84,7 @@ class SwinBlockPack(NamedTuple):
     b2: torch.Tensor        # (C,) f32
     relbias: torch.Tensor   # (nh, 64, 64) f32
     hp: int
+    stages: Optional[torch.Tensor] = None   # pack_block_stages, forward only
 
 
 def pack_swin_block(p: SwinBlockParams, num_heads: int,
@@ -129,7 +134,176 @@ def _pack(p: SwinBlockParams, num_heads: int, dtype: torch.dtype,
         w2=w2.to(dtype).contiguous(),
         b2=p.fc2_bias.float().contiguous(),
         relbias=window_bias(p.rel_table, num_heads, table_window(p.rel_table)),
-        hp=hp)
+        hp=hp,
+        stages=(pack_block_stages(wqkv, wp, w1, w2, c, num_heads).to(dtype)
+                if folded and c <= NT_MAX else None))
+
+
+# ---------------------------------------------------------------------------
+# The forward kernel's layout (csrc/swin_block_wgmma.cu, BlockPlan) and its
+# weight stages; chip_smoke.py holds block_plan equal to the kernel's own
+# kair_swin_block_plan and kair_swin_block_shared_bytes.
+# ---------------------------------------------------------------------------
+
+KC = 64                     # K chunk: one 128-byte swizzle row of bf16
+NT_MAX = 240                # the widest accumulator: C ≤ 240
+CONSUMER_WGS = 2            # windows per weight stage
+RING = 2                    # weight stages in shared memory
+
+
+class BlockPlan(NamedTuple):
+    nt: int         # accumulator width (proj / fc2 N): 64, 128, 184 or 240
+    kc: int         # K chunks of 64 over C
+    np: int         # head pairs
+    hc: int         # hidden chunks of 64
+    lda: int        # LN-output row stride, bf16
+    slot: int       # bytes of one ring slot
+    ring: int       # ring slots (RING)
+    stages: int     # stages per window pair
+    smem: int       # dynamic shared memory of one thread block
+
+
+def block_plan(c: int, nh: int, hp: int) -> BlockPlan:
+    """The kernel's tiling and shared-memory layout at C channels, nh heads
+    and hidden width hp (BlockPlan in csrc/swin_block_wgmma.cu): RING
+    weight stages, then each window's x tile and LN output, the biases and
+    the ring's barriers."""
+    a128, a1024 = _build.align128, lambda v: (v + 1023) // 1024 * 1024
+    nt = 64 if c <= 64 else 128 if c <= 128 else 184 if c <= 184 else 240
+    kc, np_, hc = -(-c // KC), -(-nh // 2), -(-hp // 64)
+    lda = kc * KC + 8
+    slot = max(96, nt) * 128
+    xs = a1024(max(64 * c * 2, 3 * 4096))
+    ab = a1024(64 * lda * 2)
+    bias = a128((nh * 96 + c + hc * 64 + c) * 4)
+    smem = RING * slot + CONSUMER_WGS * (xs + ab) + bias + 2 * RING * 8 + 1024
+    return BlockPlan(nt, kc, np_, hc, lda, slot, RING,
+                     nh * kc + np_ + hc * (kc + 1), smem)
+
+
+def block_shared_bytes(c: int, nh: int, hp: int) -> int:
+    """Bytes of shared memory one thread block of the forward kernel asks."""
+    return block_plan(c, nh, hp).smem
+
+
+def stage_rows(c: int, nh: int, hp: int) -> List[Tuple[str, int]]:
+    """(product, rows) of each weight stage, in the order the producer
+    copies them for every window pair: per head pair the qkv K chunks of
+    both heads (96 rows each) and then the pair's proj (NT rows); per
+    hidden chunk the fc1 K chunks (64 rows) and then fc2 (NT rows). Every
+    row holds 64 K values."""
+    pl = block_plan(c, nh, hp)
+    out: List[Tuple[str, int]] = []
+    for p in range(pl.np):
+        out += [("qkv", 96)] * (pl.kc * (min(2 * p + 2, nh) - 2 * p))
+        out.append(("proj", pl.nt))
+    for _ in range(pl.hc):
+        out += [("fc1", 64)] * pl.kc + [("fc2", pl.nt)]
+    return out
+
+
+@lru_cache(maxsize=16)
+def _swizzle_index(rows: int, device: str) -> torch.Tensor:
+    """(rows, 64) column of element (n, k) in a swizzled stage row: its
+    16-byte unit k // 8 XOR n % 8 (wgmma's 128-byte swizzle). A normal
+    tensor even when first asked for under inference_mode."""
+    with torch.inference_mode(False):
+        n = torch.arange(rows, device=device)[:, None]
+        k = torch.arange(KC, device=device)[None, :]
+        return ((k // 8) ^ (n % 8)) * 8 + k % 8
+
+
+def _swizzle(m: torch.Tensor) -> torch.Tensor:
+    """(..., rows, 64) K-major stages → the 128-byte swizzle, one scatter."""
+    idx = _swizzle_index(m.shape[-2], str(m.device)).expand(m.shape)
+    return torch.empty_like(m).scatter_(-1, idx, m)
+
+
+def unswizzle(m: torch.Tensor) -> torch.Tensor:
+    """The inverse of the stage swizzle (for checking the layout)."""
+    idx = _swizzle_index(m.shape[-2], str(m.device)).expand(m.shape)
+    return torch.gather(m, -1, idx)
+
+
+def pack_block_stages(wqkv: torch.Tensor, wp: torch.Tensor, w1: torch.Tensor,
+                      w2: torch.Tensor, c: int, nh: int) -> torch.Tensor:
+    """``pack_swin_block``'s matrices (wqkv (CP, nh·96), wp (nh·32, CP),
+    w1 (CP, HP), w2 (HP, CP)) → the kernel's weight stages, one flat f32
+    tensor in ``stage_rows`` order: stage row n holds B[k, n] for its 64 K
+    values, zero past C, the hidden width and the heads, swizzled. One
+    gather through an index cached per geometry: a training model packs
+    its blocks anew after every optimizer step."""
+    mats = (wqkv, wp, w1, w2)
+    idx = _stage_index(c, nh, tuple(tuple(m.shape) for m in mats),
+                       str(wqkv.device))
+    return torch.cat([m.reshape(-1).float() for m in mats]
+                     + [wqkv.new_zeros(1, dtype=torch.float32)])[idx]
+
+
+@lru_cache(maxsize=32)
+def _stage_index(c: int, nh: int, shapes: Tuple[Tuple[int, int], ...],
+                 device: str) -> torch.Tensor:
+    """Where each stage element comes from in cat(wqkv, wp, w1, w2, [0])
+    flattened (the last entry is the padding's zero): ``_stage_layout`` of
+    matrices that hold their own flat positions (float64: exact)."""
+    with torch.inference_mode(False):
+        sizes = [r * k for r, k in shapes]
+        total = sum(sizes)
+        src = torch.arange(1, total + 1, dtype=torch.float64)
+        mats = [t.view(shape) for t, shape in zip(torch.split(src, sizes), shapes)]
+        idx = _stage_layout(*mats, c, nh).long() - 1
+        idx[idx < 0] = total
+        return idx.to(device)
+
+
+def _stage_layout(wqkv: torch.Tensor, wp: torch.Tensor, w1: torch.Tensor,
+                  w2: torch.Tensor, c: int, nh: int) -> torch.Tensor:
+    """The stage layout itself (``pack_block_stages``), in whole-tensor
+    ops and the matrices' dtype."""
+    hp = w1.shape[1]
+    pl = block_plan(c, nh, hp)
+    kp, nt = pl.kc * KC, pl.nt
+    cn = min(wqkv.shape[0], nt)               # columns of wp / w2 that exist
+
+    def padded(m: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+        out = m.new_zeros(rows, cols)
+        r, cc = min(rows, m.shape[0]), min(cols, m.shape[1])
+        out[:r, :cc] = m[:r, :cc]
+        return out
+
+    # (K, N) → swizzled stages (.., N rows, 64 K)
+    q = _swizzle(padded(wqkv, kp, nh * 96).view(pl.kc, KC, nh, 96)
+                 .permute(2, 0, 3, 1))                      # (nh, kc, 96, 64)
+    pj = _swizzle(padded(wp[:, :cn], pl.np * 64, nt).view(pl.np, 64, nt)
+                  .transpose(1, 2))                         # (np, nt, 64)
+    f1 = _swizzle(padded(w1, kp, pl.hc * 64).view(pl.kc, KC, pl.hc, 64)
+                  .permute(2, 0, 3, 1))                     # (hc, kc, 64, 64)
+    f2 = _swizzle(padded(w2[:, :cn], pl.hc * 64, nt).view(pl.hc, 64, nt)
+                  .transpose(1, 2))                         # (hc, nt, 64)
+    full = nh // 2                      # head pairs with both heads
+    parts = [torch.cat([q[:2 * full].reshape(full, -1),
+                        pj[:full].reshape(full, -1)], 1).reshape(-1)]
+    if nh % 2:
+        parts += [q[nh - 1].reshape(-1), pj[full].reshape(-1)]
+    parts.append(torch.cat([f1.reshape(pl.hc, -1), f2.reshape(pl.hc, -1)],
+                           1).reshape(-1))
+    return torch.cat(parts)
+
+
+def window_walk(windows: int, blocks: int) -> List[List[Tuple[int, int]]]:
+    """The persistent grid's walk (the kernel's loop over t): block i takes
+    window pairs t = i, i + blocks, ...; consumer warpgroup g of a pair
+    takes window 2t + g, or none (-1) past the last window, where it only
+    keeps the ring's count. Returns each block's (window of warpgroup 0,
+    window of warpgroup 1) in order."""
+    pairs = -(-windows // 2)
+    return [[(2 * t, 2 * t + 1 if 2 * t + 1 < windows else -1)
+             for t in range(i, pairs, blocks)] for i in range(blocks)]
+
+
+def grid_blocks(windows: int, sms: int = 132) -> int:
+    """Thread blocks of a launch: one per SM, at most one per window pair."""
+    return min(-(-windows // 2), sms)
 
 
 def swin_block_win_reference(x: torch.Tensor, p: SwinBlockParams,
@@ -185,10 +359,39 @@ def _check_cuda_args(x, p, num_heads, mask, ws=WS, backward=False):
     memory limit included (the forward's layout, or the backward's)."""
     hp = _build.round16(p.fc1_weight.shape[0])
     c = x.shape[-1]
+    if not backward and c > NT_MAX:
+        raise ValueError(f"swin_block takes C <= {NT_MAX} (the widest wgmma "
+                         f"accumulator it holds), got C={c}")
     smem = (bwd_shared_bytes(c, num_heads, hp) if backward
-            else shared_bytes(c, num_heads, hp))
+            else block_shared_bytes(c, num_heads, hp))
     check_geometry("swin_block_bwd" if backward else "swin_block", x,
                    p.qkv_weight, num_heads, p.rel_table, mask, ws, smem)
+
+
+def _check_stages(x: torch.Tensor, pk: SwinBlockPack, num_heads: int) -> None:
+    """The stage pack must be the forward's, bf16, contiguous, on x's
+    device, of the plan's size, and 16-byte aligned (the bulk copies' rule;
+    a misaligned one faults on the card); x needs 8-byte alignment when
+    C % 4 == 0 (else 4), and B·H·W < 2^31 (32-bit pixel offsets)."""
+    b, h, w, c = x.shape
+    st = pk.stages
+    if st is None:
+        raise ValueError("swin_block_2d needs the forward pack's weight "
+                         "stages (pack_swin_block with folded=True)")
+    want = sum(r for _, r in stage_rows(c, num_heads, pk.hp)) * KC
+    if (st.dtype != torch.bfloat16 or st.device != x.device
+            or not st.is_contiguous() or st.numel() != want):
+        raise ValueError(f"weight stages must be a contiguous bf16 tensor of "
+                         f"{want} elements on {x.device}")
+    if st.data_ptr() % 16:
+        raise ValueError("swin_block_2d needs the weight stages aligned to "
+                         "16 bytes")
+    if x.data_ptr() % (8 if c % 4 == 0 else 4):
+        raise ValueError("swin_block_2d needs x aligned to 8 bytes "
+                         "(4 when C % 4 != 0)")
+    if b * h * w >= 2 ** 31:
+        raise ValueError(f"swin_block_2d takes B*H*W < 2^31 pixels, got "
+                         f"{b * h * w}")
 
 
 def swin_block_2d(x: torch.Tensor, p: SwinBlockParams, num_heads: int,
@@ -198,17 +401,19 @@ def swin_block_2d(x: torch.Tensor, p: SwinBlockParams, num_heads: int,
     """Fused inference Swin block on (B, H, W, C) for a window ws ≤ 8 that
     tiles the map: kernel 1 at ws 8, kernel A below it (windows of N = ws²
     tokens padded to 64 rows inside the kernel); one C entry,
-    ``kair_swin_block``, picks the instantiation.
+    ``kair_swin_block``.
 
     CPU tensor → the plain version. CUDA tensor → the kernel (bf16 only),
-    or an exception; ``packed`` is the cached ``pack_swin_block(p, nh)``.
-    A launch adds one to ``launches`` (ws 8) or ``launches_win`` (ws < 8)."""
+    or an exception; ``packed`` is the cached ``pack_swin_block(p, nh)``
+    (its weight stages included). A launch adds one to ``launches`` (ws 8)
+    or ``launches_win`` (ws < 8)."""
     if x.device.type == "cpu":
         return swin_block_win_reference(x, p, num_heads, mask, phase, ws)
     _check_cuda_args(x, p, num_heads, mask, ws)
     pk = packed if packed is not None else pack_swin_block(p, num_heads)
     if pk.wqkv.dtype != torch.bfloat16 or pk.wqkv.device != x.device:
         raise ValueError("packed weights must be bf16 on the input's device")
+    _check_stages(x, pk, num_heads)
     out = torch.empty_like(x)
     _launch(_build.library(), x, out, pk, num_heads, mask, phase, ws)
     if ws == WS:
@@ -221,14 +426,13 @@ def swin_block_2d(x: torch.Tensor, p: SwinBlockParams, num_heads: int,
 def _launch(lib, x: torch.Tensor, out: torch.Tensor, pk: SwinBlockPack,
             num_heads: int, mask: Optional[torch.Tensor], phase: int,
             ws: int = WS) -> None:
-    """One launch of ``kair_swin_block`` in ``lib`` on checked arguments;
-    raises on a CUDA error."""
+    """One launch of ``kair_swin_block`` in ``lib`` (the library or its
+    profile build) on checked arguments; raises on a CUDA error."""
     b, h, w, c = x.shape
     with torch.cuda.device(x.device):
         err = lib.kair_swin_block(
-            x.data_ptr(), out.data_ptr(), pk.wqkv.data_ptr(),
-            pk.bqkv.data_ptr(), pk.wp.data_ptr(), pk.bp.data_ptr(),
-            pk.w1.data_ptr(), pk.b1.data_ptr(), pk.w2.data_ptr(),
+            x.data_ptr(), out.data_ptr(), pk.stages.data_ptr(),
+            pk.bqkv.data_ptr(), pk.bp.data_ptr(), pk.b1.data_ptr(),
             pk.b2.data_ptr(), pk.relbias.data_ptr(),
             None if mask is None else mask.data_ptr(),
             b, h, w, c, num_heads, pk.hp, int(phase), ws,

@@ -15,6 +15,7 @@
 """
 
 import json
+import logging
 import os
 from unittest import mock
 
@@ -47,6 +48,23 @@ from kair_tpu_torch.train.trainer import PlainTrainer, clip_by_global_norm
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OPTION_FILES = ["options/swinir/train_swinir_sr_classical_x4.json",
                 "options/swinir/train_swinir_denoising_gray.json"]
+
+
+def _drop_train_handlers() -> None:
+    logger = logging.getLogger("train")
+    for h in list(logger.handlers):
+        h.close()
+        logger.removeHandler(h)
+
+
+@pytest.fixture
+def fresh_train_logger():
+    """The CLI's "train" logger without handlers before and after the test:
+    ``setup_logger`` keeps a logger's first handlers, so a CLI run earlier
+    in the same process would otherwise keep writing to its own train.log."""
+    _drop_train_handlers()
+    yield
+    _drop_train_handlers()
 
 
 @pytest.fixture(scope="module")
@@ -337,6 +355,7 @@ def test_checkpoint_save_resume_prune(tmp_path, hr_dir):
     assert os.path.exists(best)
 
 
+@pytest.mark.usefixtures("fresh_train_logger")
 def test_cli_train_main_runs_and_resumes_on_cpu(tmp_path, hr_dir):
     path = tiny_options(tmp_path, hr_dir)
     t = cli_train.main(argv=["--opt", path, "--device", "cpu", "--dtype", "f32",

@@ -87,6 +87,23 @@ def seeded_state_dict():
     return model.state_dict()
 
 
+def _drop_train_handlers() -> None:
+    logger = logging.getLogger("train")
+    for h in list(logger.handlers):
+        h.close()
+        logger.removeHandler(h)
+
+
+@pytest.fixture
+def fresh_train_logger():
+    """The CLI's "train" logger without handlers before and after the test:
+    ``setup_logger`` keeps a logger's first handlers, so a CLI run earlier
+    in the same process would otherwise keep writing to its own train.log."""
+    _drop_train_handlers()
+    yield
+    _drop_train_handlers()
+
+
 @pytest.fixture(scope="module")
 def jax_run():
     """Three JAX VideoTrainer updates from the seeded weights; the state
@@ -263,6 +280,7 @@ def test_train_bench_prints_the_jax_keys():
     assert rep["device"] == "cpu" and rep["mfu"] is None and rep["step_ms"] > 0
 
 
+@pytest.mark.usefixtures("fresh_train_logger")
 def test_cli_train_trains_vrt_and_evaluates_video(tmp_path):
     """``cli.train.main`` on a tiny VRT option tree (model "vrt", a
     VideoRecurrentTrainDataset and a VideoRecurrentTestDataset): a
