@@ -2544,7 +2544,7 @@ def main() -> int:
             bp = block_plan(c, nh, hp)
             require(tuple(plan) == (bp.nt, bp.kc, bp.ring, bp.stages, bp.slot)
                     and (blk, att, bwd) == (bp.smem,
-                                            shared_bytes(c, nh, 0, block=False),
+                                            shared_bytes(c, nh),
                                             bwd_shared_bytes(c, nh, hp)),
                     f"shared-memory mirror differs from the kernels at C={c}")
             ph.note(f"C={c}, {nh} heads: block {blk} B (NT {bp.nt}, ring "

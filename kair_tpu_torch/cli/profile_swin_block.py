@@ -1,27 +1,22 @@
-"""Where the fused Swin-block kernel's cycles go, on the card: the wgmma
-design (``csrc/swin_block_wgmma.cu``) beside the WMMA design it replaced.
+"""Where the fused Swin-block kernel's cycles go, on the card
+(``csrc/swin_block_wgmma.cu``).
 
     python -m kair_tpu_torch.cli.profile_swin_block [--reps 10]
 
 Builds ``csrc/`` with ``-DKAIR_PROFILE`` into a library of its own (the
-normal build has no marks and no WMMA block) and runs both designs at
-SwinIR-M width (C=180, 6 heads, hidden 360, bf16, seeded): B=16 of
-128×128 at window 8 and B=8 of 126×126 at window 7 (JPEG-CAR), shifted
-(with the shift mask). For each it prints, beside the card's name and power
-limit:
-
-* the wgmma design: its time in the profile build (CUDA events, median of
-  ``--reps``) in full, with the products only (the weight ring and the
-  qkv, proj, fc1 and fc2 wgmmas, nothing else) and without the attention
-  core (score bias, k and v^T stores, QK^T, softmax, PV); and, with the
-  stage marks on, the SM clock cycles that thread 0 of consumer warpgroup 0
-  of each thread block spent in each stage (load + LN1, waiting for a
-  weight stage, qkv, attention, proj, LN2, MLP, store), averaged over the
-  blocks, with each stage's share;
-* the WMMA design: the cycles that each thread block (one window) spent in
-  each of its ten stages, after a barrier each, and its time in full and
-  in its products-only mode (the four weight products alone, with
-  epilogues that store nothing), and the products' share of the time.
+normal build has no marks) and runs the kernel at SwinIR-M width (C=180,
+6 heads, hidden 360, bf16, seeded): B=16 of 128×128 at window 8 and B=8 of
+126×126 at window 7 (JPEG-CAR), shifted (with the shift mask). For each it
+prints, beside the card's name and power limit, the kernel's time in the
+profile build (CUDA events, median of ``--reps``) in full and with the
+products only (the weight ring and the qkv, proj, fc1 and fc2 wgmmas,
+nothing else); and, with the stage marks on, the SM clock cycles that
+thread 0 of consumer warpgroup 0 of each thread block spent in each stage
+(load + LN1, waiting for a weight stage, qkv, attention, proj, LN2, MLP,
+store), averaged over the blocks, with each stage's share. The profile
+build reads its mode at run time, which costs registers, so it runs slower
+than the normal build: read its shares, and time the kernel with
+``ab_kernels.py`` or ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -41,8 +36,6 @@ from kair_tpu_torch.ops.kernels.window_msa import shift_mask_tensor
 
 STAGES = ("load+LN1", "ring wait", "qkv", "attention", "proj", "LN2", "MLP",
           "store")
-STAGES_V1 = ("load", "LN1", "qkv", "QK", "softmax", "PV", "proj", "LN2",
-             "fc1", "fc2")
 SHAPES = (("SwinIR-M ws 8", 16, 128, 8, 4), ("JPEG-CAR ws 7", 8, 126, 7, 3))
 
 
@@ -76,19 +69,6 @@ def timed(fn, reps: int) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def launch_v1(lib, x, out, pk, nh, mask, phase, ws) -> None:
-    """One launch of the WMMA block (profile build only)."""
-    b, h, w, c = x.shape
-    err = lib.kair_swin_block_v1(
-        x.data_ptr(), out.data_ptr(), pk.wqkv.data_ptr(), pk.bqkv.data_ptr(),
-        pk.wp.data_ptr(), pk.bp.data_ptr(), pk.w1.data_ptr(),
-        pk.b1.data_ptr(), pk.w2.data_ptr(), pk.b2.data_ptr(),
-        pk.relbias.data_ptr(), None if mask is None else mask.data_ptr(),
-        b, h, w, c, nh, pk.hp, int(phase), ws,
-        torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "swin_block_v1")
-
-
 def split(counts, names, blocks: float) -> str:
     per_block = [v / blocks for v in counts]
     total = sum(per_block)
@@ -111,7 +91,6 @@ def main(argv=None) -> None:
     c, nh, hidden = 180, 6, 360
     lib = _build.library(profile=True)
     wg = (ctypes.c_ulonglong * len(STAGES))()
-    v1 = (ctypes.c_ulonglong * len(STAGES_V1))()
     print(f"{card}; C={c} nh={nh} hidden={hidden} bf16, shifted, {args.reps} "
           "launches per reading")
     for what, b, s, ws, phase in SHAPES:
@@ -125,7 +104,7 @@ def main(argv=None) -> None:
         runs = args.reps + 2
 
         ms = {}
-        for mode in (0, 1, 2, 4):   # full, products only, no attention core, marks
+        for mode in (0, 1, 2):      # full, products only, marks
             _build.check(lib.kair_swin_wg_cycles(wg, mode), "counters")
             ms[mode] = timed(lambda: _launch(lib, x, out, pk, nh, mask, phase,
                                              ws), args.reps)
@@ -134,24 +113,9 @@ def main(argv=None) -> None:
         _build.check(lib.kair_swin_wg_cycles(reset, 0), "counters")
         print(f"{what} B={b} {s}x{s}, wgmma: {windows} windows on "
               f"{grid_blocks(windows, sms)} blocks; {ms[0]:.4f} ms, products "
-              f"only {ms[1]:.4f} ms ({ms[1] / ms[0]:.3f}), without the "
-              f"attention core {ms[2]:.4f} ms ({ms[2] / ms[0]:.3f}); with the "
-              f"marks {ms[4]:.4f} ms, warpgroup 0 "
+              f"only {ms[1]:.4f} ms ({ms[1] / ms[0]:.3f}); with the marks "
+              f"{ms[2]:.4f} ms, warpgroup 0 "
               + split(wg, STAGES, grid_blocks(windows, sms) * runs), flush=True)
-
-        res = {}
-        for mode in (0, 1):                 # full, products only
-            _build.check(lib.kair_swin_stage_cycles(v1, mode), "counters")
-            res[mode] = timed(lambda: launch_v1(lib, x, out, pk, nh, mask,
-                                                phase, ws), args.reps)
-            _build.check(lib.kair_swin_stage_cycles(v1, mode), "counters")
-            if mode == 0:
-                line = split(v1, STAGES_V1, windows * runs)
-        reset = (ctypes.c_ulonglong * len(STAGES_V1))()
-        _build.check(lib.kair_swin_stage_cycles(reset, 0), "counters")
-        print(f"{what} B={b} {s}x{s}, WMMA: {res[0]:.4f} ms, products only "
-              f"{res[1]:.4f} ms ({res[1] / res[0]:.3f} of the time); {line}",
-              flush=True)
 
 
 if __name__ == "__main__":

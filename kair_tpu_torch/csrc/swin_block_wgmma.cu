@@ -68,7 +68,7 @@
 // late, the score bias loaded early, A from shared memory) ran slower,
 // every one that issued fewer instructions (LN on the accumulator, ex2,
 // stmatrix) faster (PERF.md).
-// Rounding points as the WMMA design: q/k/v, P, O and the MLP hidden layer
+// Rounding points as in the TPU kernel: q/k/v, P, O and the MLP hidden layer
 // bf16, f32 accumulation, x1 f32, the output bf16.
 //
 // Layouts: the stage list (one window pair; NP = ceil(NH/2) head pairs, KC
@@ -141,21 +141,21 @@ struct BlockArgs {
 // kair_tpu_torch/cli/profile_swin_block.py builds), run-time mode bits in
 // g_wg_mode: 1 the products only (the ring and the qkv, proj, fc1 and fc2
 // wgmmas on whatever shared memory holds; no load, LN, attention core,
-// GELU or store); 2 everything but the attention core (score bias, k and
-// v^T stores, QK^T, softmax, PV); 4 stage marks: thread 0 of consumer
-// warpgroup 0 of every block adds the SM clock cycles it spent in each
-// stage: 0 load + LN1, 1 waiting for a weight stage, 2 qkv, 3 attention
-// (q/k/v epilogue, QK^T, softmax, PV), 4 proj, 5 LN2, 6 MLP (fc1, GELU,
-// fc2), 7 store.
+// GELU or store); 2 stage marks: thread 0 of consumer warpgroup 0 of every
+// block adds the SM clock cycles it spent in each stage: 0 load + LN1,
+// 1 waiting for a weight stage, 2 qkv, 3 attention (q/k/v epilogue, QK^T,
+// softmax, PV), 4 proj, 5 LN2, 6 MLP (fc1, GELU, fc2), 7 store. Reading
+// the mode at run time costs registers: the profile build runs slower than
+// the normal one, so its shares are what it is for.
 #ifdef KAIR_PROFILE
 constexpr int kMarks = 8;
 __device__ unsigned long long g_wg_cycles[kMarks];
 __device__ int g_wg_mode;
-#define WG_SKIP(bits) (wg_mode & (bits))
+#define PRODUCTS_ONLY (wg_mode & 1)
 #define WPROF_DECL() long long wp_t = clock64(), wp_acc[kMarks] = {0, 0, 0, 0, 0, 0, 0, 0}
 #define WPROF(i)                       \
   do {                                 \
-    if (wg_mode & 4) {                 \
+    if (wg_mode & 2) {                 \
       const long long t_ = clock64();  \
       wp_acc[i] += t_ - wp_t;          \
       wp_t = t_;                       \
@@ -168,7 +168,7 @@ __device__ int g_wg_mode;
         atomicAdd(&g_wg_cycles[i_], (unsigned long long)wp_acc[i_]);           \
   } while (0)
 #else
-#define WG_SKIP(bits) false
+#define PRODUCTS_ONLY false
 #define WPROF_DECL() do {} while (0)
 #define WPROF(i) do {} while (0)
 #define WPROF_FLUSH() do {} while (0)
@@ -397,7 +397,7 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_wg_kernel(BlockArgs a)
       release(s);
     }
   };
-  if (2 * (int)blockIdx.x + g < windows && !WG_SKIP(1)) fetch_x(2 * blockIdx.x + g);
+  if (2 * (int)blockIdx.x + g < windows && !PRODUCTS_ONLY) fetch_x(2 * blockIdx.x + g);
   for (int t = blockIdx.x; t < pairs; t += gridDim.x) {
     const int win = 2 * t + g;
     if (win >= windows) {
@@ -413,7 +413,7 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_wg_kernel(BlockArgs a)
     const int next = 2 * (t + gridDim.x) + g;     // this warpgroup's next window
 
     // ---- x (fetched during the previous window) into the accumulator, LN1 -----------
-    if (WG_SKIP(1)) {
+    if (PRODUCTS_ONLY) {
 #pragma unroll
       for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
     } else {
@@ -448,7 +448,7 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_wg_kernel(BlockArgs a)
         for (int i = 0; i < 48; ++i) qkv[i] = 0.f;
         product(qkv, 2);
         WPROF(2);
-        if (WG_SKIP(3)) {
+        if (PRODUCTS_ONLY) {
 #pragma unroll
           for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
@@ -618,13 +618,13 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_wg_kernel(BlockArgs a)
     }
 
     // ---- LN2 from the accumulator (x1 in f32) into ab; then x1 + b2 ---------------
-    if (!WG_SKIP(1)) {
+    if (!PRODUCTS_ONLY) {
       layernorm_to_ab();
       add_bias(s_b2);
     }
     named_barrier_sync(bar, 128);
     // k and v^T are dead: the next window's tokens load during the MLP
-    if (next < windows && !WG_SKIP(1)) fetch_x(next);
+    if (next < windows && !PRODUCTS_ONLY) fetch_x(next);
     WPROF(5);
 
     // ---- MLP in hidden chunks of 64: fc1 -> exact GELU -> fc2 into the accumulator --
@@ -642,7 +642,7 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_wg_kernel(BlockArgs a)
           const int col = 16 * kk + 8 * (i >> 1) + q2;
           const float u0 = hacc[8 * kk + 2 * i] + bb[col];
           const float u1 = hacc[8 * kk + 2 * i + 1] + bb[col + 1];
-          ha[kk][i] = WG_SKIP(1) ? pack_bf16(u0, u1)
+          ha[kk][i] = PRODUCTS_ONLY ? pack_bf16(u0, u1)
                                  : pack_bf16(0.5f * u0 * (1.f + erff(u0 * 0.70710678118654752f)),
                                              0.5f * u1 * (1.f + erff(u1 * 0.70710678118654752f)));
         }
@@ -665,7 +665,7 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_wg_kernel(BlockArgs a)
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int row = r0 + 8 * hr;
-      if (row >= N || WG_SKIP(1)) continue;
+      if (row >= N || PRODUCTS_ONLY) continue;
       const size_t pix = ((size_t)b * H + wr * ws + row / ws) * W + wc * ws + row % ws;
       bf16* dst = a.out + pix * C;
 #pragma unroll

@@ -99,9 +99,6 @@ SIGNATURES = {
     "kair_error_string": ([_I], ctypes.c_char_p),
 }
 PROFILE_SIGNATURES = {
-    # the WMMA block (swin_block.cu): the first kair_swin_block's arguments
-    "kair_swin_block_v1": ([_P] * 12 + [_I] * 8 + [_P], _I),
-    "kair_swin_stage_cycles": ([_P, _I], _I),    # dst (host u64[10]), products_only
     "kair_swin_wg_cycles": ([_P, _I], _I),               # dst (host u64[8]), mode
     "kair_conv_stage_cycles": ([_P, _I], _I),    # dst (host u64[4]), products_only
 }

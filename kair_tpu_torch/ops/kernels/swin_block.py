@@ -72,7 +72,8 @@ class SwinBlockParams(NamedTuple):
 
 
 class SwinBlockPack(NamedTuple):
-    """Kernel operands (see the layout note in csrc/swin_block.cu)."""
+    """Kernel operands: the matrices as csrc/swin_block_bwd.cu's layout
+    note gives them, the stages as csrc/swin_block_wgmma.cu's."""
     wqkv: torch.Tensor      # (CP, nh*96) bf16, LN1 affine + q scale folded
                             # (folded=True)
     bqkv: torch.Tensor      # (nh*96,) f32
@@ -371,8 +372,9 @@ def _check_cuda_args(x, p, num_heads, mask, ws=WS, backward=False):
 def _check_stages(x: torch.Tensor, pk: SwinBlockPack, num_heads: int) -> None:
     """The stage pack must be the forward's, bf16, contiguous, on x's
     device, of the plan's size, and 16-byte aligned (the bulk copies' rule;
-    a misaligned one faults on the card); x needs 8-byte alignment when
-    C % 4 == 0 (else 4), and B·H·W < 2^31 (32-bit pixel offsets)."""
+    a misaligned one faults on the card); the biases and the score table
+    f32 on x's device; x needs 8-byte alignment when C % 4 == 0 (else 4),
+    and B·H·W < 2^31 (32-bit pixel offsets)."""
     b, h, w, c = x.shape
     st = pk.stages
     if st is None:
@@ -386,6 +388,10 @@ def _check_stages(x: torch.Tensor, pk: SwinBlockPack, num_heads: int) -> None:
     if st.data_ptr() % 16:
         raise ValueError("swin_block_2d needs the weight stages aligned to "
                          "16 bytes")
+    if any(t.dtype != torch.float32 or t.device != x.device
+           for t in (pk.bqkv, pk.bp, pk.b1, pk.b2, pk.relbias)):
+        raise ValueError("packed biases and score table must be f32 on "
+                         f"{x.device}")
     if x.data_ptr() % (8 if c % 4 == 0 else 4):
         raise ValueError("swin_block_2d needs x aligned to 8 bytes "
                          "(4 when C % 4 != 0)")
@@ -411,8 +417,6 @@ def swin_block_2d(x: torch.Tensor, p: SwinBlockParams, num_heads: int,
         return swin_block_win_reference(x, p, num_heads, mask, phase, ws)
     _check_cuda_args(x, p, num_heads, mask, ws)
     pk = packed if packed is not None else pack_swin_block(p, num_heads)
-    if pk.wqkv.dtype != torch.bfloat16 or pk.wqkv.device != x.device:
-        raise ValueError("packed weights must be bf16 on the input's device")
     _check_stages(x, pk, num_heads)
     out = torch.empty_like(x)
     _launch(_build.library(), x, out, pk, num_heads, mask, phase, ws)

@@ -150,28 +150,19 @@ def _mask_on(h: int, w: int, ws: int, shift: int, device: str) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Shared-memory layouts of csrc/swin_block.cu (SwinSmem), for the checks
-# before a launch; chip_smoke.py holds them equal to the kernels' own
-# kair_swin_block_shared_bytes / kair_window_msa_shared_bytes.
+# Shared-memory layout of csrc/swin_block.cu (SwinSmem), for the check
+# before a launch; chip_smoke.py holds it equal to the kernel's own
+# kair_window_msa_shared_bytes.
 # ---------------------------------------------------------------------------
 
-def shared_bytes(c: int, nh: int, hp: int, block: bool = True) -> int:
-    """Bytes of shared memory one thread block of the forward kernel asks:
-    the whole block (``block``) or attention only (``hp`` unused)."""
+def shared_bytes(c: int, nh: int) -> int:
+    """Bytes of shared memory one thread block of kernel B asks."""
     r16, a128 = _build.round16, _build.align128
     pad, ls, stage = 8, 64 + 4, 16 * 256 * 4
-    la, lq, lh = max(r16(c), nh * 32) + pad, nh * 96 + pad, hp + pad
-    if block:
-        xb = a128(64 * ls * 4)
-        qkv = a128(xb + 64 * c * 2)
-        x1 = a128(max(xb + 64 * c * 2, 64 * lh * 2))
-        abuf = a128(max(qkv + 64 * lq * 2, x1 + 64 * c * 4))
-        end = abuf + 64 * la * 2
-    else:
-        s = a128(a128(64 * la * 2) + 64 * lq * 2)
-        end = s + 64 * ls * 4
-    cb = a128(a128(end) + stage)
-    return cb + (nh * 96 + c + (hp + c if block else 0)) * 4
+    la, lq = max(r16(c), nh * 32) + pad, nh * 96 + pad
+    s = a128(a128(64 * la * 2) + 64 * lq * 2)
+    cb = a128(a128(s + 64 * ls * 4) + stage)
+    return cb + (nh * 96 + c) * 4
 
 
 def check_geometry(name: str, x: torch.Tensor, qkv_weight: torch.Tensor,
@@ -273,7 +264,7 @@ def window_msa_win(y: torch.Tensor, qkv_weight, qkv_bias, proj_weight,
                                         mask, phase, ws)
     nh = num_heads
     check_geometry("window_msa_win", y, qkv_weight, nh, bias_table,
-                   mask, ws, shared_bytes(y.shape[3], nh, 0, block=False))
+                   mask, ws, shared_bytes(y.shape[3], nh))
     pk = packed if packed is not None else pack_window_msa(
         qkv_weight, qkv_bias, proj_weight, proj_bias, bias_table, nh)
     if pk.wqkv.dtype != torch.bfloat16 or pk.wqkv.device != y.device:

@@ -104,7 +104,7 @@ def test_swin_reference_matches_pallas(b, h, w, c, nh, phase, masked):
 
 
 def emulate_swin_kernel(x, pk, nh, mask, phase):
-    """csrc/swin_block.cu step by step on the packed operands."""
+    """The fused block step by step on pack_swin_block's matrices."""
     b, h, w, c = x.shape
     cp = pk.wqkv.shape[0]
     # token (r, c) of the block reads x[(r + phase) % H, (c + phase) % W]

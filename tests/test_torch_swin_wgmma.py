@@ -257,7 +257,7 @@ def _offset(t: torch.Tensor, nbytes: int) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("case", ["aligned", "offset_8", "offset_2", "size",
-                                  "f32", "missing"])
+                                  "f32", "missing", "f64_bias"])
 def test_wrapper_refuses_a_stage_pack_it_cannot_copy(case):
     c, nh = 24, 4
     pk = pack_swin_block(seeded_params(c, nh, 48), nh)
@@ -273,12 +273,14 @@ def test_wrapper_refuses_a_stage_pack_it_cannot_copy(case):
         st = st.float()
     elif case == "missing":
         st = None
+    elif case == "f64_bias":
+        pk = pk._replace(bqkv=pk.bqkv.double())
     pk = pk._replace(stages=st)
     if case == "aligned":
         _check_stages(x, pk, nh)
     else:
         with pytest.raises(ValueError,
-                           match="aligned|elements|weight stages"):
+                           match="aligned|elements|weight stages|f32"):
             _check_stages(x, pk, nh)
 
 

@@ -34,6 +34,7 @@ from kair_tpu.ops.window_attention import window_partition as jpartition
 from kair_tpu.ops.window_attention import window_reverse as jreverse
 from kair_tpu_torch.ops.kernels.swin_block import (SwinBlockParams,
                                                    _check_cuda_args,
+                                                   block_shared_bytes,
                                                    bwd_shared_bytes,
                                                    pack_swin_block,
                                                    swin_block_2d,
@@ -283,8 +284,8 @@ WIDTHS = [(60, 6, 120), (180, 6, 360), (240, 8, 480), (96, 6, 384)]
 @pytest.mark.parametrize("c,nh,hidden", WIDTHS)
 def test_forward_layouts_fit_the_card(c, nh, hidden):
     hp = -(-hidden // 16) * 16
-    assert shared_bytes(c, nh, hp) <= SMEM_LIMIT
-    assert shared_bytes(c, nh, 0, block=False) <= SMEM_LIMIT
+    assert block_shared_bytes(c, nh, hp) <= SMEM_LIMIT
+    assert shared_bytes(c, nh) <= SMEM_LIMIT
     x = torch.zeros(1, 16, 16, c, dtype=torch.bfloat16)
     _, jp = block_inputs(1, 8, 8, 8, c=c, nh=nh)
     jp["fc1_kernel"] = np.zeros((c, hidden), np.float32)
@@ -292,13 +293,14 @@ def test_forward_layouts_fit_the_card(c, nh, hidden):
 
 
 def test_layout_sizes_at_swinir_m_and_l():
-    """The numbers in csrc/swin_block.cu's layout note and ROADMAP.md: the
-    block asks 162,400 B at SwinIR-M width and 204,544 B at SwinIR-L's
-    (the f32-residual layout asked 185,440 and 235,264); the backward
-    asks 218,016 B at SwinIR-M and 284,160 B at SwinIR-L, over the
-    card's 232,448."""
-    assert shared_bytes(180, 6, 368) == 162400
-    assert shared_bytes(240, 8, 480) == 204544
+    """Shared memory per thread block at SwinIR-M and SwinIR-L widths: the
+    block 151,840 B and 198,560 B, kernel B (attention only) 137,168 B and
+    170,944 B, the backward 218,016 B and 284,160 B, over the card's
+    232,448."""
+    assert block_shared_bytes(180, 6, 368) == 151840
+    assert block_shared_bytes(240, 8, 480) == 198560
+    assert shared_bytes(180, 6) == 137168
+    assert shared_bytes(240, 8) == 170944
     assert bwd_shared_bytes(180, 6, 368) == 218016
     assert bwd_shared_bytes(240, 8, 480) == 284160 > SMEM_LIMIT
 
