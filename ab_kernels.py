@@ -3,9 +3,10 @@ checkouts on one card.
 
     python3 ab_kernels.py <other checkout>
 
-Runs phases 2 (``swin_block``, the block at window 8), 3 (``conv3x3``), 8
-(``swin_win``, the block below window 8), 9 (``window_msa``, attention
-only) and 20 (``bilin``) of each checkout's own ``chip_smoke.py``, each
+Runs phases 2 (``swin_block``, the block at window 8), 3 (``conv3x3``), 6
+(``swin_bwd``, the block's backward), 8 (``swin_win``, the block below
+window 8), 9 (``window_msa``, attention only) and 20 (``bilin``) of each
+checkout's own ``chip_smoke.py``, each
 checkout in a fresh process whose working directory is that checkout (so
 each builds and loads its own kernels), in turns: other, this, this,
 other. It prints the card's name and power limit, then each run's
@@ -31,6 +32,7 @@ from kair_tpu_torch.ops.kernels import _build
 _build.library()
 chip_smoke.phase_swin([])
 chip_smoke.phase_conv([])
+chip_smoke.phase_swin_bwd([])
 chip_smoke.phase_swin_win([])
 chip_smoke.phase_window_msa([])
 chip_smoke.phase_bilin([])

@@ -34,11 +34,16 @@ one flushed line each with its seconds:
                 counts; output against the same weights run in f32 on the
                 CPU, with a control that the comparison sees a dropped mask
   5 throughput  batch 16 of 128x128 LR: ms per forward, LR MP/s, MFU
-  6 swin_bwd    the block backward kernel against its plain version at the
-                training shape B=32, 48x48, C=180 (unshifted, shifted with
-                the mask) and 1x48x56 (shifted): dx and the 13 parameter
-                grads, with a dropped-mask control; its time, bound, the
-                plain version's and the forward kernel's times
+  6 swin_bwd    the block backward kernel (wgmma, a bulk-copied weight
+                ring two windows share, then a wgmma weight-grad pass)
+                against its plain version at the training shape B=32, 48x48,
+                C=180 (unshifted, with the mask), 1x48x56 (with the mask),
+                the block's shift folded in (phase 4, control: the plain
+                version at phase 5) and SwinIR-L's width (B=8 64x64, C=240,
+                8 heads, hidden 480, phase 4): dx and the 13 parameter
+                grads, with dropped-mask controls; two launches bit-equal;
+                its time, bound, TFLOP/s, the plain version's and the
+                forward kernel's times, and each pass's device time
   7 train       SwinIR-M x4 training from the shipped option file
                 (options/swinir/train_swinir_sr_classical_x4.json) through
                 config.parse → cli.train.build_trainer, bf16, batches of 32
@@ -48,7 +53,8 @@ one flushed line each with its seconds:
                 warm-up and 8 timed steps, 36 forward and 36 backward block
                 launches per step and no conv kernel; (c) save, then resume
                 in a fresh trainer with equal G, E and optimizer state; (d)
-                device time per step by kernel, from torch.profiler
+                device time per step by kernel, from torch.profiler, and
+                the torch.roll calls a step
   8 swin_win    the window-block kernel (windows up to 8, padded to 64 rows)
                 against its plain version: window 7 at B=8, 126x126, C=180,
                 shifted (phase 3) and not; window 4 on 1x12x20, window 7 on
@@ -575,6 +581,30 @@ def phase_throughput(card: str) -> None:
         require(math.isfinite(ms) and ms > 0, "throughput timing")
 
 
+def bwd_pass_times(fn, runs: int = 5) -> dict:
+    """Device ms per call of each kernel that ``fn`` launches (torch.profiler
+    over ``runs`` calls, device events only), by kernel name."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        name = kernel_name(ev.key)
+        out[name] = out.get(name, 0.0) + dev_us / 1e3 / runs
+    return out
+
+
 def phase_swin_bwd(report: list) -> None:
     import torch
     from kair_tpu_torch.ops.kernels.swin_block import (SwinBlockParams,
@@ -597,46 +627,88 @@ def phase_swin_bwd(report: list) -> None:
     mask = shift_mask_tensor(h, w, 8, 4, dev)
     names = ("dx",) + SwinBlockParams._fields
     tol = 2e-2
+
+    def check(ph, what, got, ref, control=None, control_what="mask"):
+        """Every tensor within the limit; the control (the plain version
+        with the mask dropped, or at the wrong phase) moves dx by more than
+        the limit and 3x the error. Returns dx's max abs error."""
+        (dx, g), (rdx, rg) = got, ref
+        worst, worst_name, dx_abs = 0.0, "", 0.0
+        for name, a, r in zip(names, (dx,) + tuple(g), (rdx,) + tuple(rg)):
+            e_abs, e_rel, _, _ = compare(a, r)
+            require(e_rel <= tol, f"swin_block_2d_bwd {what} {name}: max_rel "
+                    f"{e_rel:.4g} > {tol}")
+            if name == "dx":
+                dx_abs = e_abs
+            if e_rel > worst:
+                worst, worst_name = e_rel, name
+        note = f"{what}: worst max_rel {worst:.4g} ({worst_name})"
+        if control is not None:
+            eff = (control.float() - rdx.float()).abs().max().item()
+            ref_max = rdx.float().abs().max().item()
+            note += f"; {control_what} effect on dx max_rel {eff / ref_max:.4g}"
+            require(eff > tol * ref_max and eff > 3 * dx_abs,
+                    f"{what}: the {control_what} control is not above the "
+                    "limit and 3x the error")
+        ph.note(note)
+        return dx_abs
+
     with Phase("6 swin_bwd") as ph:
         ph.note(f"B={b} {h}x{w} C={c} nh={nh}, bf16 x and dy, f32 parameters; "
                 f"limit per tensor max_abs <= {tol} * max|ref| for dx and each "
                 "of the 13 grads (bf16 operands and stored intermediates, f32 "
                 "accumulation; plain version: autograd in f32 from the same "
-                "inputs); control: without the mask the plain dx must differ "
-                "by more than the limit and 3x the error")
+                "inputs); controls: without the mask, or at phase + 1, the "
+                "plain dx must differ by more than the limit and 3x the error")
         errs = []
         pkb = pack_swin_block(p, nh, folded=False)     # as the model caches it
         for xin, dyin, m in ((x, dy, None), (x, dy, mask),
                              (x56, dy56, shift_mask_tensor(48, 56, 8, 4, dev))):
-            dx, g = swin_block_2d_bwd(xin, dyin, p, nh, m, pkb)
+            got = swin_block_2d_bwd(xin, dyin, p, nh, m, pkb)
             torch.cuda.synchronize()
-            rdx, rg = swin_block_2d_bwd_reference(xin, dyin, p, nh, m)
-            worst, worst_name, dx_abs = 0.0, "", 0.0
-            for name, got, ref in zip(names, (dx,) + tuple(g), (rdx,) + tuple(rg)):
-                e_abs, e_rel, _, _ = compare(got, ref)
-                require(e_rel <= tol, f"swin_block_2d_bwd {tuple(xin.shape[:3])} "
-                        f"{name}: max_rel {e_rel:.4g} > {tol}")
-                if name == "dx":
-                    dx_abs = e_abs
-                    errs.append(e_abs)
-                if e_rel > worst:
-                    worst, worst_name = e_rel, name
-            what = (f"{tuple(xin.shape[:3])} mask="
-                    f"{'shift' if m is not None else 'none'}")
-            note = f"{what}: worst max_rel {worst:.4g} ({worst_name})"
-            if m is not None:
-                ndx, _ = swin_block_2d_bwd_reference(xin, dyin, p, nh, None)
-                eff = (ndx.float() - rdx.float()).abs().max().item()
-                ref_max = rdx.float().abs().max().item()
-                note += f"; mask effect on dx max_rel {eff / ref_max:.4g}"
-                require(eff > tol * ref_max and eff > 3 * dx_abs,
-                        "mask effect not above the limit and the kernel error")
-            ph.note(note)
-        ms = cuda_ms(lambda: swin_block_2d_bwd(x, dy, p, nh, mask, pkb))
+            ref = swin_block_2d_bwd_reference(xin, dyin, p, nh, m)
+            control = None if m is None else \
+                swin_block_2d_bwd_reference(xin, dyin, p, nh, None)[0]
+            errs.append(check(ph, f"{tuple(xin.shape[:3])} mask="
+                              f"{'shift' if m is not None else 'none'}",
+                              got, ref, control))
+        # the block's shift folded into the read of x (phase 4, the mask of
+        # the shifted block), against the plain roll -> backward -> roll back
+        got = swin_block_2d_bwd(x, dy, p, nh, mask, pkb, 4)
+        torch.cuda.synchronize()
+        ref = swin_block_2d_bwd_reference(x, dy, p, nh, mask, 4)
+        control = swin_block_2d_bwd_reference(x, dy, p, nh, mask, 5)[0]
+        errs.append(check(ph, f"{(b, h, w)} phase 4 mask=shift", got, ref,
+                          control, "phase + 1"))
+        # two launches on the same inputs give the same bits
+        again = swin_block_2d_bwd(x, dy, p, nh, mask, pkb, 4)
+        same = torch.equal(got[0], again[0]) and all(
+            torch.equal(u, v) for u, v in zip(got[1], again[1]) if u is not None)
+        require(same, "two launches differ")
+        ph.note("two launches: bit-equal dx and grads")
+        # SwinIR-L's width, which the first design's layout could not hold
+        bl, hl, cl, nhl, hidl = 8, 64, 240, 8, 480
+        pl_ = swin_params(cl, nhl, hidl, gen, dev, torch.float32)
+        xl = torch.randn(bl, hl, hl, cl, generator=gen).to(dev, torch.bfloat16)
+        dyl = torch.randn(bl, hl, hl, cl, generator=gen).to(dev, torch.bfloat16)
+        maskl = shift_mask_tensor(hl, hl, 8, 4, dev)
+        pkl = pack_swin_block(pl_, nhl, folded=False)
+        got = swin_block_2d_bwd(xl, dyl, pl_, nhl, maskl, pkl, 4)
+        torch.cuda.synchronize()
+        ref = swin_block_2d_bwd_reference(xl, dyl, pl_, nhl, maskl, 4)
+        control = swin_block_2d_bwd_reference(xl, dyl, pl_, nhl, None, 4)[0]
+        errs.append(check(ph, f"C={cl} nh={nhl} hidden={hidl} {(bl, hl, hl)} "
+                          "phase 4 mask=shift", got, ref, control))
+        ms_l = cuda_ms(lambda: swin_block_2d_bwd(xl, dyl, pl_, nhl, maskl, pkl, 4))
+        flops_l = bl * hl * hl * swinir_block_bwd_flops_per_token(cl, 8, hidl / cl)
+        ph.note(f"C={cl} kernel {ms_l:.3f} ms (B={bl} shifted, median of 10), "
+                f"{flops_l / ms_l / 1e9:.1f} TFLOP/s")
+
+        ms = cuda_ms(lambda: swin_block_2d_bwd(x, dy, p, nh, mask, pkb, 4))
         plain_ms = cuda_ms(lambda: swin_block_2d_bwd_reference(
-            x, dy, p, nh, mask), warmup=1, reps=5)
+            x, dy, p, nh, mask, 4), warmup=1, reps=5)
         pk = pack_swin_block(p, nh)
-        fwd_ms = cuda_ms(lambda: swin_block_2d(x, p, nh, mask, 0, packed=pk))
+        fwd_ms = cuda_ms(lambda: swin_block_2d(x, p, nh, mask, 4, packed=pk))
         tokens = b * h * w
         flops = tokens * swinir_block_bwd_flops_per_token(c, 8, hidden / c)
         n_params = sum(t.numel() for t in p)
@@ -644,13 +716,33 @@ def phase_swin_bwd(report: list) -> None:
         # (f32); the mask read
         nbytes = 3 * 2 * tokens * c + 2 * 4 * n_params + 4 * mask.numel()
         bms, by = bound_ms(flops, nbytes)
-        ph.note(f"kernel {ms:.3f} ms (shifted, median of 10); plain f32 "
+        ph.note(f"kernel {ms:.3f} ms (phase 4, median of 10); plain f32 "
                 f"{plain_ms:.3f} ms; forward kernel at this shape {fwd_ms:.3f} "
                 f"ms; bound {bms:.4f} ms ({by}); {flops / ms / 1e9:.1f} TFLOP/s; "
-                "max_abs_err in the kernels line is dx's")
+                "max_abs_err in the kernels line is dx's worst")
+        # each pass on its own: pass 2 computes the four weight products
+        # (2 FLOP x tokens x their weights), pass 1 the rest; pass 1 writes
+        # the 2 (4C + 2 hidden + 128 nh) operand bytes a token that pass 2
+        # reads
+        by_kernel = bwd_pass_times(
+            lambda: swin_block_2d_bwd(x, dy, p, nh, mask, pkb, 4))
+        f2 = 2.0 * tokens * (3 * c * c + c * c + 2 * c * hidden)
+        op_bytes = tokens * 2 * (4 * c + 2 * hidden + 128 * nh)
+        for what, key, fl, nb in (
+                ("pass 1", "swin_bwd_kernel", flops - f2,
+                 3 * 2 * tokens * c + op_bytes),
+                ("pass 2", "swin_wgrad_kernel", f2, op_bytes)):
+            t = by_kernel.get(key, 0.0)
+            require(t > 0, f"the profiler saw no {key}")
+            pb, pby = bound_ms(fl, nb)
+            ph.note(f"{what} ({key}) {t:.4f} ms device, {fl / t / 1e9:.1f} "
+                    f"TFLOP/s, bound {pb:.4f} ms ({pby}: {fl / 1e9:.1f} GFLOP, "
+                    f"{nb / 1e6:.1f} MB)")
+        ph.note("ordered sums (sum_rows_kernel) "
+                f"{by_kernel.get('sum_rows_kernel', 0.0):.4f} ms")
     report.append(dict(
         name="swin_block_2d_bwd", route="cuda",
-        source="kair_tpu_torch/csrc/swin_block_bwd.cu",
+        source="kair_tpu_torch/csrc/swin_block_bwd_wgmma.cu",
         replaces="kair_tpu/ops/pallas/swin_block.py:588",
         launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
         bound_ms=bms, bound_by=by, library_ms=None))
@@ -722,14 +814,14 @@ def kernel_name(key: str) -> str:
 
 
 def device_breakdown(fn, runs: int, ms: float, what: str,
-                     host: bool = False, top: int = 8) -> str:
+                     host: bool = False, top: int = 8, count=()) -> str:
     """Device time per run of ``fn`` (which does ``runs`` runs) by kernel,
     from torch.profiler, device events only (a CPU op that launched a
     ctypes-bound kernel would count that kernel's time again), and the
     idle share against ``ms`` per run timed with CUDA events. ``host``
     adds the kernel launches per run and the host's busiest ops by their
     own CPU time (what keeps an idle card waiting); ``top`` kernels are
-    listed."""
+    listed; each op named in ``count`` adds its outermost calls per run."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -756,6 +848,12 @@ def device_breakdown(fn, runs: int, ms: float, what: str,
            f"{1 - busy / ms:.4f}; " + ", ".join(
                f"{kernel_name(name)} {t:.2f} ms x{n}"
                for t, n, name in rows[:top]))
+    for op in count:
+        # calls made by the program and by autograd, not the op's calls to
+        # itself (a roll over two dims runs as two one-dim rolls)
+        calls = sum(1 for ev in prof.events() if ev.name == op
+                    and (ev.cpu_parent is None or ev.cpu_parent.name != op))
+        out += f"; {op} {calls / runs:g} calls per {what}"
     if host:
         cpu = sorted(((ev.self_cpu_time_total / 1e3 / runs, ev.count // runs,
                        ev.key) for ev in prof.key_averages()
@@ -905,7 +1003,7 @@ def phase_train(report: list, card: str, build_dir) -> None:
         ph.note("(d) " + device_breakdown(
             lambda: [trainer.train_step(bt)
                      for bt in batches[warmup:warmup + prof_steps]],
-            prof_steps, ms, "step"))
+            prof_steps, ms, "step", count=("aten::roll",)))
 
         # (c) save, then resume in a fresh trainer
         from kair_tpu_torch.ckpt import checkpoint as ck
@@ -2517,8 +2615,7 @@ def main() -> int:
         ph.note(f"ptxas: {len(regs)} kernels, registers {min(regs, default=0)}"
                 f"-{max(regs, default=0)} per thread, {spills} bytes of spill "
                 "stores in all")
-        ph.note(f"shared memory per block: conv {lib.kair_conv3x3_shared_bytes(180)} "
-                f"B, swin backward {lib.kair_swin_block_bwd_shared_bytes(180, 6, 368)} B")
+        ph.note(f"shared memory per block: conv {lib.kair_conv3x3_shared_bytes(180)} B")
         from kair_tpu_torch.ops.kernels import conv_block
         for c in (6, 60, 180, 240, 370):
             plan = (ctypes.c_int * 4)()
@@ -2532,24 +2629,29 @@ def main() -> int:
                 "the Python mirror equals the kernel's at C=6, 60, 180, 240, 370")
         # the wrappers' checks mirror the kernels' layout arithmetic
         from kair_tpu_torch.ops.kernels.swin_block import (block_plan,
-                                                            bwd_shared_bytes)
+                                                            bwd_plan)
         from kair_tpu_torch.ops.kernels.window_msa import shared_bytes
         for c, nh, hp in ((24, 4, 48), (60, 6, 128), (144, 6, 288),
                           (180, 6, 368), (240, 8, 480)):
-            blk, att, bwd = (lib.kair_swin_block_shared_bytes(c, nh, hp),
-                             lib.kair_window_msa_shared_bytes(c, nh),
-                             lib.kair_swin_block_bwd_shared_bytes(c, nh, hp))
+            blk, att = (lib.kair_swin_block_shared_bytes(c, nh, hp),
+                        lib.kair_window_msa_shared_bytes(c, nh))
             plan = (ctypes.c_int * 5)()
             lib.kair_swin_block_plan(c, nh, hp, plan)
             bp = block_plan(c, nh, hp)
+            bwd = (ctypes.c_int * 10)()
+            lib.kair_swin_bwd_plan(c, nh, hp, bwd)
+            bw = bwd_plan(c, nh, hp)
             require(tuple(plan) == (bp.nt, bp.kc, bp.ring, bp.stages, bp.slot)
-                    and (blk, att, bwd) == (bp.smem,
-                                            shared_bytes(c, nh),
-                                            bwd_shared_bytes(c, nh, hp)),
+                    and (blk, att) == (bp.smem, shared_bytes(c, nh))
+                    and tuple(bwd) == (bw.smem, bw.nt, bw.stages, bw.slot,
+                                       bw.scratch, sum(bw.op_rows), bw.nb,
+                                       bw.items, bw.total, bw.wgrad_smem),
                     f"shared-memory mirror differs from the kernels at C={c}")
             ph.note(f"C={c}, {nh} heads: block {blk} B (NT {bp.nt}, ring "
                     f"{bp.ring} x {bp.slot} B, {bp.stages} stages a window "
-                    f"pair), attention {att} B, backward {bwd} B")
+                    f"pair), attention {att} B, backward {bw.smem} B ({bw.stages} "
+                    f"stages a window pair) + {bw.wgrad_smem} B (weight grads, "
+                    f"{bw.items} items of 128 x {bw.nb})")
         from kair_tpu_torch.ops.kernels.win3d import shared_bytes as win3d_bytes
         for c, nh, hp in ((24, 2, 48), (120, 6, 240), (180, 6, 368)):
             tm, s6 = (lib.kair_tmsa_block_shared_bytes(c, nh, hp),

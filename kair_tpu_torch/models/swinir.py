@@ -19,11 +19,11 @@ with the shift folded into its read and write → residual → LN2 → MLP
 (cuBLAS), and library conv tails. On a CUDA tensor those are the
 hand-written kernels, on a CPU tensor their plain versions.
 
-In training mode a block with an 8x8 window is rolled explicitly, runs as
-one autograd node (``swin_block_train``: the block kernel forward, the
-backward kernel ``swin_block_2d_bwd`` backward, at phase 0, as JAX trains,
-``kair_tpu/models/swinir.py:124-137``) and is rolled back, whatever
-``fuse_block`` says; the RSTB tail is ``F.conv2d`` + residual, as the JAX
+In training mode a block with an 8x8 window runs as one autograd node
+(``swin_block_train``: the block kernel forward, the backward kernel
+``swin_block_2d_bwd`` backward, both reading x at the block's shift, where
+JAX rolls before the block, ``kair_tpu/models/swinir.py:124-137``) and its
+output is rolled back, whatever ``fuse_block`` says; the RSTB tail is ``F.conv2d`` + residual, as the JAX
 package leaves it to XLA in training. ``use_checkpoint`` recomputes each
 RSTB in the backward (``torch.utils.checkpoint``, non-reentrant; JAX's
 ``nn.remat``). A window that no kernel takes (training at a window under 8,
@@ -167,14 +167,14 @@ class SwinBlock(nn.Module):
         if phase_in:
             raise ValueError("phase threading requires the fused block kernel")
         if self.training and ws == WS and kernel_ok(ws, h, w):
-            # training: explicit rolls around the differentiable block
-            if shift:
-                x = torch.roll(x, (-shift, -shift), (1, 2))
+            # training: the shift is folded into both kernels' reads of x
+            # (the forward's and the backward's); the output comes back in
+            # the block's coordinates and one roll returns it
             x = swin_block_train(
                 x, self.params(), self.num_heads, mask,
                 packed=self._packed() if cuda else None,
                 packed_bwd=self._packed("bwd") if cuda and torch.is_grad_enabled()
-                else None)
+                else None, phase=shift)
             return torch.roll(x, (shift, shift), (1, 2)) if shift else x
         warn_once(f"swin-composed-fallback-{h}x{w}x{ws}-{self.training}",
                   f"SwinIR block kernels not used at {h}x{w}, window {ws}, "

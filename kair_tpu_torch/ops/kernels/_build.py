@@ -16,8 +16,8 @@ compiler's output; nothing falls back.
 
 Nothing here runs at import time: the first kernel launch builds and loads.
 ``library(profile=True)`` builds the same sources with ``-DKAIR_PROFILE``
-into a library of its own, for ``cli/profile_swin_block.py`` and
-``cli/profile_conv.py`` only.
+into a library of its own, for ``cli/profile_swin_block.py``,
+``cli/profile_swin_bwd.py`` and ``cli/profile_conv.py`` only.
 """
 
 from __future__ import annotations
@@ -59,11 +59,10 @@ SIGNATURES = {
     # y, out, wqkv, bqkv, wp, bp, relbias, mask, B, H, W, C, NH, phase, ws,
     # stream
     "kair_window_msa": ([_P] * 8 + [_I] * 7 + [_P], _I),
-    # x, dy, wqkv, bqkv, wp, bp, w1, b1, w2, b2, ln, relbias, mask,
-    # qkv_s, h1, ao, h2, g, dyp, dp, dx1, dqkv, part_ln, part_bias, part_w,
-    # dx, dw, dln, dbias, B, H, W, C, NH, hidden, HP, K1, KG, N3, splits,
-    # scale, stream
-    "kair_swin_block_2d_bwd": ([_P] * 29 + [_I] * 11 + [ctypes.c_float, _P],
+    # x, dy, stages, bqkv, bp, b1, ln, relbias, mask, scratch, ops,
+    # part_bias, part_ln, part_w, dx, dw, dln, dbias, B, H, W, C, NH, hidden,
+    # phase, sms, splits, scale, stream
+    "kair_swin_block_2d_bwd": ([_P] * 18 + [_I] * 9 + [ctypes.c_float, _P],
                                _I),
     # y, res, w, bias, out, B, H, W, C, phase, stream
     "kair_conv3x3_residual": ([_P] * 5 + [_I] * 5 + [_P], _I),
@@ -89,7 +88,7 @@ SIGNATURES = {
     "kair_swin_block_shared_bytes": ([_I] * 3, _I),      # C, NH, HP
     "kair_swin_block_plan": ([_I] * 3 + [_P], _I),       # C, NH, HP, dst (i32[5])
     "kair_window_msa_shared_bytes": ([_I] * 2, _I),      # C, NH
-    "kair_swin_block_bwd_shared_bytes": ([_I] * 3, _I),  # C, NH, HP
+    "kair_swin_bwd_plan": ([_I] * 3 + [_P], _I),          # C, NH, hidden, dst (i32[10])
     "kair_conv3x3_shared_bytes": ([_I], _I),             # C
     "kair_conv3x3_plan": ([_I, _P], _I),                 # C, dst (host i32[4])
     "kair_tmsa_block_shared_bytes": ([_I] * 3, _I),      # C, NH, HP
@@ -101,6 +100,7 @@ SIGNATURES = {
 PROFILE_SIGNATURES = {
     "kair_swin_wg_cycles": ([_P, _I], _I),               # dst (host u64[8]), mode
     "kair_conv_stage_cycles": ([_P, _I], _I),    # dst (host u64[4]), products_only
+    "kair_swin_bwd_cycles": ([_P], _I),                  # dst (host u64[10])
 }
 
 _lock = threading.Lock()

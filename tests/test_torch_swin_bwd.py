@@ -7,10 +7,12 @@
   rtol 1e-3 (the tolerance of test_pallas.py's
   ``test_fused_block_2d_gradients_match_standard``; the Pallas backward uses
   the A&S erf, ~1.5e-7, the port the exact one).
-* The CUDA kernel's stored operands (ones columns, compact dqkv order,
-  pixel-ordered rows), its two-pass reduction over token chunks and the
-  host-side unpacking, replayed in PyTorch from the ``folded=False`` pack,
-  against the plain version (f32, atol 1e-4).
+* The CUDA kernel (csrc/swin_block_bwd_wgmma.cu) replayed in PyTorch from
+  its weight stages: pass 1 in its stage order, its eight stored operands
+  as swizzled feature-major window tiles, pass 2 by work items and window
+  ranges with the bias rows of ones, the partial sums in the persistent
+  walk's order and the host-side unpacking, against the plain version
+  (f32, atol 1e-4).
 * The wrapper and the autograd Function take the plain version on the CPU
   and count no launch there.
 """
@@ -25,13 +27,16 @@ import torch.nn.functional as F
 import kair_tpu.ops.pallas.swin_block as jsb
 from kair_tpu.ops.window_attention import (relative_position_index,
                                            shift_attn_mask)
-from kair_tpu_torch.ops.kernels.swin_block import (SwinBlockParams,
-                                                   bwd_layout, bwd_splits,
+from kair_tpu_torch.ops.kernels.swin_block import (KC, WGRAD_PRODUCTS,
+                                                   SwinBlockParams, _swizzle,
+                                                   bwd_plan, bwd_splits,
+                                                   bwd_stage_rows, grid_blocks,
                                                    pack_swin_block,
                                                    swin_block_2d_bwd,
                                                    swin_block_2d_bwd_reference,
                                                    swin_block_train,
-                                                   unpack_bwd_grads)
+                                                   unpack_bwd_grads, unswizzle,
+                                                   window_walk)
 from kair_tpu_torch.ops.window_attention import window_partition, window_reverse
 from tests.test_torch_kernels import swin_inputs, torch_params
 
@@ -100,76 +105,181 @@ def _ln_bwd(g, xhat, inv, w):
                   - xhat * (dz * xhat).mean(-1, keepdim=True))
 
 
-def _rows(v, width, ones=None):
-    """Pixel-ordered operand rows (T, width): v's columns, a 1 at `ones`."""
-    t = v.reshape(-1, v.shape[-1])
-    out = torch.zeros(t.shape[0], width)
-    out[:, :t.shape[1]] = t
-    if ones is not None:
-        out[:, ones] = 1.0
+def split_bwd_stages(pk, c, nh, hidden):
+    """The flat backward stage pack → [(product, (rows, 64) unswizzled)]."""
+    out, off = [], 0
+    for name, rows in bwd_stage_rows(c, nh, hidden):
+        m = pk.bwd_stages[off:off + rows * KC].view(rows, KC)
+        out.append((name, unswizzle(m.float())))
+        off += rows * KC
+    assert off == pk.bwd_stages.numel()
     return out
 
 
-def emulate_bwd_kernel(x, dy, p, nh, mask):
-    """csrc/swin_block_bwd.cu step by step on the folded=False pack: pass 1
-    per window, the stored operands, pass 2 over token chunks, the ordered
-    sums, then the host's unpacking."""
+def _tiles(v):
+    """(B, nW, 64, F) window tokens → the stored operand: per window F rows
+    of 64 tokens (feature-major), swizzled as a K-major wgmma operand."""
+    t = v.reshape(-1, 64, v.shape[-1]).transpose(1, 2).contiguous()
+    return _swizzle(t)
+
+
+def _wgrad_pass(tiles, pl, splits):
+    """Pass 2 from the operand tiles: per product D = A^T B with A's ones row
+    at row FA, by work items of 128 rows x nb columns and window ranges,
+    the split partials summed in order."""
+    windows = tiles[0].shape[0]
+    wps = -(-windows // splits)
+    parts = []
+    for (_, ia, ib), (mp, np_) in zip(WGRAD_PRODUCTS, pl.dims):
+        a, b_ = unswizzle(tiles[ia]), unswizzle(tiles[ib])    # (W, F, 64)
+        fa, fb = a.shape[1], b_.shape[1]
+        a_full = torch.zeros(windows, mp, 64)
+        a_full[:, :fa] = a
+        a_full[:, fa] = 1.0
+        b_full = torch.zeros(windows, np_, 64)
+        b_full[:, :fb] = b_
+        d = torch.zeros(splits, mp, np_)
+        for m0 in range(0, mp, 128):
+            for n0 in range(0, np_, pl.nb):
+                for sp in range(splits):
+                    w = slice(sp * wps, min(windows, (sp + 1) * wps))
+                    d[sp, m0:m0 + 128, n0:n0 + pl.nb] = torch.einsum(
+                        "wmt,wnt->mn", a_full[w, m0:m0 + 128],
+                        b_full[w, n0:n0 + pl.nb])
+        parts.append(d.reshape(splits, -1))
+    part = torch.cat(parts, 1)
+    out = part[0].clone()
+    for sp in range(1, splits):
+        out += part[sp]
+    return out
+
+
+def _slot_sums(v, windows):
+    """Per-window values (W, ...) summed per consumer warpgroup of the
+    persistent walk in its window order, then over warpgroups in order."""
+    walk = window_walk(windows, grid_blocks(windows))
+    slots = [[pair[g] for pair in steps if pair[g] >= 0]
+             for steps in walk for g in range(2)]
+    total = torch.zeros_like(v[0])
+    for ws_ in slots:
+        acc = torch.zeros_like(v[0])
+        for i in ws_:
+            acc = acc + v[i]
+        total = total + acc
+    return total
+
+
+def emulate_bwd_kernel(x, dy, p, nh, mask, phase=0):
+    """csrc/swin_block_bwd_wgmma.cu step by step from its weight stages, in
+    f32: pass 1 per window in the kernel's stage order (the recompute per
+    head and pair, the MLP backward per hidden chunk of 64, the attention
+    backward per head with dh accumulating q|k per head and v per pair),
+    the eight operands as swizzled feature-major tiles, pass 2 over them by
+    work items and window ranges, the partials summed in order, then the
+    host's unpacking."""
     b, h, w, c = x.shape
     hidden = p.fc1_weight.shape[0]
-    lay = bwd_layout(c, hidden)
+    pl = bwd_plan(c, nh, hidden)
     pk = pack_swin_block(p, nh, dtype=torch.float32, folded=False)
-    hd, scale = c // nh, (c // nh) ** -0.5
+    st = iter(m for _, m in split_bwd_stages(pk, c, nh, hidden))
+    kc, np_, hc, nt = -(-c // KC), -(-nh // 2), -(-hidden // 64), pl.nt
+    kp, scale = kc * KC, (c // nh) ** -0.5
     pad = lambda v, n: F.pad(v, (0, n - v.shape[-1]))
-    # forward recompute (per-token ops on the map, attention on windows)
-    xhat1, inv1, h1 = _ln(x, p.norm1_weight, p.norm1_bias)
-    qkv = window_partition(pad(h1, lay.cp) @ pk.wqkv + pk.bqkv, 8)
-    qkv = qkv.reshape(*qkv.shape[:3], nh, 3, 32).permute(0, 1, 3, 4, 2, 5)
-    q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
-    s = (q @ k.transpose(-1, -2)) * scale + pk.relbias
+    chunk = lambda t, k: t[..., k * KC:(k + 1) * KC]
+    product = lambda a: sum(chunk(a, k) @ next(st).t() for k in range(kc))
+
+    def product2(a1, a2):
+        """Two products whose K-chunk stages alternate in the ring."""
+        d1 = d2 = 0
+        for k in range(kc):
+            d1 = d1 + chunk(a1, k) @ next(st).t()
+            d2 = d2 + chunk(a2, k) @ next(st).t()
+        return d1, d2
+    xr = torch.roll(x, (-phase, -phase), (1, 2)) if phase else x
+    xw = window_partition(xr, 8)                         # (B, nW, 64, C)
+    dyw = window_partition(dy, 8)
+    bias = pk.relbias[None, None]
     if mask is not None:
-        s = s + mask[None, :, None]
-    pr = torch.softmax(s, -1)
-    o = (pr @ v).permute(0, 1, 3, 2, 4)                  # (B, nW, 64, nh, 32)
-    o = window_reverse(o.reshape(*o.shape[:3], nh * 32), 8, h, w)
-    x1 = x + (o @ pk.wp)[..., :c] + pk.bp
-    xhat2, inv2, h2 = _ln(x1, p.norm2_weight, p.norm2_bias)
-    pre = pad(h2, lay.cp) @ pk.w1 + pk.b1
-    gelu = pre * 0.5 * (1 + torch.erf(pre * 0.5 ** 0.5))
-    gp = 0.5 * (1 + torch.erf(pre * 0.5 ** 0.5)) \
-        + pre * torch.exp(-0.5 * pre * pre) / (2 * np.pi) ** 0.5
-    # backward
-    dpre = (pad(dy, lay.cp) @ pk.w2.t()) * gp
-    dpre[..., hidden:] = 0
-    dh2 = (dpre @ pk.w1.t())[..., :c]
-    dx1 = dy + _ln_bwd(dh2, xhat2, inv2, p.norm2_weight)
-    dacc = window_partition(pad(dx1, lay.cp) @ pk.wp.t(), 8)
-    do = dacc.reshape(*dacc.shape[:3], nh, 32).permute(0, 1, 3, 2, 4)
-    dp = do @ v.transpose(-1, -2)
-    ds = pr * (dp - (dp * pr).sum(-1, keepdim=True))
-    dq, dk = scale * ds @ k, scale * ds.transpose(-1, -2) @ q
-    dv = pr.transpose(-1, -2) @ do                       # (B, nW, nh, 64, 32)
-    dqkv_i = torch.stack([dq, dk, dv], 3).permute(0, 1, 4, 2, 3, 5)
-    dqkv_i = window_reverse(dqkv_i.reshape(*dqkv_i.shape[:3], nh * 96), 8, h, w)
-    dh = (dqkv_i @ pk.wqkv.t())[..., :c]
-    dx = dx1 + _ln_bwd(dh, xhat1, inv1, p.norm1_weight)
-    # stored operands, rows in pixel order
-    ao = o.reshape(b, h, w, nh, 32)[..., :hd].reshape(b, h, w, c)
-    dqkv = dqkv_i.reshape(b, h, w, nh, 3, 32)[..., :hd]
-    dqkv = dqkv.permute(0, 1, 2, 4, 3, 5).reshape(b, h, w, 3 * c)  # KAIR order
-    pairs = [(_rows(h1, lay.k1, c), _rows(dqkv, lay.n3)),
-             (_rows(ao, lay.k1, c), _rows(dx1, lay.cp)),
-             (_rows(h2, lay.k1, c), _rows(dpre[..., :hidden], lay.hp)),
-             (_rows(gelu[..., :hidden], lay.kg, hidden), _rows(dy, lay.cp))]
-    tokens = b * h * w
-    splits = bwd_splits(tokens) + 1          # more than one chunk at this size
-    chunk = -(-tokens // splits + 15) // 16 * 16
-    parts = [torch.cat([(a_[i:i + chunk].t() @ b_[i:i + chunk]).reshape(-1)
-                        for a_, b_ in pairs])
-             for i in range(0, tokens, chunk)]
-    dw = torch.stack(parts).sum(0)
-    red = lambda t: t.reshape(-1, c).sum(0)
-    dln = torch.stack([red(dh * xhat1), red(dh), red(dh2 * xhat2), red(dh2)])
-    dbias = ds.sum((0, 1))
+        bias = bias + mask[None, :, None]
+    lnw1, lnb1, lnw2, lnb2 = (p.norm1_weight, p.norm1_bias, p.norm2_weight,
+                              p.norm2_bias)
+    # recompute: LN1, attention per head, proj per pair
+    xhat1, inv1, h1 = _ln(xw, lnw1, lnb1)
+    h1p = pad(h1, kp)
+    acc = xw + pk.bp
+    ao, heads = [], []
+    for pp in range(np_):
+        outs = []
+        for hh in range(2 * pp, min(2 * pp + 2, nh)):
+            qkv = product(h1p) + pk.bqkv[hh * 96:(hh + 1) * 96]
+            q, k, v = qkv[..., :32] * scale, qkv[..., 32:64], qkv[..., 64:]
+            heads.append((q, k, v))
+            pr = torch.softmax(q @ k.transpose(-1, -2) + bias[:, :, hh], -1)
+            outs.append(pr @ v)
+        ao += outs
+        stage = next(st)
+        acc = acc + sum(o @ stage[:, 32 * i:32 * (i + 1)].t()
+                        for i, o in enumerate(outs))[..., :c]
+    x1 = acc
+    xhat2, inv2, h2 = _ln(x1, lnw2, lnb2)
+    h2p, dyp = pad(h2, kp), pad(dyw, kp)
+    # MLP backward by hidden chunks of 64
+    b1 = pad(pk.b1[:hidden], hc * 64)
+    dh2 = 0
+    gelu_cols, dpre_cols = [], []
+    for j in range(hc):
+        pre, dhid = product2(h2p, dyp)
+        pre = pre + b1[j * 64:(j + 1) * 64]
+        cdf = 0.5 * (1 + torch.erf(pre * 0.5 ** 0.5))
+        gp = cdf + pre * torch.exp(-0.5 * pre * pre) / (2 * np.pi) ** 0.5
+        dpre = dhid * gp
+        dpre[..., max(0, hidden - j * 64):] = 0
+        gelu_cols.append(pre * cdf)
+        dpre_cols.append(dpre)
+        dh2 = dh2 + dpre @ next(st).t()
+    dx1 = dyw + _ln_bwd(dh2[..., :c], xhat2, inv2, lnw2)
+    dx1p = pad(dx1, kp)
+    # attention backward per head
+    dh, dqkv, dbias = 0, [], []
+    for pp in range(np_):
+        dvs = []
+        do_pair = product(dx1p)                          # (.., 64, 64)
+        for hh in range(2 * pp, min(2 * pp + 2, nh)):
+            do = do_pair[..., 32 * (hh - 2 * pp):32 * (hh - 2 * pp + 1)]
+            q, k, v = heads[hh]
+            pr = torch.softmax(q @ k.transpose(-1, -2) + bias[:, :, hh], -1)
+            dp = do @ v.transpose(-1, -2)
+            ds = pr * (dp - (pr * dp).sum(-1, keepdim=True))
+            dbias.append(ds)
+            dq, dk = (ds @ k) * scale, ds.transpose(-1, -2) @ q
+            dv = pr.transpose(-1, -2) @ do
+            dqkv += [dq, dk, dv]
+            dvs.append(dv)
+            stage = next(st)
+            dh = dh + dq @ stage[:, :32].t() + dk @ stage[:, 32:].t()
+        stage = next(st)
+        dh = dh + sum(d_ @ stage[:, 32 * i:32 * (i + 1)].t()
+                      for i, d_ in enumerate(dvs))
+    assert next(st, None) is None
+    dxw = dx1 + _ln_bwd(dh[..., :c], xhat1, inv1, lnw1)
+    dx = window_reverse(dxw, 8, h, w)
+    if phase:
+        dx = torch.roll(dx, (phase, phase), (1, 2))
+    # the stored operands, as pass 1 writes them, and pass 2
+    ops = [h1, torch.cat(ao, -1), h2, torch.cat(gelu_cols, -1)[..., :hidden],
+           torch.cat(dpre_cols, -1)[..., :hidden], dyw, dx1, torch.cat(dqkv, -1)]
+    tiles = [_tiles(o) for o in ops]
+    assert [t.shape[1] for t in tiles] == list(pl.op_rows)
+    windows = tiles[0].shape[0]
+    splits = bwd_splits(windows, pl.items, sms=2 * pl.items)   # two ranges
+    dw = _wgrad_pass(tiles, pl, splits)
+    per_win = lambda t: t.reshape(windows, -1, c).sum(1)
+    dln = _slot_sums(torch.stack([per_win(dh[..., :c] * xhat1),
+                                  per_win(dh[..., :c]),
+                                  per_win(dh2[..., :c] * xhat2),
+                                  per_win(dh2[..., :c])], 1), windows)
+    dbias = _slot_sums(torch.stack(dbias, 2).reshape(windows, nh, 64, 64),
+                       windows)
     return dx, unpack_bwd_grads(dw, dln, dbias, p, nh)
 
 
@@ -191,10 +301,15 @@ def test_kernel_layout_and_reduction_match_reference(b, h, w, c, nh, masked):
 
 
 def test_bwd_layout_widths_at_swinir_m():
-    lay = bwd_layout(180, 360)
-    assert lay == (192, 368, 192, 368, 544)
-    assert sum(r * k for r, k in lay.products()) == 282_624
-    assert bwd_splits(32 * 48 * 48) == 32 and bwd_splits(1000) == 1
+    """The stored operands at SwinIR-M width: 2,208 rows of 64 tokens a
+    window (4,416 bytes a token), the weight products' D 368,640 floats
+    in 15 work items of 128 x 192; 8 window ranges fill 120 of 132 SMs."""
+    pl = bwd_plan(180, 6, 360)
+    assert pl.op_rows == (180, 192, 180, 360, 360, 180, 180, 576)
+    assert 2 * sum(pl.op_rows) == 4416
+    assert (pl.nb, pl.items, pl.total) == (192, 15, 368_640)
+    assert pl.dims == ((256, 576), (256, 192), (256, 384), (384, 192))
+    assert bwd_splits(1152, pl.items) == 8 and bwd_splits(3, pl.items) == 3
 
 
 def test_wrapper_and_function_take_plain_version_on_cpu():

@@ -410,8 +410,8 @@ def _tiny_swinir(**kw):
 
 def test_training_blocks_take_the_kernel_function():
     """Every block of a window-8 model goes through swin_block_train in
-    training (explicit rolls, phase 0); the RSTB tails do not use the fused
-    conv kernel."""
+    training (the shift folded into its read, the output rolled back); the
+    RSTB tails do not use the fused conv kernel."""
     model = _tiny_swinir()
     x = torch.from_numpy(np.random.RandomState(0).rand(2, 16, 24, 3)
                          .astype(np.float32))
