@@ -16,7 +16,11 @@ sampled by the bilinear sampler's forward and backward kernels. Phases,
 one flushed line each with its seconds:
 
   0 device      card name, power limit (nvidia-smi), torch and CUDA versions
-  1 build       the kernels, from csrc/, with one plain nvcc call
+  1 build       the kernels, from csrc/, with one plain nvcc call; each
+                wrapper's layout mirror against its kernel's (the conv
+                tail, the Swin block and its backward, the VRT blocks'
+                kair_win3d_plan at C=96, 120 and 180); the VRT blocks'
+                kernels' registers and spills
   2 swin_block  kernel (wgmma, a bulk-copied weight ring two windows share)
                 against its plain version at B=16, 128x128, C=180, at the
                 main path's 1x64x72, on 1x56x72 (63 windows: the persistent
@@ -77,14 +81,17 @@ one flushed line each with its seconds:
                 128x128 forward; a 64x64 image against the f32 CPU run,
                 the error after each stage and with the 3conv tails and the
                 head's convs in f32; its time
- 13 tmsa        the TMSA mutual block kernel against its plain version at
-                VRT-001's stage 1 (1x6x64x64, C=120, 6 heads) unshifted and
-                shifted (1,4,4), at stage 4 (1x6x8x8, shift (1,0,0)) and on
-                1x4x40x72 (odd window counts); dropped-mask control; time,
-                bound and the plain version's time
- 14 self6       the self block kernel: wd 6 at C=120 and C=180, wd 1 at
-                C=180, wd 2 on a 1x2x64x64 clip, shifted (0,4,4) and not; the
-                same control and timings
+ 13 tmsa        the TMSA mutual block kernel (wgmma) against its plain
+                version at VRT-001's stage 1 (1x6x64x64, C=120, 6 heads)
+                unshifted and shifted (1,4,4), at stage 4 (1x6x8x8, shift
+                (1,0,0)), on 1x4x40x72 (odd window counts) and at the
+                training step's B=8 stage 1 (8x6x64x64); dropped-mask
+                control; at B=1 and B=8 its time, TFLOP/s, bound and each
+                pass's device time; the plain version's time
+ 14 self6       the self block kernel (wgmma): wd 6 at C=120 and C=180, wd 1
+                at C=180, wd 2 on a 1x2x64x64 clip, shifted (0,4,4) and not,
+                and the training step's B=8 calls (8x6x64x64, wd 6, C=120
+                and C=180); the same control and timings
  15 dcn         the DCNv2 kernel against the composed gather route at stage 1
                 (64x64, 120 -> 120, 12 groups), offsets with taps outside the
                 frame and fractional; control: the offsets dropped
@@ -93,7 +100,8 @@ one flushed line each with its seconds:
                 TMSA, 38 self and 70 DCN launches, no composed call; against
                 the f32 CPU run (and out - base against its own max), the
                 error after each stage, the dropped-mask control; ms per
-                clip, frame-MP/s, MFU, device time by kernel
+                clip, frame-MP/s, MFU, device time by kernel and of the
+                window-block passes
  17 stl2        the RVRT STL2 block kernel against its plain version at
                 RVRT-001's call (1x2x64x64, C=144, shift (0,4,4) and none),
                 on 1x4x32x48 shift (1,4,4) and at C=192; the (1,8,8) block
@@ -130,7 +138,8 @@ one flushed line each with its seconds:
                 call; (c) 2 warm-up and 3 timed steps: ms per step, clips/s,
                 LR frame-MP/s, MFU, peak memory; (d) spynet and pa_deform
                 bit-equal before fix_iter, the rest moved; (f) device time per
-                step by kernel; (g) save and resume; (e) the option file's
+                step by kernel and of the window-block passes; (g) save and
+                resume; (e) the option file's
                 "auto" route (DCN kernel, composed backward) on the same
                 batches
 
@@ -185,6 +194,31 @@ class Phase:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def ptxas_kernels(log_lines) -> list:
+    """(kernel, registers, spill-store bytes) of each kernel in ptxas -v's
+    output; the 3-D window blocks' kernels by name (with the width of a
+    template instance), the others by their mangled names."""
+    import re
+    out, name = [], None
+    for line in log_lines:
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            k = re.search(r"((?:tmsa|self|stl2)_[a-z_]*kernel)(?:ILi(\d+)E)?",
+                          name)
+            if k:
+                name = k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+            spill = 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name is not None:
+            spill = max(spill, int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
 
 
 def nvidia_smi() -> str:
@@ -814,14 +848,17 @@ def kernel_name(key: str) -> str:
 
 
 def device_breakdown(fn, runs: int, ms: float, what: str,
-                     host: bool = False, top: int = 8, count=()) -> str:
+                     host: bool = False, top: int = 8, count=(),
+                     sums=()) -> str:
     """Device time per run of ``fn`` (which does ``runs`` runs) by kernel,
     from torch.profiler, device events only (a CPU op that launched a
     ctypes-bound kernel would count that kernel's time again), and the
     idle share against ``ms`` per run timed with CUDA events. ``host``
     adds the kernel launches per run and the host's busiest ops by their
     own CPU time (what keeps an idle card waiting); ``top`` kernels are
-    listed; each op named in ``count`` adds its outermost calls per run."""
+    listed; each op named in ``count`` adds its outermost calls per run;
+    each kernel-name prefix in ``sums`` adds its kernels' device time per
+    run, in all and by kernel."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -848,6 +885,15 @@ def device_breakdown(fn, runs: int, ms: float, what: str,
            f"{1 - busy / ms:.4f}; " + ", ".join(
                f"{kernel_name(name)} {t:.2f} ms x{n}"
                for t, n, name in rows[:top]))
+    for prefix in sums:
+        mine = {}
+        for t, n, name in rows:
+            if kernel_name(name).startswith(prefix):
+                k = kernel_name(name)
+                mine[k] = mine.get(k, 0.0) + t
+        out += (f"; {prefix}* kernels {sum(mine.values()):.2f} ms per {what} ("
+                + ", ".join(f"{k} {v:.2f}" for k, v in sorted(mine.items()))
+                + ")")
     for op in count:
         # calls made by the program and by autograd, not the op's calls to
         # itself (a roll over two dims runs as two one-dim rolls)
@@ -1538,9 +1584,28 @@ def win3d_weight_bytes(p) -> int:
                for k, t in p._asdict().items() if t is not None)
 
 
+# the VRT window blocks' pass kernels (csrc/window3d_wgmma.cu), by name prefix
+WIN3D_PASSES = ("tmsa_", "self_")
+
+
+def win3d_timing(ph, what: str, fn, tokens: int, flops_per_token: float,
+                 weight_bytes: int, c: int) -> dict:
+    """One call's time (median of 10 CUDA-event launches), TFLOP/s, bound
+    and each pass's device time (torch.profiler) of a VRT window block."""
+    ms = cuda_ms(fn)
+    flops = tokens * flops_per_token
+    bms, by = bound_ms(flops, 2 * 2 * tokens * c + weight_bytes)
+    passes = bwd_pass_times(fn)
+    ph.note(f"{what}: kernel {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s; "
+            f"bound {bms:.4f} ms ({by}, {flops / 1e9:.2f} GFLOP), "
+            f"{bms / ms:.4f} of it; passes " + ", ".join(
+                f"{k} {v:.4f}" for k, v in passes.items()))
+    return dict(ms=ms, bound_ms=bms, bound_by=by)
+
+
 def phase_tmsa(report: list) -> None:
     import torch
-    from kair_tpu_torch.ops.kernels.win3d import pack_win3d
+    from kair_tpu_torch.ops.kernels.win3d import pack_win3d_stages
     from kair_tpu_torch.ops.kernels.tmsa_block import (tmsa_block,
                                                        tmsa_block_reference)
     from kair_tpu_torch.utils.summary import tmsa_block_flops_per_token
@@ -1549,19 +1614,21 @@ def phase_tmsa(report: list) -> None:
     dev, bf = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator().manual_seed(SEED + 13)
     p = win3d_params(c, nh, 2, True, gen, dev)
-    pk = pack_win3d(p, nh)
+    pk = pack_win3d_stages(p, nh)
     x = torch.randn(1, 6, 64, 64, c, generator=gen).to(dev, bf)
     x4 = torch.randn(1, 6, 8, 8, c, generator=gen).to(dev, bf)
     xodd = torch.randn(1, 4, 40, 72, c, generator=gen).to(dev, bf)
+    x8 = torch.randn(8, 6, 64, 64, c, generator=gen).to(dev, bf)
     tol = 1e-2
     with Phase("13 tmsa") as ph:
-        ph.note(f"TMSA mutual block kernel, (2,8,8) windows, C={c} nh={nh} "
-                f"hidden {2 * c} bf16; limit max_abs <= {tol} * max|ref| "
-                "against the f32 plain version on the same bf16 inputs; "
-                "control: the shifted cases' plain version without the mask")
+        ph.note(f"TMSA mutual block kernel (wgmma, csrc/window3d_wgmma.cu), "
+                f"(2,8,8) windows, C={c} nh={nh} hidden {2 * c} bf16; limit "
+                f"max_abs <= {tol} * max|ref| against the f32 plain version "
+                "on the same bf16 inputs; control: the shifted cases' plain "
+                "version without the mask")
         errs = []
         for xin, shift in ((x, (0, 0, 0)), (x, (1, 4, 4)), (x4, (1, 0, 0)),
-                           (xodd, (1, 4, 4))):
+                           (xodd, (1, 4, 4)), (x8, (1, 4, 4))):
             got = tmsa_block(xin, p, nh, shift, packed=pk)
             ref = tmsa_block_reference(xin.float(), p, nh, shift)
             torch.cuda.synchronize()
@@ -1569,32 +1636,32 @@ def phase_tmsa(report: list) -> None:
                 lambda: tmsa_block_reference(xin.float(), p, nh, shift))
             errs.append(check_case(ph, f"{tuple(xin.shape[:4])} shift {shift}",
                                    got, ref, tol, control))
-        ms = cuda_ms(lambda: tmsa_block(x, p, nh, (1, 4, 4), packed=pk))
+            del got, ref, control
+        fpt, wbytes = tmsa_block_flops_per_token(c), win3d_weight_bytes(p)
+        t1 = win3d_timing(ph, "B=1 stage 1 (1x6x64x64, shift (1,4,4))",
+                          lambda: tmsa_block(x, p, nh, (1, 4, 4), packed=pk),
+                          x.numel() // c, fpt, wbytes, c)
+        win3d_timing(ph, "B=8 stage 1 (8x6x64x64, the training step's call)",
+                     lambda: tmsa_block(x8, p, nh, (1, 4, 4), packed=pk),
+                     x8.numel() // c, fpt, wbytes, c)
+        ms4 = cuda_ms(lambda: tmsa_block(x4, p, nh, (1, 0, 0), packed=pk))
         plain_ms = cuda_ms(lambda: tmsa_block_reference(
             x.float(), p, nh, (1, 4, 4)), warmup=1, reps=5)
-        tokens = x.numel() // c
-        flops = tokens * tmsa_block_flops_per_token(c)
-        nbytes = 2 * 2 * tokens * c + win3d_weight_bytes(p)
-        bms, by = bound_ms(flops, nbytes)
-        ms4 = cuda_ms(lambda: tmsa_block(x4, p, nh, (1, 0, 0), packed=pk))
-        ph.note(f"kernel {ms:.4f} ms (1x6x64x64 shifted, stage 1, median of "
-                f"10), {ms4:.4f} ms at stage 4 (1x6x8x8); plain f32 "
-                f"{plain_ms:.3f} ms; bound {bms:.4f} ms ({by}, "
-                f"{flops / 1e9:.2f} GFLOP), {bms / ms:.4f} of it; "
-                f"{flops / ms / 1e9:.1f} TFLOP/s")
+        ph.note(f"{ms4:.4f} ms at stage 4 (1x6x8x8); plain f32 (B=1 stage 1) "
+                f"{plain_ms:.3f} ms")
     report.append(dict(
         name="tmsa_block", route="cuda",
-        source="kair_tpu_torch/csrc/window3d_block.cu",
+        source="kair_tpu_torch/csrc/window3d_wgmma.cu",
         replaces="kair_tpu/ops/pallas/tmsa_block.py:253",
-        launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-        bound_ms=bms, bound_by=by, library_ms=None))
+        launches=None, max_abs_err=max(errs), plain_ms=plain_ms,
+        library_ms=None, **t1))
 
 
 def phase_self6(report: list) -> None:
     import torch
     from kair_tpu_torch.ops.kernels.self6_block import (self6_block,
                                                         self6_block_reference)
-    from kair_tpu_torch.ops.kernels.win3d import pack_win3d
+    from kair_tpu_torch.ops.kernels.win3d import pack_win3d_stages
     from kair_tpu_torch.utils.summary import self_block_flops_per_token
 
     nh = 6
@@ -1606,18 +1673,23 @@ def phase_self6(report: list) -> None:
     x120 = torch.randn(1, 6, 64, 64, 120, generator=gen).to(dev, bf)
     x180 = torch.randn(1, 6, 64, 64, 180, generator=gen).to(dev, bf)
     x2 = torch.randn(1, 2, 64, 64, 120, generator=gen).to(dev, bf)
+    x8_120 = torch.randn(8, 6, 64, 64, 120, generator=gen).to(dev, bf)
+    x8_180 = torch.randn(8, 6, 64, 64, 180, generator=gen).to(dev, bf)
+    packs = {id(p): pack_win3d_stages(p, nh) for p in (p120, p180, p180_1)}
     tol = 1e-2
     with Phase("14 self6") as ph:
-        ph.note(f"self-attention (wd,8,8) block kernel, {nh} heads, hidden "
-                f"2C, bf16; limit max_abs <= {tol} * max|ref| against the f32 "
-                "plain version; control: the shifted cases without the mask")
+        ph.note(f"self-attention (wd,8,8) block kernel (wgmma, "
+                f"csrc/window3d_wgmma.cu), {nh} heads, hidden 2C, bf16; limit "
+                f"max_abs <= {tol} * max|ref| against the f32 plain version; "
+                "control: the shifted cases without the mask")
         errs = []
         for xin, p, wd, shift in (
                 (x120, p120, 6, (0, 4, 4)), (x120, p120, 6, (0, 0, 0)),
                 (x180, p180, 6, (0, 4, 4)), (x180, p180, 6, (0, 0, 0)),
                 (x180, p180_1, 1, (0, 4, 4)), (x180, p180_1, 1, (0, 0, 0)),
-                (x2, p120, 2, (0, 4, 4))):
-            got = self6_block(xin, p, nh, wd, shift, packed=pack_win3d(p, nh))
+                (x2, p120, 2, (0, 4, 4)), (x8_120, p120, 6, (0, 4, 4)),
+                (x8_180, p180, 6, (0, 4, 4))):
+            got = self6_block(xin, p, nh, wd, shift, packed=packs[id(p)])
             ref = self6_block_reference(xin.float(), p, nh, wd, shift)
             torch.cuda.synchronize()
             control = None if not any(shift) else without_3d_mask(
@@ -1625,32 +1697,32 @@ def phase_self6(report: list) -> None:
             errs.append(check_case(
                 ph, f"{tuple(xin.shape)} wd {wd} shift {shift}", got, ref, tol,
                 control))
-        times = {}
-        for what, xin, p, wd in (("C=120 wd 6", x120, p120, 6),
-                                 ("C=180 wd 6", x180, p180, 6),
-                                 ("C=180 wd 1", x180, p180_1, 1)):
-            pk = pack_win3d(p, nh)
-            times[what] = cuda_ms(lambda: self6_block(xin, p, nh, wd, (0, 4, 4),
-                                                      packed=pk))
-        pk = pack_win3d(p180, nh)
-        ms = times["C=180 wd 6"]
+            del got, ref, control
+        timed = {}
+        for what, xin, p, wd in (
+                ("C=180 wd 6 B=1 (stage 8, 1x6x64x64)", x180, p180, 6),
+                ("C=120 wd 6 B=1", x120, p120, 6),
+                ("C=180 wd 1 B=1", x180, p180_1, 1),
+                ("C=120 wd 6 B=8 (stage 1, the training step's call)",
+                 x8_120, p120, 6),
+                ("C=180 wd 6 B=8 (stage 8, the training step's call)",
+                 x8_180, p180, 6)):
+            c = xin.shape[-1]
+            pk = packs[id(p)]
+            timed[what] = win3d_timing(
+                ph, what, lambda: self6_block(xin, p, nh, wd, (0, 4, 4),
+                                              packed=pk),
+                xin.numel() // c, self_block_flops_per_token(c, wd),
+                win3d_weight_bytes(p), c)
         plain_ms = cuda_ms(lambda: self6_block_reference(
             x180.float(), p180, nh, 6, (0, 4, 4)), warmup=1, reps=5)
-        tokens = x180.numel() // 180
-        flops = tokens * self_block_flops_per_token(180, 6)
-        nbytes = 2 * 2 * tokens * 180 + win3d_weight_bytes(p180)
-        bms, by = bound_ms(flops, nbytes)
-        ph.note("kernel " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
-                + f" (1x6x64x64 shifted, median of 10); plain f32 (C=180 wd 6) "
-                f"{plain_ms:.3f} ms; bound {bms:.4f} ms ({by}, "
-                f"{flops / 1e9:.2f} GFLOP), {bms / ms:.4f} of it; "
-                f"{flops / ms / 1e9:.1f} TFLOP/s")
+        ph.note(f"plain f32 (C=180 wd 6 B=1) {plain_ms:.3f} ms")
     report.append(dict(
         name="self6_block", route="cuda",
-        source="kair_tpu_torch/csrc/window3d_block.cu",
+        source="kair_tpu_torch/csrc/window3d_wgmma.cu",
         replaces="kair_tpu/ops/pallas/self6_block.py:203",
-        launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-        bound_ms=bms, bound_by=by, library_ms=None))
+        launches=None, max_abs_err=max(errs), plain_ms=plain_ms,
+        library_ms=None, **timed["C=180 wd 6 B=1 (stage 8, 1x6x64x64)"]))
 
 
 def phase_dcn(report: list) -> None:
@@ -1854,7 +1926,8 @@ def phase_vrt(report: list, card: str) -> None:
             with torch.inference_mode():
                 model(xg)
                 model(xg)
-        ph.note(device_breakdown(two_clips, 2, ms, "clip", host=True, top=12))
+        ph.note(device_breakdown(two_clips, 2, ms, "clip", host=True, top=12,
+                                 sums=WIN3D_PASSES))
 
 
 # ---------------------------------------------------------------------------
@@ -2542,7 +2615,7 @@ def phase_vrt_train(report: list, card: str, build_dir) -> None:
         # (f) where a step's device time goes
         ph.note("(f) " + device_breakdown(
             lambda: trainer.train_step(batches[warmup]), 1, ms, "step",
-            top=16))
+            top=16, sums=WIN3D_PASSES))
 
         # (g) save, then resume in a fresh trainer
         models = opt["path"]["models"]
@@ -2653,14 +2726,30 @@ def main() -> int:
                     f"stages a window pair) + {bw.wgrad_smem} B (weight grads, "
                     f"{bw.items} items of 128 x {bw.nb})")
         from kair_tpu_torch.ops.kernels.win3d import shared_bytes as win3d_bytes
-        for c, nh, hp in ((24, 2, 48), (120, 6, 240), (180, 6, 368)):
-            tm, s6 = (lib.kair_tmsa_block_shared_bytes(c, nh, hp),
-                      lib.kair_self6_block_shared_bytes(c, nh, hp))
-            require((tm, s6) == (win3d_bytes(c, nh, hp, 2),
-                                 win3d_bytes(c, nh, hp, 1)),
-                    f"VRT block shared-memory mirror differs at C={c}")
-            ph.note(f"C={c}, {nh} heads, hidden {hp}: TMSA block {tm} B, "
-                    f"self block {s6} B (largest pass)")
+        from kair_tpu_torch.ops.kernels.win3d import win3d_plan
+        for mutual, c, nh, wd, twd in (
+                (True, 96, 6, 2, 2), (True, 120, 6, 2, 2), (True, 24, 2, 2, 2),
+                (False, 96, 6, 6, 6), (False, 120, 6, 8, 8),
+                (False, 180, 6, 6, 6), (False, 180, 6, 1, 1),
+                (False, 180, 6, 4, 8), (False, 192, 6, 6, 6),
+                (True, 180, 6, 2, 2)):
+            plan = (ctypes.c_int * 17)()
+            lib.kair_win3d_plan(int(mutual), c, nh, 2 * c, wd, twd, plan)
+            pl = win3d_plan(mutual, c, nh, 2 * c, wd, twd)
+            require(tuple(plan) == tuple(int(v) for v in pl),
+                    f"VRT block plan mirror differs at C={c} wd {wd}: "
+                    f"{tuple(plan)} vs {tuple(pl)}")
+            if pl.fits and c >= 96:
+                ph.note(f"{'TMSA' if mutual else 'self'} block C={c} wd {wd}: "
+                        f"NT {pl.nt}, q/k {pl.hdp}, v {pl.vdp}, "
+                        f"{pl.stages1} + {pl.stages3} stages an item, shared "
+                        f"memory {pl.smem1} / {pl.smem2} / {pl.smem3} B")
+        ph.note("the VRT blocks' plan mirror equals kair_win3d_plan at 10 "
+                "geometries (C=192 and a C=180 TMSA block refused by both)")
+        ptx = ptxas_kernels(log_lines)
+        ph.note("VRT window-block kernels (ptxas): " + ", ".join(
+            f"{n} {r} regs {sp} B spill" for n, r, sp in ptx
+            if n.startswith(WIN3D_PASSES)))
         for c, nh, hp in ((144, 6, 288), (192, 6, 384)):
             st = lib.kair_stl2_block_shared_bytes(c, nh, hp)
             require(st == win3d_bytes(c, nh, hp, 1),

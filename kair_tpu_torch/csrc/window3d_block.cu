@@ -1,30 +1,9 @@
-// The 3-D window transformer blocks of VRT and RVRT, inference, bf16
-// (sm_90a): VRT's TMSA mutual block on (2,8,8) windows (C entry
-// kair_tmsa_block), VRT's self-attention + GEGLU block on (wd,8,8) windows,
-// wd in {6, 2, 1} (kair_self6_block), and RVRT's self-only STL block on
-// (2,8,8) windows with a plain GELU MLP (kair_stl2_block). All three run the
-// same three passes, compiled here once for each kind of block (template
-// argument KIND: kTmsa, kSelf, kStl2):
-//
-// kair_tmsa_block replaces kair_tpu/ops/pallas/tmsa_block.py ::
-// tmsa_block_pallas (the pl.pallas_call of _impl, body _kernel):
-//   out = roll(Block(roll(x, -shift)), +shift),
-//   Block: h = LN1(x); s = self-MSA(h) over the window's 128 tokens (3-D
-//          rel-pos bias, shift mask); m = mutual MSA(h + sine pos): frame 2's
-//          queries attend frame 1's keys and values and the reverse, under the
-//          frame-1 block of the shift mask, the outputs landing on the query's
-//          own place in the other frame; x1 = x + proj([m | s]);
-//          out = x1 + fc2(GELU(fc11(LN2(x1))) * fc12(LN2(x1)))
-// with two qkv products in pass 1 and two branches (two query tiles each) in
-// pass 2.
-//
-// kair_self6_block replaces kair_tpu/ops/pallas/self6_block.py ::
-// self6_block_pallas (the pl.pallas_call of _impl, body _kernel): the second
-// (self-only) TMSAG of every VRT stage (wd 6, or 2 on a 2-frame clip) and the
-// RTMSA tail of stage 8 (wd 6, and wd 1 for the per-frame indep_reconsts):
-//   out = roll(Block(roll(x, -shift)), +shift),
-//   Block: x1 = x + proj(W-MSA(LN1(x)))   (3-D rel-pos bias, shift mask)
-//          out = x1 + fc2(GELU(fc11(LN2(x1))) * fc12(LN2(x1)))
+// RVRT's self-only STL block on (2,8,8) windows with a plain GELU MLP,
+// inference, bf16 (sm_90a): the C entry kair_stl2_block. Its three passes
+// are templates on the kind of block (KIND: kTmsa, kSelf, kStl2) and keep
+// the mutual branch and the GEGLU they were written with; only the kStl2
+// instance is compiled here. VRT's TMSA and self blocks, which these passes
+// also ran until they were redesigned, are csrc/window3d_wgmma.cu.
 //
 // kair_stl2_block replaces kair_tpu/ops/pallas/stl_block.py ::
 // stl2_block_pallas (the pl.pallas_call of _impl, body _stl2_kernel): the
@@ -62,20 +41,14 @@
 // more than a 64x64 tile of scores; the mask is built per element from the
 // tokens' region labels (8 patterns), never as an (nW, N, N) tensor.
 //
-// Bound on the H100: at VRT-001's stage 1 the TMSA block (C=120, 6 heads,
-// hidden 240) does about 496 kFLOP per token (two qkv products, self scores
-// and PV over 128 keys, mutual over 64, a 2C x C proj, GEGLU) against 480
-// bytes of activations in and out, ~1,030 FLOP/byte; at stage 8 the self
-// block (C=180, wd 6, hidden 360) about 920 kFLOP per token against 720
-// bytes, ~1,280 FLOP/byte; RVRT-001's STL2 block (C=144, hidden 288) about
-// 406 kFLOP per token against 576 bytes, ~700 FLOP/byte. All are bound by
-// tensor-core operations (about 12, 23 and 3.4 us for their calls at
-// 1x6x64x64, 1x6x64x64 and 1x2x64x64 at 989 TFLOP/s). What the design does
-// about it: every product runs on the tensor cores in bf16 with f32 sums,
-// the scores never leave shared memory, and the shift costs no copy. Its
-// cost: q/k/v and the attention output make one round trip through device
-// memory between the passes. WMMA, not wgmma/TMA: the simple first version
-// (PERF.md).
+// Bound on the H100: RVRT-001's STL2 block (C=144, hidden 288) does about
+// 406 kFLOP per token against 576 bytes of activations in and out, ~700
+// FLOP/byte: bound by tensor-core operations (about 3.4 us for its
+// 1x2x64x64 call at 989 TFLOP/s). What the design does about it: every
+// product runs on the tensor cores in bf16 with f32 sums, the scores never
+// leave shared memory, and the shift costs no copy. Its cost: q/k/v and the
+// attention output make one round trip through device memory between the
+// passes. WMMA, not wgmma/TMA: the simple first version (PERF.md).
 //
 // Layouts (prepared on the host, ops/kernels/win3d.py): wqkv [CP][NH*96]
 // bf16, per head [q|k|v] 32 columns each (head dim zero-padded, the q scale
@@ -426,12 +399,6 @@ __device__ __forceinline__ void proj_mlp(const Args& a) {
 // One kernel per pass and kind of block, so a profile tells them apart.
 #define KAIR_WIN3D_PASS(name, pass, KIND)                                   \
   __global__ void __launch_bounds__(kThreads) name(Args a) { pass<KIND>(a); }
-KAIR_WIN3D_PASS(tmsa_ln_qkv_kernel, ln_qkv, kTmsa)
-KAIR_WIN3D_PASS(tmsa_attention_kernel, attention, kTmsa)
-KAIR_WIN3D_PASS(tmsa_proj_mlp_kernel, proj_mlp, kTmsa)
-KAIR_WIN3D_PASS(self_ln_qkv_kernel, ln_qkv, kSelf)
-KAIR_WIN3D_PASS(self_attention_kernel, attention, kSelf)
-KAIR_WIN3D_PASS(self_proj_mlp_kernel, proj_mlp, kSelf)
 KAIR_WIN3D_PASS(stl2_ln_qkv_kernel, ln_qkv, kStl2)
 KAIR_WIN3D_PASS(stl2_attention_kernel, attention, kStl2)
 KAIR_WIN3D_PASS(stl2_proj_mlp_kernel, proj_mlp, kStl2)
@@ -450,11 +417,8 @@ int launch(const Args& a, Kind kind, void* stream) {
   const int s1 = QkvSmem(a.C).total, s2 = AttnSmem().total;
   const int s3 = MlpSmem(a.C, a.NH, a.HP, P).total;
   if (imax(imax(s1, s2), s3) > kSmemLimit) return (int)cudaErrorInvalidConfiguration;
-  static const PassKernel passes[3][3] = {
-      {tmsa_ln_qkv_kernel, tmsa_attention_kernel, tmsa_proj_mlp_kernel},
-      {self_ln_qkv_kernel, self_attention_kernel, self_proj_mlp_kernel},
-      {stl2_ln_qkv_kernel, stl2_attention_kernel, stl2_proj_mlp_kernel}};
-  const PassKernel k1 = passes[kind][0], k2 = passes[kind][1], k3 = passes[kind][2];
+  const PassKernel k1 = stl2_ln_qkv_kernel, k2 = stl2_attention_kernel,
+                   k3 = stl2_proj_mlp_kernel;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if ((e = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, s1)) ||
@@ -476,97 +440,8 @@ int launch(const Args& a, Kind kind, void* stream) {
 
 using namespace kair;
 
-extern "C" int kair_tmsa_block_shared_bytes(int C, int NH, int HP) {
-  return win3d::shared_bytes(C, NH, HP, 2);
-}
-
-extern "C" int kair_self6_block_shared_bytes(int C, int NH, int HP) {
-  return win3d::shared_bytes(C, NH, HP, 1);
-}
-
 extern "C" int kair_stl2_block_shared_bytes(int C, int NH, int HP) {
   return win3d::shared_bytes(C, NH, HP, 1);
-}
-
-// x, out, qkv scratch [T][2*NH*96], att scratch [T][2*NH*32], wqkv_s, bqkv_s,
-// wqkv_m, bqkv_m, pos [64][C], ln1, ln2, wp [2*NH*32][CP], bp, w11, b11, w12,
-// b12, w2, b2, rel_table [675][NH], labels [8][128] or null;
-// B, D, H, W, C, NH, HP, sd, sh, sw, stream
-extern "C" int kair_tmsa_block(const void* x, void* out, void* qkv, void* att,
-                               const void* wqkv_s, const void* bqkv_s,
-                               const void* wqkv_m, const void* bqkv_m, const void* pos,
-                               const void* ln1, const void* ln2, const void* wp,
-                               const void* bp, const void* w11, const void* b11,
-                               const void* w12, const void* b12, const void* w2,
-                               const void* b2, const void* rel_table, const void* labels,
-                               int B, int D, int H, int W, int C, int NH, int HP, int sd,
-                               int sh, int sw, void* stream) {
-  if (D % 2 || H % 8 || W % 8) return (int)cudaErrorInvalidValue;
-  win3d::Args a;
-  a.x = static_cast<const bf16*>(x);
-  a.out = static_cast<bf16*>(out);
-  a.qkv = static_cast<bf16*>(qkv);
-  a.att = static_cast<bf16*>(att);
-  a.wqkv_s = static_cast<const bf16*>(wqkv_s);
-  a.bqkv_s = static_cast<const float*>(bqkv_s);
-  a.wqkv_m = static_cast<const bf16*>(wqkv_m);
-  a.bqkv_m = static_cast<const float*>(bqkv_m);
-  a.pos = static_cast<const float*>(pos);
-  a.ln1 = static_cast<const float*>(ln1);
-  a.ln2 = static_cast<const float*>(ln2);
-  a.wp = static_cast<const bf16*>(wp);
-  a.bp = static_cast<const float*>(bp);
-  a.w11 = static_cast<const bf16*>(w11);
-  a.b11 = static_cast<const float*>(b11);
-  a.w12 = static_cast<const bf16*>(w12);
-  a.b12 = static_cast<const float*>(b12);
-  a.w2 = static_cast<const bf16*>(w2);
-  a.b2 = static_cast<const float*>(b2);
-  a.rel_table = static_cast<const float*>(rel_table);
-  a.labels = static_cast<const int*>(labels);
-  a.B = B; a.D = D; a.H = H; a.W = W; a.C = C; a.NH = NH; a.HP = HP;
-  a.wd = 2; a.twd = 2; a.sd = sd; a.sh = sh; a.sw = sw;
-  return win3d::launch(a, win3d::kTmsa, stream);
-}
-
-// x, out, qkv scratch [T][NH*96], att scratch [T][NH*32], wqkv, bqkv, ln1,
-// ln2, wp [NH*32][CP], bp, w11, b11, w12, b12, w2, b2,
-// rel_table [(2*twd-1)*225][NH], labels [8][wd*64] or null;
-// B, D, H, W, C, NH, HP, wd, twd, sd, sh, sw, stream
-extern "C" int kair_self6_block(const void* x, void* out, void* qkv, void* att,
-                                const void* wqkv, const void* bqkv, const void* ln1,
-                                const void* ln2, const void* wp, const void* bp,
-                                const void* w11, const void* b11, const void* w12,
-                                const void* b12, const void* w2, const void* b2,
-                                const void* rel_table, const void* labels, int B, int D,
-                                int H, int W, int C, int NH, int HP, int wd, int twd,
-                                int sd, int sh, int sw, void* stream) {
-  if (wd < 1 || twd < wd || D % wd || H % 8 || W % 8) return (int)cudaErrorInvalidValue;
-  win3d::Args a;
-  a.x = static_cast<const bf16*>(x);
-  a.out = static_cast<bf16*>(out);
-  a.qkv = static_cast<bf16*>(qkv);
-  a.att = static_cast<bf16*>(att);
-  a.wqkv_s = static_cast<const bf16*>(wqkv);
-  a.bqkv_s = static_cast<const float*>(bqkv);
-  a.wqkv_m = nullptr;
-  a.bqkv_m = nullptr;
-  a.pos = nullptr;
-  a.ln1 = static_cast<const float*>(ln1);
-  a.ln2 = static_cast<const float*>(ln2);
-  a.wp = static_cast<const bf16*>(wp);
-  a.bp = static_cast<const float*>(bp);
-  a.w11 = static_cast<const bf16*>(w11);
-  a.b11 = static_cast<const float*>(b11);
-  a.w12 = static_cast<const bf16*>(w12);
-  a.b12 = static_cast<const float*>(b12);
-  a.w2 = static_cast<const bf16*>(w2);
-  a.b2 = static_cast<const float*>(b2);
-  a.rel_table = static_cast<const float*>(rel_table);
-  a.labels = static_cast<const int*>(labels);
-  a.B = B; a.D = D; a.H = H; a.W = W; a.C = C; a.NH = NH; a.HP = HP;
-  a.wd = wd; a.twd = twd; a.sd = sd; a.sh = sh; a.sw = sw;
-  return win3d::launch(a, win3d::kSelf, stream);
 }
 
 // x, out, qkv scratch [T][NH*96], att scratch [T][NH*32], wqkv, bqkv, ln1,

@@ -66,14 +66,10 @@ SIGNATURES = {
                                _I),
     # y, res, w, bias, out, B, H, W, C, phase, stream
     "kair_conv3x3_residual": ([_P] * 5 + [_I] * 5 + [_P], _I),
-    # x, out, qkv, att, wqkv_s, bqkv_s, wqkv_m, bqkv_m, pos, ln1, ln2, wp,
-    # bp, w11, b11, w12, b12, w2, b2, rel_table, labels,
-    # B, D, H, W, C, NH, HP, sd, sh, sw, stream
-    "kair_tmsa_block": ([_P] * 21 + [_I] * 10 + [_P], _I),
-    # x, out, qkv, att, wqkv, bqkv, ln1, ln2, wp, bp, w11, b11, w12, b12,
-    # w2, b2, rel_table, labels, B, D, H, W, C, NH, HP, wd, twd, sd, sh, sw,
+    # mutual, x, out, qkv, att, st1, bq, st3, pos, ln1, ln2, bp, b11, b12,
+    # b2, rel_table, labels, B, D, H, W, C, NH, hidden, wd, twd, sd, sh, sw,
     # stream
-    "kair_self6_block": ([_P] * 18 + [_I] * 12 + [_P], _I),
+    "kair_win3d_block": ([_I] + [_P] * 16 + [_I] * 12 + [_P], _I),
     # x, out, qkv, att, wqkv, bqkv, ln1, ln2, wp, bp, w1, b1, w2, b2,
     # rel_table, labels, B, D, H, W, C, NH, HP, twd, sd, sh, sw, stream
     "kair_stl2_block": ([_P] * 16 + [_I] * 11 + [_P], _I),
@@ -91,9 +87,9 @@ SIGNATURES = {
     "kair_swin_bwd_plan": ([_I] * 3 + [_P], _I),          # C, NH, hidden, dst (i32[10])
     "kair_conv3x3_shared_bytes": ([_I], _I),             # C
     "kair_conv3x3_plan": ([_I, _P], _I),                 # C, dst (host i32[4])
-    "kair_tmsa_block_shared_bytes": ([_I] * 3, _I),      # C, NH, HP
-    "kair_self6_block_shared_bytes": ([_I] * 3, _I),     # C, NH, HP
     "kair_stl2_block_shared_bytes": ([_I] * 3, _I),      # C, NH, HP
+    # mutual, C, NH, hidden, wd, twd, dst (host i32[17])
+    "kair_win3d_plan": ([_I] * 6 + [_P], _I),
     "kair_dcn_shared_bytes": ([], _I),
     "kair_error_string": ([_I], ctypes.c_char_p),
 }

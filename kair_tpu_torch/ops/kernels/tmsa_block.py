@@ -1,5 +1,5 @@
 """VRT's TMSA mutual block on (2, 8, 8) windows — CUDA kernel
-``kair_tmsa_block``.
+``kair_win3d_block`` (the mutual block).
 
 ``tmsa_block`` replaces ``kair_tpu/ops/pallas/tmsa_block.py ::
 tmsa_block_pallas`` (:395, ``pl.pallas_call`` :253) at inference:
@@ -10,9 +10,9 @@ on (B, D, H, W, C), where Block is LN1 → self-MSA over the window's 128
 tokens (3-D rel-pos bias, shift mask) and mutual MSA on LN1(x) + sine
 position (frame 2's queries on frame 1's keys and values and the reverse,
 under the frame-1 block of the mask) → proj of ``[mutual | self]`` → +x →
-LN2 → GEGLU → +x. The kernel is the mutual instance of the three passes
-in ``csrc/window3d_block.cu``, with both branches (its header gives the
-bound on the card; ``win3d.py`` the host side);
+LN2 → GEGLU → +x. The kernel is the mutual instance of the three wgmma
+passes in ``csrc/window3d_wgmma.cu``, with both branches (its header gives
+the bound on the card and the design; ``win3d.py`` the host side);
 ``tmsa_block_reference`` is its plain version, the composed block of
 ``ops/window3d.py`` in f32. The TPU kernel's rowsum lane, max-free softmax
 and −1e9 block-diagonal bias are TPU layout tricks: the kernel subtracts
@@ -33,10 +33,9 @@ from typing import Optional, Sequence
 import torch
 
 from kair_tpu_torch.ops import window3d
-from kair_tpu_torch.ops.kernels import _build
 from kair_tpu_torch.ops.kernels.recompute import composed_vjp
-from kair_tpu_torch.ops.kernels.win3d import (Win3dPack, check_geometry,
-                                              labels_on, pack_win3d)
+from kair_tpu_torch.ops.kernels.win3d import (Win3dStages, check_geometry,
+                                              launch_win3d, pack_win3d_stages)
 from kair_tpu_torch.ops.window3d import Tmsa3dParams
 
 WS = (2, 8, 8)
@@ -53,38 +52,20 @@ def tmsa_block_reference(x: torch.Tensor, p: Tmsa3dParams, num_heads: int,
 
 def tmsa_block(x: torch.Tensor, p: Tmsa3dParams, num_heads: int,
                shift: Sequence[int] = (0, 0, 0),
-               packed: Optional[Win3dPack] = None) -> torch.Tensor:
+               packed: Optional[Win3dStages] = None) -> torch.Tensor:
     """TMSA mutual block on (B, D, H, W, C), windows (2, 8, 8), shift folded
     into the kernel's indices.
 
     CPU tensor → the plain version. CUDA tensor → the kernel (bf16), or an
-    exception; ``packed`` is the cached ``pack_win3d(p, nh)``. A launch adds
-    one to ``launches``."""
+    exception; ``packed`` is the cached ``pack_win3d_stages(p, nh)``. A
+    launch adds one to ``launches``."""
     if x.device.type == "cpu":
         return tmsa_block_reference(x, p, num_heads, shift)
     check_geometry("tmsa_block", x, p, num_heads, 2, mutual=True)
     if window3d.table_depth(p.rel_table) != 2:
         raise ValueError("tmsa_block needs the (2, 8, 8) window's table")
-    pk = packed if packed is not None else pack_win3d(p, num_heads)
-    b, d, h, w, c = x.shape
-    t = b * d * h * w
-    qkv = torch.empty(t, 2 * num_heads * 96, dtype=x.dtype, device=x.device)
-    att = torch.empty(t, 2 * num_heads * 32, dtype=x.dtype, device=x.device)
-    lab = labels_on((d, h, w), WS, shift, x.device)
-    out = torch.empty_like(x)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        err = lib.kair_tmsa_block(
-            x.data_ptr(), out.data_ptr(), qkv.data_ptr(), att.data_ptr(),
-            pk.wqkv_s.data_ptr(), pk.bqkv_s.data_ptr(), pk.wqkv_m.data_ptr(),
-            pk.bqkv_m.data_ptr(), pk.pos.data_ptr(), pk.ln1.data_ptr(),
-            pk.ln2.data_ptr(), pk.wp.data_ptr(), pk.bp.data_ptr(),
-            pk.w11.data_ptr(), pk.b11.data_ptr(), pk.w12.data_ptr(),
-            pk.b12.data_ptr(), pk.w2.data_ptr(), pk.b2.data_ptr(),
-            pk.rel_table.data_ptr(), None if lab is None else lab.data_ptr(),
-            b, d, h, w, c, num_heads, pk.hp, *map(int, shift),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "tmsa_block")
+    pk = packed if packed is not None else pack_win3d_stages(p, num_heads)
+    out = launch_win3d("tmsa_block", x, pk, num_heads, 2, 2, shift, True)
     tmsa_block.launches += 1
     return out
 
@@ -122,6 +103,6 @@ class TmsaBlockFunction(torch.autograd.Function):
 
 def tmsa_block_train(x: torch.Tensor, p: Tmsa3dParams, num_heads: int,
                      shift: Sequence[int] = (0, 0, 0),
-                     packed: Optional[Win3dPack] = None) -> torch.Tensor:
+                     packed: Optional[Win3dStages] = None) -> torch.Tensor:
     """Differentiable ``tmsa_block``: ``TmsaBlockFunction``."""
     return TmsaBlockFunction.apply(x, num_heads, tuple(shift), packed, *p)

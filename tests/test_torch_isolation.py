@@ -96,8 +96,9 @@ def test_nvcc_command_is_one_plain_call():
     assert "-shared" in cmd and str(out) in cmd
     srcs = {pathlib.Path(a).name for a in cmd if a.endswith(".cu")}
     assert srcs == {"swin_block.cu", "swin_block_wgmma.cu", "conv_block.cu",
-                    "swin_block_bwd_wgmma.cu", "window3d_block.cu", "dcn_block.cu",
-                    "gda_block.cu", "bilin_sample.cu"}
+                    "swin_block_bwd_wgmma.cu", "window3d_block.cu",
+                    "window3d_wgmma.cu", "dcn_block.cu", "gda_block.cu",
+                    "bilin_sample.cu"}
     torch_inc = os.path.dirname(torch.__file__)
     assert not any(a.startswith("-I") or torch_inc in a for a in cmd), cmd
     assert _build.BUILD_DIR == REPO / "kair_tpu_torch" / "_build"

@@ -36,7 +36,8 @@ from kair_tpu.ops.pallas.tmsa_block import (make_tmsa_biases,
 from kair_tpu.ops.warp import modulated_deform_conv as j_mdc
 from kair_tpu_torch.ops import window3d
 from kair_tpu_torch.ops.kernels import dcn_block, self6_block, tmsa_block, win3d
-from kair_tpu_torch.ops.kernels.win3d import labels_on, pack_win3d, shared_bytes
+from kair_tpu_torch.ops.kernels.win3d import (labels_on, pack_win3d_stages,
+                                              win3d_plan)
 from kair_tpu_torch.ops.kernels.window_msa import SMEM_LIMIT
 from kair_tpu_torch.ops.window3d import Tmsa3dParams
 
@@ -283,11 +284,14 @@ REPLAY_CASES = [  # (mutual, wd, twd, (d, h, w), shift)
 
 @pytest.mark.parametrize("mutual,wd,twd,dhw,shift", REPLAY_CASES)
 def test_win3d_kernel_layout_matches_plain(mutual, wd, twd, dhw, shift):
+    """The TMSA and self kernels' passes (csrc/window3d_wgmma.cu) replayed
+    from their weight stages (``pack_win3d_stages``)."""
+    from tests.test_torch_win3d_wgmma import emulate_win3d_wgmma
     x = torch.from_numpy(_x((1, *dhw, C), 6))
     p = torch_params(block_weights(C, NH, twd, mutual, 7), C)
-    pk = pack_win3d(p, NH, torch.float32)
+    pk = pack_win3d_stages(p, NH, torch.float32)
     labels = labels_on(dhw, (wd, 8, 8), shift, "cpu")
-    got = emulate_win3d(x, pk, NH, wd, twd, shift, labels, mutual)
+    got = emulate_win3d_wgmma(x, pk, NH, wd, twd, shift, labels, mutual)
     want = (tmsa_block.tmsa_block_reference(x, p, NH, shift) if mutual
             else self6_block.self6_block_reference(x, p, NH, wd, shift))
     torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
@@ -331,15 +335,18 @@ def test_dcn_kernel_layout_matches_plain():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("c,nh,p,want", [
-    (24, 2, 2, 52224), (120, 6, 2, 146432), (180, 6, 1, 161792),
-    (120, 6, 1, 121856)])
+    (24, 2, 2, 96320), (120, 6, 2, 178368), (180, 6, 1, 205632),
+    (120, 6, 1, 176192)])
 def test_shared_memory_arithmetic(c, nh, p, want):
-    """The largest pass's layout at C = 24, 120 and 180 (hidden 2C): pass 2
-    is a fixed 51,200 B; pass 3 grows with C, the heads and the hidden
-    width, and stays within the card's opt-in limit at VRT-001's widths."""
-    hp = (2 * c + 15) // 16 * 16
-    assert shared_bytes(c, nh, hp, p) == want
-    assert want <= SMEM_LIMIT
+    """The largest pass's layout (csrc/window3d_wgmma.cu) at C = 24, 120
+    and 180 (hidden 2C; the TMSA block on (2,8,8) windows, p = 2, the self
+    block on (6,8,8)): pass 1, the largest, grows with C and the heads
+    through its ring slots, LN outputs and q/k/v staging tiles, and stays
+    within the card's opt-in limit at VRT-001's widths."""
+    wd = 2 if p == 2 else 6
+    pl = win3d_plan(p == 2, c, nh, 2 * c, wd, wd)
+    assert max(pl.smem1, pl.smem2, pl.smem3) == want and pl.fits
+    assert want + win3d.STATIC_SMEM <= SMEM_LIMIT
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
