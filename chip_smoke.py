@@ -18,9 +18,10 @@ one flushed line each with its seconds:
   0 device      card name, power limit (nvidia-smi), torch and CUDA versions
   1 build       the kernels, from csrc/, with one plain nvcc call; each
                 wrapper's layout mirror against its kernel's (the conv
-                tail, the Swin block and its backward, the VRT blocks'
-                kair_win3d_plan at C=96, 120 and 180); the VRT blocks'
-                kernels' registers and spills
+                tail, the Swin block, its attention-only mode (kernel B:
+                the plan at hidden width 0) and its backward, the VRT
+                blocks' kair_win3d_plan at C=96, 120 and 180); the VRT
+                blocks' kernels' registers and spills
   2 swin_block  kernel (wgmma, a bulk-copied weight ring two windows share)
                 against its plain version at B=16, 128x128, C=180, at the
                 main path's 1x64x72, on 1x56x72 (63 windows: the persistent
@@ -64,9 +65,11 @@ one flushed line each with its seconds:
                 shifted (phase 3) and not; window 4 on 1x12x20, window 7 on
                 1x21x35 and 1x49x63 (odd window counts, 63 the ragged end of
                 a walk); dropped-mask control; time and bound
-  9 window_msa  the window-attention kernel against the composed window_msa
-                at B=16, 128x128, C=180, with and without the mask and the
-                qkv bias; the same control; time and bound
+  9 window_msa  the window-attention kernel (the wgmma block's attention-only
+                mode) against the composed window_msa at B=16, 128x128,
+                C=180, with and without the mask and the qkv bias, at
+                SwinIR-L's C=240, at window 7 (B=8 126x126, shifted and
+                not) and at C=60; the same control; time and bound
  10 jpeg_car    KAIR's 006 JPEG-CAR SwinIR-M (color, window 7, img_range 255)
                 from an option tree through define_g: B=8 of 126x126 on the
                 card, 36 window-block and 7 conv launches, no composed
@@ -120,11 +123,13 @@ one flushed line each with its seconds:
                 1x16x128x128 tile (the CLI's default spatial tile)
  20 bilin       the bilinear sampler's forward and backward kernels against
                 their plain version (f32 on the card) at VRT-001's stage-1
-                call at batch 8 (G=96, 64x64, Cs=10, R=36,864), an RVRT
-                GDA call (Cs=48) and an odd Cs=3 (the forward's narrowest
-                vectors), feat bf16 and f32, taps fractional, in the
-                zero ring, far outside and on integers (dfy, dfx exactly 0
-                there); control: coordinates moved by 0.37 px; times, bounds,
+                call at batch 8 (G=96, 64x64, Cs=10, R=36,864; coordinates
+                random over the frame, and VRT's own tap-major rows: pixel
+                + 3x3 tap + an offset of up to 10 px), an RVRT GDA call
+                (Cs=48) and an odd Cs=3 (the narrowest vectors), feat bf16
+                and f32, taps fractional, in the zero ring, far outside and
+                on integers (dfy, dfx exactly 0 there); control: coordinates
+                moved by 0.37 px; times (the backward's whole call), bounds,
                 the plain version's and F.grid_sample's forward and backward
  21 vrt_train   VRT-001 training from the shipped option file
                 (options/vrt/001_train_vrt_videosr_bi_reds_6frames.json)
@@ -138,7 +143,8 @@ one flushed line each with its seconds:
                 call; (c) 2 warm-up and 3 timed steps: ms per step, clips/s,
                 LR frame-MP/s, MFU, peak memory; (d) spynet and pa_deform
                 bit-equal before fix_iter, the rest moved; (f) device time per
-                step by kernel and of the window-block passes; (g) save and
+                step by kernel, of the window-block passes and of the
+                sampler's kernels; (g) save and
                 resume; (e) the option file's
                 "auto" route (DCN kernel, composed backward) on the same
                 batches
@@ -1173,35 +1179,57 @@ def phase_window_msa(report: list) -> None:
     mask = shift_mask_tensor(h, w, 8, 4, dev)
     tol = 1e-2
 
-    def args(qkv_bias, m, phase, f32=False):
+    def args(p, qkv_bias, m, phase, ws=8, f32=False):
         cast = (lambda t: None if t is None else t.float()) if f32 else \
             (lambda t: t)
         return (cast(p.qkv_weight), cast(qkv_bias), cast(p.proj_weight),
-                cast(p.proj_bias), cast(p.rel_table), nh, m, phase, 8)
+                cast(p.proj_bias), cast(p.rel_table), p.rel_table.shape[1], m,
+                phase, ws)
+
+    # SwinIR-L's width at window 8, JPEG-CAR's window 7 at C=180, and
+    # SwinIR-light's C=60: (what, map, params, window, phase)
+    p240 = swin_params(240, 8, 480, gen, dev, bf)
+    p7 = swin_params(c, nh, 2 * c, gen, dev, bf, ws=7)
+    p60 = swin_params(60, 6, 120, gen, dev, bf)
+    widths = (("C=240 (SwinIR-L), B=4 128x128",
+               torch.randn(4, 128, 128, 240, generator=gen).to(dev, bf), p240, 8, 4),
+              ("C=180 ws 7 (JPEG-CAR), B=8 126x126",
+               torch.randn(8, 126, 126, c, generator=gen).to(dev, bf), p7, 7, 3),
+              ("C=180 ws 7, B=8 126x126",
+               torch.randn(8, 126, 126, c, generator=gen).to(dev, bf), p7, 7, 0),
+              ("C=60 (SwinIR-light), B=4 64x64",
+               torch.randn(4, 64, 64, 60, generator=gen).to(dev, bf), p60, 8, 4))
 
     with Phase("9 window_msa") as ph:
-        ph.note(f"window attention kernel on a bf16 B={b} {h}x{w} C={c} map, "
-                f"nh={nh}; limit max_abs <= {tol} * max|ref| against the "
-                "composed window_msa in f32; control: the shifted cases' "
-                "plain version without the mask")
+        ph.note(f"window attention kernel (the wgmma block's attention-only "
+                f"mode) on a bf16 B={b} {h}x{w} C={c} map, nh={nh}, and at "
+                f"C=240, window 7 and C=60; limit max_abs <= {tol} * max|ref| "
+                "against the composed window_msa in f32; control: the "
+                "shifted cases' plain version without the mask")
         errs = []
-        for qb, m, phase in ((p.qkv_bias, mask, 4), (p.qkv_bias, None, 0),
-                             (None, mask, 4)):
-            pk = pack_window_msa(*args(qb, m, phase)[:6])
-            got = window_msa_win(y, *args(qb, m, phase), packed=pk)
-            ref = window_msa_win_reference(y.float(), *args(qb, m, phase, True))
+        cases = [(f"C={c} phase {ph_} mask={'shift' if m is not None else 'none'}"
+                  f" qkv_bias={'yes' if qb is not None else 'no'}", y, p, qb,
+                  m, ph_, 8)
+                 for qb, m, ph_ in ((p.qkv_bias, mask, 4), (p.qkv_bias, None, 0),
+                                    (None, mask, 4))]
+        cases += [(f"{what} phase {ph_}", x, pp, pp.qkv_bias,
+                   shift_mask_tensor(x.shape[1], x.shape[2], ws, ph_, dev),
+                   ph_, ws) for what, x, pp, ws, ph_ in widths]
+        for what, x, pp, qb, m, ph_, ws in cases:
+            pk = pack_window_msa(*args(pp, qb, m, ph_, ws)[:6])
+            got = window_msa_win(x, *args(pp, qb, m, ph_, ws), packed=pk)
+            ref = window_msa_win_reference(x.float(),
+                                           *args(pp, qb, m, ph_, ws, True))
             torch.cuda.synchronize()
             control = None if m is None else window_msa_win_reference(
-                y.float(), *args(qb, None, phase, True))
-            errs.append(check_case(
-                ph, f"phase {phase} mask={'shift' if m is not None else 'none'}"
-                f" qkv_bias={'yes' if qb is not None else 'no'}", got, ref, tol,
-                control))
-        pk = pack_window_msa(*args(p.qkv_bias, mask, 4)[:6])
-        ms = cuda_ms(lambda: window_msa_win(y, *args(p.qkv_bias, mask, 4),
+                x.float(), *args(pp, qb, None, ph_, ws, True))
+            errs.append(check_case(ph, what, got, ref, tol, control))
+        pk = pack_window_msa(*args(p, p.qkv_bias, mask, 4)[:6])
+        ms = cuda_ms(lambda: window_msa_win(y, *args(p, p.qkv_bias, mask, 4),
                                             packed=pk))
         plain_ms = cuda_ms(lambda: window_msa_win_reference(
-            y.float(), *args(p.qkv_bias, mask, 4, True)), warmup=1, reps=5)
+            y.float(), *args(p, p.qkv_bias, mask, 4, f32=True)), warmup=1,
+            reps=5)
         tokens = b * h * w
         flops = tokens * window_msa_flops_per_token(c, 8)
         weights = 2 * 4 * c * c + 4 * 4 * c + 4 * nh * 64 * 64
@@ -1212,9 +1240,15 @@ def phase_window_msa(report: list) -> None:
                 f"{plain_ms:.3f} ms; bound {bms:.4f} ms ({by}; the bytes alone "
                 f"{bytes_ms:.4f} ms), {bms / ms:.4f} of it; "
                 f"{flops / ms / 1e9:.1f} TFLOP/s")
+        for what, x, pp, ws, ph_ in widths[:2]:
+            m = shift_mask_tensor(x.shape[1], x.shape[2], ws, ph_, dev)
+            pk = pack_window_msa(*args(pp, pp.qkv_bias, m, ph_, ws)[:6])
+            t = cuda_ms(lambda: window_msa_win(
+                x, *args(pp, pp.qkv_bias, m, ph_, ws), packed=pk))
+            ph.note(f"{what} shifted: kernel {t:.3f} ms (median of 10)")
     report.append(dict(
         name="window_msa_win", route="cuda",
-        source="kair_tpu_torch/csrc/swin_block.cu",
+        source="kair_tpu_torch/csrc/swin_block_wgmma.cu",
         replaces="kair_tpu/ops/pallas/window_msa.py:271",
         launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
         bound_ms=bms, bound_by=by, library_ms=None))
@@ -2249,33 +2283,60 @@ def bilin_coords(g: int, r: int, h: int, w: int, gen, device):
     return fy.to(device), fx.to(device)
 
 
+def tap_major_coords(g: int, r: int, h: int, w: int, gen, device,
+                     reach: float = 10.0):
+    """(fy, fx) f32 (G, R = 9·H·W) as VRT's DCN samples a slab
+    (ops/warp.deform_columns_mxu): rows tap-major, each tap's H·W output
+    pixels in order, at the pixel plus its 3x3 tap (padding 1) plus an
+    offset of up to ±reach px (VRT's max_residue_magnitude), drawn from the
+    seed; an eighth of the rows on integer y, the next eighth on integer x."""
+    import torch
+    assert r == 9 * h * w
+    tap = torch.arange(9)
+    fy = (torch.arange(h, dtype=torch.float32)[None, :, None]
+          + (tap // 3 - 1).float()[:, None, None]).expand(9, h, w).reshape(1, r)
+    fx = (torch.arange(w, dtype=torch.float32)[None, None, :]
+          + (tap % 3 - 1).float()[:, None, None]).expand(9, h, w).reshape(1, r)
+    fy = fy + (torch.rand(g, r, generator=gen) * 2 - 1) * reach
+    fx = fx + (torch.rand(g, r, generator=gen) * 2 - 1) * reach
+    fy[:, :r // 8] = fy[:, :r // 8].round()
+    fx[:, r // 8:r // 4] = fx[:, r // 8:r // 4].round()
+    return fy.to(device), fx.to(device)
+
+
 def phase_bilin(report: list) -> dict:
     """The bilinear sampler's forward and backward kernels against their
     plain version (f32 on the card) at VRT-001's stage-1 call at the option
-    file's batch 8 and at an RVRT GDA call; returns the two report rows."""
+    file's batch 8 (random coordinates over the frame, and VRT's own
+    tap-major rows) and at an RVRT GDA call; returns the two report rows
+    (VRT-001's call, random coordinates)."""
     import torch
     from kair_tpu_torch.ops.kernels.bilin_sample import (
         bilinear_bwd, bilinear_bwd_reference, bilinear_fwd, bilinear_reference,
-        vector_bytes)
+        bwd_tiles, vector_bytes)
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 20)
     limits = {torch.bfloat16: (1e-2, 2e-2), torch.float32: (1e-5, 1e-5)}
     shapes = (("VRT-001 stage 1, B=8 (12 groups of 120)", 96, 64, 64, 10,
-               9 * 64 * 64),
+               9 * 64 * 64, bilin_coords),
+              ("VRT-001 stage 1, B=8, tap-major rows (offsets <= 10 px)", 96,
+               64, 64, 10, 9 * 64 * 64, tap_major_coords),
               ("RVRT-001 GDA (k|v of a 24-channel group)", 48, 64, 64, 48,
-               9 * 64 * 64),
-              ("odd Cs (2- and 4-byte vectors)", 24, 64, 64, 3, 9 * 64 * 64))
+               9 * 64 * 64, bilin_coords),
+              ("odd Cs (2- and 4-byte vectors)", 24, 64, 64, 3, 9 * 64 * 64,
+               bilin_coords))
     rows = {}
     with Phase("20 bilin") as ph:
         ph.note("limits: forward max_rel <= 1e-2 (bf16) / 1e-5 (f32), each "
                 "backward tensor <= 2e-2 (bf16) / 1e-5 (f32) of its max|ref| "
-                "against the plain version in f32 (dfeat is an f32 atomic "
-                "sum, its order varies); dfy (dfx) exactly 0 on integer y "
-                "(x) rows; control: the plain version at coordinates moved by "
-                "0.37 px exceeds every limit")
-        for what, g, h, w, cs, r in shapes:
-            fy, fx = bilin_coords(g, r, h, w, gen, dev)
+                "against the plain version in f32 (dfeat is summed in f32 "
+                "per pixel over a list whose order, set by integer atomics, "
+                "varies from run to run); dfy (dfx) "
+                "exactly 0 on integer y (x) rows; control: the plain version "
+                "at coordinates moved by 0.37 px exceeds every limit")
+        for what, g, h, w, cs, r, coords in shapes:
+            fy, fx = coords(g, r, h, w, gen, dev)
             for dt in (torch.bfloat16, torch.float32):
                 tol_f, tol_b = limits[dt]
                 feat = torch.randn(g, h, w, cs, generator=gen).to(dev, dt)
@@ -2338,13 +2399,16 @@ def phase_bilin(report: list) -> dict:
                 (bf, byf), (bb, byb) = (bound_ms(ops_f, bytes_f, "fp32"),
                                         bound_ms(ops_b, bytes_b, "fp32"))
                 vec = vector_bytes(cs, feat.element_size())
-                ph.note(f"{what}, bf16, {vec}-byte vectors: forward {ms_f:.4f} ms (plain f32 "
+                tiles = bwd_tiles(g, h, w, cs, vec // feat.element_size(),
+                                  feat.element_size())
+                ph.note(f"{what}, bf16, {vec}-byte vectors, backward windows "
+                        f"{tiles[0]}x{tiles[1]}x{tiles[2]}: forward {ms_f:.4f} ms (plain f32 "
                         f"{plain_f:.3f}, grid_sample {lib_f:.4f}, bound "
                         f"{bf:.4f} ({byf}, {bytes_f / 1e6:.1f} MB), {bf / ms_f:.4f} "
                         f"of it); backward {ms_b:.4f} ms (plain {plain_b:.3f}, "
                         f"grid_sampler_2d_backward {lib_b:.4f}, bound {bb:.4f} "
                         f"({byb}, {bytes_b / 1e6:.1f} MB), {bb / ms_b:.4f} of it)")
-                if what.startswith("VRT-001"):
+                if "fwd" not in rows:
                     rows["fwd"] = dict(
                         name="bilinear_fwd", route="cuda",
                         source="kair_tpu_torch/csrc/bilin_sample.cu",
@@ -2615,7 +2679,7 @@ def phase_vrt_train(report: list, card: str, build_dir) -> None:
         # (f) where a step's device time goes
         ph.note("(f) " + device_breakdown(
             lambda: trainer.train_step(batches[warmup]), 1, ms, "step",
-            top=16, sums=WIN3D_PASSES))
+            top=16, sums=WIN3D_PASSES + ("bilin_",)))
 
         # (g) save, then resume in a fresh trainer
         models = opt["path"]["models"]
@@ -2706,23 +2770,31 @@ def main() -> int:
         from kair_tpu_torch.ops.kernels.window_msa import shared_bytes
         for c, nh, hp in ((24, 4, 48), (60, 6, 128), (144, 6, 288),
                           (180, 6, 368), (240, 8, 480)):
-            blk, att = (lib.kair_swin_block_shared_bytes(c, nh, hp),
-                        lib.kair_window_msa_shared_bytes(c, nh))
-            plan = (ctypes.c_int * 5)()
-            lib.kair_swin_block_plan(c, nh, hp, plan)
-            bp = block_plan(c, nh, hp)
+            # kernel B, the block's attention-only mode, is its plan at HP 0
+            plans = []
+            for h_ in (hp, 0):
+                plan = (ctypes.c_int * 5)()
+                lib.kair_swin_block_plan(c, nh, h_, plan)
+                bp = block_plan(c, nh, h_)
+                require(tuple(plan) == (bp.nt, bp.kc, bp.ring, bp.stages,
+                                        bp.slot)
+                        and lib.kair_swin_block_shared_bytes(c, nh, h_)
+                        == bp.smem,
+                        f"block plan mirror differs at C={c} HP={h_}")
+                plans.append(bp)
+            bp, att = plans
             bwd = (ctypes.c_int * 10)()
             lib.kair_swin_bwd_plan(c, nh, hp, bwd)
             bw = bwd_plan(c, nh, hp)
-            require(tuple(plan) == (bp.nt, bp.kc, bp.ring, bp.stages, bp.slot)
-                    and (blk, att) == (bp.smem, shared_bytes(c, nh))
+            require(att.smem == shared_bytes(c, nh)
                     and tuple(bwd) == (bw.smem, bw.nt, bw.stages, bw.slot,
                                        bw.scratch, sum(bw.op_rows), bw.nb,
                                        bw.items, bw.total, bw.wgrad_smem),
                     f"shared-memory mirror differs from the kernels at C={c}")
-            ph.note(f"C={c}, {nh} heads: block {blk} B (NT {bp.nt}, ring "
+            ph.note(f"C={c}, {nh} heads: block {bp.smem} B (NT {bp.nt}, ring "
                     f"{bp.ring} x {bp.slot} B, {bp.stages} stages a window "
-                    f"pair), attention {att} B, backward {bw.smem} B ({bw.stages} "
+                    f"pair), attention only {att.smem} B ({att.stages} stages "
+                    f"a window pair), backward {bw.smem} B ({bw.stages} "
                     f"stages a window pair) + {bw.wgrad_smem} B (weight grads, "
                     f"{bw.items} items of 128 x {bw.nb})")
         from kair_tpu_torch.ops.kernels.win3d import shared_bytes as win3d_bytes
@@ -2756,6 +2828,40 @@ def main() -> int:
                     f"STL2 block shared-memory mirror differs at C={c}")
             ph.note(f"C={c}, {nh} heads, hidden {hp}: STL2 block {st} B")
         ph.note(f"DCN {lib.kair_dcn_shared_bytes()} B")
+        # the sampler backward's scratch (the windows' row counts, starts and
+        # lists) and its window pass's shared memory; the windows' bound
+        from kair_tpu_torch.ops.kernels import bilin_sample as bs
+        for g, h, w, cs, r, es, vec in ((96, 64, 64, 10, 9 * 64 * 64, 2, 4),
+                                        (48, 64, 64, 48, 9 * 64 * 64, 2, 16),
+                                        (48, 64, 64, 48, 9 * 64 * 64, 4, 16),
+                                        (24, 64, 64, 3, 9 * 64 * 64, 2, 2),
+                                        (7, 33, 65, 7, 100, 4, 4)):
+            th, tw, tc = bs.bwd_tiles(g, h, w, cs, vec // es, es)
+            want = bs.bwd_scratch_bytes(g, h, w, r, th, tw)
+            got = lib.kair_bilin_bwd_scratch_bytes(g, h, w, cs, r, int(es == 2),
+                                                   vec, th, tw, tc)
+            require(got == want, f"sampler backward scratch mirror differs at "
+                    f"G={g} {h}x{w} Cs={cs}: {got} vs {want}")
+            want = bs.bwd_shared_bytes(th, tw, tc, es)
+            got = lib.kair_bilin_bwd_shared_bytes(g, h, w, cs, r, int(es == 2),
+                                                  vec, th, tw, tc)
+            require(got == want, f"sampler backward shared-memory mirror "
+                    f"differs at G={g} {h}x{w} Cs={cs}: {got} vs {want}")
+        # BWD_MAX_WINDOWS windows a slab are taken, one more refused
+        for nwy, ok in ((bs.BWD_MAX_WINDOWS // 8, True),
+                        (bs.BWD_MAX_WINDOWS // 8 + 1, False)):
+            got = lib.kair_bilin_bwd_scratch_bytes(1, nwy, 8, 2, 1, 1, 4, 1, 1, 2)
+            require((got >= 0) == ok, f"sampler backward: {nwy * 8} windows a "
+                    f"slab {'refused' if ok else 'taken'} (BWD_MAX_WINDOWS "
+                    f"{bs.BWD_MAX_WINDOWS})")
+        vrt = bs.bwd_tiles(96, 64, 64, 10, 2, 2)
+        ph.note("sampler backward: the scratch and shared-memory mirrors equal "
+                "kair_bilin_bwd_scratch_bytes / kair_bilin_bwd_shared_bytes at "
+                f"5 geometries, and {bs.BWD_MAX_WINDOWS} windows a slab are the "
+                f"most it takes; VRT-001's stage-1 windows {vrt}, "
+                f"{bs.bwd_shared_bytes(*vrt, 2)} B of shared memory a block, "
+                f"{bs.bwd_scratch_bytes(96, 64, 64, 9 * 64 * 64, *vrt[:2])} B "
+                "of scratch")
 
     phase_swin(report)
     phase_conv(report)

@@ -1,5 +1,6 @@
 // Fused Swin-transformer block, inference, bf16, on Hopper's warpgroup
-// products (sm_90a): the entry kair_swin_block.
+// products (sm_90a): the entry kair_swin_block; and its attention-only mode,
+// kernel B, the entry kair_window_msa.
 //
 // Replaces kair_tpu/ops/pallas/swin_block.py :: swin_block_pallas_2d
 // (_kernel_2d :174 + _block_body :68, pl.pallas_call :701) at window 8 and
@@ -15,6 +16,27 @@
 // goes to pixel (wr*ws + r, wc*ws + c). A window of N = ws*ws < 64 tokens
 // is padded to 64 rows: the padded rows are zero, every key j >= N gets a
 // score of -inf, and only the N real rows are stored.
+//
+// Kernel B, the attention-only mode (the template flag ATTN), replaces
+// kair_tpu/ops/pallas/window_msa.py :: window_msa_pallas (pl.pallas_call
+// :271), the unfused route's window attention on an LN1 output y:
+//
+//   out = roll(proj(W-MSA(roll(y, -phase))), +phase)
+//
+// It is the same kernel body with four differences: qkv's A operand is y
+// itself (cp.async straight into the LN-output tile, no LN1 and no LN
+// affine folded into the weights); the stage list ends after the last proj
+// stage (the plan at HP = 0: no fc1 / fc2 stages, no LN2, no MLP);
+// proj's accumulator starts at bp; and each token's bf16 result goes back to
+// the wrapped pixel it was read from, so the output is un-rolled. The next
+// window's y loads as soon as the last head's qkv product has read this one.
+// The mode is a template parameter (four more instances to build): read at
+// run time, its branches cost the block's widest instance registers, and
+// the block ran 4% slower at C=240 (0.362 against 0.348 ms, PERF.md).
+// At SwinIR-M width it does 305,000 FLOP per token against 720 bytes in and
+// out: bound by tensor-core operations, 0.081 ms at 989 TFLOP/s for B=16,
+// 128x128. (The first kernel B, a WMMA design of one 16-warp block per
+// window reading its weights from L2 with no prefetch, took 2.14 ms there.)
 //
 // Bound on the H100: at SwinIR-M width (C=180, 6 heads, hidden 360, ws 8)
 // the block does 564,480 FLOP per token against 720 bytes of activations
@@ -72,7 +94,7 @@
 // bf16, f32 accumulation, x1 f32, the output bf16.
 //
 // Layouts: the stage list (one window pair; NP = ceil(NH/2) head pairs, KC
-// = ceil(C/64) K chunks, HC = ceil(hidden/64) hidden chunks):
+// = ceil(C/64) K chunks, HC = ceil(hidden/64) hidden chunks, 0 in kernel B):
 //   for p < NP: qkv(h, k) for h in {2p, 2p+1} < NH, k < KC  (96 x 64 each)
 //               proj(p)                     (NT x 64: rows 0..31 of head
 //                                            2p's wp block, then 2p+1's)
@@ -134,7 +156,7 @@ struct BlockArgs {
   const float* b2;
   const float* relbias;
   const float* mask;
-  int B, H, W, C, NH, HP, phase, ws;
+  int B, H, W, C, NH, HP, phase, ws;   // HP = 0 in kernel B (b1, b2 unused)
 };
 
 // Profile build only (-DKAIR_PROFILE, the library of its own that
@@ -195,12 +217,13 @@ static __device__ __forceinline__ float quad_max(float v) {
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-template <int NT>
+template <int NT, bool ATTN>
 __global__ void __launch_bounds__(kThreads, 1) swin_block_wg_kernel(BlockArgs a) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const BlockPlan pl(a.C, a.NH, a.HP);
   const int C = a.C, NH = a.NH, H = a.H, W = a.W, ws = a.ws, N = ws * ws;
+  constexpr bool attn = ATTN;
   constexpr int ring = kRing;
   float* s_bqkv = reinterpret_cast<float*>(smem + pl.bias_offset());
   float* s_bp = s_bqkv + NH * 96;
@@ -216,7 +239,7 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_wg_kernel(BlockArgs a)
   for (int i = tid; i < NH * 96; i += kThreads) s_bqkv[i] = a.bqkv[i];
   for (int i = tid; i < C; i += kThreads) {
     s_bp[i] = a.bp[i];
-    s_b2[i] = a.b2[i];
+    if (!attn) s_b2[i] = a.b2[i];
   }
   for (int i = tid; i < pl.hc * 64; i += kThreads) s_b1[i] = i < a.HP ? a.b1[i] : 0.f;
   if (tid == 0) {
@@ -290,18 +313,22 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_wg_kernel(BlockArgs a)
     if (lane == 0) mbar_arrive(&empty[st % ring]);
   };
 
-  // Window w's tokens into xs (the shift folded into the source address),
-  // by 8- or 4-byte cp.async copies that complete while the current window
-  // computes; the padded rows are zeroed. Warp wq takes tokens wq, wq + 4,
-  // ...; lane i < 8 finds the map row of window row i, lane 8 + i the map
-  // column of window column i, once per window.
+  // Window w's tokens into dst (row stride ld; the shift folded into the
+  // source address), by 8- or 4-byte cp.async copies that complete while the
+  // current window computes; the padded rows are zeroed. Warp wq takes
+  // tokens wq, wq + 4, ...; lane i < 8 finds the map row of window row i,
+  // lane 8 + i the map column of window column i, once per window. The
+  // block reads x into xs; kernel B reads y straight into ab, the qkv
+  // product's A operand (its K padding stays zero).
+  bf16* const x_dst = attn ? ab : xs;
+  const int x_ld = attn ? lda : C;
   auto fetch_x = [&](int w) {
     const int wc = w % nwc, wr = (w / nwc) % nwr, b = w / (nwc * nwr);
     const int src_rc = lane < 8 ? wrap(wr * ws + lane + a.phase, H)
                                 : wrap(wc * ws + (lane & 7) + a.phase, W);
     int tr = wq / ws, tc = wq - tr * ws;          // token wq as (row, column)
     for (int tk = wq; tk < 64; tk += 4) {
-      bf16* dst = xs + tk * C;
+      bf16* dst = x_dst + tk * x_ld;
       const int r = __shfl_sync(0xffffffffu, src_rc, tr & 7);
       const int c = __shfl_sync(0xffffffffu, src_rc, 8 + (tc & 7));
       for (tc += 4; tc >= ws; tc -= ws) ++tr;      // the token 4 further on
@@ -371,6 +398,7 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_wg_kernel(BlockArgs a)
     }
   };
   for (int i = tid & 127; i < 32 * lda; i += 128) reinterpret_cast<unsigned*>(ab)[i] = 0u;
+  if (attn) named_barrier_sync(bar, 128);   // ab's zeros before y's copies
   WPROF_DECL();
   // d (N/2 f32 a thread) = ab (K chunks of 64, A fragments by ldmatrix) @
   // the next pl.kc ring stages, one stage at a time. Every product waits for
@@ -416,6 +444,13 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_wg_kernel(BlockArgs a)
     if (PRODUCTS_ONLY) {
 #pragma unroll
       for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+    } else if (attn) {
+      // kernel B: y is in ab; the accumulator starts at bp
+#pragma unroll
+      for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+      add_bias(s_bp);
+      cp_async_wait_all();
+      named_barrier_sync(bar, 128);   // every warp's tokens are in
     } else {
       cp_async_wait_all();
       named_barrier_sync(bar, 128);   // every warp's tokens are in
@@ -468,6 +503,9 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_wg_kernel(BlockArgs a)
             qa[kk][i] = pack_bf16(qkv[8 * kk + 2 * i] + bb.x, qkv[8 * kk + 2 * i + 1] + bb.y);
           }
         named_barrier_sync(bar, 128);   // the previous head's QK^T and PV are done
+        // kernel B: every warp has read y for the last qkv product, so the
+        // next window's y loads into ab during this head and proj
+        if (attn && h == NH - 1 && next < windows) fetch_x(next);
         {
           // k and v^T by stmatrix: 8x8 tiles of (8 tokens x 8 dims), v's
           // stored transposed; lane l addresses row l % 8 of tile l / 8
@@ -618,16 +656,19 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_wg_kernel(BlockArgs a)
     }
 
     // ---- LN2 from the accumulator (x1 in f32) into ab; then x1 + b2 ---------------
-    if (!PRODUCTS_ONLY) {
-      layernorm_to_ab();
-      add_bias(s_b2);
+    if (!attn) {
+      if (!PRODUCTS_ONLY) {
+        layernorm_to_ab();
+        add_bias(s_b2);
+      }
+      named_barrier_sync(bar, 128);
+      // k and v^T are dead: the next window's tokens load during the MLP
+      if (next < windows && !PRODUCTS_ONLY) fetch_x(next);
     }
-    named_barrier_sync(bar, 128);
-    // k and v^T are dead: the next window's tokens load during the MLP
-    if (next < windows && !PRODUCTS_ONLY) fetch_x(next);
     WPROF(5);
 
-    // ---- MLP in hidden chunks of 64: fc1 -> exact GELU -> fc2 into the accumulator --
+    // ---- MLP in hidden chunks of 64: fc1 -> exact GELU -> fc2 into the accumulator
+    // (none in kernel B: its plan has no hidden chunk) -------------------------------
     for (int j = 0; j < pl.hc; ++j) {
       float hacc[32];
 #pragma unroll
@@ -661,12 +702,15 @@ __global__ void __launch_bounds__(kThreads, 1) swin_block_wg_kernel(BlockArgs a)
     }
     WPROF(6);
 
-    // ---- out: the real rows, bf16 pairs from the registers -----------------------
+    // ---- out: the real rows, bf16 pairs from the registers; the block in its
+    // own coordinates, kernel B at the wrapped pixel each token was read from -----
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int row = r0 + 8 * hr;
       if (row >= N || PRODUCTS_ONLY) continue;
-      const size_t pix = ((size_t)b * H + wr * ws + row / ws) * W + wc * ws + row % ws;
+      const int pr = wr * ws + row / ws, pc = wc * ws + row % ws;
+      const size_t pix = attn ? ((size_t)b * H + wrap(pr + a.phase, H)) * W + wrap(pc + a.phase, W)
+                              : ((size_t)b * H + pr) * W + pc;
       bf16* dst = a.out + pix * C;
 #pragma unroll
       for (int j = 0; j < NT / 8; ++j) {
@@ -693,18 +737,28 @@ int sm_count() {
   return n;
 }
 
-template <int NT>
+template <int NT, bool ATTN>
 int launch(const BlockArgs& a, const BlockPlan& pl, cudaStream_t stream) {
   const int smem = pl.smem_bytes();
-  cudaError_t e = cudaFuncSetAttribute(swin_block_wg_kernel<NT>,
+  cudaError_t e = cudaFuncSetAttribute(swin_block_wg_kernel<NT, ATTN>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const long long windows = (long long)a.B * (a.H / a.ws) * (a.W / a.ws);
   if (windows == 0) return (int)cudaSuccess;
   const long long pairs = (windows + 1) / 2;
   const unsigned grid = (unsigned)(pairs < sm_count() ? pairs : sm_count());
-  swin_block_wg_kernel<NT><<<grid, kThreads, smem, stream>>>(a);
+  swin_block_wg_kernel<NT, ATTN><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <bool ATTN>
+int launch_nt(const BlockArgs& a, const BlockPlan& pl, cudaStream_t stream) {
+  switch (pl.nt) {
+    case 64: return launch<64, ATTN>(a, pl, stream);
+    case 128: return launch<128, ATTN>(a, pl, stream);
+    case 184: return launch<184, ATTN>(a, pl, stream);
+    default: return launch<240, ATTN>(a, pl, stream);
+  }
 }
 
 }  // namespace
@@ -734,15 +788,43 @@ extern "C" int kair_swin_block(const void* x, void* out, const void* stages, con
   a.relbias = static_cast<const float*>(relbias);
   a.mask = static_cast<const float*>(mask);
   a.B = B; a.H = H; a.W = W; a.C = C; a.NH = NH; a.HP = HP; a.phase = phase; a.ws = ws;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (pl.nt) {
-    case 64: return launch<64>(a, pl, s);
-    case 128: return launch<128>(a, pl, s);
-    case 184: return launch<184>(a, pl, s);
-    default: return launch<240>(a, pl, s);
-  }
+  return launch_nt<false>(a, pl, static_cast<cudaStream_t>(stream));
 }
 
+// Kernel B. y, out (B, H, W, C) bf16; stages from pack_attn_stages (the
+// block's stage list up to the last proj stage, 16-byte aligned); bqkv
+// (NH*96), bp (C) f32; relbias (NH, N, N) f32; mask (nW, N, N) f32 or null.
+// C even and at most 240; ws <= 8 tiling H and W; y 8-byte aligned when C % 4
+// == 0 (else 4), out 4; B*H*W < 2^31. Its layout is kair_swin_block_plan's
+// and kair_swin_block_shared_bytes' at HP = 0.
+extern "C" int kair_window_msa(const void* y, void* out, const void* stages, const void* bqkv,
+                               const void* bp, const void* relbias, const void* mask, int B,
+                               int H, int W, int C, int NH, int phase, int ws, void* stream) {
+  if (ws < 1 || ws > 8 || B < 0 || H < ws || W < ws || H % ws || W % ws || C < 2 || C % 2 ||
+      NH < 1 || (long long)B * H * W >= (1LL << 31) || (size_t)stages % 16 ||
+      (size_t)y % (C % 4 ? 4 : 8) || (size_t)out % 4)
+    return (int)cudaErrorInvalidValue;
+  const BlockPlan pl(C, NH, 0);
+  if (!pl.fits()) return (int)cudaErrorInvalidConfiguration;
+  BlockArgs a;
+  a.x = static_cast<const bf16*>(y);
+  a.out = static_cast<bf16*>(out);
+  a.stages = static_cast<const bf16*>(stages);
+  a.bqkv = static_cast<const float*>(bqkv);
+  a.bp = static_cast<const float*>(bp);
+  a.b1 = nullptr;
+  a.b2 = nullptr;
+  a.relbias = static_cast<const float*>(relbias);
+  a.mask = static_cast<const float*>(mask);
+  a.B = B; a.H = H; a.W = W; a.C = C; a.NH = NH; a.HP = 0; a.phase = phase; a.ws = ws;
+  return launch_nt<true>(a, pl, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" const char* kair_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// At HP = 0 these two give kernel B's layout.
 extern "C" int kair_swin_block_shared_bytes(int C, int NH, int HP) {
   return BlockPlan(C, NH, HP).smem_bytes();
 }

@@ -43,6 +43,10 @@ def round16(v: int) -> int:
     return (v + 15) // 16 * 16
 
 
+# H100 opt-in shared memory per thread block
+SMEM_LIMIT = 232448
+
+
 def align128(v: int) -> int:
     """A shared-memory offset aligned as the kernels align their buffers."""
     return (v + 127) // 128 * 128
@@ -56,9 +60,9 @@ SIGNATURES = {
     # x, out, stages, bqkv, bp, b1, b2, relbias, mask,
     # B, H, W, C, NH, HP, phase, ws, stream
     "kair_swin_block": ([_P] * 9 + [_I] * 8 + [_P], _I),
-    # y, out, wqkv, bqkv, wp, bp, relbias, mask, B, H, W, C, NH, phase, ws,
+    # y, out, stages, bqkv, bp, relbias, mask, B, H, W, C, NH, phase, ws,
     # stream
-    "kair_window_msa": ([_P] * 8 + [_I] * 7 + [_P], _I),
+    "kair_window_msa": ([_P] * 7 + [_I] * 7 + [_P], _I),
     # x, dy, stages, bqkv, bp, b1, ln, relbias, mask, scratch, ops,
     # part_bias, part_ln, part_w, dx, dw, dln, dbias, B, H, W, C, NH, hidden,
     # phase, sms, splits, scale, stream
@@ -79,11 +83,14 @@ SIGNATURES = {
     "kair_gda": ([_P] * 5 + [_I] * 9 + [_P], _I),
     # feat, fy, fx, out, G, H, W, Cs, R, bf16, vec, stream
     "kair_bilin_fwd": ([_P] * 4 + [_I] * 7 + [_P], _I),
-    # feat, fy, fx, dout, dfeat, dfy, dfx, G, H, W, Cs, R, bf16, stream
-    "kair_bilin_bwd": ([_P] * 7 + [_I] * 6 + [_P], _I),
+    # feat, fy, fx, dout, dfeat, dfy, dfx, scratch, G, H, W, Cs, R, bf16, vec,
+    # th, tw, tc, stream
+    "kair_bilin_bwd": ([_P] * 8 + [_I] * 10 + [_P], _I),
+    # G, H, W, Cs, R, bf16, vec, th, tw, tc
+    "kair_bilin_bwd_scratch_bytes": ([_I] * 10, ctypes.c_longlong),
+    "kair_bilin_bwd_shared_bytes": ([_I] * 10, ctypes.c_longlong),  # the same
     "kair_swin_block_shared_bytes": ([_I] * 3, _I),      # C, NH, HP
     "kair_swin_block_plan": ([_I] * 3 + [_P], _I),       # C, NH, HP, dst (i32[5])
-    "kair_window_msa_shared_bytes": ([_I] * 2, _I),      # C, NH
     "kair_swin_bwd_plan": ([_I] * 3 + [_P], _I),          # C, NH, hidden, dst (i32[10])
     "kair_conv3x3_shared_bytes": ([_I], _I),             # C
     "kair_conv3x3_plan": ([_I, _P], _I),                 # C, dst (host i32[4])

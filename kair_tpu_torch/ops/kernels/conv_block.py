@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from kair_tpu_torch.ops.kernels import _build
+from kair_tpu_torch.ops.kernels._build import SMEM_LIMIT
 
 
 # The kernel's tiling (csrc/conv_block.cu, ConvPlan): output channels in
@@ -33,7 +34,6 @@ from kair_tpu_torch.ops.kernels import _build
 KC = 64
 RING = 3
 HALO_PIX, HALO_LD = 8 * 34, KC + 8
-SMEM_LIMIT = 232448
 
 
 def conv_plan(c: int) -> Tuple[int, int, int]:

@@ -19,7 +19,9 @@ header gives the bound on the card and what the design does about it): wgmma pro
 windows share. ``pack_block_stages`` writes those stages from
 ``pack_swin_block``'s matrices, ``block_plan`` mirrors the kernel's layout
 arithmetic and ``window_walk`` its persistent walk over the windows;
-``swin_block_win_reference`` is the plain PyTorch version.
+``swin_block_win_reference`` is the plain PyTorch version. The same kernel's
+attention-only mode is kernel B (``ops/kernels/window_msa.py``): the plan
+at hidden width 0, whose stages ``pack_attn_stages`` writes.
 
 The wrappers launch the kernel for a CUDA tensor and use the plain version
 only for a CPU tensor. They never fall back: a tensor the kernel does not
@@ -47,8 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from kair_tpu_torch.ops.kernels import _build
-from kair_tpu_torch.ops.kernels.window_msa import (SMEM_LIMIT,
-                                                   check_geometry,
+from kair_tpu_torch.ops.kernels._build import SMEM_LIMIT
+from kair_tpu_torch.ops.kernels.window_msa import (check_geometry,
                                                    fold_ln_affine,
                                                    pack_qkv_proj,
                                                    rel_index_on,
@@ -177,7 +179,7 @@ def block_plan(c: int, nh: int, hp: int) -> BlockPlan:
     """The kernel's tiling and shared-memory layout at C channels, nh heads
     and hidden width hp (BlockPlan in csrc/swin_block_wgmma.cu): RING
     weight stages, then each window's x tile and LN output, the biases and
-    the ring's barriers."""
+    the ring's barriers. At hp = 0 it is kernel B's: no hidden chunk."""
     a128, a1024 = _build.align128, lambda v: (v + 1023) // 1024 * 1024
     nt = 64 if c <= 64 else 128 if c <= 128 else 184 if c <= 184 else 240
     kc, np_, hc = -(-c // KC), -(-nh // 2), -(-hp // 64)
@@ -207,7 +209,7 @@ def stage_rows(c: int, nh: int, hp: int) -> List[Tuple[str, int]]:
     for p in range(pl.np):
         out += [("qkv", 96)] * (pl.kc * (min(2 * p + 2, nh) - 2 * p))
         out.append(("proj", pl.nt))
-    for _ in range(pl.hc):
+    for _ in range(pl.hc):           # none at hp = 0 (kernel B)
         out += [("fc1", 64)] * pl.kc + [("fc2", pl.nt)]
     return out
 
@@ -243,24 +245,31 @@ def pack_block_stages(wqkv: torch.Tensor, wp: torch.Tensor, w1: torch.Tensor,
     values, zero past C, the hidden width and the heads, swizzled. One
     gather through an index cached per geometry: a training model packs
     its blocks anew after every optimizer step."""
-    return _gather_stages(_stage_layout, wqkv, wp, w1, w2, c, nh)
+    return _gather_stages(_stage_layout, (wqkv, wp, w1, w2), c, nh)
 
 
-def _gather_stages(layout, wqkv, wp, w1, w2, c: int, nh: int) -> torch.Tensor:
-    """``layout`` of the four matrices as one gather, flat f32."""
-    mats = (wqkv, wp, w1, w2)
+def pack_attn_stages(wqkv: torch.Tensor, wp: torch.Tensor, c: int,
+                     nh: int) -> torch.Tensor:
+    """Kernel B's weight stages: ``pack_block_stages`` up to the last proj
+    stage (``stage_rows(c, nh, 0)``), from ``pack_qkv_proj``'s wqkv and
+    wp; one flat f32 tensor."""
+    return _gather_stages(_attn_stage_layout, (wqkv, wp), c, nh)
+
+
+def _gather_stages(layout, mats, c: int, nh: int) -> torch.Tensor:
+    """``layout`` of the matrices ``mats`` as one gather, flat f32."""
     idx = _stage_index(layout, c, nh, tuple(tuple(m.shape) for m in mats),
-                       str(wqkv.device))
+                       str(mats[0].device))
     return torch.cat([m.reshape(-1).float() for m in mats]
-                     + [wqkv.new_zeros(1, dtype=torch.float32)])[idx]
+                     + [mats[0].new_zeros(1, dtype=torch.float32)])[idx]
 
 
 @lru_cache(maxsize=32)
 def _stage_index(layout, c: int, nh: int, shapes: Tuple[Tuple[int, int], ...],
                  device: str) -> torch.Tensor:
-    """Where each stage element comes from in cat(wqkv, wp, w1, w2, [0])
-    flattened (the last entry is the padding's zero): ``layout`` of
-    matrices that hold their own flat positions (float64: exact)."""
+    """Where each stage element comes from in the matrices and a last zero
+    (the padding's), flattened and concatenated: ``layout`` of matrices
+    that hold their own flat positions (float64: exact)."""
     with torch.inference_mode(False):
         sizes = [r * k for r, k in shapes]
         total = sum(sizes)
@@ -279,6 +288,27 @@ def _padded(m: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return out
 
 
+def _attn_stage_layout(wqkv: torch.Tensor, wp: torch.Tensor, c: int,
+                       nh: int) -> torch.Tensor:
+    """The qkv and proj stages (per head pair), in whole-tensor ops and
+    the matrices' dtype: all of kernel B's, the head of the block's."""
+    pl = block_plan(c, nh, 0)
+    kp, nt = pl.kc * KC, pl.nt
+    cn = min(wqkv.shape[0], nt)               # columns of wp that exist
+
+    # (K, N) → swizzled stages (.., N rows, 64 K)
+    q = _swizzle(_padded(wqkv, kp, nh * 96).view(pl.kc, KC, nh, 96)
+                 .permute(2, 0, 3, 1))                      # (nh, kc, 96, 64)
+    pj = _swizzle(_padded(wp[:, :cn], pl.np * 64, nt).view(pl.np, 64, nt)
+                  .transpose(1, 2))                         # (np, nt, 64)
+    full = nh // 2                      # head pairs with both heads
+    parts = [torch.cat([q[:2 * full].reshape(full, -1),
+                        pj[:full].reshape(full, -1)], 1).reshape(-1)]
+    if nh % 2:
+        parts += [q[nh - 1].reshape(-1), pj[full].reshape(-1)]
+    return torch.cat(parts)
+
+
 def _stage_layout(wqkv: torch.Tensor, wp: torch.Tensor, w1: torch.Tensor,
                   w2: torch.Tensor, c: int, nh: int) -> torch.Tensor:
     """The stage layout itself (``pack_block_stages``), in whole-tensor
@@ -286,25 +316,14 @@ def _stage_layout(wqkv: torch.Tensor, wp: torch.Tensor, w1: torch.Tensor,
     hp = w1.shape[1]
     pl = block_plan(c, nh, hp)
     kp, nt = pl.kc * KC, pl.nt
-    cn = min(wqkv.shape[0], nt)               # columns of wp / w2 that exist
-
-    # (K, N) → swizzled stages (.., N rows, 64 K)
-    q = _swizzle(_padded(wqkv, kp, nh * 96).view(pl.kc, KC, nh, 96)
-                 .permute(2, 0, 3, 1))                      # (nh, kc, 96, 64)
-    pj = _swizzle(_padded(wp[:, :cn], pl.np * 64, nt).view(pl.np, 64, nt)
-                  .transpose(1, 2))                         # (np, nt, 64)
+    cn = min(wqkv.shape[0], nt)               # columns of w2 that exist
     f1 = _swizzle(_padded(w1, kp, pl.hc * 64).view(pl.kc, KC, pl.hc, 64)
                   .permute(2, 0, 3, 1))                     # (hc, kc, 64, 64)
     f2 = _swizzle(_padded(w2[:, :cn], pl.hc * 64, nt).view(pl.hc, 64, nt)
                   .transpose(1, 2))                         # (hc, nt, 64)
-    full = nh // 2                      # head pairs with both heads
-    parts = [torch.cat([q[:2 * full].reshape(full, -1),
-                        pj[:full].reshape(full, -1)], 1).reshape(-1)]
-    if nh % 2:
-        parts += [q[nh - 1].reshape(-1), pj[full].reshape(-1)]
-    parts.append(torch.cat([f1.reshape(pl.hc, -1), f2.reshape(pl.hc, -1)],
-                           1).reshape(-1))
-    return torch.cat(parts)
+    return torch.cat([_attn_stage_layout(wqkv, wp, c, nh),
+                      torch.cat([f1.reshape(pl.hc, -1), f2.reshape(pl.hc, -1)],
+                                1).reshape(-1)])
 
 
 def window_walk(windows: int, blocks: int) -> List[List[Tuple[int, int]]]:
@@ -373,34 +392,39 @@ def _check_cuda_args(x, p, num_heads, mask, ws=WS, backward=False):
 
 
 def _check_stages(x: torch.Tensor, pk: SwinBlockPack, num_heads: int) -> None:
-    """The stage pack must be the forward's, bf16, contiguous, on x's
-    device, of the plan's size, and 16-byte aligned (the bulk copies' rule;
-    a misaligned one faults on the card); the biases and the score table
-    f32 on x's device; x needs 8-byte alignment when C % 4 == 0 (else 4),
-    and B·H·W < 2^31 (32-bit pixel offsets)."""
-    b, h, w, c = x.shape
-    st = pk.stages
-    if st is None:
+    """The stage pack must be the forward's (``check_ring_operands``)."""
+    if pk.stages is None:
         raise ValueError("swin_block_2d needs the forward pack's weight "
                          "stages (pack_swin_block with folded=True)")
-    want = sum(r for _, r in stage_rows(c, num_heads, pk.hp)) * KC
+    check_ring_operands("swin_block_2d", x, pk.stages,
+                        stage_rows(x.shape[-1], num_heads, pk.hp),
+                        (pk.bqkv, pk.bp, pk.b1, pk.b2, pk.relbias))
+
+
+def check_ring_operands(name: str, x: torch.Tensor, st: torch.Tensor,
+                        rows: List[Tuple[str, int]], f32s) -> None:
+    """What the wgmma kernel (the block or kernel B) needs of its operands:
+    the weight stages bf16, contiguous, on x's device, of the ``rows``
+    list's size, and 16-byte aligned (the bulk copies' rule; a misaligned
+    one faults on the card); the biases and the score table (``f32s``)
+    f32 on x's device; x aligned to 8 bytes when C % 4 == 0 (else 4); and
+    B·H·W < 2^31 (32-bit pixel offsets)."""
+    b, h, w, c = x.shape
+    want = sum(r for _, r in rows) * KC
     if (st.dtype != torch.bfloat16 or st.device != x.device
             or not st.is_contiguous() or st.numel() != want):
         raise ValueError(f"weight stages must be a contiguous bf16 tensor of "
                          f"{want} elements on {x.device}")
     if st.data_ptr() % 16:
-        raise ValueError("swin_block_2d needs the weight stages aligned to "
-                         "16 bytes")
-    if any(t.dtype != torch.float32 or t.device != x.device
-           for t in (pk.bqkv, pk.bp, pk.b1, pk.b2, pk.relbias)):
+        raise ValueError(f"{name} needs the weight stages aligned to 16 bytes")
+    if any(t.dtype != torch.float32 or t.device != x.device for t in f32s):
         raise ValueError("packed biases and score table must be f32 on "
                          f"{x.device}")
     if x.data_ptr() % (8 if c % 4 == 0 else 4):
-        raise ValueError("swin_block_2d needs x aligned to 8 bytes "
+        raise ValueError(f"{name} needs its input aligned to 8 bytes "
                          "(4 when C % 4 != 0)")
     if b * h * w >= 2 ** 31:
-        raise ValueError(f"swin_block_2d takes B*H*W < 2^31 pixels, got "
-                         f"{b * h * w}")
+        raise ValueError(f"{name} takes B*H*W < 2^31 pixels, got {b * h * w}")
 
 
 def swin_block_2d(x: torch.Tensor, p: SwinBlockParams, num_heads: int,
@@ -548,7 +572,7 @@ def pack_bwd_stages(wqkv: torch.Tensor, wp: torch.Tensor, w1: torch.Tensor,
     CP), w1 (CP, HP), w2 (HP, CP), no LN affine) → the backward kernel's
     weight stages in ``bwd_stage_rows`` order, swizzled, one flat f32
     tensor; one gather through an index cached per geometry."""
-    return _gather_stages(_bwd_stage_layout, wqkv, wp, w1, w2, c, nh)
+    return _gather_stages(_bwd_stage_layout, (wqkv, wp, w1, w2), c, nh)
 
 
 def _bwd_stage_layout(wqkv: torch.Tensor, wp: torch.Tensor, w1: torch.Tensor,

@@ -31,9 +31,9 @@ import torch.nn.functional as F
 
 from kair_tpu_torch.ops import window3d
 from kair_tpu_torch.ops.kernels import _build
+from kair_tpu_torch.ops.kernels._build import SMEM_LIMIT
 from kair_tpu_torch.ops.kernels.swin_block import _swizzle
-from kair_tpu_torch.ops.kernels.window_msa import (HD_MAX, SMEM_LIMIT,
-                                                   pack_qkv_proj)
+from kair_tpu_torch.ops.kernels.window_msa import HD_MAX, pack_qkv_proj
 from kair_tpu_torch.ops.window3d import Tmsa3dParams
 
 WARPS = 8

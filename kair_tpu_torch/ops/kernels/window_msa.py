@@ -8,10 +8,15 @@ window_msa_pallas`` (:217, ``pl.pallas_call`` :271) at inference:
 
 on an LN1 output ``y``: qkv → QKᵀ·scale + rel-pos bias (+ 0/−100 shift
 mask) → softmax (row max subtracted) → PV → proj, for any window ws ≤ 8
-that tiles the map. The kernel is the attention-only entry of
-``csrc/swin_block.cu`` (its header gives the bound on the card); it reads
-each window straight from the map with the shift folded into the read and
-writes it back to the pixels it came from, so the output is un-rolled.
+that tiles the map and C ≤ 240 with head dim ≤ 32. The kernel is the
+attention-only mode of the wgmma Swin block, ``kair_window_msa`` in
+``csrc/swin_block_wgmma.cu`` (its header gives the bound on the card): the
+block's persistent grid, its two windows a thread block and its bulk-copied
+weight ring, with y as the qkv product's A operand, the stage list ending
+after the last proj stage (``block_plan(c, nh, 0)``, ``pack_attn_stages``)
+and proj's accumulator starting at bp. It reads each window straight from
+the map with the shift folded into the read and writes it back to the
+pixels it came from, so the output is un-rolled.
 ``window_msa_win_reference`` is its plain version: the port's composed
 ``ops/window_attention.window_msa`` between a roll, a window partition and
 their inverses. A CPU tensor takes the plain version; a CUDA tensor the
@@ -22,9 +27,10 @@ and the score bias of ``make_pair_bias`` :185). The TPU packs two 64-token
 windows into one 128-row tile with a block-diagonal −1e9 mask, and sets a
 constant-1 "rowsum lane" in v so the PV matmul also yields the softmax
 denominator. Neither pays on Hopper: the kernels give each window its own
-thread block and reduce rows with warp shuffles, so the bias is the plain
-per-window one, and a window of N < 64 tokens is padded to 64 rows inside
-the kernel (``padded_window_bias`` writes out the score bias that results).
+warpgroup and reduce a score row over the quad of lanes that holds it, so
+the bias is the plain per-window one, and a window of N < 64 tokens is
+padded to 64 rows inside the kernel (``padded_window_bias`` writes out the
+score bias that results).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from kair_tpu_torch.ops.kernels import _build
+from kair_tpu_torch.ops.kernels._build import SMEM_LIMIT
 from kair_tpu_torch.ops.window_attention import (rel_pos_bias,
                                                   relative_position_index,
                                                   shift_attn_mask, window_msa,
@@ -44,7 +51,6 @@ from kair_tpu_torch.ops.window_attention import (rel_pos_bias,
 HD_MAX = 32                 # head dim is zero-padded to 32 in the kernels
 N_PAD = 64                  # a window is padded to 64 rows in the kernels
 NEG = -1e9                  # score of a padded key (make_pair_bias's −1e9)
-SMEM_LIMIT = 232448         # H100 opt-in shared memory per thread block
 
 
 def fold_ln_affine(weight: torch.Tensor, bias: torch.Tensor,
@@ -150,19 +156,15 @@ def _mask_on(h: int, w: int, ws: int, shift: int, device: str) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Shared-memory layout of csrc/swin_block.cu (SwinSmem), for the check
-# before a launch; chip_smoke.py holds it equal to the kernel's own
-# kair_window_msa_shared_bytes.
+# Kernel B's shared-memory layout: the wgmma block's at hidden width 0
+# (swin_block.block_plan, which chip_smoke.py holds equal to the kernel's
+# own kair_swin_block_plan and kair_swin_block_shared_bytes at HP = 0).
 # ---------------------------------------------------------------------------
 
 def shared_bytes(c: int, nh: int) -> int:
     """Bytes of shared memory one thread block of kernel B asks."""
-    r16, a128 = _build.round16, _build.align128
-    pad, ls, stage = 8, 64 + 4, 16 * 256 * 4
-    la, lq = max(r16(c), nh * 32) + pad, nh * 96 + pad
-    s = a128(a128(64 * la * 2) + 64 * lq * 2)
-    cb = a128(a128(s + 64 * ls * 4) + stage)
-    return cb + (nh * 96 + c) * 4
+    from kair_tpu_torch.ops.kernels.swin_block import block_plan
+    return block_plan(c, nh, 0).smem
 
 
 def check_geometry(name: str, x: torch.Tensor, qkv_weight: torch.Tensor,
@@ -208,10 +210,9 @@ def check_geometry(name: str, x: torch.Tensor, qkv_weight: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class WindowMsaPack(NamedTuple):
-    """Kernel B's operands (the layout note in csrc/swin_block.cu)."""
-    wqkv: torch.Tensor      # (CP, nh*96) bf16, q scale folded
+    """Kernel B's operands (the layout note in csrc/swin_block_wgmma.cu)."""
+    stages: torch.Tensor    # pack_attn_stages, flat bf16: q scale folded
     bqkv: torch.Tensor      # (nh*96,) f32
-    wp: torch.Tensor        # (nh*32, CP) bf16
     bp: torch.Tensor        # (C,) f32
     relbias: torch.Tensor   # (nh, N, N) f32
 
@@ -221,13 +222,18 @@ def pack_window_msa(qkv_weight: torch.Tensor, qkv_bias: Optional[torch.Tensor],
                     bias_table: torch.Tensor, num_heads: int,
                     dtype: torch.dtype = torch.bfloat16) -> WindowMsaPack:
     """Relayout and cast W-MSA's parameters for kernel B (once per set of
-    weights; the model caches it). Runs with autocast off."""
+    weights; the model caches it): the qkv and proj weight stages of the
+    ring (no LN affine folded: y is already the LN1 output), in ``dtype``
+    (the kernel takes bf16; f32 keeps them exact for checking the layout).
+    Runs with autocast off."""
+    from kair_tpu_torch.ops.kernels.swin_block import pack_attn_stages
     with torch.autocast(qkv_weight.device.type, enabled=False):
         wqkv, bqkv, wp = pack_qkv_proj(qkv_weight, qkv_bias, proj_weight,
                                        num_heads)
         return WindowMsaPack(
-            wqkv.to(dtype).contiguous(), bqkv.contiguous(),
-            wp.to(dtype).contiguous(), proj_bias.float().contiguous(),
+            pack_attn_stages(wqkv, wp, qkv_weight.shape[1],
+                             num_heads).to(dtype),
+            bqkv.contiguous(), proj_bias.float().contiguous(),
             window_bias(bias_table, num_heads, table_window(bias_table)))
 
 
@@ -256,27 +262,33 @@ def window_msa_win(y: torch.Tensor, qkv_weight, qkv_bias, proj_weight,
     """W-MSA on the (B, H, W, C) LN1 output, windows of ws ≤ 8 taken at
     shift ``phase`` and written back un-rolled.
 
-    CPU tensor → the plain version. CUDA tensor → kernel B (bf16 only), or
-    an exception; ``packed`` is the cached ``pack_window_msa``."""
+    CPU tensor → the plain version. CUDA tensor → kernel B (bf16, C ≤ 240),
+    or an exception; ``packed`` is the cached ``pack_window_msa``."""
     if y.device.type == "cpu":
         return window_msa_win_reference(y, qkv_weight, qkv_bias, proj_weight,
                                         proj_bias, bias_table, num_heads,
                                         mask, phase, ws)
-    nh = num_heads
+    from kair_tpu_torch.ops.kernels.swin_block import (NT_MAX,
+                                                        check_ring_operands,
+                                                        stage_rows)
+    nh, c = num_heads, y.shape[3]
+    if c > NT_MAX:
+        raise ValueError(f"window_msa_win takes C <= {NT_MAX} (the widest "
+                         f"wgmma accumulator it holds), got C={c}")
     check_geometry("window_msa_win", y, qkv_weight, nh, bias_table,
-                   mask, ws, shared_bytes(y.shape[3], nh))
+                   mask, ws, shared_bytes(c, nh))
     pk = packed if packed is not None else pack_window_msa(
         qkv_weight, qkv_bias, proj_weight, proj_bias, bias_table, nh)
-    if pk.wqkv.dtype != torch.bfloat16 or pk.wqkv.device != y.device:
-        raise ValueError("packed weights must be bf16 on the input's device")
-    b, h, w, c = y.shape
+    check_ring_operands("window_msa_win", y, pk.stages, stage_rows(c, nh, 0),
+                        (pk.bqkv, pk.bp, pk.relbias))
+    b, h, w, _ = y.shape
     out = torch.empty_like(y)
     lib = _build.library()
     with torch.cuda.device(y.device):
         err = lib.kair_window_msa(
-            y.data_ptr(), out.data_ptr(), pk.wqkv.data_ptr(),
-            pk.bqkv.data_ptr(), pk.wp.data_ptr(), pk.bp.data_ptr(),
-            pk.relbias.data_ptr(), None if mask is None else mask.data_ptr(),
+            y.data_ptr(), out.data_ptr(), pk.stages.data_ptr(),
+            pk.bqkv.data_ptr(), pk.bp.data_ptr(), pk.relbias.data_ptr(),
+            None if mask is None else mask.data_ptr(),
             b, h, w, c, nh, int(phase), ws,
             torch.cuda.current_stream(y.device).cuda_stream)
     _build.check(err, "window_msa_win")

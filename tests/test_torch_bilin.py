@@ -16,10 +16,14 @@
   products) and against the port's "gather" route.
 * A numpy replay of the CUDA kernels' thread mapping (the forward's 64-row
   warps with corners once per row and (row, vector) items at the widths
-  bf16 and f32 take; the backward's 8 lanes a row, channels strided by 8,
-  corner clamping, the atomic dfeat sum, the xor reduction of dfy and dfx)
-  against the plain versions, atol 1e-5. The kernels themselves run only on
-  the card (chip_smoke.py phase 20).
+  bf16 and f32 take; the backward's row pass (dfy, dfx in channel vectors;
+  each row counted in the windows of dfeat its corners reach), the scan and
+  fill that list the rows within 4·R entries a slab, and its window
+  pass (a block a window: its rows' corners linked into per-pixel lists a
+  chunk at a time, each list summed in channel vectors into a shared-memory
+  tile)) against the plain versions, atol 1e-5. The kernels themselves run only on the
+  card (chip_smoke.py phase 20); tests/test_torch_bilin_bwd.py holds the
+  backward's replay to JAX as well.
 """
 
 from unittest import mock
@@ -250,8 +254,6 @@ def test_forward_refuses_2_31_pixels():
 # a replay of the CUDA kernels' thread mapping
 # ---------------------------------------------------------------------------
 
-LANES, THREADS = 8, 256
-
 
 def _corners_of(fy, fx, h, w):
     """The kernel's corners(): flat pixel, weight and validity of the four
@@ -306,45 +308,146 @@ def emulate_bilin_fwd(feat, fy, fx, elem_bytes, rows_per_warp=64):
     return ovec.reshape(g, r, cs)
 
 
-def emulate_bilin(feat, fy, fx, dout):
-    """The backward kernel in numpy, thread by thread: row = block·32 +
-    thread/8, lane = thread % 8 takes channels lane, lane + 8, ...; corners
-    from the clamped floor; atomic adds into f32 dfeat and the per-lane
-    dfy/dfx partials reduced by xor over the 8 lanes."""
+def _floor_clamped(f, n):
+    """The kernel's floor_clamped: the clamped floor corner and the
+    fraction, in f32."""
+    f = np.float32(f)
+    f0 = np.floor(f)
+    return int(min(max(f0, -2), n)), np.float32(f - f0)
+
+
+def _touched(c0, t, n, step):
+    """The kernel's touched(): the windows along one axis that a row's two
+    corner lines (c0 with weight 1 - t, c0 + 1 with t) reach with nonzero
+    weight inside the frame, deduplicated."""
+    a = c0 // step if 0 <= c0 < n and t < 1 else -1
+    b = (c0 + 1) // step if t > 0 and 0 <= c0 + 1 < n else -1
+    return [v for v in dict.fromkeys((a, b)) if v >= 0]
+
+
+def emulate_bilin(feat, fy, fx, dout, elem_bytes=4, tiles=None, stats=None,
+                  chunk=bs.BWD_CHUNK):
+    """The backward's kernels in numpy. Pass 1, a row at a time: dfy and
+    dfx in channel vectors of ``vector_bytes(Cs, elem_bytes)``, summed in
+    channel order; the row counted in every window (th x tw pixels of its
+    slab) that its corners of nonzero weight reach. The scan: a slab's
+    counts into its lists' starts. The fill: the row appended to those
+    windows' lists, each from its start in the slab's 4·R entries (the
+    kernel ranks a block's rows per window in shared memory; any order of a
+    list sums the same but for rounding). Pass
+    2, a block per (slab, window, channel chunk of tc): a zeroed f32 tile
+    (pixel stride tc | 1); the window's rows ``chunk`` at a time: each
+    corner of nonzero weight inside the window linked into its pixel's list
+    (entry 4·row + corner, the last linked first: an atomic exchange on the
+    pixel's head), each pixel's list summed a vector at a time (weight x
+    dout) into its tile elements; then the window written. ``tiles`` =
+    (th, tw, tc), else ``bwd_tiles``'. Asserts that every dfeat element and
+    every row's dfy/dfx is written once, that the lists fill a slab's
+    entries up to their counts and within 4·R, and that no list holds a row
+    twice; ``stats`` (a dict) gets the blocks, each window's list length,
+    each slab's entries and the corner shares each window saw fall outside
+    it."""
     g, h, w, cs = feat.shape
     r = fy.shape[1]
-    rows = g * r
-    dfeat = np.zeros((g, h * w, cs), np.float32)
-    dfy = np.zeros(rows, np.float32)
-    dfx = np.zeros(rows, np.float32)
-    flat, d = feat.reshape(g, h * w, cs), dout.reshape(rows, cs)
-    blocks = -(-rows // (THREADS // LANES))
-    for blk in range(blocks):
-        part = np.zeros((THREADS, 2), np.float32)
-        for tid in range(THREADS):
-            row, lane = blk * (THREADS // LANES) + tid // LANES, tid % LANES
-            if row >= rows:
-                continue
-            gi, ri = divmod(row, r)
-            p, wt, inside, ty, tx, wy, wx = _corners_of(fy[gi, ri], fx[gi, ri],
-                                                        h, w)
-            sy = np.float32(1.0 if ty > 0 else 0.0)
-            sx = np.float32(1.0 if tx > 0 else 0.0)
-            for c in range(lane, cs, LANES):
-                go = d[row, c]
-                v = [flat[gi, p[i], c] if inside[i] else 0.0 for i in range(4)]
-                for i in range(4):
-                    if wt[i] != 0:
-                        dfeat[gi, p[i], c] += wt[i] * go
-                part[tid, 0] += go * sy * (wx[0] * (v[2] - v[0]) + wx[1] * (v[3] - v[1]))
-                part[tid, 1] += go * sx * (wy[0] * (v[1] - v[0]) + wy[1] * (v[3] - v[2]))
-        for o in (4, 2, 1):                     # __shfl_xor_sync over 8 lanes
-            part = part + part[np.arange(THREADS) ^ o]
-        for tid in range(0, THREADS, LANES):
-            row = blk * (THREADS // LANES) + tid // LANES
-            if row < rows:
-                dfy[row], dfx[row] = part[tid]
-    return (dfeat.reshape(g, h, w, cs), dfy.reshape(g, r), dfx.reshape(g, r))
+    n = bs.vector_bytes(cs, elem_bytes) // elem_bytes
+    th, tw, tc = tiles or bs.bwd_tiles(g, h, w, cs, n, elem_bytes)
+    assert tc % n == 0 or tc == cs
+    tcp = tc | 1
+    nwy, nwx, nwc = -(-h // th), -(-w // tw), -(-cs // tc)
+    dfeat = np.full((g, h, w, cs), np.nan, np.float32)
+    dfy = np.zeros((g, r), np.float32)
+    dfx = np.zeros((g, r), np.float32)
+    written = np.zeros((g, h, w, cs), np.int64)
+    counts = np.zeros((g, nwy * nwx), np.int64)
+    windows = {}
+    # pass 1
+    for gi in range(g):
+        for ri in range(r):
+            y0, ty = _floor_clamped(fy[gi, ri], h)
+            x0, tx = _floor_clamped(fx[gi, ri], w)
+            hy, hx = (1 - ty, ty), (1 - tx, tx)
+            f = []
+            for k in range(4):
+                y, x = y0 + k // 2, x0 + k % 2
+                f.append(feat[gi, y, x] if 0 <= y < h and 0 <= x < w
+                         else np.zeros(cs, np.float32))
+            dy = np.float32(1.0 if ty > 0 else 0.0)
+            dx = np.float32(1.0 if tx > 0 else 0.0)
+            sy = sx = np.float32(0)
+            for c in range(0, cs, n):                  # vector by vector
+                for k in range(c, c + n):
+                    go = dout[gi, ri, k]
+                    sy = np.float32(sy + go * (
+                        -dy * (hx[0] * f[0][k] + hx[1] * f[1][k])
+                        + dy * (hx[0] * f[2][k] + hx[1] * f[3][k])))
+                    sx = np.float32(sx + go * (
+                        -dx * (hy[0] * f[0][k] + hy[1] * f[2][k])
+                        + dx * (hy[0] * f[1][k] + hy[1] * f[3][k])))
+            dfy[gi, ri], dfx[gi, ri] = sy, sx
+            windows[gi, ri] = [wy * nwx + wx for wy in _touched(y0, ty, h, th)
+                               for wx in _touched(x0, tx, w, tw)]
+            for key in windows[gi, ri]:
+                counts[gi, key] += 1
+    # the scan and the fill
+    starts = np.cumsum(counts, 1) - counts
+    assert (counts.sum(1) <= 4 * r).all()
+    slab_lists = np.full((g, 4 * r), -1, np.int64)
+    cursor = np.zeros_like(counts)
+    for gi in range(g):
+        for ri in range(r):
+            for key in windows[gi, ri]:
+                assert cursor[gi, key] < counts[gi, key]
+                at = starts[gi, key] + cursor[gi, key]
+                assert slab_lists[gi, at] == -1
+                slab_lists[gi, at] = ri
+                cursor[gi, key] += 1
+    assert (cursor == counts).all()
+    # pass 2
+    lengths, outside = [], 0
+    for gi in range(g):
+        for b in range(nwy * nwx * nwc):
+            wy, wx, wc = b // (nwc * nwx), b // nwc % nwx, b % nwc
+            ty0, tx0, tc0 = wy * th, wx * tw, wc * tc
+            ty1, tx1, tc1 = min(h, ty0 + th), min(w, tx0 + tw), min(cs, tc0 + tc)
+            at = starts[gi, wy * nwx + wx]
+            rows = list(slab_lists[gi, at:at + counts[gi, wy * nwx + wx]])
+            assert len(set(rows)) == len(rows)
+            lengths.append(len(rows))
+            tile = np.zeros(th * tw * tcp, np.float32)
+            for c0 in range(0, len(rows), chunk):
+                heads = {}
+                for ri in rows[c0:c0 + chunk]:
+                    y0, ty = _floor_clamped(fy[gi, ri], h)
+                    x0, tx = _floor_clamped(fx[gi, ri], w)
+                    hy, hx = (1 - ty, ty), (1 - tx, tx)
+                    for k in range(4):
+                        y, x = y0 + k // 2, x0 + k % 2
+                        wt = np.float32(hy[k // 2] * hx[k % 2])
+                        if wt == 0 or not (0 <= y < h and 0 <= x < w):
+                            continue
+                        if ty0 <= y < ty1 and tx0 <= x < tx1:
+                            heads.setdefault((y - ty0) * tw + x - tx0, []) \
+                                .insert(0, (ri, wt))
+                        elif wc == 0:
+                            outside += 1
+                for pix, entries in heads.items():
+                    for c in range(tc0, tc1, n):
+                        acc = np.zeros(n, np.float32)
+                        for ri, wt in entries:
+                            acc += wt * dout[gi, ri, c:c + n]
+                        at = pix * tcp + c - tc0
+                        tile[at:at + n] += acc
+            for yy in range(ty1 - ty0):
+                for xx in range(tx1 - tx0):
+                    at = (yy * tw + xx) * tcp
+                    dfeat[gi, ty0 + yy, tx0 + xx, tc0:tc1] = \
+                        tile[at:at + tc1 - tc0]
+                    written[gi, ty0 + yy, tx0 + xx, tc0:tc1] += 1
+    assert (written == 1).all()
+    if stats is not None:
+        stats.update(blocks=len(lengths), kept=lengths, outside=outside,
+                     tiles=(th, tw, tc), entries=counts.sum(1))
+    return dfeat, dfy, dfx
 
 
 @pytest.mark.parametrize("g,h,w,cs,r", [(2, 6, 7, 10, 37), (1, 5, 9, 17, 20),
@@ -353,7 +456,9 @@ def test_kernel_thread_mapping_matches_plain(g, h, w, cs, r):
     """The forward's (row, vector) items at the vector widths of bf16 (2 B
     elements) and f32 (4 B): Cs=3 → 2 / 4 B, Cs=10 → 4 / 8 B, Cs=17 → 2 /
     4 B, Cs=48 → 16 / 16 B; row counts not a multiple of 64. The
-    backward's 8-lane mapping."""
+    backward's windows at both widths as ``bwd_tiles`` picks them, and at
+    windows of 2 x 3 pixels and one vector of channels (columns and
+    channel chunks split too) with chunks of 16 rows."""
     rng = np.random.default_rng(7)
     feat = rng.standard_normal((g, h, w, cs)).astype(np.float32)
     fy, fx = _rand_coords(rng, g, r, h, w)
@@ -364,8 +469,11 @@ def test_kernel_thread_mapping_matches_plain(g, h, w, cs, r):
     for elem_bytes in (2, 4):
         got = emulate_bilin_fwd(feat, fy, fx, elem_bytes)
         np.testing.assert_allclose(got, want[0].numpy(), rtol=TOL, atol=TOL)
-    for a, b in zip(emulate_bilin(feat, fy, fx, dout), want[1:]):
-        np.testing.assert_allclose(a, b.numpy(), rtol=TOL, atol=TOL)
+        n = bs.vector_bytes(cs, elem_bytes) // elem_bytes
+        for tiles, chunk in ((None, bs.BWD_CHUNK), ((2, 3, n), 16)):
+            for a, b in zip(emulate_bilin(feat, fy, fx, dout, elem_bytes,
+                                          tiles, chunk=chunk), want[1:]):
+                np.testing.assert_allclose(a, b.numpy(), rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("cs,elem_bytes,ptrs,want", [

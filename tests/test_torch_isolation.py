@@ -95,7 +95,7 @@ def test_nvcc_command_is_one_plain_call():
     assert cmd[i + 1] == "arch=compute_90a,code=sm_90a"
     assert "-shared" in cmd and str(out) in cmd
     srcs = {pathlib.Path(a).name for a in cmd if a.endswith(".cu")}
-    assert srcs == {"swin_block.cu", "swin_block_wgmma.cu", "conv_block.cu",
+    assert srcs == {"swin_block_wgmma.cu", "conv_block.cu",
                     "swin_block_bwd_wgmma.cu", "window3d_block.cu",
                     "window3d_wgmma.cu", "dcn_block.cu", "gda_block.cu",
                     "bilin_sample.cu"}

@@ -14,10 +14,14 @@
 * ``padded_window_bias`` against JAX's ``make_pair_bias(n_pad=64)``.
 * Replays of kernels A and B in PyTorch on their packed operands: windows
   read at the folded phase, padded to 64 rows, the padded keys' score
-  bias, only real rows written; against the plain versions, atol 1e-4.
-  The kernels themselves run only on the card (chip_smoke.py phases 8-9).
-* The shared-memory layouts of csrc/swin_block.cu at every width the port
-  serves, and the checks that refuse a layout over the card's limit.
+  bias, only real rows written; kernel B (the wgmma block's attention-only
+  mode) from its unswizzled weight stages, y as the qkv product's A, proj
+  from bp, the result stored at the pixels it was read from; against the
+  plain versions, atol 1e-4. The kernels themselves run only on the card
+  (chip_smoke.py phases 8-9).
+* The shared-memory layouts of csrc/swin_block_wgmma.cu (the block, and
+  kernel B: its plan at hidden width 0) at every width the port serves,
+  and the checks that refuse a layout over the card's limit.
 """
 
 import jax.numpy as jnp
@@ -32,13 +36,16 @@ from kair_tpu.ops.window_attention import (relative_position_index,
                                            shift_attn_mask)
 from kair_tpu.ops.window_attention import window_partition as jpartition
 from kair_tpu.ops.window_attention import window_reverse as jreverse
-from kair_tpu_torch.ops.kernels.swin_block import (SwinBlockParams,
+from kair_tpu_torch.ops.kernels.swin_block import (KC, SwinBlockParams,
                                                    _check_cuda_args,
+                                                   block_plan,
                                                    block_shared_bytes,
                                                    bwd_shared_bytes,
                                                    pack_swin_block,
+                                                   stage_rows,
                                                    swin_block_2d,
-                                                   swin_block_win_reference)
+                                                   swin_block_win_reference,
+                                                   unswizzle)
 from kair_tpu_torch.ops.kernels.window_msa import (N_PAD, SMEM_LIMIT,
                                                    pack_window_msa,
                                                    padded_window_bias,
@@ -200,16 +207,55 @@ def emulate_block_win(x, pk, nh, mask, phase, ws):
     return window_reverse(y[:, :, :n], ws, h, w)
 
 
+def attn_stages(pk, c, nh):
+    """Kernel B's flat stage pack → [(product, (rows, 64) matrix)],
+    unswizzled, in ``stage_rows(c, nh, 0)`` order."""
+    out, off = [], 0
+    for name, rows in stage_rows(c, nh, 0):
+        out.append((name, unswizzle(pk.stages[off:off + rows * KC]
+                                    .view(rows, KC))))
+        off += rows * KC
+    assert off == pk.stages.numel()
+    return out
+
+
 def emulate_msa_win(y, pk, nh, mask, phase, ws):
-    """Kernel B step by step: real rows written back to the pixels they
-    were read from (un-rolled)."""
+    """Kernel B, the wgmma block's attention-only mode, step by step from
+    its weight stages: y read at the folded phase into 64-row windows (the
+    padded rows zero) is the qkv product's A operand, K zero-padded to the
+    64-wide chunks (no LN); per pair of heads, each head's qkv from its K
+    chunks' stages (+ bqkv), scores + rel-pos bias (+ mask; −inf on padded
+    keys), softmax, PV, then the pair's proj stage (head 2p on K 0..31,
+    2p + 1 on 32..63) into an accumulator that starts at bp; the real rows
+    written back to the pixels they were read from (un-rolled)."""
     b, h, w, c = y.shape
-    cp, n = pk.wqkv.shape[0], ws * ws
+    n = ws * ws
+    pl = block_plan(c, nh, 0)
+    st = iter(m for _, m in attn_stages(pk, c, nh))
     yw, rows, cols = _read_windows(y, ws, phase)
-    a = _attention(F.pad(yw, (0, cp - c)), pk.wqkv, pk.bqkv, pk.wp, nh,
-                   padded_window_bias(pk.relbias, mask))[..., :c] + pk.bp
+    a = F.pad(yw, (0, pl.kc * KC - c))
+    acc = F.pad(pk.bp, (0, pl.nt - c)).expand(*a.shape[:3], pl.nt)
+    bias = torch.zeros(nh, 64, 64)
+    bias[:, :, n:] = float("-inf")
+    bias[:, :n, :n] = pk.relbias
+    if mask is not None:
+        bias = bias + F.pad(mask, (0, 64 - n, 0, 64 - n))[:, None]
+    for p in range(pl.np):
+        heads = []
+        for hh in range(2 * p, min(2 * p + 2, nh)):
+            qkv = sum(a[..., k * KC:(k + 1) * KC] @ next(st).t()
+                      for k in range(pl.kc)) + pk.bqkv[hh * 96:(hh + 1) * 96]
+            q, k_, v = qkv[..., :32], qkv[..., 32:64], qkv[..., 64:]
+            prob = torch.softmax(q @ k_.transpose(-1, -2) + bias[..., hh, :, :],
+                                 -1)
+            assert torch.all(prob[..., n:] == 0)     # padded keys: exactly 0
+            heads.append(prob @ v)
+        wstage = next(st)
+        acc = acc + sum(o @ wstage[:, 32 * i:32 * (i + 1)].t()
+                        for i, o in enumerate(heads))
     out = torch.empty_like(y)
-    out[:, rows[:, None], cols[None, :]] = window_reverse(a[:, :, :n], ws, h, w)
+    out[:, rows[:, None], cols[None, :]] = window_reverse(
+        acc[:, :, :n, :c].contiguous(), ws, h, w)
     return out
 
 
@@ -294,13 +340,14 @@ def test_forward_layouts_fit_the_card(c, nh, hidden):
 
 def test_layout_sizes_at_swinir_m_and_l():
     """Shared memory per thread block at SwinIR-M and SwinIR-L widths: the
-    block 151,840 B and 198,560 B, kernel B (attention only) 137,168 B and
-    170,944 B, the backward's window pass 181,296 B and 225,128 B, all
-    within the card's 232,448."""
+    block 151,840 B and 198,560 B, kernel B (the block's attention-only
+    mode: no hidden chunk, so no fc1/fc2 biases) 150,304 B and 196,512 B,
+    the backward's window pass 181,296 B and 225,128 B, all within the
+    card's 232,448."""
     assert block_shared_bytes(180, 6, 368) == 151840
     assert block_shared_bytes(240, 8, 480) == 198560
-    assert shared_bytes(180, 6) == 137168
-    assert shared_bytes(240, 8) == 170944
+    assert shared_bytes(180, 6) == 150304 == block_shared_bytes(180, 6, 0)
+    assert shared_bytes(240, 8) == 196512 == block_shared_bytes(240, 8, 0)
     assert bwd_shared_bytes(180, 6, 368) == 181296
     assert bwd_shared_bytes(240, 8, 480) == 225128 <= SMEM_LIMIT
 
