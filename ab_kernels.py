@@ -1,5 +1,5 @@
-"""Time the Swin-block, conv-tail, bilinear-sampler and 3-D window-block
-kernels of two checkouts on one card.
+"""Time the Swin-block, conv-tail, bilinear-sampler, 3-D window-block and
+DCN kernels of two checkouts on one card.
 
     python3 ab_kernels.py <other checkout> [phase ...]
 
@@ -7,19 +7,21 @@ Runs phases 2 (``swin_block``, the block at window 8), 3 (``conv3x3``), 6
 (``swin_bwd``, the block's backward), 8 (``swin_win``, the block below
 window 8), 9 (``window_msa``, attention only), 11 (``unfused``, SwinIR-M's
 forward through the window-attention kernel), 13 (``tmsa``, VRT's TMSA
-block), 14 (``self6``, VRT's self block), 17 (``stl2``, RVRT's STL2 block)
-and 20 (``bilin``) of each checkout's own ``chip_smoke.py``, each
-checkout in a fresh process whose working directory is that checkout (so
-each builds and loads its own kernels), in turns: other, this, this,
-other; then, in each checkout, VRT's TMSA and self blocks at the training
-step's B=8 calls (``vrt_b8``, 8x6x64x64: TMSA C=120, self C=120 and C=180
-at wd 6) through that checkout's own wrappers and weight pack. Phase names
-after the checkout run only those phases (``python3 ab_kernels.py ../parent
-bilin``); with none, all run. It prints the card's
-name and power limit, then each run's phase lines: kernel, plain-version
-and library times, bounds and errors, as that checkout's phases report
-them. Comparing two kernel versions is only
-sound inside one such call, on one card.
+block), 14 (``self6``, VRT's self block), 15 (``dcn``, VRT's DCN), 17
+(``stl2``, RVRT's STL2 block) and 20 (``bilin``) of each checkout's own
+``chip_smoke.py``, each checkout in a fresh process whose working
+directory is that checkout (so each builds and loads its own kernels, and
+prints its build's wall seconds), in turns: other, this, this, other;
+then, in each checkout, VRT's TMSA and self blocks at the training step's
+B=8 calls (``vrt_b8``, 8x6x64x64: TMSA C=120, self C=120 and C=180 at wd
+6) through that checkout's own wrappers and weight pack. Phase names after
+the checkout run only those phases (``python3 ab_kernels.py ../parent
+bilin``); with none, all of the above run. ``vrt``, ``rvrt`` and
+``vrt_train`` (phases 16, 19 and 21, whole models) run only when named.
+It prints the card's name and power limit, then each run's phase lines:
+kernel, plain-version and library times, bounds and errors, as that
+checkout's phases report them. Comparing two kernel versions is only sound
+inside one such call, on one card.
 """
 
 from __future__ import annotations
@@ -34,9 +36,13 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
+import time
 import chip_smoke
 from kair_tpu_torch.ops.kernels import _build
+t0 = time.monotonic()
 _build.library()
+print(f"phase ab_build: {time.monotonic() - t0:.1f} s to build and load "
+      f"{len(_build.sources())} sources", flush=True)
 """
 PHASES = {
     "swin_block": "chip_smoke.phase_swin([])",
@@ -48,8 +54,17 @@ PHASES = {
                "_build.BUILD_DIR)",
     "tmsa": "chip_smoke.phase_tmsa([])",
     "self6": "chip_smoke.phase_self6([])",
+    "dcn": "chip_smoke.phase_dcn([])",
     "stl2": "chip_smoke.phase_stl2([])",
     "bilin": "chip_smoke.phase_bilin([])",
+}
+# whole models, run only when named: VRT-001's clip (16), RVRT-001's clip
+# (19) and VRT-001's training (21), each with its device time by kernel
+MODEL_PHASES = {
+    "vrt": "chip_smoke.phase_vrt([], chip_smoke.nvidia_smi())",
+    "rvrt": "chip_smoke.phase_rvrt([], chip_smoke.nvidia_smi())",
+    "vrt_train": "chip_smoke.phase_vrt_train([], chip_smoke.nvidia_smi(), "
+                 "_build.BUILD_DIR)",
 }
 VRT_B8 = """
 # VRT's blocks at the training step's B=8 calls, this checkout's own pack
@@ -75,9 +90,10 @@ print("phase ab_vrt_b8: 8x6x64x64, median of 20: " + ", ".join(times))
 
 def main(argv: list) -> int:
     names = argv[1:] or [*PHASES, "vrt_b8"]
-    if not argv or any(n not in PHASES and n != "vrt_b8" for n in names):
+    known = {**PHASES, **MODEL_PHASES}
+    if not argv or any(n not in known and n != "vrt_b8" for n in names):
         raise SystemExit(__doc__)
-    snippet = HEAD + "\n".join(PHASES[n] for n in names if n in PHASES) + (
+    snippet = HEAD + "\n".join(known[n] for n in names if n in known) + (
         VRT_B8 if "vrt_b8" in names else "")
     other = Path(argv[0]).resolve()
     if not (other / "chip_smoke.py").is_file():

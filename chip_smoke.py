@@ -16,12 +16,14 @@ sampled by the bilinear sampler's forward and backward kernels. Phases,
 one flushed line each with its seconds:
 
   0 device      card name, power limit (nvidia-smi), torch and CUDA versions
-  1 build       the kernels, from csrc/, with one plain nvcc call; each
-                wrapper's layout mirror against its kernel's (the conv
-                tail, the Swin block, its attention-only mode (kernel B:
-                the plan at hidden width 0) and its backward, the VRT
-                blocks' kair_win3d_plan at C=96, 120 and 180); the VRT
-                blocks' kernels' registers and spills
+  1 build       the kernels, from csrc/, one nvcc process per source, all
+                at once, then one link (each one's seconds); each wrapper's
+                layout mirror against its kernel's (the conv tail, the Swin
+                block, its attention-only mode (kernel B: the plan at hidden
+                width 0) and its backward, the window blocks'
+                kair_win3d_plan at C=96, 120, 180 and RVRT's 144 and 192,
+                the DCN kernel's kair_dcn_plan); the window blocks' and the
+                DCN kernel's registers and spills
   2 swin_block  kernel (wgmma, a bulk-copied weight ring two windows share)
                 against its plain version at B=16, 128x128, C=180, at the
                 main path's 1x64x72, on 1x56x72 (63 windows: the persistent
@@ -95,9 +97,14 @@ one flushed line each with its seconds:
                 at C=180, wd 2 on a 1x2x64x64 clip, shifted (0,4,4) and not,
                 and the training step's B=8 calls (8x6x64x64, wd 6, C=120
                 and C=180); the same control and timings
- 15 dcn         the DCNv2 kernel against the composed gather route at stage 1
-                (64x64, 120 -> 120, 12 groups), offsets with taps outside the
-                frame and fractional; control: the offsets dropped
+ 15 dcn         the DCNv2 kernel (wgmma) against the composed gather route:
+                VRT-001's call (120 -> 120, 12 groups, cg 10) at its four map
+                sizes at N=1 (64x64 to 8x8: the tiles' groups split over
+                blocks) and stage 1 at B=8, cg 15 (Cin 240 dg 16; Cin 360 dg
+                24), cg 6 (Cin 96 dg 16) and an odd 1x20x28 (cg 8, Cout 72),
+                offsets with taps outside the frame and fractional; control:
+                the offsets dropped; times at the four sizes and at B=8, and
+                the 70 calls of a VRT-001 clip from them
  16 vrt         KAIR's 001_VRT_videosr_bi_REDS_6frames from a seeded .pth
                 through cli.test_video.build_task on a 1x6x64x64 clip: 42
                 TMSA, 38 self and 70 DCN launches, no composed call; against
@@ -105,7 +112,8 @@ one flushed line each with its seconds:
                 error after each stage, the dropped-mask control; ms per
                 clip, frame-MP/s, MFU, device time by kernel and of the
                 window-block passes
- 17 stl2        the RVRT STL2 block kernel against its plain version at
+ 17 stl2        the RVRT STL2 block (the wgmma passes' plain-MLP kind)
+                against its plain version at
                 RVRT-001's call (1x2x64x64, C=144, shift (0,4,4) and none),
                 on 1x4x32x48 shift (1,4,4) and at C=192; the (1,8,8) block
                 through the 2-D Swin kernel with its 3-D table (1x8x64x64);
@@ -1618,8 +1626,8 @@ def win3d_weight_bytes(p) -> int:
                for k, t in p._asdict().items() if t is not None)
 
 
-# the VRT window blocks' pass kernels (csrc/window3d_wgmma.cu), by name prefix
-WIN3D_PASSES = ("tmsa_", "self_")
+# the window blocks' pass kernels (csrc/window3d_wgmma.cu), by name prefix
+WIN3D_PASSES = ("tmsa_", "self_", "stl2_")
 
 
 def win3d_timing(ph, what: str, fn, tokens: int, flops_per_token: float,
@@ -1759,58 +1767,105 @@ def phase_self6(report: list) -> None:
         library_ms=None, **timed["C=180 wd 6 B=1 (stage 8, 1x6x64x64)"]))
 
 
+# (what, N, H, W, Cin, Cout, dg): VRT-001's DCN call (cg 10) at its four map
+# sizes at N=1 (all four split their tiles' groups over blocks) and stage 1
+# at the training step's B=8 (no split); presets 003-004 (cg 15) and 005-008
+# (cg 6) at stage 1, preset 002 (cg 15, 24 groups) at 32x32; an odd map with
+# a ragged last tile and Cout past one column tile
+DCN_CASES = (
+    ("VRT-001 stage 1 64x64", 1, 64, 64, 120, 120, 12),
+    ("VRT-001 32x32", 1, 32, 32, 120, 120, 12),
+    ("VRT-001 16x16", 1, 16, 16, 120, 120, 12),
+    ("VRT-001 8x8", 1, 8, 8, 120, 120, 12),
+    ("VRT-001 stage 1 B=8", 8, 64, 64, 120, 120, 12),
+    ("cg 15 (Cin 240, dg 16) 64x64", 1, 64, 64, 240, 120, 16),
+    ("cg 15 (Cin 360, dg 24) 32x32", 1, 32, 32, 360, 120, 24),
+    ("cg 6 (Cin 96, dg 16) 64x64", 1, 64, 64, 96, 96, 16),
+    ("cg 8, Cout 72, 1x20x28", 1, 20, 28, 24, 72, 3),
+)
+
+
+def dcn_inputs(n, h, w, cin, cout, dg, gen, dev):
+    """Seeded DCN inputs on the card: bf16 x; offsets up to ±6 px with
+    fractions (taps fall outside the frame and between pixels); the mask
+    after a sigmoid; an f32 weight scaled to keep the output near 1."""
+    import torch
+    x = torch.randn(n, h, w, cin, generator=gen).to(dev, torch.bfloat16)
+    off = (torch.rand(n, h, w, dg * 18, generator=gen) * 12 - 6).to(dev)
+    mask = torch.sigmoid(torch.randn(n, h, w, dg * 9, generator=gen)).to(dev)
+    weight = (torch.randn(cout, cin, 3, 3, generator=gen)
+              * (9 * cin) ** -0.5).to(dev)
+    bias = (torch.randn(cout, generator=gen) * 0.1).to(dev)
+    return x, off, mask, weight, bias
+
+
 def phase_dcn(report: list) -> None:
     import torch
     from kair_tpu_torch.ops.kernels.dcn_block import (dcn_fused, dcn_reference,
+                                                      dcn_splits,
                                                       pack_dcn_weight)
     from kair_tpu_torch.utils.summary import dcn_flops_per_pixel
 
-    c, dg, h, w = 120, 12, 64, 64
-    dev, bf = torch.device("cuda"), torch.bfloat16
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator().manual_seed(SEED + 15)
-    x = torch.randn(1, h, w, c, generator=gen).to(dev, bf)
-    # offsets up to ±6 px with fractions: taps fall outside the frame and
-    # between pixels
-    off = ((torch.rand(1, h, w, dg * 18, generator=gen) * 12 - 6)).to(dev)
-    mask = torch.sigmoid(torch.randn(1, h, w, dg * 9, generator=gen)).to(dev)
-    weight = (torch.randn(c, c, 3, 3, generator=gen) * (9 * c) ** -0.5).to(dev)
-    bias = (torch.randn(c, generator=gen) * 0.1).to(dev)
-    pk = pack_dcn_weight(weight, dg)
     tol = 1e-2
     with Phase("15 dcn") as ph:
-        ph.note(f"DCNv2 kernel at stage 1 (64x64, {c}->{c}, dg {dg}), bf16 x, "
-                f"f32 offsets; limit max_abs <= {tol} * max|ref| against the "
-                "composed gather route in f32; control: the same conv with "
-                "the offsets dropped")
-        fy = (torch.arange(h, device=dev)[None, :, None, None] - 1
-              + off[..., 0::2])
-        outside = ((fy <= -1) | (fy >= h)).float().mean().item()
-        frac = (off.frac().abs() > 0.01).float().mean().item()
-        got = dcn_fused(x, off, mask, weight, bias, dg, packed=pk)
-        ref = dcn_reference(x.float(), off, mask, weight, bias, dg)
-        control = dcn_reference(x.float(), torch.zeros_like(off), mask,
-                                weight, bias, dg)
-        torch.cuda.synchronize()
-        err = check_case(ph, f"1x{h}x{w} ({outside:.3f} of the y taps outside "
-                         f"the frame, {frac:.3f} fractional)", got, ref, tol,
-                         control)
-        ms = cuda_ms(lambda: dcn_fused(x, off, mask, weight, bias, dg, packed=pk))
-        plain_ms = cuda_ms(lambda: dcn_reference(x.float(), off, mask, weight,
-                                                 bias, dg), warmup=1, reps=5)
-        flops = h * w * dcn_flops_per_pixel(c, c)
-        nbytes = (2 * x.numel() + 4 * (off.numel() + mask.numel() + c)
-                  + 2 * weight.numel() + 2 * h * w * c)
-        bms, by = bound_ms(flops, nbytes)
-        ph.note(f"kernel {ms:.4f} ms (median of 10); plain f32 {plain_ms:.3f} "
-                f"ms; bound {bms:.4f} ms ({by}, {flops / 1e9:.3f} GFLOP, "
-                f"{nbytes / 1e6:.2f} MB), {bms / ms:.4f} of it")
+        ph.note(f"DCNv2 kernel (wgmma), bf16 x, f32 offsets (up to ±6 px) and "
+                f"mask; limit max_abs <= {tol} * max|ref| against the composed "
+                "gather route in f32 on the same inputs; control: the same "
+                "conv with the offsets dropped")
+        errs, times = [], {}
+        for what, n, h, w, cin, cout, dg in DCN_CASES:
+            x, off, mask, weight, bias = dcn_inputs(n, h, w, cin, cout, dg,
+                                                    gen, dev)
+            pk = pack_dcn_weight(weight, dg)
+            tiles, splits = dcn_splits(n, h, w, cin, dg, sms)
+            fy = (torch.arange(h, device=dev)[None, :, None, None] - 1
+                  + off[..., 0::2])
+            outside = ((fy <= -1) | (fy >= h)).float().mean().item()
+            got = dcn_fused(x, off, mask, weight, bias, dg, packed=pk)
+            ref = dcn_reference(x.float(), off, mask, weight, bias, dg)
+            control = dcn_reference(x.float(), torch.zeros_like(off), mask,
+                                    weight, bias, dg)
+            torch.cuda.synchronize()
+            errs.append(check_case(
+                ph, f"{what} ({n}x{h}x{w}, {cin}->{cout}, dg {dg}; {tiles} "
+                f"tiles x {splits} splits; {outside:.3f} of the y taps outside "
+                "the frame)", got, ref, tol, control))
+            if n == 1 and (cin, dg) == (120, 12) or n == 8:
+                fn = lambda: dcn_fused(x, off, mask, weight, bias, dg,
+                                       packed=pk)
+                ms = cuda_ms(fn, warmup=3, reps=20)
+                dev_ms = sum(bwd_pass_times(fn, 20).values())
+                flops = n * h * w * dcn_flops_per_pixel(cin, cout)
+                nbytes = (2 * x.numel() + 4 * (off.numel() + mask.numel() + cout)
+                          + 2 * weight.numel() + 2 * n * h * w * cout)
+                bms, by = bound_ms(flops, nbytes)
+                times[what] = dict(ms=ms, bound_ms=bms, bound_by=by,
+                                   device_ms=dev_ms)
+                if what == DCN_CASES[0][0]:
+                    plain_ms = cuda_ms(lambda: dcn_reference(
+                        x.float(), off, mask, weight, bias, dg), warmup=1,
+                        reps=5)
+        ph.note("kernel ms (a call's CUDA-event time, median of 20, the "
+                "wrapper's host time included; and the device time of its "
+                "kernels, torch.profiler over 20 calls; splits on this card's "
+                f"{sms} SMs): " + ", ".join(
+                    f"{k} {v['ms']:.4f}, device {v.pop('device_ms'):.4f} "
+                    f"(bound {v['bound_ms']:.4f}, {v['bound_by']})"
+                    for k, v in times.items()))
+        # VRT-001's 70 calls a clip: 20 at each of 64, 32 and 16, 10 at 8
+        clip = sum(k * times[f"VRT-001 {s}"]["ms"] for k, s in (
+            (20, "stage 1 64x64"), (20, "32x32"), (20, "16x16"), (10, "8x8")))
+        ph.note(f"VRT-001's 70 calls from these CUDA-event times: {clip:.3f} "
+                f"ms a clip; plain f32 at stage 1 {plain_ms:.3f} ms")
     report.append(dict(
         name="dcn_fused", route="cuda",
         source="kair_tpu_torch/csrc/dcn_block.cu",
         replaces="kair_tpu/ops/pallas/dcn_block.py:140",
-        launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bms, bound_by=by, library_ms=None))
-
+        launches=None, max_abs_err=max(errs), plain_ms=plain_ms,
+        library_ms=None, **times[DCN_CASES[0][0]]))
 
 
 # KAIR 001_VRT_videosr_bi_REDS_6frames (main_test_vrt.py:158-165), through
@@ -1961,7 +2016,7 @@ def phase_vrt(report: list, card: str) -> None:
                 model(xg)
                 model(xg)
         ph.note(device_breakdown(two_clips, 2, ms, "clip", host=True, top=12,
-                                 sums=WIN3D_PASSES))
+                                 sums=WIN3D_PASSES + ("dcn_",)))
 
 
 # ---------------------------------------------------------------------------
@@ -1980,7 +2035,7 @@ def phase_stl2(report: list) -> None:
     from kair_tpu_torch.models.vrt import TMSA
     from kair_tpu_torch.ops.kernels.stl2_block import (stl2_block,
                                                        stl2_block_reference)
-    from kair_tpu_torch.ops.kernels.win3d import pack_win3d
+    from kair_tpu_torch.ops.kernels.win3d import pack_win3d_stages
     from kair_tpu_torch.ops.window3d import tmsa_composed
     from kair_tpu_torch.utils.summary import stl_block_flops_per_token
 
@@ -2003,7 +2058,8 @@ def phase_stl2(report: list) -> None:
         errs = []
         for xin, p, shift in ((x, p144, (0, 4, 4)), (x, p144, (0, 0, 0)),
                               (x4, p144, (1, 4, 4)), (x192, p192, (0, 4, 4))):
-            got = stl2_block(xin, p, nh, shift, packed=pack_win3d(p, nh))
+            got = stl2_block(xin, p, nh, shift,
+                             packed=pack_win3d_stages(p, nh))
             ref = stl2_block_reference(xin.float(), p, nh, shift)
             torch.cuda.synchronize()
             control = None if not any(shift) else without_3d_mask(
@@ -2038,8 +2094,10 @@ def phase_stl2(report: list) -> None:
             x8.float(), pb.float(), nh, (1, 8, 8), (0, 4, 4)))
         check_case(ph, "(1,8,8) block on 1x8x64x64 C=144 through swin_block_2d "
                    "(3-D table), shift (0,4,4)", got, ref, tol, control)
-        pk = pack_win3d(p144, nh)
+        pk = pack_win3d_stages(p144, nh)
         ms = cuda_ms(lambda: stl2_block(x, p144, nh, (0, 4, 4), packed=pk))
+        passes = bwd_pass_times(
+            lambda: stl2_block(x, p144, nh, (0, 4, 4), packed=pk), 20)
         plain_ms = cuda_ms(lambda: stl2_block_reference(
             x.float(), p144, nh, (0, 4, 4)), warmup=1, reps=5)
         tokens = x.numel() // 144
@@ -2051,11 +2109,14 @@ def phase_stl2(report: list) -> None:
         ph.note(f"kernel {ms:.4f} ms (1x2x64x64 C=144 shifted, RVRT-001's call, "
                 f"median of 10); plain f32 {plain_ms:.3f} ms; bound {bms:.4f} ms "
                 f"({by}, {flops / 1e9:.3f} GFLOP), {bms / ms:.4f} of it; "
-                f"{flops / ms / 1e9:.1f} TFLOP/s; (1,8,8) block on 1x8x64x64 "
-                f"through swin_block_2d {ms1:.4f} ms")
+                f"{flops / ms / 1e9:.1f} TFLOP/s; device time of the passes "
+                f"(torch.profiler, 20 calls) {sum(passes.values()):.4f} ms: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in passes.items())
+                + f"; (1,8,8) block on 1x8x64x64 through swin_block_2d "
+                f"{ms1:.4f} ms")
     report.append(dict(
         name="stl2_block", route="cuda",
-        source="kair_tpu_torch/csrc/window3d_block.cu",
+        source="kair_tpu_torch/csrc/window3d_wgmma.cu",
         replaces="kair_tpu/ops/pallas/stl_block.py:110",
         launches=None, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
         bound_ms=bms, bound_by=by, library_ms=None))
@@ -2251,7 +2312,8 @@ def phase_rvrt(report: list, card: str) -> None:
             with torch.inference_mode():
                 model(xg)
                 model(xg)
-        ph.note(device_breakdown(two_clips, 2, ms, "clip", host=True, top=12))
+        ph.note(device_breakdown(two_clips, 2, ms, "clip", host=True, top=12,
+                                 sums=WIN3D_PASSES))
         # the CLI's default spatial tile (--tile 40 128 128 on 16 frames)
         xt = torch.from_numpy(moving_clip(16, 128, 128, SEED + 21)).cuda()
         torch.cuda.reset_peak_memory_stats()
@@ -2719,30 +2781,17 @@ def phase_vrt_train(report: list, card: str, build_dir) -> None:
 
 
 
-def main() -> int:
-    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
-    import torch
-
-    report: list = []
-    with Phase("0 device") as ph:
-        if not torch.cuda.is_available():
-            ph.note("torch.cuda.is_available() is False")
-            raise RuntimeError("no CUDA device: chip_smoke needs an NVIDIA card")
-        card = nvidia_smi()
-        log(card)
-        ph.note(f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
-                f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-                f"python {sys.version.split()[0]}")
-        # the plain references are f32: no TF32 anywhere
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        torch.set_float32_matmul_precision("highest")
-
+def phase_build() -> None:
+    """Phase 1: build the kernels, check the layout mirrors, print ptxas."""
     from kair_tpu_torch.ops.kernels import _build
     with Phase("1 build") as ph:
         lib = _build.library()
-        ph.note(f"{_build.library_path().name}: one nvcc call, "
-                f"{len(_build.sources())} sources")
+        secs = _build.build_seconds
+        ph.note(f"{_build.library_path().name}: {len(_build.sources())} "
+                "sources, one nvcc process each, all at once, then one link: "
+                + (", ".join(f"{k} {v:.1f} s" for k, v in sorted(
+                    secs.items(), key=lambda kv: -kv[1]))
+                   if secs else "already built"))
         # ptxas -v: one "Used N registers" and one spill line per kernel
         log_lines = _build.build_log().splitlines()
         regs = [int(l.split("Used ")[1].split()[0]) for l in log_lines
@@ -2797,37 +2846,51 @@ def main() -> int:
                     f"a window pair), backward {bw.smem} B ({bw.stages} "
                     f"stages a window pair) + {bw.wgrad_smem} B (weight grads, "
                     f"{bw.items} items of 128 x {bw.nb})")
-        from kair_tpu_torch.ops.kernels.win3d import shared_bytes as win3d_bytes
-        from kair_tpu_torch.ops.kernels.win3d import win3d_plan
-        for mutual, c, nh, wd, twd in (
-                (True, 96, 6, 2, 2), (True, 120, 6, 2, 2), (True, 24, 2, 2, 2),
-                (False, 96, 6, 6, 6), (False, 120, 6, 8, 8),
-                (False, 180, 6, 6, 6), (False, 180, 6, 1, 1),
-                (False, 180, 6, 4, 8), (False, 192, 6, 6, 6),
-                (True, 180, 6, 2, 2)):
+        from kair_tpu_torch.ops.kernels.win3d import kind, win3d_plan
+        names = {0: "self", 1: "TMSA", 2: "STL2"}
+        for mutual, plain, c, nh, wd, twd in (
+                (True, False, 96, 6, 2, 2), (True, False, 120, 6, 2, 2),
+                (True, False, 24, 2, 2, 2), (False, False, 96, 6, 6, 6),
+                (False, False, 120, 6, 8, 8), (False, False, 180, 6, 6, 6),
+                (False, False, 180, 6, 1, 1), (False, False, 180, 6, 4, 8),
+                (False, False, 192, 6, 6, 6), (True, False, 180, 6, 2, 2),
+                (False, True, 144, 6, 2, 2), (False, True, 192, 6, 2, 2),
+                (False, True, 24, 2, 2, 2), (False, True, 200, 8, 2, 2)):
             plan = (ctypes.c_int * 17)()
-            lib.kair_win3d_plan(int(mutual), c, nh, 2 * c, wd, twd, plan)
-            pl = win3d_plan(mutual, c, nh, 2 * c, wd, twd)
+            lib.kair_win3d_plan(kind(mutual, plain), c, nh, 2 * c, wd, twd,
+                                plan)
+            pl = win3d_plan(mutual, c, nh, 2 * c, wd, twd, plain)
             require(tuple(plan) == tuple(int(v) for v in pl),
-                    f"VRT block plan mirror differs at C={c} wd {wd}: "
+                    f"window block plan mirror differs at C={c} wd {wd}: "
                     f"{tuple(plan)} vs {tuple(pl)}")
             if pl.fits and c >= 96:
-                ph.note(f"{'TMSA' if mutual else 'self'} block C={c} wd {wd}: "
+                ph.note(f"{names[kind(mutual, plain)]} block C={c} wd {wd}: "
                         f"NT {pl.nt}, q/k {pl.hdp}, v {pl.vdp}, "
                         f"{pl.stages1} + {pl.stages3} stages an item, shared "
                         f"memory {pl.smem1} / {pl.smem2} / {pl.smem3} B")
-        ph.note("the VRT blocks' plan mirror equals kair_win3d_plan at 10 "
-                "geometries (C=192 and a C=180 TMSA block refused by both)")
+        ph.note("the window blocks' plan mirror equals kair_win3d_plan at 14 "
+                "geometries (a self block at C=192, a C=180 TMSA block and an "
+                "STL2 block at C=200 refused by both)")
         ptx = ptxas_kernels(log_lines)
-        ph.note("VRT window-block kernels (ptxas): " + ", ".join(
+        ph.note("window-block kernels (ptxas): " + ", ".join(
             f"{n} {r} regs {sp} B spill" for n, r, sp in ptx
             if n.startswith(WIN3D_PASSES)))
-        for c, nh, hp in ((144, 6, 288), (192, 6, 384)):
-            st = lib.kair_stl2_block_shared_bytes(c, nh, hp)
-            require(st == win3d_bytes(c, nh, hp, 1),
-                    f"STL2 block shared-memory mirror differs at C={c}")
-            ph.note(f"C={c}, {nh} heads, hidden {hp}: STL2 block {st} B")
-        ph.note(f"DCN {lib.kair_dcn_shared_bytes()} B")
+        from kair_tpu_torch.ops.kernels.dcn_block import dcn_plan
+        for cin, cout, dg in ((120, 120, 12), (240, 120, 16), (360, 120, 24),
+                              (96, 96, 16), (24, 72, 3), (300, 200, 1),
+                              (40, 250, 2)):
+            plan = (ctypes.c_int * 8)()
+            lib.kair_dcn_plan(cin, cout, dg, plan)
+            require(tuple(plan) == tuple(dcn_plan(cin, cout, dg)),
+                    f"DCN plan mirror differs at Cin {cin} Cout {cout} dg "
+                    f"{dg}: {tuple(plan)} vs {tuple(dcn_plan(cin, cout, dg))}")
+        pl = dcn_plan(120, 120, 12)
+        ph.note(f"the DCN plan mirror equals kair_dcn_plan at 7 geometries; "
+                f"VRT-001's: {pl.kmax} columns a chunk, {pl.cpg} chunk a "
+                f"group, ring slot {pl.stage_bytes} B, {pl.smem} B of shared "
+                "memory a block; DCN kernels (ptxas): " + ", ".join(
+                    f"{n} {r} regs {sp} B spill" for n, r, sp in ptx
+                    if "dcn_" in n))
         # the sampler backward's scratch (the windows' row counts, starts and
         # lists) and its window pass's shared memory; the windows' bound
         from kair_tpu_torch.ops.kernels import bilin_sample as bs
@@ -2863,6 +2926,28 @@ def main() -> int:
                 f"{bs.bwd_scratch_bytes(96, 64, 64, 9 * 64 * 64, *vrt[:2])} B "
                 "of scratch")
 
+
+def main() -> int:
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    import torch
+
+    report: list = []
+    with Phase("0 device") as ph:
+        if not torch.cuda.is_available():
+            ph.note("torch.cuda.is_available() is False")
+            raise RuntimeError("no CUDA device: chip_smoke needs an NVIDIA card")
+        card = nvidia_smi()
+        log(card)
+        ph.note(f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+                f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+                f"python {sys.version.split()[0]}")
+        # the plain references are f32: no TF32 anywhere
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+
+    from kair_tpu_torch.ops.kernels import _build
+    phase_build()
     phase_swin(report)
     phase_conv(report)
     phase_main_path(report, _build.BUILD_DIR)

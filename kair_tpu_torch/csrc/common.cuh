@@ -1,28 +1,18 @@
 // Shared device helpers for the port's Hopper kernels (sm_90a).
 //
-// Matrix products use the tensor cores through WMMA (<mma.h>): bf16 operands,
-// f32 accumulation, 16x16x16 tiles; or, at the end of this file, through
-// Hopper's warpgroup products (wgmma) fed by mbarrier-tracked asynchronous
-// copies. Only CUDA toolkit headers are included, so the whole library
-// builds with one plain nvcc call in seconds.
+// Matrix products use the tensor cores through Hopper's warpgroup products
+// (wgmma): bf16 operands, f32 accumulation, fed by mbarrier-tracked
+// asynchronous copies. Only CUDA toolkit headers are included, so each
+// source builds with one plain nvcc call.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 namespace kair {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
-
-constexpr int kStage = 256;             // f32 staging floats per warp (one tile)
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
 static __host__ __device__ __forceinline__ int round16(int v) { return (v + 15) / 16 * 16; }
 static __host__ __device__ __forceinline__ int align128(int v) { return (v + 127) / 128 * 128; }
@@ -39,93 +29,6 @@ static __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// Store one accumulator tile into the warp's 16x16 f32 staging area and hand
-// each element to epi(row, col, value); lane l takes row l/2, columns
-// 8*(l%2) .. 8*(l%2)+7. WMMA's register layout is opaque, so every epilogue
-// (bias, residual, GELU, bf16 store) goes through this.
-template <class Epi>
-__device__ __forceinline__ void drain_tile(const FragC& acc, float* stage,
-                                           int row0, int col0, Epi& epi) {
-  wmma::store_matrix_sync(stage, acc, 16, wmma::mem_row_major);
-  __syncwarp();
-  const int lane = threadIdx.x & 31;
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) epi(row0 + r, col0 + c0 + i, stage[r * 16 + c0 + i]);
-  __syncwarp();
-}
-
-// out[64, 16*n_tiles] = A[64, 16*k_tiles] @ B, then epi per element.
-// A: bf16 in shared memory, row-major, leading dimension lda.
-// B: bf16 in global memory (L2-resident weights), row-major, ldb.
-// With NW warps in the block, warp w owns column tiles w, w+NW, ... and all
-// four 16-row tiles of each, so every B tile is read from L2 once per block.
-template <int NW, class Epi>
-__device__ void gemm_m64(const bf16* A, int lda, const bf16* __restrict__ B,
-                         int ldb, int k_tiles, int n_tiles, float* stage, Epi& epi) {
-  const int warp = threadIdx.x >> 5;
-  for (int n = warp; n < n_tiles; n += NW) {
-    FragC acc[4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m) wmma::fill_fragment(acc[m], 0.0f);
-    for (int k = 0; k < k_tiles; ++k) {
-      FragB b;
-      wmma::load_matrix_sync(b, B + (size_t)k * 16 * ldb + n * 16, ldb);
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        FragA a;
-        wmma::load_matrix_sync(a, A + m * 16 * lda + k * 16, lda);
-        wmma::mma_sync(acc[m], a, b, acc[m]);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < 4; ++m) drain_tile(acc[m], stage, m * 16, n * 16, epi);
-  }
-}
-
-
-// Two products of one A against B1 and B2 (the GEGLU MLP's fc11 and fc12):
-// epi(row, col, a1, a2) gets both sums of an element at once. stage holds
-// two f32 tiles per warp (2 * kStage floats).
-template <int NW, class Epi2>
-__device__ void gemm_m64_dual(const bf16* A, int lda, const bf16* __restrict__ B1,
-                              const bf16* __restrict__ B2, int ldb, int k_tiles,
-                              int n_tiles, float* stage, Epi2& epi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int n = warp; n < n_tiles; n += NW) {
-    FragC acc1[4], acc2[4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      wmma::fill_fragment(acc1[m], 0.0f);
-      wmma::fill_fragment(acc2[m], 0.0f);
-    }
-    for (int k = 0; k < k_tiles; ++k) {
-      FragB b1, b2;
-      wmma::load_matrix_sync(b1, B1 + (size_t)k * 16 * ldb + n * 16, ldb);
-      wmma::load_matrix_sync(b2, B2 + (size_t)k * 16 * ldb + n * 16, ldb);
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        FragA a;
-        wmma::load_matrix_sync(a, A + m * 16 * lda + k * 16, lda);
-        wmma::mma_sync(acc1[m], a, b1, acc1[m]);
-        wmma::mma_sync(acc2[m], a, b2, acc2[m]);
-      }
-    }
-    const int r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      wmma::store_matrix_sync(stage, acc1[m], 16, wmma::mem_row_major);
-      wmma::store_matrix_sync(stage + kStage, acc2[m], 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        epi(m * 16 + r, n * 16 + c0 + i, stage[r * 16 + c0 + i],
-            stage[kStage + r * 16 + c0 + i]);
-      __syncwarp();
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -274,6 +177,21 @@ static __device__ __forceinline__ unsigned long long wgmma_desc_sw128(unsigned s
          ((unsigned long long)(1024 >> 4) << 32) | ((unsigned long long)1 << 62);
 }
 
+// wgmma descriptor of a K-major operand with RB = 32- or 64-byte rows in the
+// swizzle of that width (16-byte unit u of row n stored at unit u ^ (n / 4 %
+// 2), or u ^ (n / 2 % 4)), 8-row atoms of 8 RB bytes one after another (RB
+// = 128 is wgmma_desc_sw128); swz_narrow<RB>(n) is the XOR of row n.
+template <int RB>
+static __device__ __forceinline__ unsigned long long desc_narrow(unsigned saddr) {
+  return (unsigned long long)((saddr & 0x3FFFF) >> 4) | ((unsigned long long)1 << 16) |
+         ((unsigned long long)((8 * RB) >> 4) << 32) |
+         ((unsigned long long)(RB == 64 ? 2 : 3) << 62);
+}
+template <int RB>
+static __host__ __device__ __forceinline__ int swz_narrow(int n) {
+  return RB == 64 ? (n >> 1) & 3 : (n >> 2) & 1;
+}
+
 static __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -324,7 +242,7 @@ static __device__ __forceinline__ void fence_regs(float* d) {
 // bf16 K-major from shared memory through `desc`, f32 sums in d[N / 2] per
 // thread: d[4j + e] is row 16w + lane/4 + 8(e/2), column 8j + 2(lane%4) +
 // e%2. scale_d 0 overwrites d. The specialisations differ only in N
-// (16, 24, 32, 64, 96, 120, 128, 176, 184, 192, 240).
+// (16, 24, 32, 64, 96, 120, 128, 144, 176, 184, 192, 240).
 template <int N>
 struct WgmmaRS;
 
@@ -569,6 +487,39 @@ template <> struct WgmmaRS<120> {
           "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaRS<144> {
+  static __device__ __forceinline__ void mma(float* d, const unsigned* a,
+                                             unsigned long long desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %77, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71"
+        "}, {%72, %73, %74, %75}, %76, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
   }
 };

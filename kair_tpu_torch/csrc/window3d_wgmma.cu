@@ -1,10 +1,13 @@
-// VRT's two 3-D window blocks, inference, bf16, on Hopper's warpgroup
-// products (sm_90a): the TMSA mutual block on (2,8,8) windows and the self
-// block on (wd,8,8) windows, one C entry, kair_win3d_block.
+// The 3-D window blocks of VRT and RVRT, inference, bf16, on Hopper's
+// warpgroup products (sm_90a): VRT's TMSA mutual block on (2,8,8) windows
+// and self block on (wd,8,8) windows, and RVRT's STL block on (2,8,8)
+// windows (the self block with a plain GELU MLP); one C entry,
+// kair_win3d_block, whose kind picks the block.
 //
 // Replaces kair_tpu/ops/pallas/tmsa_block.py :: tmsa_block_pallas
-// (pl.pallas_call :253) and kair_tpu/ops/pallas/self6_block.py ::
-// self6_block_pallas (pl.pallas_call :203). They compute
+// (pl.pallas_call :253), kair_tpu/ops/pallas/self6_block.py ::
+// self6_block_pallas (pl.pallas_call :203) and kair_tpu/ops/pallas/
+// stl_block.py :: stl2_block_pallas (pl.pallas_call :110). They compute
 //   out = roll(Block(roll(x, -shift)), +shift),
 //   self block: x1 = x + proj(W-MSA(LN1(x)))  (3-D rel-pos bias, 0/-100 shift
 //               mask, softmax with the row max subtracted)
@@ -14,6 +17,7 @@
 //               of the mask, each output on the query's own place in the
 //               other frame; x1 = x + proj([m | s])
 //   both:       out = x1 + fc2(GELU(fc11(LN2(x1))) * fc12(LN2(x1)))
+//   STL block:  the self block, then out = x1 + fc2(GELU(fc1(LN2(x1))))
 // with the block's cyclic shift folded into pass 2's index arithmetic: token t
 // of window (i, j, k) is the pixel ((i*wd + t/64 + sd) mod D,
 // (j*8 + t/8%8 + sh) mod H, (k*8 + t%8 + sw) mod W).
@@ -57,7 +61,10 @@
 //         accumulator into shared memory; per hidden chunk of 64 one product
 //         of N = 128 (fc11 | fc12 rows), the exact-erf GEGLU on the
 //         registers, the bf16 chunk as A of fc2 (N = NT), which adds into the
-//         accumulator (x1 + b2 first); the output from the registers.
+//         accumulator (x1 + b2 first); the output from the registers. The
+//         STL block (stl2_mlp_kernel; its passes 1 and 2 are the self
+//         block's) runs one product of N = 64 (fc1's rows) a hidden chunk
+//         and the exact-erf GELU alone.
 //   pass 2 (tmsa_ / self_attn_kernel): one warpgroup per (window, head) walks all
 //     the window's 64-query tiles (up to four warpgroups an SM). K of the
 //     head (wd*64 rows) arrives once by cp.async in the 32- or 64-byte
@@ -79,8 +86,9 @@
 // first (KAIR's proj input is [mut | self]). Pass 1's stages, for each
 // branch, head pair and K chunk of 64 over C: NQ rows. Pass 3's: proj per K
 // chunk of P*C (NT rows), then per hidden chunk j its fc11 | fc12 K chunks
-// (128 rows) and fc2 (NT rows). NT = 96, 120 or 184, the narrowest width
-// class that holds C; each class fixes HD and VD.
+// (128 rows; the STL block's fc1, 64 rows) and fc2 (NT rows). NT is the
+// narrowest width class that holds C: 96, 120 or 184 for VRT's GEGLU blocks,
+// 144 or 192 (RVRT's widths) for the STL block; each class fixes HD and VD.
 #include "common.cuh"
 
 using namespace kair;
@@ -94,25 +102,18 @@ constexpr int kMaxStages = 64;         // stages per item
 constexpr int kMaxKcp = 4;             // proj K chunks: P*C <= 256
 constexpr int kSmemLimit = 232448;     // H100 opt-in bytes per block
 constexpr int kStaticSmem = kMaxStages * 8;
-enum Kind { kTmsa = 0, kSelf = 1 };
+// the kind of block, also the C entries' kind argument
+enum Kind { kSelf = 0, kTmsa = 1, kStl2 = 2 };
+// The kind whose plan a pass instance follows, known when it compiles (a
+// runtime kind costs the TMSA passes 4-7%): passes 1 and 2 are the self
+// block's for the STL block too, which alone has the 144 and 192 classes.
+template <int KIND, int NT>
+__host__ __device__ constexpr int plan_kind() {
+  return NT == 144 || NT == 192 ? kStl2 : KIND;
+}
 
 static __host__ __device__ __forceinline__ int align1024(int v) {
   return (v + 1023) / 1024 * 1024;
-}
-
-// wgmma descriptor of a K-major operand with RB = 32- or 64-byte rows in the
-// swizzle of that width (16-byte unit u of row n stored at unit u ^ (n / 4 %
-// 2), or u ^ (n / 2 % 4)), 8-row atoms of 8 RB bytes one after another (RB
-// = 128 is wgmma_desc_sw128); swz_narrow<RB>(n) is the XOR of row n.
-template <int RB>
-static __device__ __forceinline__ unsigned long long desc_narrow(unsigned saddr) {
-  return (unsigned long long)((saddr & 0x3FFFF) >> 4) | ((unsigned long long)1 << 16) |
-         ((unsigned long long)((8 * RB) >> 4) << 32) |
-         ((unsigned long long)(RB == 64 ? 2 : 3) << 62);
-}
-template <int RB>
-static __device__ __forceinline__ int swz_narrow(int n) {
-  return RB == 64 ? (n >> 1) & 3 : (n >> 2) & 1;
 }
 
 // The width classes: NT the accumulator width, HD the padded q/k head width,
@@ -121,22 +122,25 @@ template <int NT> struct Width;
 template <> struct Width<96> { static constexpr int HD = 16, VD = 16; };
 template <> struct Width<120> { static constexpr int HD = 32, VD = 24; };
 template <> struct Width<184> { static constexpr int HD = 32, VD = 32; };
+template <> struct Width<144> { static constexpr int HD = 32, VD = 24; };
+template <> struct Width<192> { static constexpr int HD = 32, VD = 32; };
 
 // Tiling and shared-memory layout of the three passes; the host mirror is
 // ops/kernels/win3d.py :: win3d_plan, held to kair_win3d_plan by chip_smoke.py.
 struct Plan {
-  int mutual, C, NH, hidden, wd, twd;
+  int mutual, plain, C, NH, hidden, wd, twd;
   int nt, hd, HD, VD, nq, qw, P, qkvw, aw, kc, kcp, hc, lda;
   int slot1, slot3, stages1, stages3, ab, stg, smem1, smem2, smem3;
-  __host__ __device__ Plan(int mut, int c, int nh, int hid, int wd_, int twd_)
-      : mutual(mut), C(c), NH(nh), hidden(hid), wd(wd_), twd(twd_) {
-    nt = c <= 96 ? 96 : c <= 120 ? 120 : 184;
+  __host__ __device__ Plan(int kind, int c, int nh, int hid, int wd_, int twd_)
+      : mutual(kind == kTmsa), plain(kind == kStl2), C(c), NH(nh), hidden(hid),
+        wd(wd_), twd(twd_) {
+    nt = plain ? (c <= 144 ? 144 : 192) : c <= 96 ? 96 : c <= 120 ? 120 : 184;
     hd = nh > 0 ? c / nh : 0;
     HD = nt == 96 ? 16 : 32;
-    VD = nt == 96 ? 16 : nt == 120 ? 24 : 32;
+    VD = nt == 96 ? 16 : nt == 120 || nt == 144 ? 24 : 32;
     nq = 2 * (2 * HD + VD);
     qw = nh * (2 * HD + VD);
-    P = mut ? 2 : 1;
+    P = mutual ? 2 : 1;
     qkvw = P * qw;
     aw = P * c;
     kc = (c + 63) / 64;
@@ -160,7 +164,7 @@ struct Plan {
             align128(wd * 64 * 4) + 1024;
   }
   __host__ __device__ bool fits() const {
-    return C >= 2 && C <= 184 && C % 2 == 0 && NH >= 2 && NH % 2 == 0 && C % NH == 0 &&
+    return C >= 2 && C <= (plain ? 192 : 184) && C % 2 == 0 && NH >= 2 && NH % 2 == 0 && C % NH == 0 &&
            hd % 2 == 0 && hd <= VD && !(mutual && (nt == 184 || wd != 2 || twd != 2)) &&
            hidden >= 1 && wd >= 1 && twd >= wd && kcp <= kMaxKcp && stages1 <= kMaxStages &&
            stages3 <= kMaxStages &&
@@ -337,7 +341,7 @@ __device__ __forceinline__ void qkv_pass(const Args& a) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ int2 table[kMaxStages];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const Plan pl(M, a.C, a.NH, a.hidden, a.wd, a.twd);
+  const Plan pl(plan_kind<KIND, NT>(), a.C, a.NH, a.hidden, a.wd, a.twd);
   const int C = a.C, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int ring_end = kRing * pl.slot1;
   float* s_b = reinterpret_cast<float*>(smem + ring_end + 2 * pl.ab + 2 * pl.stg);
@@ -474,7 +478,7 @@ __device__ __forceinline__ void attn_pass(const Args& a) {
   constexpr int HD = Width<NT>::HD, VD = Width<NT>::VD, HW = 2 * HD + VD;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const Plan pl(M, a.C, a.NH, a.hidden, a.wd, a.twd);
+  const Plan pl(plan_kind<KIND, NT>(), a.C, a.NH, a.hidden, a.wd, a.twd);
   const int NH = a.NH, wd = a.wd, n = wd * 64, hd = pl.hd;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   constexpr int RB = 2 * HD;                    // bytes of a K row
@@ -663,11 +667,11 @@ __device__ __forceinline__ void attn_pass(const Args& a) {
 // ---- pass 3: proj + residual, LN2, GEGLU, fc2 + residual ---------------------------
 template <int KIND, int NT>
 __device__ __forceinline__ void mlp_pass(const Args& a) {
-  constexpr bool M = KIND == kTmsa;
+  constexpr bool M = KIND == kTmsa, G = KIND != kStl2;   // G: the GEGLU
   extern __shared__ unsigned char smem_raw[];
   __shared__ int2 table[kMaxStages];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const Plan pl(M, a.C, a.NH, a.hidden, a.wd, a.twd);
+  const Plan pl(plan_kind<KIND, NT>(), a.C, a.NH, a.hidden, a.wd, a.twd);
   const int C = a.C, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int ring_end = kRing * pl.slot3;
   float* s_bp = reinterpret_cast<float*>(smem + ring_end + 2 * pl.ab);
@@ -682,7 +686,7 @@ __device__ __forceinline__ void mlp_pass(const Args& a) {
   for (int i = tid; i < 2 * C; i += kThreads) s_ln[i] = a.ln2[i];
   for (int i = tid; i < pl.hc * 64; i += kThreads) {
     s_b11[i] = a.b11[i];
-    s_b12[i] = a.b12[i];
+    if (G) s_b12[i] = a.b12[i];
   }
   for (int i = tid; i < 2 * pl.ab / 4; i += kThreads)
     reinterpret_cast<unsigned*>(smem + ring_end)[i] = 0u;
@@ -694,7 +698,7 @@ __device__ __forceinline__ void mlp_pass(const Args& a) {
     };
     for (int k = 0; k < pl.kcp; ++k) add(NT);
     for (int j = 0; j < pl.hc; ++j) {
-      for (int k = 0; k < pl.kc; ++k) add(128);
+      for (int k = 0; k < pl.kc; ++k) add(G ? 128 : 64);
       add(NT);
     }
   }
@@ -780,23 +784,38 @@ __device__ __forceinline__ void mlp_pass(const Args& a) {
       }
     }
     __syncwarp();
-    // GEGLU in hidden chunks of 64: fc11 | fc12 → GELU(u)·g → fc2 into acc
+    // the MLP in hidden chunks of 64: fc11 | fc12 → GELU(u)·g (or fc1 →
+    // GELU(u)) → fc2 into acc
     for (int j = 0; j < pl.hc; ++j) {
-      float hq[64];
-#pragma unroll
-      for (int i = 0; i < 64; ++i) hq[i] = 0.f;
-      product<128>(hq, ring, s, a_row, pl.kc);
       const float* b11 = s_b11 + j * 64;
-      const float* b12 = s_b12 + j * 64;
       unsigned ha[4][4];
+      if constexpr (G) {
+        float hq[64];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+        for (int i = 0; i < 64; ++i) hq[i] = 0.f;
+        product<128>(hq, ring, s, a_row, pl.kc);
+        const float* b12 = s_b12 + j * 64;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int col = 16 * kk + 8 * (i >> 1) + q2, e = 8 * kk + 2 * i;
-          ha[kk][i] = pack_bf16(gelu(hq[e] + b11[col]) * (hq[e + 32] + b12[col]),
-                                gelu(hq[e + 1] + b11[col + 1]) * (hq[e + 33] + b12[col + 1]));
-        }
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = 16 * kk + 8 * (i >> 1) + q2, e = 8 * kk + 2 * i;
+            ha[kk][i] = pack_bf16(gelu(hq[e] + b11[col]) * (hq[e + 32] + b12[col]),
+                                  gelu(hq[e + 1] + b11[col + 1]) * (hq[e + 33] + b12[col + 1]));
+          }
+      } else {
+        float hq[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) hq[i] = 0.f;
+        product<64>(hq, ring, s, a_row, pl.kc);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = 16 * kk + 8 * (i >> 1) + q2, e = 8 * kk + 2 * i;
+            ha[kk][i] = pack_bf16(gelu(hq[e] + b11[col]), gelu(hq[e + 1] + b11[col + 1]));
+          }
+      }
       const unsigned long long desc = wgmma_desc_sw128(ring.wait(s));
       fence_regs<NT / 2>(acc);
       wgmma_fence();
@@ -835,6 +854,7 @@ KAIR_WIN3D_PASS(tmsa_mlp_kernel, mlp_pass, kTmsa, kThreads, 1)
 KAIR_WIN3D_PASS(self_qkv_kernel, qkv_pass, kSelf, kThreads, 1)
 KAIR_WIN3D_PASS(self_attn_kernel, attn_pass, kSelf, kAttnThreads, 4)
 KAIR_WIN3D_PASS(self_mlp_kernel, mlp_pass, kSelf, kThreads, 1)
+KAIR_WIN3D_PASS(stl2_mlp_kernel, mlp_pass, kStl2, kThreads, 1)
 #undef KAIR_WIN3D_PASS
 
 int sm_count() {
@@ -853,12 +873,17 @@ template <int NT>
 int launch(Args a, const Plan& pl, cudaStream_t st) {
   void (*k1)(Args) = self_qkv_kernel<NT>;
   void (*k2)(Args) = self_attn_kernel<NT>;
-  void (*k3)(Args) = self_mlp_kernel<NT>;
-  if constexpr (NT != 184) {           // the TMSA block takes C <= 120
-    if (pl.mutual) {
-      k1 = tmsa_qkv_kernel<NT>;
-      k2 = tmsa_attn_kernel<NT>;
-      k3 = tmsa_mlp_kernel<NT>;
+  void (*k3)(Args);
+  if constexpr (NT == 144 || NT == 192) {    // the STL block's classes only
+    k3 = stl2_mlp_kernel<NT>;
+  } else {
+    k3 = self_mlp_kernel<NT>;
+    if constexpr (NT != 184) {         // the TMSA block takes C <= 120
+      if (pl.mutual) {
+        k1 = tmsa_qkv_kernel<NT>;
+        k2 = tmsa_attn_kernel<NT>;
+        k3 = tmsa_mlp_kernel<NT>;
+      }
     }
   }
   cudaError_t e;
@@ -884,13 +909,14 @@ int launch(Args a, const Plan& pl, cudaStream_t st) {
 
 }  // namespace
 
-// mutual: 1 the TMSA block (wd = twd = 2), 0 the self block. x, out (B, D, H,
+// kind: 1 the TMSA block (wd = twd = 2), 0 the self block, 2 the STL block
+// (the self block with a plain MLP: b12 unused, may be null). x, out (B, D, H,
 // W, C) bf16; qkv scratch [T][qkvw], att scratch [T][P*C] bf16; st1, st3 the
 // stages from pack_win3d_stages (16-byte aligned); bq [qkvw], ln1, ln2 [2][C],
 // bp [C], b11, b12 [hc*64], b2 [C], pos [64][C] (TMSA) f32; rel_table
 // [NH][(2*twd-1)*225] f32 (the model's table transposed); labels [8][wd*64]
 // int32 or null.
-extern "C" int kair_win3d_block(int mutual, const void* x, void* out, void* qkv, void* att,
+extern "C" int kair_win3d_block(int kind, const void* x, void* out, void* qkv, void* att,
                                 const void* st1, const void* bq, const void* st3,
                                 const void* pos, const void* ln1, const void* ln2,
                                 const void* bp, const void* b11, const void* b12,
@@ -899,9 +925,10 @@ extern "C" int kair_win3d_block(int mutual, const void* x, void* out, void* qkv,
                                 int twd, int sd, int sh, int sw, void* stream) {
   if (B < 0 || wd < 1 || D % wd || H % 8 || W % 8 || (size_t)st1 % 16 || (size_t)st3 % 16 ||
       (size_t)qkv % 16 || (size_t)x % 4 || (size_t)out % 4 || (size_t)att % 4 ||
-      (mutual && !pos) || (long long)B * D * H * W >= (1LL << 31))
+      kind < kSelf || kind > kStl2 || (kind == kTmsa && !pos) || (kind != kStl2 && !b12) ||
+      (long long)B * D * H * W >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  const Plan pl(mutual != 0, C, NH, hidden, wd, twd);
+  const Plan pl(kind, C, NH, hidden, wd, twd);
   if (!pl.fits()) return (int)cudaErrorInvalidConfiguration;
   Args a;
   a.x = static_cast<const bf16*>(x);
@@ -926,6 +953,8 @@ extern "C" int kair_win3d_block(int mutual, const void* x, void* out, void* qkv,
   switch (pl.nt) {
     case 96: return launch<96>(a, pl, s);
     case 120: return launch<120>(a, pl, s);
+    case 144: return launch<144>(a, pl, s);
+    case 192: return launch<192>(a, pl, s);
     default: return launch<184>(a, pl, s);
   }
 }
@@ -933,9 +962,9 @@ extern "C" int kair_win3d_block(int mutual, const void* x, void* out, void* qkv,
 // The plan the wrapper mirrors (win3d_plan): NT, HD, VD, qkvw, aw, kc, kcp,
 // hc, ring slots, stages of passes 1 and 3, slot bytes of passes 1 and 3,
 // shared memory of passes 1, 2 and 3, whether the kernels take it.
-extern "C" int kair_win3d_plan(int mutual, int C, int NH, int hidden, int wd, int twd,
+extern "C" int kair_win3d_plan(int kind, int C, int NH, int hidden, int wd, int twd,
                                int* dst) {
-  const Plan pl(mutual != 0, C, NH, hidden, wd, twd);
+  const Plan pl(kind, C, NH, hidden, wd, twd);
   const int v[17] = {pl.nt,     pl.HD,     pl.VD,     pl.qkvw,    pl.aw,    pl.kc,
                      pl.kcp,    pl.hc,     kRing,     pl.stages1, pl.stages3, pl.slot1,
                      pl.slot3,  pl.smem1,  pl.smem2,  pl.smem3,   pl.fits() ? 1 : 0};

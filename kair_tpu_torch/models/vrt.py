@@ -60,7 +60,7 @@ from kair_tpu_torch.ops.kernels.swin_block import (SwinBlockParams,
                                                     swin_block_2d)
 from kair_tpu_torch.ops.kernels.tmsa_block import tmsa_block, tmsa_block_train
 from kair_tpu_torch.ops.kernels.window_msa import shift_mask_tensor
-from kair_tpu_torch.ops.kernels.win3d import pack_win3d, pack_win3d_stages
+from kair_tpu_torch.ops.kernels.win3d import pack_win3d_stages
 from kair_tpu_torch.ops.warp import flow_warp, modulated_deform_conv
 from kair_tpu_torch.ops.window3d import (Tmsa3dParams, compute_mask_3d,
                                          compute_mask_labels_3d, geglu,
@@ -231,8 +231,7 @@ class TMSA(_Packed, nn.Module):
         route = self.kernel_route(d, h, w, ws, ss)
         if route == "stl1":
             return self._stl1(x, p, ss[1])
-        pack = pack_win3d if route == "stl2" else pack_win3d_stages
-        pk = (self.packed(lambda: pack(p, self.num_heads))
+        pk = (self.packed(lambda: pack_win3d_stages(p, self.num_heads))
               if route and x.is_cuda else None)
         grad = torch.is_grad_enabled()
         if route == "tmsa":

@@ -1,23 +1,31 @@
-"""Build the port's CUDA kernels with one plain ``nvcc`` call, bind with ctypes.
+"""Build the port's CUDA kernels with plain ``nvcc`` calls, bind with ctypes.
 
-All sources under ``kair_tpu_torch/csrc/`` go through ONE command:
+Every source under ``kair_tpu_torch/csrc/`` compiles in its own ``nvcc``
+process, all of them started together, each under its own timeout:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o <build>/libkair_kernels.<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas=-v -c -o <build>/obj.<hash>/<src>.o csrc/<src>.cu
 
+then one link puts the objects into one library:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o <build>/libkair_kernels.<hash>.so <build>/obj.<hash>/*.o
+
+so the build takes as long as its slowest source, not the sum of all.
 The sources have a plain C interface and include only the CUDA toolkit's
-headers (no PyTorch headers, no CUTLASS), so the build takes seconds rather
-than the minutes a ``torch.utils.cpp_extension`` build takes. The library
-goes to ``kair_tpu_torch/_build/`` (listed in ``.gitignore``), named by a
-hash of the sources; it is written under a temporary name and moved into
-place with ``os.replace``, so a killed build never leaves a half-written
-library behind. A missing ``nvcc`` or a failed build raises with the
-compiler's output; nothing falls back.
+headers (no PyTorch headers, no CUTLASS, no ninja or ``cpp_extension``).
+The library goes to ``kair_tpu_torch/_build/`` (listed in ``.gitignore``),
+named by a hash of the sources; it is linked under a temporary name and
+moved into place with ``os.replace``, so a killed build never leaves a
+half-written library behind. A missing ``nvcc`` or a failed build raises
+with the compiler's output; nothing falls back. ``build_seconds`` holds
+each compile's, the link's and the whole build's wall seconds.
 
 Nothing here runs at import time: the first kernel launch builds and loads.
 ``library(profile=True)`` builds the same sources with ``-DKAIR_PROFILE``
 into a library of its own, for ``cli/profile_swin_block.py``,
-``cli/profile_swin_bwd.py`` and ``cli/profile_conv.py`` only.
+``cli/profile_swin_bwd.py``, ``cli/profile_conv.py`` and
+``cli/profile_dcn.py`` only.
 """
 
 from __future__ import annotations
@@ -28,14 +36,16 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-BUILD_TIMEOUT_S = 300
+BUILD_TIMEOUT_S = 300       # each compile, and the link
 
 
 def round16(v: int) -> int:
@@ -70,15 +80,12 @@ SIGNATURES = {
                                _I),
     # y, res, w, bias, out, B, H, W, C, phase, stream
     "kair_conv3x3_residual": ([_P] * 5 + [_I] * 5 + [_P], _I),
-    # mutual, x, out, qkv, att, st1, bq, st3, pos, ln1, ln2, bp, b11, b12,
+    # kind, x, out, qkv, att, st1, bq, st3, pos, ln1, ln2, bp, b11, b12,
     # b2, rel_table, labels, B, D, H, W, C, NH, hidden, wd, twd, sd, sh, sw,
     # stream
     "kair_win3d_block": ([_I] + [_P] * 16 + [_I] * 12 + [_P], _I),
-    # x, out, qkv, att, wqkv, bqkv, ln1, ln2, wp, bp, w1, b1, w2, b2,
-    # rel_table, labels, B, D, H, W, C, NH, HP, twd, sd, sh, sw, stream
-    "kair_stl2_block": ([_P] * 16 + [_I] * 11 + [_P], _I),
-    # x, off, mask, w, bias, out, N, H, W, Cin, Cout, DG, stream
-    "kair_dcn": ([_P] * 6 + [_I] * 6 + [_P], _I),
+    # x, off, mask, w, bias, out, part, N, H, W, Cin, Cout, DG, splits, stream
+    "kair_dcn": ([_P] * 7 + [_I] * 7 + [_P], _I),
     # q, k, v, off, out, Bq, frames, clip, H, W, C, DG, kh, kw, stream
     "kair_gda": ([_P] * 5 + [_I] * 9 + [_P], _I),
     # feat, fy, fx, out, G, H, W, Cs, R, bf16, vec, stream
@@ -94,20 +101,23 @@ SIGNATURES = {
     "kair_swin_bwd_plan": ([_I] * 3 + [_P], _I),          # C, NH, hidden, dst (i32[10])
     "kair_conv3x3_shared_bytes": ([_I], _I),             # C
     "kair_conv3x3_plan": ([_I, _P], _I),                 # C, dst (host i32[4])
-    "kair_stl2_block_shared_bytes": ([_I] * 3, _I),      # C, NH, HP
-    # mutual, C, NH, hidden, wd, twd, dst (host i32[17])
+    # kind, C, NH, hidden, wd, twd, dst (host i32[17])
     "kair_win3d_plan": ([_I] * 6 + [_P], _I),
-    "kair_dcn_shared_bytes": ([], _I),
+    "kair_dcn_plan": ([_I] * 3 + [_P], _I),               # Cin, Cout, DG, dst (i32[8])
     "kair_error_string": ([_I], ctypes.c_char_p),
 }
 PROFILE_SIGNATURES = {
     "kair_swin_wg_cycles": ([_P, _I], _I),               # dst (host u64[8]), mode
     "kair_conv_stage_cycles": ([_P, _I], _I),    # dst (host u64[4]), products_only
     "kair_swin_bwd_cycles": ([_P], _I),                  # dst (host u64[10])
+    "kair_dcn_stage_cycles": ([_P], _I),                 # dst (host u64[6])
 }
 
 _lock = threading.Lock()
 _libs: Dict[bool, ctypes.CDLL] = {}
+# wall seconds of the last build in this process: each source's compile, the
+# link, and the whole build ("total")
+build_seconds: Dict[str, float] = {}
 
 
 def sources() -> List[Path]:
@@ -140,38 +150,79 @@ def find_nvcc() -> str:
         "and need the CUDA toolkit")
 
 
-def nvcc_command(nvcc: str, out_path: Path, profile: bool = False
-                 ) -> List[str]:
-    """The one compiler command line (a dry run: nothing is executed)."""
-    return ([nvcc] + ARCH_FLAGS
-            + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas=-v"] + (["-DKAIR_PROFILE"] if profile else [])
-            + ["-o", str(out_path)] + [str(s) for s in sources()])
+def _flags(profile: bool) -> List[str]:
+    return ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                         "-Xptxas=-v"] + (["-DKAIR_PROFILE"] if profile else [])
+
+
+def object_dir(profile: bool = False) -> Path:
+    """Where this source hash's objects are compiled."""
+    return BUILD_DIR / f"obj{'_profile' if profile else ''}.{source_hash()}"
+
+
+def nvcc_commands(nvcc: str, out_path: Path, profile: bool = False
+                  ) -> Tuple[List[List[str]], List[str]]:
+    """The compile command of each source and the link command (a dry run:
+    nothing is executed)."""
+    objs = object_dir(profile)
+    compiles = [[nvcc] + _flags(profile)
+                + ["-c", "-o", str(objs / f"{src.stem}.o"), str(src)]
+                for src in sources()]
+    link = ([nvcc] + ARCH_FLAGS + ["-shared", "-o", str(out_path)]
+            + [str(objs / f"{src.stem}.o") for src in sources()])
+    return compiles, link
+
+
+def _run_all(cmds: List[List[str]], timeout: float
+             ) -> List[Tuple[int, str, float]]:
+    """Run every command at once, each in its own process under its own
+    ``timeout``; returns each one's (exit code, output, wall seconds). A
+    command past its timeout is killed and raises RuntimeError."""
+    def run(cmd: List[str]) -> Tuple[int, str, float]:
+        t0 = time.monotonic()
+        try:
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True,
+                                  timeout=timeout)
+        except subprocess.TimeoutExpired as e:
+            raise RuntimeError(f"nvcc timed out after {timeout}s: "
+                               f"{' '.join(cmd)}") from e
+        return proc.returncode, proc.stdout, time.monotonic() - t0
+
+    with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+        return list(pool.map(run, cmds))
 
 
 def build(profile: bool = False) -> Path:
-    """Compile the library unless this source hash is already built."""
+    """Compile the library unless this source hash is already built: every
+    source in its own process, all at once, then one link."""
     out = library_path(profile)
     if out.exists():
         return out
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.monotonic()
+    object_dir(profile).mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-    cmd = nvcc_command(nvcc, tmp, profile)
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=BUILD_TIMEOUT_S)
-    except subprocess.TimeoutExpired as e:
+    compiles, link = nvcc_commands(nvcc, tmp, profile)
+    results = _run_all(compiles, BUILD_TIMEOUT_S)
+    secs = {Path(c[-1]).name: r[2] for c, r in zip(compiles, results)}
+    # ptxas -v reports registers, shared memory and spills
+    log = "".join(r[1] for r in results)
+    for c, (rc, text, _) in zip(compiles, results):
+        if rc != 0:
+            out.with_suffix(".log").write_text(log)
+            raise RuntimeError(f"nvcc failed (exit {rc}): {' '.join(c)}\n{text}")
+    t1 = time.monotonic()
+    (rc, text, _), = _run_all([link], BUILD_TIMEOUT_S)
+    out.with_suffix(".log").write_text(log + text)
+    if rc != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc timed out after {BUILD_TIMEOUT_S}s: "
-                           f"{' '.join(cmd)}") from e
-    # ptxas -v reports registers, shared memory and spills on stderr
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed (exit {rc}): {' '.join(link)}"
+                           f"\n{text}")
     os.replace(tmp, out)
+    build_seconds.clear()
+    build_seconds.update(secs, link=time.monotonic() - t1,
+                         total=time.monotonic() - t0)
     return out
 
 

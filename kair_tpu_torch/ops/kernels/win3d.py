@@ -1,17 +1,15 @@
-"""Host side of the 3-D window-block kernels: VRT's TMSA mutual block
-(``tmsa_block.py``) and self-attention (wd, 8, 8) block (``self6_block.py``),
-both in ``csrc/window3d_wgmma.cu``, and RVRT's self-only (2, 8, 8) STL block
-with a plain GELU MLP (``stl2_block.py``, ``csrc/window3d_block.cu``).
+"""Host side of the 3-D window-block kernels (``csrc/window3d_wgmma.cu``):
+VRT's TMSA mutual block (``tmsa_block.py``) and self-attention (wd, 8, 8)
+block (``self6_block.py``), and RVRT's self-only (2, 8, 8) STL block with
+a plain GELU MLP (``stl2_block.py``), three kinds of one kernel's passes.
 
-For the two VRT blocks: ``pack_win3d_stages`` builds a block's weight
-stages on the device, already in wgmma's swizzled layout, ``win3d_plan``
-mirrors the kernels' tiling and shared-memory layout (``chip_smoke.py``
-phase 1 holds it equal to the kernels' own ``kair_win3d_plan``),
-``item_walk`` and ``attn_blocks`` mirror their walks over the map, and
-``launch_win3d`` runs the three passes. For the STL2 block: ``pack_win3d``
-relays a block's parameters into its kernel's operands and ``shared_bytes``
-mirrors its passes' layouts. ``labels_on`` gives the shift mask as region
-labels and ``check_geometry`` refuses what a kernel does not take.
+``pack_win3d_stages`` builds a block's weight stages on the device,
+already in wgmma's swizzled layout, ``win3d_plan`` mirrors the kernels'
+tiling and shared-memory layout (``chip_smoke.py`` phase 1 holds it equal
+to the kernels' own ``kair_win3d_plan``), ``item_walk`` and
+``attn_blocks`` mirror their walks over the map, and ``launch_win3d`` runs
+the three passes. ``labels_on`` gives the shift mask as region labels and
+``check_geometry`` refuses what the kernels do not take.
 
 The relative-position table keeps the window depth ``twd`` it was made
 for (KAIR's module window, 6 in VRT): a block on a shallower window reads
@@ -33,108 +31,8 @@ from kair_tpu_torch.ops import window3d
 from kair_tpu_torch.ops.kernels import _build
 from kair_tpu_torch.ops.kernels._build import SMEM_LIMIT
 from kair_tpu_torch.ops.kernels.swin_block import _swizzle
-from kair_tpu_torch.ops.kernels.window_msa import HD_MAX, pack_qkv_proj
+from kair_tpu_torch.ops.kernels.window_msa import HD_MAX
 from kair_tpu_torch.ops.window3d import Tmsa3dParams
-
-WARPS = 8
-STAGE = 256                 # f32 staging floats per warp and tile
-
-
-def shared_bytes(c: int, nh: int, hp: int, p: int) -> int:
-    """Bytes of shared memory the largest of the STL2 block's three passes
-    asks (the QkvSmem / AttnSmem / MlpSmem layouts of
-    csrc/window3d_block.cu); ``p`` = 1 (self-only; ``p`` = 2 the layout a
-    mutual branch would add)."""
-    r16, a128 = _build.round16, _build.align128
-    la = r16(c) + 8
-    qkv = a128(64 * la * 2) + WARPS * STAGE * 4
-    off = 0
-    for nbytes in (64 * 40 * 2,) * 3 + (64 * 68 * 4, 64 * 72 * 2):
-        off = a128(off + nbytes)
-    attn = a128(off + 64 * 36 * 4)
-    lat, lh = p * nh * 32 + 8, hp + 8
-    x1 = a128(64 * lat * 2)
-    hbuf = a128(x1 + 64 * c * 4)
-    hid = a128(hbuf + 64 * la * 2)
-    stage = a128(hid + 64 * lh * 2)
-    mlp = stage + WARPS * 2 * STAGE * 4
-    return max(qkv, attn, mlp)
-
-
-class Win3dPack(NamedTuple):
-    """The STL2 kernel's operands (the layout note in
-    csrc/window3d_block.cu)."""
-    wqkv_s: torch.Tensor    # (CP, nh*96) bf16, q scale folded
-    bqkv_s: torch.Tensor    # (nh*96,) f32
-    wqkv_m: Optional[torch.Tensor]
-    bqkv_m: Optional[torch.Tensor]
-    pos: Optional[torch.Tensor]     # (64, C) f32
-    ln1: torch.Tensor       # (2, C) f32 scale, bias
-    ln2: torch.Tensor
-    wp: torch.Tensor        # (P*nh*32, CP) bf16, mutual heads first
-    bp: torch.Tensor        # (C,) f32
-    w11: torch.Tensor       # (CP, HP) bf16; fc1 of a plain MLP
-    b11: torch.Tensor       # (HP,) f32
-    w12: Optional[torch.Tensor]     # None for a plain MLP
-    b12: Optional[torch.Tensor]
-    w2: torch.Tensor        # (HP, CP) bf16
-    b2: torch.Tensor        # (C,) f32
-    rel_table: torch.Tensor     # f32, contiguous
-    hp: int
-
-
-def pack_win3d(p: Tmsa3dParams, num_heads: int,
-               dtype: torch.dtype = torch.bfloat16) -> Win3dPack:
-    """Relayout and cast one block's parameters for the STL2 kernel (once
-    per set of weights; the model caches it). ``dtype=torch.float32`` keeps
-    the matrices exact for checking the layout against the plain version. No
-    LayerNorm affine is folded: the mutual branch adds the position after
-    LN1's affine, so the kernels apply both affines themselves."""
-    with torch.autocast(p.qkv_self_weight.device.type, enabled=False):
-        return _pack(p, num_heads, dtype)
-
-
-def _pack(p: Tmsa3dParams, nh: int, dtype: torch.dtype) -> Win3dPack:
-    c = p.qkv_self_weight.shape[1]
-    cp = _build.round16(c)
-    hidden = p.fc11_weight.shape[0]
-    hp = _build.round16(hidden)
-    dev, f32 = p.qkv_self_weight.device, torch.float32
-    mutual = p.qkv_mut_weight is not None
-    gated = p.fc12_weight is not None
-    proj_self = p.proj_weight[:, c:] if mutual else p.proj_weight
-    wqkv_s, bqkv_s, wp = pack_qkv_proj(p.qkv_self_weight, p.qkv_self_bias,
-                                       proj_self, nh)
-    wqkv_m = bqkv_m = pos = None
-    if mutual:
-        wqkv_m, bqkv_m, wp_m = pack_qkv_proj(p.qkv_mut_weight, p.qkv_mut_bias,
-                                             p.proj_weight[:, :c], nh)
-        wp = torch.cat([wp_m, wp], 0)
-        wqkv_m = wqkv_m.to(dtype).contiguous()
-        pos = p.position_bias.reshape(64, c).float().contiguous()
-
-    def mat(w, rows, cols):                 # (out, in) weight → padded (in, out)
-        m = torch.zeros(rows, cols, device=dev, dtype=f32)
-        m[:w.shape[1], :w.shape[0]] = w.float().t()
-        return m.to(dtype).contiguous()
-
-    def vec(b, n):
-        v = torch.zeros(n, device=dev, dtype=f32)
-        v[:b.shape[0]] = b.float()
-        return v
-
-    return Win3dPack(
-        wqkv_s=wqkv_s.to(dtype).contiguous(), bqkv_s=bqkv_s.contiguous(),
-        wqkv_m=wqkv_m, bqkv_m=None if bqkv_m is None else bqkv_m.contiguous(),
-        pos=pos,
-        ln1=torch.stack([p.norm1_weight, p.norm1_bias]).float().contiguous(),
-        ln2=torch.stack([p.norm2_weight, p.norm2_bias]).float().contiguous(),
-        wp=wp.to(dtype).contiguous(), bp=p.proj_bias.float().contiguous(),
-        w11=mat(p.fc11_weight, cp, hp), b11=vec(p.fc11_bias, hp),
-        w12=mat(p.fc12_weight, cp, hp) if gated else None,
-        b12=vec(p.fc12_bias, hp) if gated else None,
-        w2=mat(p.fc2_weight, hp, cp), b2=p.fc2_bias.float().contiguous(),
-        rel_table=p.rel_table.float().contiguous(), hp=hp)
 
 
 def labels_on(dhw: Sequence[int], ws: Sequence[int], ss: Sequence[int],
@@ -160,9 +58,7 @@ def check_geometry(name: str, x: torch.Tensor, p: Tmsa3dParams,
     window depth. bf16, contiguous (B, D, H, W, C) with (wd, 8, 8) windows
     tiling it, head dim ≤ 32, a table for 8x8 windows at least wd deep, the
     parameters of the kernel's kind of block (mutual or not, GEGLU
-    (``gated``) or plain MLP), and a layout within the card's opt-in
-    limit; the GEGLU blocks (the wgmma kernels) also what ``_check_plan``
-    names."""
+    (``gated``) or plain MLP), and what ``_check_plan`` names."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name} kernel takes bfloat16, got {x.dtype}")
     if x.dim() != 5 or not x.is_contiguous():
@@ -187,17 +83,9 @@ def check_geometry(name: str, x: torch.Tensor, p: Tmsa3dParams,
             or gated != (p.fc12_weight is not None)
             or (mutual and tuple(p.proj_weight.shape) != (c, 2 * c))):
         raise ValueError(f"{name}: parameters of the wrong kind of block")
-    if gated:
-        _check_plan(name, win3d_plan(mutual, c, num_heads,
-                                     p.fc11_weight.shape[0], wd, twd),
-                    c, num_heads, mutual)
-        return twd
-    hp = _build.round16(p.fc11_weight.shape[0])
-    smem = shared_bytes(c, num_heads, hp, 1)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{name} at C={c}, {num_heads} heads needs {smem} "
-                         f"bytes of shared memory per block, over the card's "
-                         f"opt-in limit of {SMEM_LIMIT}")
+    _check_plan(name, win3d_plan(mutual, c, num_heads, p.fc11_weight.shape[0],
+                                 wd, twd, not gated),
+                c, num_heads, mutual, not gated)
     return twd
 
 
@@ -211,8 +99,11 @@ RING = 4                    # weight stages in shared memory
 MAX_STAGES = 64             # weight stages per 64-token item
 STATIC_SMEM = MAX_STAGES * 8    # the stage table
 # width classes (NT, HD, VD): the accumulator width that holds C, the q/k
-# head width (the depth of QK^T) and the v head width (the N of PV)
+# head width (the depth of QK^T) and the v head width (the N of PV); VRT's
+# GEGLU blocks take the first three, RVRT's STL block (plain MLP) the last
+# two, its widths C = 144 and 192
 WIDTHS = ((96, 16, 16), (120, 32, 24), (184, 32, 32))
+PLAIN_WIDTHS = ((144, 32, 24), (192, 32, 32))
 
 
 class Win3dPlan(NamedTuple):
@@ -236,22 +127,31 @@ class Win3dPlan(NamedTuple):
     fits: bool      # the kernels take this geometry
 
 
-def width_class(c: int) -> Tuple[int, int, int]:
-    """(NT, HD, VD) of the narrowest width class that holds C."""
-    return next((w for w in WIDTHS if c <= w[0]), WIDTHS[-1])
+def width_class(c: int, plain: bool = False) -> Tuple[int, int, int]:
+    """(NT, HD, VD) of the narrowest width class that holds C, among the
+    GEGLU blocks' classes or (``plain``) the STL block's."""
+    widths = PLAIN_WIDTHS if plain else WIDTHS
+    return next((w for w in widths if c <= w[0]), widths[-1])
+
+
+def kind(mutual: bool, plain: bool) -> int:
+    """The C entries' kind: 0 the self block, 1 the TMSA block, 2 the STL
+    block (plain MLP)."""
+    return 2 if plain else int(mutual)
 
 
 @lru_cache(maxsize=64)
 def win3d_plan(mutual: bool, c: int, nh: int, hidden: int, wd: int,
-               twd: int) -> Win3dPlan:
+               twd: int, plain: bool = False) -> Win3dPlan:
     """The kernels' tiling and shared-memory layout (Plan in
     csrc/window3d_wgmma.cu): passes 1 and 3 a ring of RING weight stages,
     two LN outputs, (pass 1) two q/k/v staging tiles, their f32 vectors and
     the ring's barriers; pass 2 per
     branch the head's K rows (2·HD bytes each) and vᵀ chunks, the table's
-    column and the window's labels."""
+    column and the window's labels. ``plain``: the STL block (the self
+    block with a plain MLP), never mutual."""
     a128, a1024 = _build.align128, lambda v: -(-v // 1024) * 1024
-    nt, hdp, vdp = width_class(c)
+    nt, hdp, vdp = width_class(c, plain)
     hd = c // nh if nh else 0
     p = 2 if mutual else 1
     hw = 2 * hdp + vdp
@@ -266,7 +166,8 @@ def win3d_plan(mutual: bool, c: int, nh: int, hidden: int, wd: int,
     smem3 = RING * slot3 + 2 * ab + a128((4 * c + 2 * hc * 64) * 4) + tail
     smem2 = (p * (wd * 64 * 2 * hdp + wd * vdp * 128)
              + a128((2 * twd - 1) * 225 * 4) + a128(wd * 64 * 4) + 1024)
-    fits = (2 <= c <= WIDTHS[-1][0] and c % 2 == 0 and nh >= 2
+    cmax = (PLAIN_WIDTHS if plain else WIDTHS)[-1][0]
+    fits = (2 <= c <= cmax and c % 2 == 0 and nh >= 2
             and nh % 2 == 0 and c % nh == 0 and hd % 2 == 0 and hd <= vdp
             and not (mutual and (nt == WIDTHS[-1][0] or wd != 2 or twd != 2))
             and hidden >= 1 and wd >= 1 and twd >= wd
@@ -277,13 +178,14 @@ def win3d_plan(mutual: bool, c: int, nh: int, hidden: int, wd: int,
 
 
 def _check_plan(name: str, pl: Win3dPlan, c: int, nh: int,
-                mutual: bool) -> None:
+                mutual: bool, plain: bool = False) -> None:
     """What the wgmma kernels refuse, that the WMMA kernels before them took:
-    C above 184, an odd head count, an odd head dim or one wider than its
-    width class's v width (16 up to C=96, 24 up to 120), a TMSA block above
-    C=120."""
-    if c > WIDTHS[-1][0]:
-        raise ValueError(f"{name} takes C <= {WIDTHS[-1][0]} (the widest "
+    C above 184 (192 for the STL block), an odd head count, an odd head dim
+    or one wider than its width class's v width (16 up to C=96, 24 up to
+    120, and up to 144 for the STL block), a TMSA block above C=120."""
+    cmax = (PLAIN_WIDTHS if plain else WIDTHS)[-1][0]
+    if c > cmax:
+        raise ValueError(f"{name} takes C <= {cmax} (the widest "
                          f"accumulator class), got C={c}")
     if nh % 2:
         raise ValueError(f"{name} needs an even number of heads (one qkv "
@@ -301,15 +203,17 @@ def _check_plan(name: str, pl: Win3dPlan, c: int, nh: int,
 
 
 @lru_cache(maxsize=64)
-def stage_rows(pl: Win3dPlan, nh: int
+def stage_rows(pl: Win3dPlan, nh: int, plain: bool = False
                ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
     """Rows of each weight stage of an item, in the order the ring streams
     them (every row holds 64 K values): pass 1 per branch, head pair and K
     chunk the pair's q, k, v columns; pass 3 proj per K chunk, then per
-    hidden chunk its fc11 | fc12 K chunks and its fc2."""
+    hidden chunk its fc11 | fc12 K chunks (``plain``: its fc1 K chunks) and
+    its fc2."""
     nq = 2 * (2 * pl.hdp + pl.vdp)
     return ((nq,) * pl.stages1,
-            (pl.nt,) * pl.kcp + ((128,) * pl.kc + (pl.nt,)) * pl.hc)
+            (pl.nt,) * pl.kcp
+            + ((64 if plain else 128,) * pl.kc + (pl.nt,)) * pl.hc)
 
 
 class Win3dStages(NamedTuple):
@@ -322,7 +226,7 @@ class Win3dStages(NamedTuple):
     ln2: torch.Tensor
     bp: torch.Tensor        # (C,) f32
     b11: torch.Tensor       # (hc·64,) f32
-    b12: torch.Tensor
+    b12: Optional[torch.Tensor]     # None for a plain MLP
     b2: torch.Tensor        # (C,) f32
     rel_table: torch.Tensor     # (nh, (2twd−1)·225) f32, a head a row
     hidden: int
@@ -330,8 +234,8 @@ class Win3dStages(NamedTuple):
 
 def pack_win3d_stages(p: Tmsa3dParams, num_heads: int,
                       dtype: torch.dtype = torch.bfloat16) -> Win3dStages:
-    """One GEGLU block's parameters → the wgmma kernels' operands, on the
-    parameters' device (once per set of weights; the model caches it): the
+    """One block's parameters (GEGLU, or a plain MLP: no fc12) → the wgmma
+    kernels' operands, on the parameters' device (once per set of weights; the model caches it): the
     q scale folded into q's rows, then each pass's stages in one gather
     through an index cached per geometry, so a training model, which packs
     its blocks anew after every optimizer step, runs a few ops per block.
@@ -345,6 +249,7 @@ def _pack_stages(p: Tmsa3dParams, nh: int, dtype: torch.dtype) -> Win3dStages:
     hidden = p.fc11_weight.shape[0]
     dev, f32 = p.qkv_self_weight.device, torch.float32
     mutual = p.qkv_mut_weight is not None
+    plain = p.fc12_weight is None
     ws = [p.qkv_self_weight] + ([p.qkv_mut_weight] if mutual else [])
     bs = [p.qkv_self_bias, p.qkv_mut_bias][:len(ws)]
     w = torch.cat([t.float() for t in ws])                # (P·3C, C), a copy
@@ -360,33 +265,36 @@ def _pack_stages(p: Tmsa3dParams, nh: int, dtype: torch.dtype) -> Win3dStages:
         v[:t.shape[0]] = t.float()
         return v
 
+    mlp = ((_plain_stage_layout, (p.proj_weight, p.fc11_weight,
+                                   p.fc2_weight)) if plain
+           else (_mlp_stage_layout, (p.proj_weight, p.fc11_weight,
+                                     p.fc12_weight, p.fc2_weight)))
     return Win3dStages(
-        st1=_gather(_qkv_stage_layout, (w,), c, nh).to(dtype),
-        bq=_gather(_qkv_bias_layout, (b,), c, nh),
-        st3=_gather(_mlp_stage_layout, (p.proj_weight, p.fc11_weight,
-                                        p.fc12_weight, p.fc2_weight),
-                    c, nh).to(dtype),
+        st1=_gather(_qkv_stage_layout, (w,), c, nh, plain).to(dtype),
+        bq=_gather(_qkv_bias_layout, (b,), c, nh, plain),
+        st3=_gather(*mlp, c, nh, plain).to(dtype),
         pos=(p.position_bias.reshape(64, c).float().contiguous() if mutual
              else None),
         ln1=torch.stack([p.norm1_weight, p.norm1_bias]).float().contiguous(),
         ln2=torch.stack([p.norm2_weight, p.norm2_bias]).float().contiguous(),
         bp=p.proj_bias.float().contiguous(), b11=vec(p.fc11_bias, hc * KC),
-        b12=vec(p.fc12_bias, hc * KC), b2=p.fc2_bias.float().contiguous(),
+        b12=None if plain else vec(p.fc12_bias, hc * KC),
+        b2=p.fc2_bias.float().contiguous(),
         rel_table=p.rel_table.float().t().contiguous(), hidden=hidden)
 
 
-def _gather(layout, mats: Tuple[torch.Tensor, ...], c: int, nh: int
-            ) -> torch.Tensor:
-    """``layout(*mats, c, nh)`` as one gather, flat f32."""
+def _gather(layout, mats: Tuple[torch.Tensor, ...], c: int, nh: int,
+            plain: bool) -> torch.Tensor:
+    """``layout(*mats, c, nh, plain)`` as one gather, flat f32."""
     idx = _layout_index(layout, tuple(tuple(m.shape) for m in mats), c, nh,
-                        str(mats[0].device))
+                        plain, str(mats[0].device))
     return torch.cat([m.reshape(-1).float() for m in mats]
                      + [mats[0].new_zeros(1, dtype=torch.float32)])[idx]
 
 
 @lru_cache(maxsize=64)
 def _layout_index(layout, shapes: Tuple[Tuple[int, ...], ...], c: int,
-                  nh: int, device: str) -> torch.Tensor:
+                  nh: int, plain: bool, device: str) -> torch.Tensor:
     """Where each element of ``layout`` comes from in the matrices'
     concatenation, flattened, with one zero after it for the padding:
     ``layout`` of matrices that hold their own flat positions (float64:
@@ -396,7 +304,7 @@ def _layout_index(layout, shapes: Tuple[Tuple[int, ...], ...], c: int,
         total = sum(sizes)
         src = torch.arange(1, total + 1, dtype=torch.float64)
         mats = [t.view(s) for t, s in zip(torch.split(src, sizes), shapes)]
-        idx = layout(*mats, c, nh).long() - 1
+        idx = layout(*mats, c, nh, plain).long() - 1
         idx[idx < 0] = total
         return idx.to(device)
 
@@ -406,10 +314,10 @@ def _pad(m: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return F.pad(m, (0, cols - m.shape[1], 0, rows - m.shape[0]))
 
 
-def _heads(t: torch.Tensor, c: int, nh: int) -> torch.Tensor:
+def _heads(t: torch.Tensor, c: int, nh: int, plain: bool) -> torch.Tensor:
     """(P·3C, ...) qkv rows → (P, nh, 2HD + VD, ...): each head's q, k and v
     rows at the widths of C's class, zero rows between."""
-    _, hdp, vdp = width_class(c)
+    _, hdp, vdp = width_class(c, plain)
     hd, p = c // nh, t.shape[0] // (3 * c)
     tv = t.reshape(p, 3, nh, hd, *t.shape[1:])
     out = t.new_zeros(p, nh, 2 * hdp + vdp, *t.shape[1:])
@@ -418,32 +326,49 @@ def _heads(t: torch.Tensor, c: int, nh: int) -> torch.Tensor:
     return out
 
 
-def _qkv_stage_layout(w: torch.Tensor, c: int, nh: int) -> torch.Tensor:
+def _qkv_stage_layout(w: torch.Tensor, c: int, nh: int, plain: bool
+                      ) -> torch.Tensor:
     """Pass 1's stages from the scaled qkv rows (P·3C, C): per branch, head
     pair and K chunk, the pair's 2(2HD + VD) rows of 64 K values."""
-    _, hdp, vdp = width_class(c)
+    _, hdp, vdp = width_class(c, plain)
     kc, hw = -(-c // KC), 2 * hdp + vdp
-    st = _heads(_pad(w, w.shape[0], kc * KC), c, nh)
+    st = _heads(_pad(w, w.shape[0], kc * KC), c, nh, plain)
     st = st.reshape(st.shape[0], nh // 2, 2 * hw, kc, KC).transpose(2, 3)
     return _swizzle(st.contiguous()).reshape(-1)
 
 
-def _qkv_bias_layout(b: torch.Tensor, c: int, nh: int) -> torch.Tensor:
+def _qkv_bias_layout(b: torch.Tensor, c: int, nh: int, plain: bool
+                     ) -> torch.Tensor:
     """The scaled qkv biases (P·3C,) in the q/k/v map's column order."""
-    return _heads(b, c, nh).reshape(-1)
+    return _heads(b, c, nh, plain).reshape(-1)
 
 
 def _mlp_stage_layout(wp: torch.Tensor, w11: torch.Tensor, w12: torch.Tensor,
-                      w2: torch.Tensor, c: int, nh: int) -> torch.Tensor:
+                      w2: torch.Tensor, c: int, nh: int, plain: bool = False
+                      ) -> torch.Tensor:
     """Pass 3's stages from KAIR's (out, in) weights: proj per K chunk of
     P·C (NT rows), then per hidden chunk its fc11 | fc12 K chunks (128
     rows) and its fc2 (NT rows)."""
-    nt = width_class(c)[0]
+    nt = width_class(c, plain)[0]
     kc, kcp, hc = -(-c // KC), -(-wp.shape[1] // KC), -(-w11.shape[0] // KC)
     sw = lambda m: _swizzle(m.contiguous())
     pj = _pad(wp, nt, kcp * KC).reshape(nt, kcp, KC).transpose(0, 1)
     f1 = torch.cat([_pad(m, hc * KC, kc * KC).reshape(hc, KC, kc, KC)
                     for m in (w11, w12)], 1).transpose(1, 2)
+    f2 = _pad(w2, nt, hc * KC).reshape(nt, hc, KC).transpose(0, 1)
+    per_chunk = torch.cat([sw(f1).reshape(hc, -1), sw(f2).reshape(hc, -1)], 1)
+    return torch.cat([sw(pj).reshape(-1), per_chunk.reshape(-1)])
+
+
+def _plain_stage_layout(wp: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                        c: int, nh: int, plain: bool = True) -> torch.Tensor:
+    """The STL block's pass-3 stages: proj per K chunk of C (NT rows), then
+    per hidden chunk its fc1 K chunks (64 rows) and its fc2 (NT rows)."""
+    nt = width_class(c, True)[0]
+    kc, kcp, hc = -(-c // KC), -(-wp.shape[1] // KC), -(-w1.shape[0] // KC)
+    sw = lambda m: _swizzle(m.contiguous())
+    pj = _pad(wp, nt, kcp * KC).reshape(nt, kcp, KC).transpose(0, 1)
+    f1 = _pad(w1, hc * KC, kc * KC).reshape(hc, KC, kc, KC).transpose(1, 2)
     f2 = _pad(w2, nt, hc * KC).reshape(nt, hc, KC).transpose(0, 1)
     per_chunk = torch.cat([sw(f1).reshape(hc, -1), sw(f2).reshape(hc, -1)], 1)
     return torch.cat([sw(pj).reshape(-1), per_chunk.reshape(-1)])
@@ -477,21 +402,24 @@ def attn_blocks(b: int, d: int, h: int, w: int, wd: int, nh: int
 
 
 def _check_pack(name: str, x: torch.Tensor, pk: Win3dStages, pl: Win3dPlan,
-                nh: int, mutual: bool) -> None:
+                nh: int, mutual: bool, plain: bool = False) -> None:
     """The stages bf16, contiguous, of the plan's size, 16-byte aligned (the
-    bulk copies' rule), on x's device; the vectors f32 there; the TMSA
-    block's position; fewer than 2^31 tokens."""
-    rows1, rows3 = stage_rows(pl, nh)
+    bulk copies' rule), on x's device; the vectors f32 there (no fc12 bias
+    for the plain MLP); the TMSA block's position; fewer than 2^31
+    tokens."""
+    rows1, rows3 = stage_rows(pl, nh, plain)
     for st, rows in ((pk.st1, rows1), (pk.st3, rows3)):
         if (st.dtype != torch.bfloat16 or st.device != x.device
                 or not st.is_contiguous() or st.numel() != sum(rows) * KC
                 or st.data_ptr() % 16):
             raise ValueError(f"{name} needs contiguous, 16-byte aligned bf16 "
                              f"weight stages of the plan's size on {x.device}")
-    vecs = (pk.bq, pk.ln1, pk.ln2, pk.bp, pk.b11, pk.b12, pk.b2, pk.rel_table)
-    if any(t.dtype != torch.float32 or t.device != x.device
-           or not t.is_contiguous() for t in vecs):
-        raise ValueError(f"{name} needs its packed vectors f32 on {x.device}")
+    vecs = (pk.bq, pk.ln1, pk.ln2, pk.bp, pk.b11, pk.b2, pk.rel_table) + (
+        () if plain else (pk.b12,))
+    if any(t is None or t.dtype != torch.float32 or t.device != x.device
+           or not t.is_contiguous() for t in vecs) or (plain != (pk.b12 is None)):
+        raise ValueError(f"{name} needs its packed vectors f32 on {x.device}, "
+                         f"{'without' if plain else 'with'} an fc12 bias")
     if mutual and (pk.pos is None or pk.pos.device != x.device):
         raise ValueError(f"{name} needs the sine position on {x.device}")
     if x.numel() // x.shape[-1] >= 2 ** 31:
@@ -500,12 +428,13 @@ def _check_pack(name: str, x: torch.Tensor, pk: Win3dStages, pl: Win3dPlan,
 
 def launch_win3d(name: str, x: torch.Tensor, pk: Win3dStages, nh: int,
                  wd: int, twd: int, shift: Sequence[int],
-                 mutual: bool) -> torch.Tensor:
-    """The three passes of ``kair_win3d_block`` on a checked x; the q/k/v
-    and attention maps are scratch of this call."""
+                 mutual: bool, plain: bool = False) -> torch.Tensor:
+    """The three passes of ``kair_win3d_block`` on a checked x, the block of
+    kind (``mutual``, ``plain``); the q/k/v and attention maps are scratch
+    of this call."""
     b, d, h, w, c = x.shape
-    pl = win3d_plan(mutual, c, nh, pk.hidden, wd, twd)
-    _check_pack(name, x, pk, pl, nh, mutual)
+    pl = win3d_plan(mutual, c, nh, pk.hidden, wd, twd, plain)
+    _check_pack(name, x, pk, pl, nh, mutual, plain)
     t = b * d * h * w
     qkv = torch.empty(t, pl.qkvw, dtype=x.dtype, device=x.device)
     att = torch.empty(t, pl.aw, dtype=x.dtype, device=x.device)
@@ -515,11 +444,11 @@ def launch_win3d(name: str, x: torch.Tensor, pk: Win3dStages, nh: int,
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.kair_win3d_block(
-            int(mutual), x.data_ptr(), out.data_ptr(), qkv.data_ptr(),
+            kind(mutual, plain), x.data_ptr(), out.data_ptr(), qkv.data_ptr(),
             att.data_ptr(), pk.st1.data_ptr(), pk.bq.data_ptr(),
             pk.st3.data_ptr(), ptr(pk.pos), pk.ln1.data_ptr(),
             pk.ln2.data_ptr(), pk.bp.data_ptr(), pk.b11.data_ptr(),
-            pk.b12.data_ptr(), pk.b2.data_ptr(), pk.rel_table.data_ptr(),
+            ptr(pk.b12), pk.b2.data_ptr(), pk.rel_table.data_ptr(),
             ptr(lab), b, d, h, w, c, nh, pk.hidden, wd, twd, *map(int, shift),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, f"{name} (wd {wd})")

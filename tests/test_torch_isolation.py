@@ -88,33 +88,75 @@ def test_build_preset_without_card_raises(monkeypatch, tmp_path):
 
 
 def test_nvcc_command_is_one_plain_call():
+    """One plain nvcc call for each source (compile only, sm_90a, no
+    PyTorch headers), all started together, then one plain nvcc link of
+    their objects into the library."""
     out = pathlib.Path("/nonexistent/libkair_kernels.so")
-    cmd = _build.nvcc_command("nvcc", out)
-    assert cmd[0] == "nvcc"
-    i = cmd.index("-gencode")
-    assert cmd[i + 1] == "arch=compute_90a,code=sm_90a"
-    assert "-shared" in cmd and str(out) in cmd
-    srcs = {pathlib.Path(a).name for a in cmd if a.endswith(".cu")}
-    assert srcs == {"swin_block_wgmma.cu", "conv_block.cu",
-                    "swin_block_bwd_wgmma.cu", "window3d_block.cu",
-                    "window3d_wgmma.cu", "dcn_block.cu", "gda_block.cu",
-                    "bilin_sample.cu"}
+    compiles, link = _build.nvcc_commands("nvcc", out)
+    srcs = []
+    for cmd in compiles:
+        assert cmd[0] == "nvcc"
+        i = cmd.index("-gencode")
+        assert cmd[i + 1] == "arch=compute_90a,code=sm_90a"
+        assert "-c" in cmd and "-shared" not in cmd
+        cu = [a for a in cmd if a.endswith(".cu")]
+        assert len(cu) == 1
+        srcs.append(pathlib.Path(cu[0]).name)
+        obj = pathlib.Path(cmd[cmd.index("-o") + 1])
+        assert obj.parent == _build.object_dir()
+        assert obj.name == pathlib.Path(cu[0]).stem + ".o"
+    assert set(srcs) == {"swin_block_wgmma.cu", "conv_block.cu",
+                         "swin_block_bwd_wgmma.cu", "window3d_wgmma.cu",
+                         "dcn_block.cu", "gda_block.cu", "bilin_sample.cu"}
+    assert len(srcs) == len(set(srcs))
+    assert link[0] == "nvcc" and "-shared" in link and str(out) in link
+    assert link[link.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert sorted(a for a in link if a.endswith(".o")) == sorted(
+        str(_build.object_dir() / f"{pathlib.Path(s).stem}.o") for s in srcs)
     torch_inc = os.path.dirname(torch.__file__)
-    assert not any(a.startswith("-I") or torch_inc in a for a in cmd), cmd
+    for cmd in compiles + [link]:
+        assert not any(a.startswith("-I") or torch_inc in a for a in cmd), cmd
     assert _build.BUILD_DIR == REPO / "kair_tpu_torch" / "_build"
     assert _build.library_path().parent == _build.BUILD_DIR
+    assert _build.object_dir().parent == _build.BUILD_DIR
 
 
 def test_profile_build_is_its_own_library():
     """-DKAIR_PROFILE (the stage-cycle marks) goes only into the profile
     library; the kernels' own build has no marks."""
     out = pathlib.Path("/nonexistent/lib.so")
-    assert "-DKAIR_PROFILE" not in _build.nvcc_command("nvcc", out)
-    prof = _build.nvcc_command("nvcc", out, profile=True)
-    assert "-DKAIR_PROFILE" in prof
-    assert prof[prof.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    compiles, link = _build.nvcc_commands("nvcc", out)
+    assert not any("-DKAIR_PROFILE" in c for c in compiles + [link])
+    prof, plink = _build.nvcc_commands("nvcc", out, profile=True)
+    for c in prof:
+        assert "-DKAIR_PROFILE" in c
+        assert c[c.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
     assert _build.library_path(True) != _build.library_path()
     assert _build.library_path(True).parent == _build.BUILD_DIR
+    assert _build.object_dir(True) != _build.object_dir()
+    assert all(str(_build.object_dir(True)) in a
+               for a in plink if a.endswith(".o"))
+
+
+def test_parallel_build_runs_every_command_and_times_it(tmp_path):
+    """``_run_all`` starts the commands together (each waits until all of
+    them have started, which commands run one after another never do),
+    returns each one's exit code, output and seconds in order, and raises
+    on one past its timeout."""
+    wait = (f"import pathlib, time\nd = pathlib.Path(r'{tmp_path}')\n"
+            "(d / '{i}').touch()\nt = time.monotonic()\n"
+            "while len(list(d.iterdir())) < 3 and time.monotonic() - t < 50:\n"
+            "    time.sleep(0.01)\n"
+            "print(len(list(d.iterdir())), {i})\nraise SystemExit({i} % 2)\n")
+    cmds = [[sys.executable, "-c", wait.replace("{i}", str(i))]
+            for i in range(3)]
+    res = _build._run_all(cmds, 60)
+    assert [(rc, out.split()) for rc, out, _ in res] == [
+        (0, ["3", "0"]), (1, ["3", "1"]), (0, ["3", "2"])]
+    assert all(0 < sec < 50 for _, _, sec in res)
+    with pytest.raises(RuntimeError, match="timed out"):
+        _build._run_all([[sys.executable, "-c", "import time; "
+                          "time.sleep(5)"]], 0.3)
 
 
 def test_gitignore_lists_build_dir():

@@ -1,6 +1,6 @@
 """The port's two RVRT kernels on the CPU, f32: their plain versions
-against the JAX package's Pallas kernels in interpret mode, replays of the
-CUDA kernels' layouts, and the shared-memory arithmetic.
+against the JAX package's Pallas kernels in interpret mode, a replay of
+the GDA kernel, and the checks before a launch.
 
 * ``stl2_block`` (plain version) against ``stl2_block_pallas`` at
   1x4x16x16 (unshifted, shift (1, 4, 4)) and 1x2x16x16 (shift (0, 4, 4)),
@@ -15,11 +15,11 @@ CUDA kernels' layouts, and the shared-memory arithmetic.
   sizes, offsets up to ±3 and ±30 px; the un-rotated KV pairing (two
   query frames per KV clip) against the JAX module's rotated stacks. atol
   1e-4.
-* Replays in PyTorch of the CUDA kernels on their operands: the STL2
-  block's three passes with the plain MLP in pass 3, and the GDA kernel's
-  (pixel, group) walk over taps with the (n + j) % clip pairing in its
-  indices and an online softmax, against the plain versions, atol 1e-4.
-  The kernels themselves run only on the card (chip_smoke.py phases 17-19).
+* A replay in PyTorch of the GDA kernel's (pixel, group) walk over taps
+  with the (n + j) % clip pairing in its indices and an online softmax,
+  against the plain version, atol 1e-4; the STL2 block's replay (the wgmma
+  passes' plain-MLP kind) is in tests/test_torch_stl2_wgmma.py. The
+  kernels themselves run only on the card (chip_smoke.py phases 17-19).
 """
 
 from unittest import mock
@@ -40,11 +40,9 @@ from kair_tpu.ops.pallas.tmsa_block import tmsa_mask_patterns
 from kair_tpu_torch.models import vrt as tvrt
 from kair_tpu_torch.ops import deform_attn, window3d
 from kair_tpu_torch.ops.kernels import gda_block, stl2_block, win3d
-from kair_tpu_torch.ops.kernels.win3d import labels_on, pack_win3d, shared_bytes
-from kair_tpu_torch.ops.kernels.window_msa import SMEM_LIMIT
 from kair_tpu_torch.ops.window_attention import relative_position_index
 from tests.test_torch_vrt_kernels import (_jroll, _x, block_weights,
-                                          emulate_win3d, torch_params)
+                                          torch_params)
 
 ATOL = 1e-4
 C, NH = 24, 2
@@ -210,21 +208,6 @@ def test_gda_frames_pairing_matches_the_jax_rotation():
 # replays of the CUDA kernels
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dhw,shift", [((2, 16, 16), (0, 4, 4)),
-                                       ((4, 16, 24), (1, 4, 4))])
-def test_stl2_kernel_layout_matches_plain(dhw, shift):
-    """csrc/window3d_block.cu's passes on the packed STL2 operands: pass 3
-    runs fc1 → exact GELU alone (the pack has no fc12)."""
-    x = torch.from_numpy(_x((1, *dhw, C), 15))
-    p = stl_params(block_weights(C, NH, 2, False, 16), C)
-    pk = pack_win3d(p, NH, torch.float32)
-    assert pk.w12 is None and pk.b12 is None
-    got = emulate_win3d(x, pk, NH, 2, 2, shift, labels_on(dhw, (2, 8, 8), shift,
-                                                          "cpu"), False)
-    want = stl2_block.stl2_block_reference(x, p, NH, shift)
-    torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
-
-
 def emulate_gda(q, k, v, off, kh, kw, dg, frames):
     """csrc/gda_block.cu in PyTorch, f32: per (query pixel, group), the taps
     s = (n, tap) in order, each at the pixel + (tap / kw − kh / 2,
@@ -289,16 +272,8 @@ def test_gda_kernel_layout_matches_plain(frames, off_scale):
 
 
 # ---------------------------------------------------------------------------
-# shared memory and the checks before a launch
+# the checks before a launch
 # ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("c,want", [(144, 136192), (192, 166912)])
-def test_stl2_shared_memory_arithmetic(c, want):
-    """The STL2 block's largest pass (pass 3, the self block's layout) at
-    RVRT's widths, 6 heads, hidden 2C: within the card's opt-in limit."""
-    assert shared_bytes(c, 6, 2 * c, 1) == want
-    assert want <= SMEM_LIMIT
-
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
     x = torch.zeros(1, 2, 16, 16, C, dtype=torch.bfloat16)

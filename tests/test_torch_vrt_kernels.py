@@ -10,12 +10,12 @@ kernels' packed layouts, and the shared-memory arithmetic.
   route, with taps outside the frame. atol 1e-4. The Pallas bodies use the
   A&S GELU (~1.5e-7), a max-free softmax, folded LN affines, and keep the
   score bias in bf16, so the tables here hold bf16-representable values.
-* Replays in PyTorch of the CUDA kernels' passes on their packed operands
-  (the shift folded into the window indices, the bias gathered from the
-  table, the mask from region labels, 64-key tiles with an online softmax;
-  the DCN's (group, tap, channel) columns) against the plain versions,
-  atol 1e-4. The kernels themselves run only on the card (chip_smoke.py
-  phases 13-15).
+* Replays in PyTorch of the TMSA and self kernels' passes on their packed
+  operands (the shift folded into the window indices, the bias gathered
+  from the table, the mask from region labels, 64-key tiles with an online
+  softmax) against the plain versions, atol 1e-4; the DCN kernel's replay
+  is in tests/test_torch_dcn_wgmma.py. The kernels themselves run only on
+  the card (chip_smoke.py phases 13-15).
 """
 
 import contextlib
@@ -25,7 +25,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
 import kair_tpu.ops.pallas.self6_block as js6
 from kair_tpu.models.vrt import rel_position_index_3d as j_rel_index
@@ -196,85 +195,6 @@ def test_dcn_plain_matches_pallas_and_gather():
 # replays of the CUDA kernels' passes on their packed operands
 # ---------------------------------------------------------------------------
 
-def emulate_win3d(x, pk, nh, wd, twd, shift, labels, mutual):
-    """csrc/window3d_block.cu's three passes in PyTorch, f32: per-pixel passes 1
-    and 3, pass 2 per (window, head, 64-query tile) with the shift folded
-    into the indices and an online softmax over 64-key tiles; pass 3's MLP
-    is the GEGLU, or the plain fc1 → GELU of a pack without fc12."""
-    b, d, h, w, c = x.shape
-    xf = x.reshape(-1, c)
-    qw, p = nh * 96, 2 if mutual else 1
-    hn = F.layer_norm(xf, (c,), pk.ln1[0], pk.ln1[1], 1e-5)
-    hpad = F.pad(hn, (0, pk.wqkv_s.shape[0] - c))
-    qkv = [hpad @ pk.wqkv_s + pk.bqkv_s]
-    if mutual:
-        yy = torch.arange(h)[None, :, None].expand(d, h, w).reshape(-1)
-        xx = torch.arange(w)[None, None, :].expand(d, h, w).reshape(-1)
-        loc = (((yy - shift[1]) % h) % 8) * 8 + ((xx - shift[2]) % w) % 8
-        hm = F.pad(hn + pk.pos[loc.repeat(b)], (0, pk.wqkv_m.shape[0] - c))
-        qkv.append(hm @ pk.wqkv_m + pk.bqkv_m)
-    qkv = torch.cat(qkv, 1)
-    att = torch.zeros(xf.shape[0], p * nh * 32)
-    n = wd * 64
-    t = torch.arange(n)
-    td, ty, tx = t // 64, t // 8 % 8, t % 8
-    rel_idx = ((td[:, None] - td[None] + twd - 1) * 225
-               + (ty[:, None] - ty[None] + 7) * 15 + (tx[:, None] - tx[None] + 7))
-    nwd, nwh, nww = d // wd, h // 8, w // 8
-    for bi in range(b):
-        for wi in range(nwd):
-            for wj in range(nwh):
-                for wk in range(nww):
-                    pix = ((bi * d + (wi * wd + td + shift[0]) % d) * h
-                           + (wj * 8 + ty + shift[1]) % h) * w \
-                        + (wk * 8 + tx + shift[2]) % w
-                    lab = None
-                    if labels is not None:
-                        lab = labels[4 * (wi == nwd - 1) + 2 * (wj == nwh - 1)
-                                     + (wk == nww - 1)]
-                    for head in range(nh):
-                        tiles = [(False, qt, qt, range(wd)) for qt in range(wd)]
-                        if mutual:
-                            tiles += [(True, f, 1 - f, [f]) for f in range(2)]
-                        for mut, out_t, q_t, key_tiles in tiles:
-                            col = (qw if mut else 0) + head * 96
-                            qi = q_t * 64 + torch.arange(64)
-                            q = qkv[pix[qi], col:col + 32]
-                            m_run = torch.full((64,), -1e30)
-                            l_run = torch.zeros(64)
-                            o = torch.zeros(64, 32)
-                            for kt in key_tiles:
-                                kj = kt * 64 + torch.arange(64)
-                                k = qkv[pix[kj], col + 32:col + 64]
-                                v = qkv[pix[kj], col + 64:col + 96]
-                                s = q @ k.t()
-                                if mut:
-                                    if lab is not None:
-                                        l64 = lab[:64]
-                                        s = s - 100.0 * (l64[:, None] != l64[None])
-                                else:
-                                    s = s + pk.rel_table[rel_idx[qi][:, kj], head]
-                                    if lab is not None:
-                                        s = s - 100.0 * (lab[qi][:, None]
-                                                         != lab[kj][None])
-                                mx = torch.maximum(m_run, s.max(1).values)
-                                corr = torch.exp(m_run - mx)
-                                e = torch.exp(s - mx[:, None])
-                                l_run = l_run * corr + e.sum(1)
-                                o = o * corr[:, None] + e @ v
-                                m_run = mx
-                            acol = (nh * 32 if mutual and not mut else 0) \
-                                + head * 32
-                            oi = out_t * 64 + torch.arange(64)
-                            att[pix[oi], acol:acol + 32] = o / l_run[:, None]
-    x1 = xf + (att @ pk.wp)[:, :c] + pk.bp
-    z = F.pad(F.layer_norm(x1, (c,), pk.ln2[0], pk.ln2[1], 1e-5),
-              (0, pk.w11.shape[0] - c))
-    u = z @ pk.w11 + pk.b11
-    hid = F.gelu(u) if pk.w12 is None else F.gelu(u) * (z @ pk.w12 + pk.b12)
-    return (x1 + (hid @ pk.w2)[:, :c] + pk.b2).reshape(x.shape)
-
-
 REPLAY_CASES = [  # (mutual, wd, twd, (d, h, w), shift)
     (True, 2, 2, (4, 16, 16), (0, 0, 0)), (True, 2, 2, (4, 16, 24), (1, 4, 4)),
     (False, 6, 6, (6, 16, 16), (0, 4, 4)), (False, 2, 6, (2, 16, 16), (0, 4, 4)),
@@ -294,39 +214,6 @@ def test_win3d_kernel_layout_matches_plain(mutual, wd, twd, dhw, shift):
     got = emulate_win3d_wgmma(x, pk, NH, wd, twd, shift, labels, mutual)
     want = (tmsa_block.tmsa_block_reference(x, p, NH, shift) if mutual
             else self6_block.self6_block_reference(x, p, NH, wd, shift))
-    torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
-
-
-def test_dcn_kernel_layout_matches_plain():
-    """Columns decoded from the flat column index as the kernel does, times
-    the packed [KP][CP] weight."""
-    x, off, mask, weight, bias = map(torch.from_numpy, dcn_inputs())
-    dg = 3
-    n, h, w, cin = x.shape
-    cg, kc = cin // dg, 9 * cin
-    pk = dcn_block.pack_dcn_weight(weight, dg, torch.float32)
-    col = torch.arange(kc)
-    g, k, c = col // (9 * cg), col % (9 * cg) // cg, col % cg
-    py = torch.arange(h)[:, None, None]
-    px = torch.arange(w)[None, :, None]
-    o = off.reshape(n, h, w, dg, 9, 2)[:, :, :, g, k]
-    fy = (py - 1 + k // 3) + o[..., 0]
-    fx = (px - 1 + k % 3) + o[..., 1]
-    m = mask.reshape(n, h, w, dg, 9)[:, :, :, g, k]
-    y0, x0 = torch.floor(fy), torch.floor(fx)
-    ly, lx = fy - y0, fx - x0
-    ch = (g * cg + c).expand_as(fy)
-
-    def tap(yc, xc):
-        ok = (yc >= 0) & (yc < h) & (xc >= 0) & (xc < w)
-        v = x[0][yc.clamp(0, h - 1).long(), xc.clamp(0, w - 1).long(), ch]
-        return v * ok
-    cols = ((1 - ly) * (1 - lx) * tap(y0, x0) + (1 - ly) * lx * tap(y0, x0 + 1)
-            + ly * (1 - lx) * tap(y0 + 1, x0) + ly * lx * tap(y0 + 1, x0 + 1))
-    inside = (fy > -1) & (fy < h) & (fx > -1) & (fx < w)
-    cols = cols * inside * m
-    got = (F.pad(cols, (0, pk.shape[0] - kc)) @ pk)[..., :weight.shape[0]] + bias
-    want = dcn_block.dcn_reference(x, off, mask, weight, bias, dg)
     torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
 
 

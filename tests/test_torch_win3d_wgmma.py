@@ -1,5 +1,5 @@
 """VRT's window blocks on wgmma (csrc/window3d_wgmma.cu), their host side on
-the CPU: the device-built weight stages against ``pack_win3d``'s matrices, a
+the CPU: the device-built weight stages against the block's matrices, a
 replay of the three passes' arithmetic from those stages (64-token items in
 the persistent walk's order, one (window, head) at a time over all its query
 tiles with an online softmax over 64-key tiles, the narrowed head widths)
@@ -23,9 +23,8 @@ from kair_tpu.ops.pallas.tmsa_block import (make_tmsa_biases,
 from kair_tpu_torch.ops import window3d
 from kair_tpu_torch.ops.kernels import self6_block, tmsa_block, win3d
 from kair_tpu_torch.ops.kernels.swin_block import unswizzle
-from kair_tpu_torch.ops.kernels.win3d import (labels_on, pack_win3d,
-                                              pack_win3d_stages, stage_rows,
-                                              win3d_plan)
+from kair_tpu_torch.ops.kernels.win3d import (labels_on, pack_win3d_stages,
+                                              stage_rows, win3d_plan)
 from kair_tpu_torch.ops.kernels.window_msa import SMEM_LIMIT
 from tests.test_torch_vrt_kernels import (_jroll, _x, block_weights,
                                           torch_params)
@@ -53,18 +52,19 @@ def _stages(flat: torch.Tensor, rows) -> list:
     return out
 
 
-def emulate_win3d_wgmma(x, pk, nh, wd, twd, shift, labels, mutual):
+def emulate_win3d_wgmma(x, pk, nh, wd, twd, shift, labels, mutual,
+                        plain=False):
     """csrc/window3d_wgmma.cu's three passes in PyTorch, f32, from the
     packed stages: passes 1 and 3 per 64-token item in the persistent walk's
     order, a product per head pair (pass 1) and per K chunk (both), the
-    GEGLU per hidden chunk of 64 feeding fc2; pass 2 per (window, head) over
-    all its query tiles with the shift folded into the indices, q and k at
-    the padded width HD, v at VD, an online softmax over 64-key tiles, the
-    output stored at the real head dim."""
+    GEGLU (``plain``: fc1 → GELU) per hidden chunk of 64 feeding fc2; pass 2
+    per (window, head) over all its query tiles with the shift folded into
+    the indices, q and k at the padded width HD, v at VD, an online softmax
+    over 64-key tiles, the output stored at the real head dim."""
     b, d, h, w, c = x.shape
-    pl = win3d_plan(mutual, c, nh, pk.hidden, wd, twd)
+    pl = win3d_plan(mutual, c, nh, pk.hidden, wd, twd, plain)
     assert pl.fits
-    rows1, rows3 = stage_rows(pl, nh)
+    rows1, rows3 = stage_rows(pl, nh, plain)
     st1, st3 = _stages(pk.st1.float(), rows1), _stages(pk.st3.float(), rows3)
     p = 2 if mutual else 1
     hd, hdp, vdp = c // nh, pl.hdp, pl.vdp
@@ -148,12 +148,13 @@ def emulate_win3d_wgmma(x, pk, nh, wd, twd, shift, labels, mutual):
                   (0, kp - c))
         acc = acc + pk.b2
         for j in range(pl.hc):
-            hq = torch.zeros(64, 128)
+            hq = torch.zeros(64, 64 if plain else 128)
             for k in range(pl.kc):
                 hq += z[:, k * 64:(k + 1) * 64] @ st3[s].t()
                 s += 1
-            hid = (F.gelu(hq[:, :64] + pk.b11[j * 64:(j + 1) * 64])
-                   * (hq[:, 64:] + pk.b12[j * 64:(j + 1) * 64]))
+            hid = F.gelu(hq[:, :64] + pk.b11[j * 64:(j + 1) * 64])
+            if not plain:
+                hid = hid * (hq[:, 64:] + pk.b12[j * 64:(j + 1) * 64])
             acc = acc + (hid @ st3[s].t())[:, :c]
             s += 1
         assert s == len(rows3)
@@ -162,17 +163,32 @@ def emulate_win3d_wgmma(x, pk, nh, wd, twd, shift, labels, mutual):
 
 
 # ---------------------------------------------------------------------------
-# the device-built stages against pack_win3d's matrices
+# the device-built stages against the block's matrices
 # ---------------------------------------------------------------------------
+
+def qkv_matrices(p, nh):
+    """Per branch, the (C, 3C) qkv product matrix with the q scale folded
+    into q's columns, and its bias: [q | k | v], head h's at h·hd."""
+    c = p.qkv_self_weight.shape[1]
+    scale = (c // nh) ** -0.5
+    out = []
+    for w, b in ((p.qkv_self_weight, p.qkv_self_bias),
+                 (p.qkv_mut_weight, p.qkv_mut_bias)):
+        if w is None:
+            continue
+        w, b = w.float().t().clone(), b.float().clone()
+        w[:, :c] *= scale
+        b[:c] *= scale
+        out.append((w, b))
+    return out
 
 @pytest.mark.parametrize("c,nh,mutual", [(24, 2, True), (96, 6, True),
                                          (120, 6, True), (120, 6, False),
                                          (180, 6, False)])
 def test_stage_pack_gives_back_the_matrices(c, nh, mutual):
-    """Unswizzled, every stage holds the matrices of ``pack_win3d`` (q scale
-    folded, heads at their real width), zero elsewhere."""
+    """Unswizzled, every stage holds the block's matrices (q scale folded,
+    heads at their real width), zero elsewhere."""
     p = torch_params(block_weights(c, nh, 2, mutual, 11), c)
-    old = pack_win3d(p, nh, F32)
     pk = pack_win3d_stages(p, nh, F32)
     pl = win3d_plan(mutual, c, nh, pk.hidden, 2, 2)
     rows1, rows3 = stage_rows(pl, nh)
@@ -180,8 +196,7 @@ def test_stage_pack_gives_back_the_matrices(c, nh, mutual):
     hd, hw, kp = c // nh, 2 * pl.hdp + pl.vdp, pl.kc * 64
     br = 2 if mutual else 1
     # pass 1: per branch the (K, qkvw / P) product of the map's columns
-    for m, (wmat, bmat) in enumerate(((old.wqkv_s, old.bqkv_s),
-                                      (old.wqkv_m, old.bqkv_m))[:br]):
+    for m, (wmat, bmat) in enumerate(qkv_matrices(p, nh)):
         got = torch.cat([torch.cat([st1[(m * (nh // 2) + pr) * pl.kc + k].t()
                                     for k in range(pl.kc)], 0)
                          for pr in range(nh // 2)], 1)      # (kp, qkvw / P)
@@ -189,8 +204,8 @@ def test_stage_pack_gives_back_the_matrices(c, nh, mutual):
         bwant = torch.zeros(got.shape[1])
         for head, part in itertools.product(range(nh), range(3)):
             dst = head * hw + part * pl.hdp
-            src = head * 96 + part * 32
-            want[:c, dst:dst + hd] = wmat[:c, src:src + hd]
+            src = part * c + head * hd
+            want[:c, dst:dst + hd] = wmat[:, src:src + hd]
             bwant[dst:dst + hd] = bmat[src:src + hd]
         torch.testing.assert_close(got, want, atol=0, rtol=0)
         cb = m * (pl.qkvw // br)
@@ -198,11 +213,7 @@ def test_stage_pack_gives_back_the_matrices(c, nh, mutual):
                                    atol=0, rtol=0)
     # pass 3: proj (K = the attention map's columns, N = C), fc11, fc12, fc2
     wp = torch.cat([st3[k].t() for k in range(pl.kcp)], 0)[:pl.aw, :c]
-    wp_want = torch.zeros(pl.aw, c)
-    for m, head in itertools.product(range(br), range(nh)):
-        wp_want[m * c + head * hd:m * c + (head + 1) * hd] = \
-            old.wp[m * nh * 32 + head * 32:m * nh * 32 + head * 32 + hd, :c]
-    torch.testing.assert_close(wp, wp_want, atol=0, rtol=0)
+    torch.testing.assert_close(wp, p.proj_weight.float().t(), atol=0, rtol=0)
     s = pl.kcp
     for j in range(pl.hc):
         f1 = torch.cat([st3[s + k].t() for k in range(pl.kc)], 0)   # (kp, 128)
@@ -210,17 +221,19 @@ def test_stage_pack_gives_back_the_matrices(c, nh, mutual):
         s += pl.kc + 1
         cols = slice(j * 64, (j + 1) * 64)
         exact = dict(atol=0, rtol=0)
-        torch.testing.assert_close(f1[:c, :64],
-                                   F.pad(old.w11, (0, 64))[:c, cols], **exact)
-        torch.testing.assert_close(f1[:c, 64:],
-                                   F.pad(old.w12, (0, 64))[:c, cols], **exact)
-        torch.testing.assert_close(f2[:, :c],
-                                   F.pad(old.w2, (0, 0, 0, 64))[cols, :c], **exact)
+        w11, w12 = (F.pad(m.float().t(), (0, 64)) for m in (p.fc11_weight,
+                                                             p.fc12_weight))
+        w2 = F.pad(p.fc2_weight.float().t(), (0, 0, 0, 64))
+        torch.testing.assert_close(f1[:c, :64], w11[:, cols], **exact)
+        torch.testing.assert_close(f1[:c, 64:], w12[:, cols], **exact)
+        torch.testing.assert_close(f2[:, :c], w2[cols], **exact)
         assert not f1[c:].any() and not f2[:, c:].any()
     assert s == len(rows3)
     hid = p.fc11_weight.shape[0]
-    torch.testing.assert_close(pk.b11[:hid], old.b11[:hid], atol=0, rtol=0)
-    torch.testing.assert_close(pk.b12[:hid], old.b12[:hid], atol=0, rtol=0)
+    torch.testing.assert_close(pk.b11[:hid], p.fc11_bias.float(), atol=0,
+                               rtol=0)
+    torch.testing.assert_close(pk.b12[:hid], p.fc12_bias.float(), atol=0,
+                               rtol=0)
     assert not pk.b11[hid:].any() and not pk.b12[hid:].any()
 
 
