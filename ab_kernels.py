@@ -1,5 +1,5 @@
-"""Time the Swin-block, conv-tail, bilinear-sampler, 3-D window-block and
-DCN kernels of two checkouts on one card.
+"""Time the Swin-block, conv-tail, bilinear-sampler, 3-D window-block, DCN
+and GDA kernels of two checkouts on one card.
 
     python3 ab_kernels.py <other checkout> [phase ...]
 
@@ -8,7 +8,8 @@ Runs phases 2 (``swin_block``, the block at window 8), 3 (``conv3x3``), 6
 window 8), 9 (``window_msa``, attention only), 11 (``unfused``, SwinIR-M's
 forward through the window-attention kernel), 13 (``tmsa``, VRT's TMSA
 block), 14 (``self6``, VRT's self block), 15 (``dcn``, VRT's DCN), 17
-(``stl2``, RVRT's STL2 block) and 20 (``bilin``) of each checkout's own
+(``stl2``, RVRT's STL2 block), 18 (``gda``, RVRT's guided deformable
+attention) and 20 (``bilin``) of each checkout's own
 ``chip_smoke.py``, each checkout in a fresh process whose working
 directory is that checkout (so each builds and loads its own kernels, and
 prints its build's wall seconds), in turns: other, this, this, other;
@@ -56,6 +57,7 @@ PHASES = {
     "self6": "chip_smoke.phase_self6([])",
     "dcn": "chip_smoke.phase_dcn([])",
     "stl2": "chip_smoke.phase_stl2([])",
+    "gda": "chip_smoke.phase_gda([])",
     "bilin": "chip_smoke.phase_bilin([])",
 }
 # whole models, run only when named: VRT-001's clip (16), RVRT-001's clip

@@ -22,8 +22,9 @@ one flushed line each with its seconds:
                 block, its attention-only mode (kernel B: the plan at hidden
                 width 0) and its backward, the window blocks'
                 kair_win3d_plan at C=96, 120, 180 and RVRT's 144 and 192,
-                the DCN kernel's kair_dcn_plan); the window blocks' and the
-                DCN kernel's registers and spills
+                the DCN kernel's kair_dcn_plan, the GDA kernel's
+                kair_gda_plan); the window blocks', the DCN and the GDA
+                kernels' registers and spills
   2 swin_block  kernel (wgmma, a bulk-copied weight ring two windows share)
                 against its plain version at B=16, 128x128, C=180, at the
                 main path's 1x64x72, on 1x56x72 (63 windows: the persistent
@@ -118,17 +119,25 @@ one flushed line each with its seconds:
                 on 1x4x32x48 shift (1,4,4) and at C=192; the (1,8,8) block
                 through the 2-D Swin kernel with its 3-D table (1x8x64x64);
                 dropped-mask controls; time, bound and plain time
- 18 gda         the GDA kernel against the f32 gather route at RVRT-001's
-                call (q 2x64x64x288, un-rotated K/V, 12 heads = groups),
-                taps outside the frame and fractional; control: the offsets
-                dropped; time, bound and plain time
+ 18 gda         the GDA kernel (8 channels a thread, pixel tiles of one
+                group a block) against the f32 gather route at RVRT-001's
+                call (q 2x64x64x288, un-rotated K/V, 12 heads = groups)
+                with offsets uniform over ±12 px (taps outside the frame
+                and fractional) and flow-like (a smooth flow of up to ±8
+                px plus ±1 px), at cg 32 (q
+                2x64x64x384) and at the CLI tile's call (q 2x128x128x288),
+                then at small sizes its other paths (1x3 taps; 4, 2 and 1
+                channels a thread); control: the offsets dropped; the RVRT
+                cases' device time (torch.profiler) and CUDA-event time
+                beside their bound; the plain version's time
  19 rvrt        KAIR's 001_RVRT_videosr_bi_REDS_30frames from a seeded .pth
                 through cli.test_video.build_task on a 1x8x64x64 clip: 4
                 Swin-block, 64 STL2 and 12 GDA launches, no composed call;
                 against the f32 CPU run (and out - base), the error after
                 each branch, the dropped-mask control; ms per clip,
-                frame-MP/s, MFU, device and host time by kernel; one timed
-                1x16x128x128 tile (the CLI's default spatial tile)
+                frame-MP/s, MFU, device and host time by kernel (the STL2
+                passes' and the GDA kernel's summed); one 1x16x128x128 tile
+                (the CLI's default spatial tile): its GDA launches and time
  20 bilin       the bilinear sampler's forward and backward kernels against
                 their plain version (f32 on the card) at VRT-001's stage-1
                 call at batch 8 (G=96, 64x64, Cs=10, R=36,864; coordinates
@@ -212,18 +221,19 @@ def require(cond: bool, msg: str) -> None:
 
 def ptxas_kernels(log_lines) -> list:
     """(kernel, registers, spill-store bytes) of each kernel in ptxas -v's
-    output; the 3-D window blocks' kernels by name (with the width of a
-    template instance), the others by their mangled names."""
+    output; the 3-D window blocks' and the GDA kernels by name (with a
+    template instance's arguments), the others by their mangled names."""
     import re
     out, name = [], None
     for line in log_lines:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
-            k = re.search(r"((?:tmsa|self|stl2)_[a-z_]*kernel)(?:ILi(\d+)E)?",
-                          name)
+            k = re.search(r"((?:tmsa|self|stl2|gda)_[a-z_]*kernel)"
+                          r"(I(?:L[ib]\d+E)+E)?", name)
             if k:
-                name = k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+                args = re.findall(r"L[ib](\d+)E", k.group(2) or "")
+                name = k.group(1) + (f"<{','.join(args)}>" if args else "")
             spill = 0
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name is not None:
@@ -651,6 +661,30 @@ def bwd_pass_times(fn, runs: int = 5) -> dict:
         name = kernel_name(ev.key)
         out[name] = out.get(name, 0.0) + dev_us / 1e3 / runs
     return out
+
+
+def launch_device_ms(fn, prefix: str, runs: int = 10):
+    """Mean device ms of one launch of the kernels whose names start with
+    ``prefix`` over ``runs`` calls of fn (torch.profiler): their device time
+    over the launches the profiler saw, so a launch it dropped does not
+    lower the mean; None if it saw none."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and kernel_name(ev.key).startswith(prefix)):
+            dev_us = getattr(ev, "self_device_time_total", None)
+            total += (ev.self_cuda_time_total if dev_us is None else dev_us)
+            count += ev.count
+    return total / 1e3 / count if count else None
 
 
 def phase_swin_bwd(report: list) -> None:
@@ -2122,57 +2156,118 @@ def phase_stl2(report: list) -> None:
         bound_ms=bms, bound_by=by, library_ms=None))
 
 
+def gda_offsets(kind: str, bq: int, clip: int, h: int, w: int, dg: int,
+                taps: int, gen, dev):
+    """(bq, clip, h, w, dg·taps·2) f32 offsets: "random" uniform over ±12
+    px (taps outside the frame and between pixels); "flow" one smooth flow
+    of up to ±8 px a (query frame, clip slot), the same for every group and
+    tap, plus a residual uniform over ±1 px, as RVRT's 10·tanh(·) + flow
+    gives (models/rvrt.py)."""
+    import torch
+    if kind == "random":
+        return (torch.rand(bq, clip, h, w, dg * taps * 2, generator=gen) * 24
+                - 12).to(dev)
+    yy = torch.linspace(0, 1, h)[:, None]
+    xx = torch.linspace(0, 1, w)[None, :]
+    ph = torch.rand(bq, clip, 2, 3, generator=gen) * 6.283
+    flow = torch.stack([
+        torch.sin(3.1 * yy + 1.7 * xx + ph[:, :, d, 0, None, None])
+        + 0.5 * torch.sin(5.3 * xx - 2.9 * yy + ph[:, :, d, 1, None, None])
+        + 0.3 * torch.cos(7.1 * yy + ph[:, :, d, 2, None, None])
+        for d in range(2)], -1)                      # (bq, clip, h, w, 2)
+    flow = flow / flow.abs().amax(dim=(2, 3, 4), keepdim=True) * 8
+    res = torch.rand(bq, clip, h, w, dg * taps, 2, generator=gen) * 2 - 1
+    return (flow[:, :, :, :, None, :] + res).reshape(
+        bq, clip, h, w, dg * taps * 2).to(dev)
+
+
 def phase_gda(report: list) -> None:
     import torch
-    from kair_tpu_torch.ops.kernels.gda_block import gda_fused, gda_reference
+    from kair_tpu_torch.ops.kernels.gda_block import (gda_fused, gda_plan,
+                                                      gda_reference)
     from kair_tpu_torch.utils.summary import gda_flops_per_pixel
 
-    b, t, clip, h, w, c2, dg = 1, 2, 2, 64, 64, 288, 12
+    b, t, clip = 1, 2, 2
     dev, bf = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator().manual_seed(SEED + 18)
-    q = torch.randn(b * t, h, w, c2, generator=gen).to(dev, bf)
-    k = torch.randn(b, clip, h, w, c2, generator=gen).to(dev, bf)
-    v = torch.randn(b, clip, h, w, c2, generator=gen).to(dev, bf)
-    # offsets up to ±12 px with fractions: taps fall outside the frame and
-    # between pixels (RVRT's are 10·tanh(·) + the flow)
-    off = (torch.rand(b * t, clip, h, w, dg * 18, generator=gen) * 24 - 12).to(dev)
     tol = 1e-2
+    # (what, H, W, C, groups, taps, offsets, timed): RVRT's calls, then the
+    # kernel's other paths at small sizes: taps other than 3x3, and the
+    # narrow vectors (4, 2 and 1 channels a thread) a group's width forces
+    cases = (("RVRT-001's call, random", 64, 64, 288, 12, (3, 3), "random",
+              True),
+             ("RVRT-001's call, flow-like", 64, 64, 288, 12, (3, 3), "flow",
+              True),
+             ("cg 32 (C=192 presets), random", 64, 64, 384, 12, (3, 3),
+              "random", True),
+             ("the CLI tile's call, random", 128, 128, 288, 12, (3, 3),
+              "random", True),
+             ("1x3 taps, cg 24", 24, 20, 48, 2, (1, 3), "random", False),
+             ("cg 12", 24, 20, 36, 3, (3, 3), "random", False),
+             ("cg 10", 24, 20, 30, 3, (3, 3), "flow", False),
+             ("cg 5", 24, 20, 20, 4, (3, 3), "random", False))
+    first = None
     with Phase("18 gda") as ph:
-        ph.note(f"GDA kernel at RVRT-001's call (q {b * t}x{h}x{w}x{c2}, K/V "
-                f"{b}x{clip}x{h}x{w}x{c2} un-rotated, {dg} heads = groups, 3x3 "
-                f"taps), bf16 q/k/v, f32 offsets; limit max_abs <= {tol} * "
-                "max|ref| against the composed gather route in f32; control: "
-                "the offsets dropped")
-        ky = (torch.arange(9, device=dev) // 3 - 1).repeat(clip * dg)
-        fy = (torch.arange(h, device=dev)[None, None, :, None, None]
-              + ky.view(clip, dg * 9)[None, :, None, None, :]
-              + off[..., 0::2])
-        outside = ((fy <= -1) | (fy >= h)).float().mean().item()
-        frac = (off.frac().abs() > 0.01).float().mean().item()
-        got = gda_fused(q, k, v, off, (3, 3), dg, dg)
-        ref = gda_reference(q.float(), k.float(), v.float(), off, (3, 3), dg,
-                            dg)
-        control = gda_reference(q.float(), k.float(), v.float(),
-                                torch.zeros_like(off), (3, 3), dg, dg)
-        torch.cuda.synchronize()
-        err = check_case(ph, f"{outside:.3f} of the y taps outside the frame, "
-                         f"{frac:.3f} fractional", got, ref, tol, control)
-        ms = cuda_ms(lambda: gda_fused(q, k, v, off, (3, 3), dg, dg))
-        plain_ms = cuda_ms(lambda: gda_reference(
-            q.float(), k.float(), v.float(), off, (3, 3), dg, dg),
-            warmup=1, reps=5)
-        flops = b * t * h * w * gda_flops_per_pixel(c2, clip * 9)
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * off.numel()
-        bms, by = bound_ms(flops, nbytes, rate="fp32")
-        ph.note(f"kernel {ms:.4f} ms (median of 10); plain f32 {plain_ms:.3f} "
-                f"ms; bound {bms:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP at the "
-                f"f32 rate, {nbytes / 1e6:.2f} MB), {bms / ms:.4f} of it")
+        ph.note(f"GDA kernel (heads = groups, clip {clip}, {t} query frames "
+                "a KV clip, un-rotated K/V), bf16 q/k/v, f32 offsets; limit "
+                f"max_abs <= {tol} * max|ref| against the composed gather "
+                "route in f32; control: the offsets dropped; times: device "
+                "(torch.profiler, the mean launch of 10 calls) and CUDA "
+                "events (median of 10, the wrapper's host time included)")
+        for what, h, w, c2, dg, kern, kind, timed in cases:
+            taps = kern[0] * kern[1]
+            q = torch.randn(b * t, h, w, c2, generator=gen).to(dev, bf)
+            k = torch.randn(b, clip, h, w, c2, generator=gen).to(dev, bf)
+            v = torch.randn(b, clip, h, w, c2, generator=gen).to(dev, bf)
+            off = gda_offsets(kind, b * t, clip, h, w, dg, taps, gen, dev)
+            ky = (torch.arange(taps, device=dev) // kern[1]
+                  - kern[0] // 2).repeat(clip * dg)
+            fy = (torch.arange(h, device=dev)[None, None, :, None, None]
+                  + ky.view(clip, dg * taps)[None, :, None, None, :]
+                  + off[..., 0::2])
+            outside = ((fy <= -1) | (fy >= h)).float().mean().item()
+            frac = (off.frac().abs() > 0.01).float().mean().item()
+            fn = lambda: gda_fused(q, k, v, off, kern, dg, dg)
+            got = fn()
+            ref = gda_reference(q.float(), k.float(), v.float(), off, kern,
+                                dg, dg)
+            control = gda_reference(q.float(), k.float(), v.float(),
+                                    torch.zeros_like(off), kern, dg, dg)
+            torch.cuda.synchronize()
+            pl = gda_plan(c2, dg, h, w)
+            err = check_case(ph, f"{what}, q {b * t}x{h}x{w}x{c2}, {kern[0]}x"
+                             f"{kern[1]} taps, {pl.vec} channels a thread: "
+                             f"{outside:.3f} of the y taps outside the frame, "
+                             f"{frac:.3f} fractional", got, ref, tol, control)
+            del ref, control
+            if timed:
+                ms = cuda_ms(fn)
+                dev_ms = launch_device_ms(fn, "gda_")
+                flops = b * t * h * w * gda_flops_per_pixel(c2, clip * taps)
+                nbytes = (2 * (2 * q.numel() + k.numel() + v.numel())
+                          + 4 * off.numel())
+                bms, by = bound_ms(flops, nbytes, rate="fp32")
+                note = (f"{what}: device "
+                        + (f"{dev_ms:.4f} ms" if dev_ms else "not measured "
+                           "(the profiler saw no launch)")
+                        + f", events {ms:.4f} ms; bound {bms:.4f} ms ({by}: "
+                        f"{flops / 1e9:.3f} GFLOP at the f32 rate, "
+                        f"{nbytes / 1e6:.2f} MB), {bms / (dev_ms or ms):.4f} "
+                        f"of it on {'device' if dev_ms else 'event'} time")
+                if first is None:
+                    plain_ms = cuda_ms(lambda: gda_reference(
+                        q.float(), k.float(), v.float(), off, kern, dg, dg),
+                        warmup=1, reps=5)
+                    note += f"; plain f32 {plain_ms:.3f} ms"
+                    first = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bms, bound_by=by)
+                ph.note(note)
+            del q, k, v, off, got
     report.append(dict(
         name="gda_fused", route="cuda",
         source="kair_tpu_torch/csrc/gda_block.cu",
         replaces="kair_tpu/ops/pallas/gda_block.py:178",
-        launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bms, bound_by=by, library_ms=None))
+        launches=None, library_ms=None, **first))
 
 
 # KAIR 001_RVRT_videosr_bi_REDS_30frames (main_test_rvrt.py:141-147) through
@@ -2313,12 +2408,17 @@ def phase_rvrt(report: list, card: str) -> None:
                 model(xg)
                 model(xg)
         ph.note(device_breakdown(two_clips, 2, ms, "clip", host=True, top=12,
-                                 sums=WIN3D_PASSES))
+                                 sums=WIN3D_PASSES + ("gda_",)))
         # the CLI's default spatial tile (--tile 40 128 128 on 16 frames)
         xt = torch.from_numpy(moving_clip(16, 128, 128, SEED + 21)).cuda()
         torch.cuda.reset_peak_memory_stats()
+        gda_block.gda_fused.launches = 0
         with torch.inference_mode():
-            ms_t = cuda_ms(lambda: model(xt), warmup=1, reps=3)
+            model(xt)
+        ph.note(f"GDA launches in one 1x16x128x128 tile: "
+                f"{gda_block.gda_fused.launches}")
+        with torch.inference_mode():
+            ms_t = cuda_ms(lambda: model(xt), warmup=0, reps=3)
         tflops_t = rvrt_flops_per_clip(16, 128, 128) / (ms_t / 1e3) / 1e12
         ph.note(f"1x16x128x128 tile: {ms_t:.2f} ms (median of 3), "
                 f"{16 * 128 * 128 / (ms_t / 1e3) / 1e6:.4f} LR frame-MP/s, MFU "
@@ -2891,6 +2991,24 @@ def phase_build() -> None:
                 "memory a block; DCN kernels (ptxas): " + ", ".join(
                     f"{n} {r} regs {sp} B spill" for n, r, sp in ptx
                     if "dcn_" in n))
+        from kair_tpu_torch.ops.kernels.gda_block import gda_plan
+        for c, dg, k, clip, h, w, align in (
+                (288, 12, 9, 2, 64, 64, 16), (384, 12, 9, 2, 64, 64, 16),
+                (288, 12, 9, 2, 128, 128, 16), (48, 2, 9, 2, 13, 11, 16),
+                (30, 3, 9, 2, 7, 17, 16), (20, 4, 9, 1, 9, 10, 16),
+                (288, 12, 9, 2, 64, 64, 2), (32, 2, 3, 1, 5, 3, 8)):
+            plan = (ctypes.c_int * 7)()
+            want = tuple(gda_plan(c, dg, h, w, align))
+            require(lib.kair_gda_plan(c, dg, k, clip, h, w, align, plan) == 0
+                    and tuple(plan) == want,
+                    f"GDA plan mirror differs at C={c} dg {dg} {h}x{w} align "
+                    f"{align}: {tuple(plan)} vs {want}")
+        require(lib.kair_gda_plan(33 * 4, 4, 9, 2, 8, 8, 16, plan) != 0,
+                "the GDA plan took 33 channels a group")
+        ph.note(f"the GDA plan mirror equals kair_gda_plan at 8 geometries; "
+                f"RVRT-001's: {gda_plan(288, 12, 64, 64)}; GDA kernels "
+                "(ptxas): " + ", ".join(f"{n} {r} regs {sp} B spill"
+                                        for n, r, sp in ptx if "gda_" in n))
         # the sampler backward's scratch (the windows' row counts, starts and
         # lists) and its window pass's shared memory; the windows' bound
         from kair_tpu_torch.ops.kernels import bilin_sample as bs

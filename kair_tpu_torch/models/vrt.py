@@ -56,11 +56,12 @@ from kair_tpu_torch.ops.kernels.self6_block import (self6_block,
                                                     self6_block_train)
 from kair_tpu_torch.ops.kernels.stl2_block import stl2_block
 from kair_tpu_torch.ops.kernels.swin_block import (SwinBlockParams,
+                                                    block_takes,
                                                     pack_swin_block,
                                                     swin_block_2d)
 from kair_tpu_torch.ops.kernels.tmsa_block import tmsa_block, tmsa_block_train
 from kair_tpu_torch.ops.kernels.window_msa import shift_mask_tensor
-from kair_tpu_torch.ops.kernels.win3d import pack_win3d_stages
+from kair_tpu_torch.ops.kernels.win3d import pack_win3d_stages, takes
 from kair_tpu_torch.ops.warp import flow_warp, modulated_deform_conv
 from kair_tpu_torch.ops.window3d import (Tmsa3dParams, compute_mask_3d,
                                          compute_mask_labels_3d, geglu,
@@ -200,13 +201,29 @@ class TMSA(_Packed, nn.Module):
                      ) -> Optional[str]:
         """The kernel that takes this geometry ("tmsa", "self6", "stl2",
         "stl1") or None, as ``kair_tpu/models/vrt.py TMSA.__call__``
-        (:318-352) decides. The JAX package's (1, 8, 8) conditions W%16 == 0
-        and W <= strip_w_max(C) are the TPU strip kernel's VMEM limits and
-        have no counterpart here; the 2-D kernel takes one shift for both
-        axes, so (1, 8, 8) needs the h and w shifts equal, and one 8x8
-        table, so a block whose own window is one frame deep. In training
-        VRT's blocks keep their routes; RVRT's STL blocks (no training
-        route yet) take the composed block."""
+        (:318-352) decides, and only where that kernel takes the block's
+        widths (``win3d.takes``, the 2-D kernel's ``block_takes``): a width
+        the JAX kernels take and these refuse goes to the composed block.
+        The JAX package's (1, 8, 8) conditions W%16 == 0 and W <=
+        strip_w_max(C) are the TPU strip kernel's VMEM limits and have no
+        counterpart here; the 2-D kernel takes one shift for both axes, so
+        (1, 8, 8) needs the h and w shifts equal, and one 8x8 table, so a
+        block whose own window is one frame deep. In training VRT's blocks
+        keep their routes; RVRT's STL blocks (no training route yet) take
+        the composed block."""
+        route = self._window_route(d, h, w, ws, ss)
+        if route is None or self.window_size[1:] != (8, 8):
+            return None
+        c, nh = self.norm1.normalized_shape[0], self.num_heads
+        hidden = self.mlp.fc2.in_features
+        if route == "stl1":
+            return route if block_takes(c, nh, hidden) else None
+        return route if takes(route == "tmsa", c, nh, hidden, ws[0],
+                              self.window_size[0], plain=route == "stl2") \
+            else None
+
+    def _window_route(self, d: int, h: int, w: int, ws, ss) -> Optional[str]:
+        """The route by the windows alone."""
         if not self.fuse_block or h % 8 or w % 8:
             return None
         if self.mut_attn:

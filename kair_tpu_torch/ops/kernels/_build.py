@@ -104,6 +104,7 @@ SIGNATURES = {
     # kind, C, NH, hidden, wd, twd, dst (host i32[17])
     "kair_win3d_plan": ([_I] * 6 + [_P], _I),
     "kair_dcn_plan": ([_I] * 3 + [_P], _I),               # Cin, Cout, DG, dst (i32[8])
+    "kair_gda_plan": ([_I] * 7 + [_P], _I),               # C, DG, K, clip, H, W, align, dst (i32[7])
     "kair_error_string": ([_I], ctypes.c_char_p),
 }
 PROFILE_SIGNATURES = {

@@ -8,7 +8,10 @@ q·k·scale, and the weighted sum of the values — without the (…, S, C)
 sampled keys and values in device memory. The kernel is
 ``csrc/gda_block.cu`` (its header gives the bound on the card and the
 design); ``gda_reference`` is its plain version, the composed gather route
-of ``ops/deform_attn.py`` in f32.
+of ``ops/deform_attn.py`` in f32, and ``gda_plan`` mirrors the kernel's
+plan (``chip_smoke.py`` phase 1 holds it equal to ``kair_gda_plan``): the
+channels a thread holds, the threads of an item and the tile of query
+pixels a block walks.
 
 Layouts are ``deform_attention``'s: q (B·T, H, W, C), k and v (B, clip, H,
 W, C) un-rotated (query frame j pairs KV slot n with frame (n + j) % clip;
@@ -19,21 +22,66 @@ kernel, or an exception.
 
 from __future__ import annotations
 
-from typing import Tuple
+from functools import lru_cache
+from typing import NamedTuple, Tuple
 
 import torch
 
 from kair_tpu_torch.ops import deform_attn
 from kair_tpu_torch.ops.kernels import _build
 
-MAX_GROUP = 32              # channels of a group: one lane each
-MAX_TAPS = 32               # clip·kh·kw: one tap's coordinates per lane
+MAX_GROUP = 32              # channels of a group: at most 32 threads an item
+MAX_TAPS = 32               # clip·kh·kw
+WARPS = 8                   # warps a block
+TILE_W = 8                  # query pixels a tile row
+
+
+class GdaPlan(NamedTuple):
+    """csrc/gda_block.cu's GdaPlan, as ``kair_gda_plan`` reports it."""
+    vec: int        # channels a thread: one load of 2·vec bytes a corner
+    tpi: int        # threads that hold an item's channels: cg / vec
+    ipw: int        # items a warp: 32 // tpi
+    th: int         # a block's tile of th x tw query pixels
+    tw: int
+    tiles_y: int
+    tiles_x: int
+
+
+@lru_cache(maxsize=64)
+def gda_plan(c: int, dg: int, h: int, w: int, align: int = 16) -> GdaPlan:
+    """The kernel's plan at C channels, dg groups, an h x w map and bf16
+    pointers aligned to ``align`` bytes: vec the widest of 8, 4, 2, 1
+    channels dividing the group and the alignment, a block's WARPS·ipw
+    items a tile of TILE_W columns."""
+    cg = c // dg
+    vec = 8
+    while vec > 1 and (cg % vec or align % (2 * vec)):
+        vec //= 2
+    tpi = cg // vec
+    ipw = 32 // tpi
+    th = WARPS * ipw // TILE_W
+    return GdaPlan(vec, tpi, ipw, th, TILE_W, -(-h // th), -(-w // TILE_W))
+
+
+def gda_walk(pl: GdaPlan, bq: int, dg: int) -> torch.Tensor:
+    """(blocks·WARPS·ipw, 4) int64 (query frame, group, y, x) of each item,
+    block by block, as the kernel decodes its block and thread indices;
+    y ≥ H or x ≥ W: an item past the map's edge, which stores nothing."""
+    tiles = pl.tiles_y * pl.tiles_x
+    blk = torch.arange(bq * dg * tiles)[:, None]
+    i = torch.arange(WARPS * pl.ipw)[None, :]
+    tile, bg = blk % tiles, blk // tiles
+    y = tile // pl.tiles_x * pl.th + i // pl.tw
+    x = tile % pl.tiles_x * pl.tw + i % pl.tw
+    return torch.stack(torch.broadcast_tensors(bg // dg, bg % dg, y, x),
+                       -1).reshape(-1, 4)
 
 
 def gda_supported(c: int, heads: int, dg: int, kernel: Tuple[int, int],
                   clip: int) -> bool:
     """What the kernel takes: heads == groups dividing C, at most 32
-    channels per group and at most 32 taps."""
+    channels per group (an item's threads fit a warp) and at most 32
+    taps."""
     return (heads == dg and dg >= 1 and c % dg == 0 and c // dg <= MAX_GROUP
             and clip * kernel[0] * kernel[1] <= MAX_TAPS)
 

@@ -391,6 +391,24 @@ def _check_cuda_args(x, p, num_heads, mask, ws=WS, backward=False):
                    p.qkv_weight, num_heads, p.rel_table, mask, ws, smem)
 
 
+@lru_cache(maxsize=64)
+def block_takes(c: int, nh: int, hidden: int, ws: int = WS) -> bool:
+    """Whether the forward kernel takes a block of C channels, nh heads and
+    an MLP of ``hidden`` width at window ws: ``_check_cuda_args`` (the
+    kernel's own ``check_geometry`` and shared-memory limit) run on
+    shape-only tensors, without raising."""
+    x = torch.empty((1, ws, ws, c), dtype=torch.bfloat16, device="meta")
+    m = lambda *shape: torch.empty(shape, device="meta")
+    p = SwinBlockParams(m(3 * c, c), m(3 * c), m(c, c), m(c),
+                        m((2 * ws - 1) ** 2, nh), m(c), m(c), m(c), m(c),
+                        m(hidden, c), m(hidden), m(c, hidden), m(c))
+    try:
+        _check_cuda_args(x, p, nh, None, ws)
+    except ValueError:
+        return False
+    return True
+
+
 def _check_stages(x: torch.Tensor, pk: SwinBlockPack, num_heads: int) -> None:
     """The stage pack must be the forward's (``check_ring_operands``)."""
     if pk.stages is None:

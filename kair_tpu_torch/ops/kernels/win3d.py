@@ -8,8 +8,10 @@ already in wgmma's swizzled layout, ``win3d_plan`` mirrors the kernels'
 tiling and shared-memory layout (``chip_smoke.py`` phase 1 holds it equal
 to the kernels' own ``kair_win3d_plan``), ``item_walk`` and
 ``attn_blocks`` mirror their walks over the map, and ``launch_win3d`` runs
-the three passes. ``labels_on`` gives the shift mask as region labels and
-``check_geometry`` refuses what the kernels do not take.
+the three passes. ``labels_on`` gives the shift mask as region labels,
+``check_geometry`` refuses what the kernels do not take, and ``takes``
+says without raising whether they take a block's geometry (the model's
+routes ask it).
 
 The relative-position table keeps the window depth ``twd`` it was made
 for (KAIR's module window, 6 in VRT): a block on a shallower window reads
@@ -177,29 +179,45 @@ def win3d_plan(mutual: bool, c: int, nh: int, hidden: int, wd: int,
                      stages3, slot1, slot3, smem1, smem2, smem3, fits)
 
 
-def _check_plan(name: str, pl: Win3dPlan, c: int, nh: int,
-                mutual: bool, plain: bool = False) -> None:
-    """What the wgmma kernels refuse, that the WMMA kernels before them took:
-    C above 184 (192 for the STL block), an odd head count, an odd head dim
-    or one wider than its width class's v width (16 up to C=96, 24 up to
-    120, and up to 144 for the STL block), a TMSA block above C=120."""
+def plan_refusal(pl: Win3dPlan, c: int, nh: int, mutual: bool,
+                 plain: bool = False) -> Optional[str]:
+    """Why the wgmma kernels refuse a geometry that the WMMA kernels before
+    them took, or None: C above 184 (192 for the STL block), an odd head
+    count, an odd head dim or one wider than its width class's v width (16
+    up to C=96, 24 up to 120, and up to 144 for the STL block), a TMSA
+    block above C=120, or a layout that does not fit (``pl.fits``)."""
     cmax = (PLAIN_WIDTHS if plain else WIDTHS)[-1][0]
     if c > cmax:
-        raise ValueError(f"{name} takes C <= {cmax} (the widest "
-                         f"accumulator class), got C={c}")
-    if nh % 2:
-        raise ValueError(f"{name} needs an even number of heads (one qkv "
-                         f"product per head pair), got {nh}")
+        return f"takes C <= {cmax} (the widest accumulator class), got C={c}"
+    if nh < 2 or nh % 2:
+        return (f"needs an even number of heads (one qkv product per head "
+                f"pair), got {nh}")
     hd = c // nh
     if hd % 2 or hd > pl.vdp:
-        raise ValueError(f"{name} at C={c} takes an even head dim of at most "
-                         f"{pl.vdp}, got {hd}")
+        return (f"at C={c} takes an even head dim of at most {pl.vdp}, got "
+                f"{hd}")
     if mutual and pl.nt == WIDTHS[-1][0]:
-        raise ValueError(f"{name} takes C <= {WIDTHS[1][0]} for the mutual "
-                         f"block, got C={c}")
+        return f"takes C <= {WIDTHS[1][0]} for the mutual block, got C={c}"
     if not pl.fits:
-        raise ValueError(f"{name} at C={c}, {nh} heads: the layout does not "
-                         f"fit the card ({pl})")
+        return f"at C={c}, {nh} heads: the layout does not fit the card ({pl})"
+    return None
+
+
+def takes(mutual: bool, c: int, nh: int, hidden: int, wd: int, twd: int,
+          plain: bool = False) -> bool:
+    """Whether the kernels take a block of C channels, nh heads, an MLP of
+    ``hidden`` width on (wd, 8, 8) windows with a table twd deep: the
+    refusals of ``_check_plan``, without raising."""
+    return plan_refusal(win3d_plan(mutual, c, nh, hidden, wd, twd, plain), c,
+                        nh, mutual, plain) is None
+
+
+def _check_plan(name: str, pl: Win3dPlan, c: int, nh: int,
+                mutual: bool, plain: bool = False) -> None:
+    """Raise with ``plan_refusal``'s reason."""
+    why = plan_refusal(pl, c, nh, mutual, plain)
+    if why is not None:
+        raise ValueError(f"{name} {why}")
 
 
 @lru_cache(maxsize=64)

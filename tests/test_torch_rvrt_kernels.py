@@ -15,10 +15,12 @@ the GDA kernel, and the checks before a launch.
   sizes, offsets up to ±3 and ±30 px; the un-rotated KV pairing (two
   query frames per KV clip) against the JAX module's rotated stacks. atol
   1e-4.
-* A replay in PyTorch of the GDA kernel's (pixel, group) walk over taps
-  with the (n + j) % clip pairing in its indices and an online softmax,
-  against the plain version, atol 1e-4; the STL2 block's replay (the wgmma
-  passes' plain-MLP kind) is in tests/test_torch_stl2_wgmma.py. The
+* A replay in PyTorch of the GDA kernel (its plan's tile walk, channel
+  vectors and online softmax; the (n + j) % clip pairing in its indices),
+  against the plain version, atol
+  1e-4 (more cases in tests/test_torch_gda_tiles.py); the STL2 block's
+  replay (the wgmma passes' plain-MLP kind) is in
+  tests/test_torch_stl2_wgmma.py. The
   kernels themselves run only on the card (chip_smoke.py phases 17-19).
 """
 
@@ -208,53 +210,74 @@ def test_gda_frames_pairing_matches_the_jax_rotation():
 # replays of the CUDA kernels
 # ---------------------------------------------------------------------------
 
-def emulate_gda(q, k, v, off, kh, kw, dg, frames):
-    """csrc/gda_block.cu in PyTorch, f32: per (query pixel, group), the taps
-    s = (n, tap) in order, each at the pixel + (tap / kw − kh / 2,
-    tap % kw − kw / 2) + its offset, read from KV frame (n + j) % clip of
-    batch bq / frames (j = bq % frames), four integer corners zero outside
-    the frame, the score a dot over the group's channels, an online softmax
-    (running max, sum, accumulator)."""
+def emulate_gda(q, k, v, off, kh, kw, dg, frames, align=16):
+    """csrc/gda_block.cu in PyTorch, f32, laid out by its plan
+    (``gda_block.gda_plan``): the items (query frame, group, pixel) in the
+    order ``gda_walk`` gives the blocks' tiles, those past the map's edge
+    storing nothing; an item's channels in vec-wide vectors, one a thread,
+    their partial dots summed as the kernel sums them (a butterfly for a
+    power-of-two thread count, else in thread order); its taps s = (n, tap)
+    in order, each at the pixel + (tap / kw − kh / 2, tap % kw − kw / 2) +
+    its offset, read from KV frame (n + j) % clip of batch bq / frames (j =
+    bq % frames), four integer corners zero outside the frame, an online
+    softmax (running max, sum, accumulator; a value corner added with its
+    weight times the tap's softmax numerator)."""
     bq, h, w, c = q.shape
     clip = k.shape[1]
     cg, K = c // dg, kh * kw
-    qg = q.reshape(bq, h, w, dg, cg) * cg ** -0.5
+    pl = gda_block.gda_plan(c, dg, h, w, align)
+    walk = gda_block.gda_walk(pl, bq, dg)
+    walk = walk[(walk[:, 2] < h) & (walk[:, 3] < w)]
+    b, g, y, x = walk.unbind(1)
+    n_items = len(walk)
+    vecs = lambda t: t.reshape(n_items, pl.tpi, pl.vec)
+    qv = vecs(q.reshape(bq, h, w, dg, cg)[b, y, x, g] * cg ** -0.5)
     o = off.reshape(bq, clip, h, w, dg, K, 2)
-    yy = torch.arange(h).view(1, h, 1, 1).float()
-    xx = torch.arange(w).view(1, 1, w, 1).float()
-    bidx = torch.arange(bq)
     kf = k.reshape(k.shape[0], clip, h * w, dg, cg)
     vf = v.reshape(v.shape[0], clip, h * w, dg, cg)
-    m_run = torch.full((bq, h, w, dg), -1e30)
-    l_run = torch.zeros(bq, h, w, dg)
-    acc = torch.zeros(bq, h, w, dg, cg)
-    gi = torch.arange(dg).view(1, 1, 1, dg)
+
+    def item_sum(parts):                        # (N, tpi) -> (N,)
+        if pl.tpi & (pl.tpi - 1) == 0:
+            while parts.shape[1] > 1:
+                parts = parts[:, 0::2] + parts[:, 1::2]
+            return parts[:, 0]
+        total = torch.zeros(n_items)
+        for t in range(pl.tpi):
+            total = total + parts[:, t]
+        return total
+
+    m_run = torch.full((n_items,), -1e30)
+    l_run = torch.zeros(n_items)
+    acc = torch.zeros(n_items, cg)
     for s in range(clip * K):
         n, tap = divmod(s, K)
-        fy = yy + tap // kw - kh // 2 + o[:, n, :, :, :, tap, 0]
-        fx = xx + tap % kw - kw // 2 + o[:, n, :, :, :, tap, 1]
-        frame = (n + bidx % frames) % clip
-        ksrc, vsrc = kf[bidx // frames, frame], vf[bidx // frames, frame]
+        fy = y + tap // kw - kh // 2 + o[b, n, y, x, g, tap, 0]
+        fx = x + tap % kw - kw // 2 + o[b, n, y, x, g, tap, 1]
+        frame = (n + b % frames) % clip
         y0, x0 = torch.floor(fy), torch.floor(fx)
         ly, lx = fy - y0, fx - x0
-        ks = torch.zeros(bq, h, w, dg, cg)
-        vs = torch.zeros(bq, h, w, dg, cg)
+        ks = torch.zeros(n_items, cg)
+        corners = []
         for cy in (0, 1):
             for cx in (0, 1):
                 yc, xc = y0 + cy, x0 + cx
                 ok = (yc >= 0) & (yc < h) & (xc >= 0) & (xc < w)
-                wgt = ((ly if cy else 1 - ly) * (lx if cx else 1 - lx) * ok)[..., None]
+                wgt = ((ly if cy else 1 - ly) * (lx if cx else 1 - lx)
+                       * ok)[:, None]
                 at = (yc.clamp(0, h - 1) * w + xc.clamp(0, w - 1)).long()
-                bi = bidx.view(bq, 1, 1, 1)
-                ks = ks + wgt * ksrc[bi, at, gi]
-                vs = vs + wgt * vsrc[bi, at, gi]
-        score = (qg * ks).sum(-1)
+                ks = ks + wgt * kf[b // frames, frame, at, g]
+                corners.append((wgt, vf[b // frames, frame, at, g]))
+        score = item_sum((qv * vecs(ks)).sum(-1))
         m_new = torch.maximum(m_run, score)
         corr, p = torch.exp(m_run - m_new), torch.exp(score - m_new)
         l_run = l_run * corr + p
-        acc = acc * corr[..., None] + p[..., None] * vs
+        acc = acc * corr[:, None]
+        for wgt, vc in corners:                 # the corners' weights times p
+            acc = acc + (p[:, None] * wgt) * vc
         m_run = m_new
-    return (acc / l_run[..., None]).reshape(bq, h, w, c)
+    out = torch.full((bq, h, w, dg, cg), float("nan"))
+    out[b, y, x, g] = acc / l_run[:, None]
+    return out.reshape(bq, h, w, c)
 
 
 @pytest.mark.parametrize("frames,off_scale", [(1, 3.0), (2, 12.0)])

@@ -269,7 +269,7 @@ class Counts:
 
 def test_vrt_001_geometry_runs_every_block_on_a_kernel():
     cfg = dict(upscale=4, window_size=(6, 8, 8), depths=(8,) * 7 + (4,) * 6,
-               embed_dims=(24,) * 7 + (36,) * 6, num_heads=(2,) * 7 + (3,) * 6,
+               embed_dims=(24,) * 7 + (32,) * 6, num_heads=(2,) * 13,
                pa_frames=2, deformable_groups=12)
     model = seeded_vrt(cfg, deform_impl="fused")
     x = np.random.RandomState(1).rand(1, 6, 64, 64, 3).astype(np.float32)
