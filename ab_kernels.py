@@ -15,7 +15,11 @@ directory is that checkout (so each builds and loads its own kernels, and
 prints its build's wall seconds), in turns: other, this, this, other;
 then, in each checkout, VRT's TMSA and self blocks at the training step's
 B=8 calls (``vrt_b8``, 8x6x64x64: TMSA C=120, self C=120 and C=180 at wd
-6) through that checkout's own wrappers and weight pack. Phase names after
+6) through that checkout's own wrappers and weight pack. ``route_host``
+(run only when named) times on the host ``TMSA.kernel_route`` over
+RVRT-001's 20 window blocks at its 2x64x64 clip slots: the routing each
+block's forward does, per call and for the clip's 68 block calls (4 + 64
+launches, phase 19). Phase names after
 the checkout run only those phases (``python3 ab_kernels.py ../parent
 bilin``); with none, all of the above run. ``vrt``, ``rvrt`` and
 ``vrt_train`` (phases 16, 19 and 21, whole models) run only when named.
@@ -88,15 +92,41 @@ for name, c, wd in (("TMSA C=120", 120, 2), ("self C=120 wd 6", 120, 6),
     times.append(f"{name} {chip_smoke.cuda_ms(fn, warmup=3, reps=20):.4f} ms")
 print("phase ab_vrt_b8: 8x6x64x64, median of 20: " + ", ".join(times))
 """
+ROUTE_HOST = """
+# the host time of TMSA.kernel_route over RVRT-001's blocks at its clip slots
+from kair_tpu_torch.cli.test_video import RVRT_TASKS
+from kair_tpu_torch.models.rvrt import RVRT
+from kair_tpu_torch.models.vrt import TMSA
+from kair_tpu_torch.ops.window3d import get_window_size
+with torch.device("meta"):
+    model = RVRT(**RVRT_TASKS["001_RVRT_videosr_bi_REDS_30frames"]).eval()
+calls = [(m, *get_window_size((2, 64, 64), m.window_size, m.shift_size))
+         for m in model.modules() if isinstance(m, TMSA)]
+routes = [m.kernel_route(2, 64, 64, ws, ss) for m, ws, ss in calls]
+per = []
+for _ in range(5):
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        for m, ws, ss in calls:
+            m.kernel_route(2, 64, 64, ws, ss)
+    per.append((time.perf_counter() - t0) / 2000 / len(calls) * 1e6)
+per.sort()
+print(f"phase ab_route_host: TMSA.kernel_route over {len(calls)} blocks "
+      f"({routes.count('stl2')} stl2, {routes.count('stl1')} stl1), "
+      f"median of 5 x 2000 passes {per[2]:.3f} us a call (range "
+      f"{per[0]:.3f}-{per[-1]:.3f}), x 68 block calls a clip "
+      f"{per[2] * 68 / 1000:.4f} ms", flush=True)
+"""
+EXTRA = {"vrt_b8": VRT_B8, "route_host": ROUTE_HOST}
 
 
 def main(argv: list) -> int:
     names = argv[1:] or [*PHASES, "vrt_b8"]
     known = {**PHASES, **MODEL_PHASES}
-    if not argv or any(n not in known and n != "vrt_b8" for n in names):
+    if not argv or any(n not in known and n not in EXTRA for n in names):
         raise SystemExit(__doc__)
-    snippet = HEAD + "\n".join(known[n] for n in names if n in known) + (
-        VRT_B8 if "vrt_b8" in names else "")
+    snippet = HEAD + "\n".join(known[n] for n in names if n in known) + \
+        "".join(EXTRA[n] for n in EXTRA if n in names)
     other = Path(argv[0]).resolve()
     if not (other / "chip_smoke.py").is_file():
         raise SystemExit(f"{other} holds no chip_smoke.py")

@@ -43,9 +43,11 @@
 // warp's last item idle (2 of 32 at cg 24), and an item past the map's
 // edge computes a clamped pixel and stores nothing. The item's offsets are
 // read TPI taps at a time, one (y, x) pair a thread from the contiguous run
-// of its taps, and handed round by shuffles; at 3x3 taps (RVRT's) a clip
-// slot's nine pairs are read at once and the tap loop is unrolled with its
-// tap offsets as constants. A corner outside the frame reads a clamped
+// of its taps, and handed round by shuffles; at RVRT's geometry (3x3 taps,
+// cg 24 or 32) a clip slot's nine pairs are read at once and the tap loop
+// is unrolled with its tap offsets and the item's thread count as
+// constants. Every other geometry takes one generic walk of its vector
+// width: six instances in all. A corner outside the frame reads a clamped
 // pixel at weight 0, as the plain version does, so the loads need no
 // predicate; a corner's k and v addresses are one wide multiply-add each
 // from the frame's bases. The TPU kernel's 2-hot matmuls, hat weights,
@@ -146,12 +148,10 @@ __device__ __forceinline__ void store_vec(bf16* p, const float* f) {
 
 // The item's TPI partial dots, summed in one order on every thread of the
 // item whose first lane is `first`: a butterfly for a power of two, else in
-// thread order. TPI 0: the count read from the plan (the narrow vectors).
+// thread order. TPI 0: the count read from the plan (the generic walk).
 template <int TPI>
 __device__ __forceinline__ float item_sum(float v, int tpi, int first, unsigned mask) {
-  if constexpr (TPI == 1) {
-    return v;
-  } else if constexpr (TPI == 2 || TPI == 4) {
+  if constexpr (TPI == 4) {
 #pragma unroll
     for (int o = 1; o < TPI; o <<= 1) v += __shfl_xor_sync(mask, v, o);
     return v;
@@ -223,8 +223,8 @@ __device__ __forceinline__ float2 load_off(const float* o, bool off8) {
   return off8 ? __ldg(reinterpret_cast<const float2*>(o)) : make_float2(__ldg(o), __ldg(o + 1));
 }
 
-// K3: the taps are 3x3 (RVRT's), walked with compile-time tap offsets, and
-// a clip slot's nine (y, x) pairs are read at the slot's start.
+// K3: the taps are 3x3 (RVRT's, TPI 3 or 4), walked with compile-time tap
+// offsets, and a clip slot's nine (y, x) pairs are read at the slot's start.
 template <int V, int TPI, bool K3>
 __global__ void __launch_bounds__(kThreads, 3) gda_kernel(GdaArgs a, GdaPlan p) {
   const int tpi = TPI ? TPI : p.tpi;
@@ -371,21 +371,15 @@ extern "C" int kair_gda(const void* q, const void* k, const void* v, const void*
   a.scale = 1.f / sqrtf((float)(C / DG));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned grid = (unsigned)blocks;
-  const bool k3 = kh == 3 && kw == 3;
-  if (p.vec == 8 && k3) {                             // cg 8, 16, 24, 32; 3x3 taps
-    switch (p.tpi) {
-      case 1: gda_kernel<8, 1, true><<<grid, kThreads, 0, st>>>(a, p); break;
-      case 2: gda_kernel<8, 2, true><<<grid, kThreads, 0, st>>>(a, p); break;
-      case 3: gda_kernel<8, 3, true><<<grid, kThreads, 0, st>>>(a, p); break;
-      default: gda_kernel<8, 4, true><<<grid, kThreads, 0, st>>>(a, p); break;
-    }
+  // compile-time thread counts only for RVRT's traffic (3x3 taps at cg 24
+  // and 32); every other geometry takes the generic walk of its vector
+  const bool k3 = kh == 3 && kw == 3 && p.vec == 8;
+  if (k3 && p.tpi == 3) {
+    gda_kernel<8, 3, true><<<grid, kThreads, 0, st>>>(a, p);
+  } else if (k3 && p.tpi == 4) {
+    gda_kernel<8, 4, true><<<grid, kThreads, 0, st>>>(a, p);
   } else if (p.vec == 8) {
-    switch (p.tpi) {
-      case 1: gda_kernel<8, 1, false><<<grid, kThreads, 0, st>>>(a, p); break;
-      case 2: gda_kernel<8, 2, false><<<grid, kThreads, 0, st>>>(a, p); break;
-      case 3: gda_kernel<8, 3, false><<<grid, kThreads, 0, st>>>(a, p); break;
-      default: gda_kernel<8, 4, false><<<grid, kThreads, 0, st>>>(a, p); break;
-    }
+    gda_kernel<8, 0, false><<<grid, kThreads, 0, st>>>(a, p);
   } else if (p.vec == 4) {
     gda_kernel<4, 0, false><<<grid, kThreads, 0, st>>>(a, p);
   } else if (p.vec == 2) {

@@ -17,8 +17,11 @@ MLP (``geglu=False``) run ``stl2_block`` on (2, 8, 8) windows and the 2-D
 ``swin_block_2d`` on (1, 8, 8) ones (per-frame windows: the frames fold
 into the batch); each with its cyclic shift folded into the kernel's
 indices. On a CUDA tensor those are the hand-written kernels, on a CPU
-tensor their plain versions. Any other geometry (or ``fuse_block=False``)
-takes the composed block of ``ops/window3d.py``; on the card each such call
+tensor their plain versions. A block whose widths the routed kernel
+refuses (``TMSA.kernel_refusal``) raises on a CUDA tensor, with the
+kernel's reason, and takes the plain version on a CPU tensor. Any other
+geometry (or ``fuse_block=False``) takes the composed block of
+``ops/window3d.py``, as the JAX package does; on the card each such call
 adds one to ``TMSA.composed_calls``. The flow-guided deformable alignment
 runs ``ops/warp.modulated_deform_conv`` with ``deform_impl`` ("auto": the
 DCN kernel on the card; "mxu": the bilinear sampler kernels).
@@ -56,12 +59,12 @@ from kair_tpu_torch.ops.kernels.self6_block import (self6_block,
                                                     self6_block_train)
 from kair_tpu_torch.ops.kernels.stl2_block import stl2_block
 from kair_tpu_torch.ops.kernels.swin_block import (SwinBlockParams,
-                                                    block_takes,
+                                                    block_refusal,
                                                     pack_swin_block,
                                                     swin_block_2d)
 from kair_tpu_torch.ops.kernels.tmsa_block import tmsa_block, tmsa_block_train
 from kair_tpu_torch.ops.kernels.window_msa import shift_mask_tensor
-from kair_tpu_torch.ops.kernels.win3d import pack_win3d_stages, takes
+from kair_tpu_torch.ops.kernels.win3d import pack_win3d_stages, refusal
 from kair_tpu_torch.ops.warp import flow_warp, modulated_deform_conv
 from kair_tpu_torch.ops.window3d import (Tmsa3dParams, compute_mask_3d,
                                          compute_mask_labels_3d, geglu,
@@ -182,6 +185,7 @@ class TMSA(_Packed, nn.Module):
         self.norm2 = nn.LayerNorm(dim)
         hidden = int(dim * mlp_ratio)
         self.mlp = GEGLU(dim, hidden, dim) if geglu else Mlp(dim, hidden, dim)
+        self.widths = (dim, num_heads, hidden)   # what the kernels refuse by
 
     def params(self) -> Tmsa3dParams:
         a, m = self.attn, self.mlp
@@ -199,31 +203,38 @@ class TMSA(_Packed, nn.Module):
 
     def kernel_route(self, d: int, h: int, w: int, ws, ss=(0, 0, 0)
                      ) -> Optional[str]:
-        """The kernel that takes this geometry ("tmsa", "self6", "stl2",
-        "stl1") or None, as ``kair_tpu/models/vrt.py TMSA.__call__``
-        (:318-352) decides, and only where that kernel takes the block's
-        widths (``win3d.takes``, the 2-D kernel's ``block_takes``): a width
-        the JAX kernels take and these refuse goes to the composed block.
-        The JAX package's (1, 8, 8) conditions W%16 == 0 and W <=
-        strip_w_max(C) are the TPU strip kernel's VMEM limits and have no
-        counterpart here; the 2-D kernel takes one shift for both axes, so
-        (1, 8, 8) needs the h and w shifts equal, and one 8x8 table, so a
-        block whose own window is one frame deep. In training VRT's blocks
-        keep their routes; RVRT's STL blocks (no training route yet) take
-        the composed block."""
+        """The kernel that takes this block ("tmsa", "self6", "stl2",
+        "stl1") or None: the route by the windows (``_window_route``), where
+        that kernel takes the block's widths (``kernel_refusal`` is
+        None)."""
         route = self._window_route(d, h, w, ws, ss)
-        if route is None or self.window_size[1:] != (8, 8):
-            return None
-        c, nh = self.norm1.normalized_shape[0], self.num_heads
-        hidden = self.mlp.fc2.in_features
+        return None if route is None or self.kernel_refusal(route, ws) \
+            else route
+
+    def kernel_refusal(self, route: str, ws) -> Optional[str]:
+        """Why the kernel of ``route`` refuses this block's widths, or None:
+        the 3-D window kernels' ``win3d.refusal`` and the 2-D kernel's
+        ``block_refusal``, and the one 8x8 table they read. The JAX package
+        runs its fused kernel at such a width, so the card raises there
+        (``forward``)."""
+        if self.window_size[1:] != (8, 8):
+            return (f"reads an 8x8 window's table, the block's is for "
+                    f"{self.window_size[1:]} windows")
+        c, nh, hidden = self.widths
         if route == "stl1":
-            return route if block_takes(c, nh, hidden) else None
-        return route if takes(route == "tmsa", c, nh, hidden, ws[0],
-                              self.window_size[0], plain=route == "stl2") \
-            else None
+            return block_refusal(c, nh, hidden)
+        return refusal(route == "tmsa", c, nh, hidden, ws[0],
+                       self.window_size[0], plain=route == "stl2")
 
     def _window_route(self, d: int, h: int, w: int, ws, ss) -> Optional[str]:
-        """The route by the windows alone."""
+        """The route by the windows alone, as ``kair_tpu/models/vrt.py
+        TMSA.__call__`` (:318-352) decides. The JAX package's (1, 8, 8)
+        conditions W%16 == 0 and W <= strip_w_max(C) are the TPU strip
+        kernel's VMEM limits and have no counterpart here; the 2-D kernel
+        takes one shift for both axes, so (1, 8, 8) needs the h and w
+        shifts equal, and one 8x8 table, so a block whose own window is one
+        frame deep. In training VRT's blocks keep their routes; RVRT's STL
+        blocks (no training route yet) take the composed block."""
         if not self.fuse_block or h % 8 or w % 8:
             return None
         if self.mut_attn:
@@ -245,7 +256,15 @@ class TMSA(_Packed, nn.Module):
         b, d, h, w, c = x.shape
         ws, ss = get_window_size((d, h, w), self.window_size, self.shift_size)
         p = self.params()
-        route = self.kernel_route(d, h, w, ws, ss)
+        route = self._window_route(d, h, w, ws, ss)
+        why = route and self.kernel_refusal(route, ws)
+        if why and x.is_cuda:
+            raise ValueError(
+                f"TMSA block at C={c}, {self.num_heads} heads, window "
+                f"{tuple(ws)}: the {route} kernel {why}. The JAX package runs "
+                "its fused kernel here; the port has no kernel for it")
+        if why:
+            route = None                     # the CPU: the plain version
         if route == "stl1":
             return self._stl1(x, p, ss[1])
         pk = (self.packed(lambda: pack_win3d_stages(p, self.num_heads))

@@ -392,11 +392,12 @@ def _check_cuda_args(x, p, num_heads, mask, ws=WS, backward=False):
 
 
 @lru_cache(maxsize=64)
-def block_takes(c: int, nh: int, hidden: int, ws: int = WS) -> bool:
-    """Whether the forward kernel takes a block of C channels, nh heads and
-    an MLP of ``hidden`` width at window ws: ``_check_cuda_args`` (the
-    kernel's own ``check_geometry`` and shared-memory limit) run on
-    shape-only tensors, without raising."""
+def block_refusal(c: int, nh: int, hidden: int, ws: int = WS
+                  ) -> Optional[str]:
+    """Why the forward kernel refuses a block of C channels, nh heads and
+    an MLP of ``hidden`` width at window ws, or None: the message of
+    ``_check_cuda_args`` (the kernel's own ``check_geometry`` and
+    shared-memory limit) run on shape-only tensors."""
     x = torch.empty((1, ws, ws, c), dtype=torch.bfloat16, device="meta")
     m = lambda *shape: torch.empty(shape, device="meta")
     p = SwinBlockParams(m(3 * c, c), m(3 * c), m(c, c), m(c),
@@ -404,9 +405,15 @@ def block_takes(c: int, nh: int, hidden: int, ws: int = WS) -> bool:
                         m(hidden, c), m(hidden), m(c, hidden), m(c))
     try:
         _check_cuda_args(x, p, nh, None, ws)
-    except ValueError:
-        return False
-    return True
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def block_takes(c: int, nh: int, hidden: int, ws: int = WS) -> bool:
+    """Whether the forward kernel takes that block: ``block_refusal`` is
+    None."""
+    return block_refusal(c, nh, hidden, ws) is None
 
 
 def _check_stages(x: torch.Tensor, pk: SwinBlockPack, num_heads: int) -> None:

@@ -9,9 +9,9 @@ tiling and shared-memory layout (``chip_smoke.py`` phase 1 holds it equal
 to the kernels' own ``kair_win3d_plan``), ``item_walk`` and
 ``attn_blocks`` mirror their walks over the map, and ``launch_win3d`` runs
 the three passes. ``labels_on`` gives the shift mask as region labels,
-``check_geometry`` refuses what the kernels do not take, and ``takes``
-says without raising whether they take a block's geometry (the model's
-routes ask it).
+``check_geometry`` refuses what the kernels do not take, and ``refusal``
+says without raising why they refuse a block's widths (the model's routes
+ask it; ``takes`` is its bool).
 
 The relative-position table keeps the window depth ``twd`` it was made
 for (KAIR's module window, 6 in VRT): a block on a shallower window reads
@@ -203,13 +203,20 @@ def plan_refusal(pl: Win3dPlan, c: int, nh: int, mutual: bool,
     return None
 
 
+@lru_cache(maxsize=64)
+def refusal(mutual: bool, c: int, nh: int, hidden: int, wd: int, twd: int,
+            plain: bool = False) -> Optional[str]:
+    """Why the kernels refuse a block of C channels, nh heads, an MLP of
+    ``hidden`` width on (wd, 8, 8) windows with a table twd deep, or None:
+    the reason ``_check_plan`` raises with."""
+    return plan_refusal(win3d_plan(mutual, c, nh, hidden, wd, twd, plain), c,
+                        nh, mutual, plain)
+
+
 def takes(mutual: bool, c: int, nh: int, hidden: int, wd: int, twd: int,
           plain: bool = False) -> bool:
-    """Whether the kernels take a block of C channels, nh heads, an MLP of
-    ``hidden`` width on (wd, 8, 8) windows with a table twd deep: the
-    refusals of ``_check_plan``, without raising."""
-    return plan_refusal(win3d_plan(mutual, c, nh, hidden, wd, twd, plain), c,
-                        nh, mutual, plain) is None
+    """Whether the kernels take that block: ``refusal`` is None."""
+    return refusal(mutual, c, nh, hidden, wd, twd, plain) is None
 
 
 def _check_plan(name: str, pl: Win3dPlan, c: int, nh: int,

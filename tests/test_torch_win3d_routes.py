@@ -5,8 +5,9 @@ a kernel only where that kernel takes its widths.
   sends to its fused kernels (a TMSA block at C=180, a self block at
   C=192, an STL2 block at C=240 with 8 heads, C=96 with 3 heads and C=128
   with 4 heads; an STL1 block past the 2-D kernel's head dim), the route
-  is None: the block takes the composed route, counted on the card in
-  ``TMSA.composed_calls``.
+  is None. On the CPU the block takes its plain version; on the card it
+  raises with the kernel's reason, before any work, and falls back to
+  nothing (``TMSA.composed_calls`` stays as it was).
 * The shipped presets keep their routes: every TMSA module of VRT 001-009
   and RVRT 001-006 (built on the meta device) routes as the windows alone
   decide, at the clip sizes it sees.
@@ -181,10 +182,11 @@ def test_refused_stl2_forward_matches_jax():
     np.testing.assert_allclose(got, want, atol=1e-4)
 
 
-def test_refused_route_counts_a_composed_call_on_the_card():
-    """A CUDA tensor (mocked here) at a refused geometry goes to the
-    composed block and adds one to ``TMSA.composed_calls``; the stl2
-    wrapper is never called."""
+def test_refused_route_raises_on_the_card():
+    """An STL2 block at C=24 with 3 heads: on the CPU the forward takes the
+    plain version and counts no composed call; on a CUDA tensor (mocked
+    here) it raises with the kernel's refusal, the stl2 wrapper is never
+    called and no composed call is counted."""
     c, nh = 24, 3
     blk = tvrt.TMSA(c, nh, (2, 8, 8), (0, 0, 0), mut_attn=False,
                     geglu=False).eval()
@@ -192,8 +194,32 @@ def test_refused_route_counts_a_composed_call_on_the_card():
     n = tvrt.TMSA.composed_calls
     with mock.patch.object(tvrt, "stl2_block",
                            side_effect=AssertionError("kernel route")), \
-            mock.patch.object(torch.Tensor, "is_cuda",
-                              property(lambda t: True)), torch.no_grad():
+            torch.no_grad():
         y = blk(x)
-    assert tvrt.TMSA.composed_calls == n + 1
-    assert y.shape == x.shape and torch.isfinite(y).all()
+        assert tvrt.TMSA.composed_calls == n
+        assert y.shape == x.shape and torch.isfinite(y).all()
+        with mock.patch.object(torch.Tensor, "is_cuda",
+                               property(lambda t: True)), \
+                pytest.raises(ValueError, match="even number of heads"):
+            blk(x)
+    assert tvrt.TMSA.composed_calls == n
+
+
+@pytest.mark.parametrize("name,kw,dhw", REFUSED, ids=[r[0] for r in REFUSED])
+def test_refused_width_raises_on_the_card(name, kw, dhw):
+    """At each refused width a CUDA tensor (mocked here, on the meta
+    device) raises with the routed kernel's reason, and no composed call
+    is counted."""
+    with torch.device("meta"):
+        m = tvrt.TMSA(**kw).eval()
+        x = torch.empty((1, *dhw, kw["dim"]))
+    ws, _ = get_window_size(dhw, m.window_size, m.shift_size)
+    why = m.kernel_refusal(m._window_route(*dhw, ws, m.shift_size), ws)
+    assert why
+    n = tvrt.TMSA.composed_calls
+    with mock.patch.object(torch.Tensor, "is_cuda",
+                           property(lambda t: True)), \
+            pytest.raises(ValueError, match="runs its fused kernel") as e:
+        m(x)
+    assert why in str(e.value)
+    assert tvrt.TMSA.composed_calls == n
