@@ -12,8 +12,10 @@ unfused route (the window-attention kernel) and SwinIR-L; then VRT video
 SR through the TMSA mutual block, self block and DCNv2 kernels; then RVRT
 video SR through the STL2 block, the 2-D Swin block and the guided
 deformable attention kernels; then VRT-001 training with its alignment
-sampled by the bilinear sampler's forward and backward kernels. Phases,
-one flushed line each with its seconds:
+sampled by the bilinear sampler's forward and backward kernels; then the
+CNN zoo's inference (cuDNN and cuFFT, no hand-written kernel on its path)
+and the port's timing CLIs. Phases, one flushed line each with its
+seconds:
 
   0 device      card name, power limit (nvidia-smi), torch and CUDA versions
   1 build       the kernels, from csrc/, one nvcc process per source, all
@@ -165,6 +167,26 @@ one flushed line each with its seconds:
                 resume; (e) the option file's
                 "auto" route (DCN kernel, composed backward) on the same
                 batches
+ 22 cnn_zoo     the CNN zoo at full width, seeded weights (zoo_state_dict):
+                DnCNN-17 gray, DnCNN-20 color blind, IRCNN color, FFDNet gray
+                64/15 and color 96/12, SRMD 128/12, MSRResNet0 64/16, RRDB
+                64/23 gc 32, IMDN 64/8, DRUNet color 64-512/4 and USRNet
+                (8 iterations, h_nc 64, 64-512) through cli.test.build_preset
+                from a .pth; DPSR 96/16, MSRResNet1 64/16 (options/
+                train_msrresnet_psnr.json) and RRDBNet 64/23/32 through
+                define_g; bf16 on the card against f32 on the CPU (64x64
+                images for the denoisers, 32x32 LR for the SR models, 16x16
+                LR for USRNet) within 2e-2 of max|ref|, no hand-written kernel
+                launched; controls: σ 50 for 25 (FFDNet, DRUNet, SRMD),
+                another kernel's PCA map (SRMD), kernels_12[11] transposed
+                (USRNet), the weights of seed + 1 (the others); ms, MP/s,
+                TFLOP/s and a device profile at 1x512x512 (denoisers),
+                1x256x256 LR (x4 SR) and 1x128x128 LR (USRNet)
+ 23 timing_clis cli/challenge (MSRResNet0, 256x256), cli/video_bench --net
+                vrt and --net rvrt, cli/bench (SwinIR-M x4, B=16 of
+                128x128), then video_bench --net rvrt --compare --profile and
+                bench --batch 1 --profile: each one's JSON lines, value > 0,
+                mfu not null, a profile with device time
 
 Any failed check raises and the script exits non-zero; a watchdog ends a
 hung run with a traceback. The line before the last is one JSON object with
@@ -254,20 +276,10 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, warmup: int = 3, reps: int = 10) -> float:
-    """Median device time of fn() over `reps` runs, by CUDA events."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    pairs = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+    """Median device time of fn() over `reps` runs, by CUDA events
+    (utils/timing, as the port's timing CLIs)."""
+    from kair_tpu_torch.utils.timing import launch_ms
+    return statistics.median(launch_ms(fn, reps, warmup))
 
 
 def bound_ms(flops: float, nbytes: float, rate: str = "bf16"):
@@ -643,23 +655,14 @@ def bwd_pass_times(fn, runs: int = 5) -> dict:
     """Device ms per call of each kernel that ``fn`` launches (torch.profiler
     over ``runs`` calls, device events only), by kernel name."""
     import torch
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    from kair_tpu_torch.utils.timing import device_trace, kernel_name
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
     out: dict = {}
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        name = kernel_name(ev.key)
-        out[name] = out.get(name, 0.0) + dev_us / 1e3 / runs
+    for t, _, key in device_trace(lambda: [fn() for _ in range(runs)],
+                                  runs)[1]:
+        name = kernel_name(key)
+        out[name] = out.get(name, 0.0) + t
     return out
 
 
@@ -669,6 +672,7 @@ def launch_device_ms(fn, prefix: str, runs: int = 10):
     over the launches the profiler saw, so a launch it dropped does not
     lower the mean; None if it saw none."""
     import torch
+    from kair_tpu_torch.utils.timing import kernel_name
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     fn()
@@ -889,12 +893,6 @@ def grads_of(trainer, batch) -> dict:
             .detach().float().cpu() for n, p in trainer.model.named_parameters()}
 
 
-def kernel_name(key: str) -> str:
-    """A profiler key without its namespace noise, template and arguments."""
-    key = key.replace("(anonymous namespace)::", "").removeprefix("void ")
-    return key.split("(")[0].split("<")[0].strip()[:60]
-
-
 def device_breakdown(fn, runs: int, ms: float, what: str,
                      host: bool = False, top: int = 8, count=(),
                      sums=()) -> str:
@@ -908,25 +906,10 @@ def device_breakdown(fn, runs: int, ms: float, what: str,
     each kernel-name prefix in ``sums`` adds its kernels' device time per
     run, in all and by kernel."""
     import torch
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        if (ev.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(ev, "is_user_annotation", False)
-                or ev.key.startswith("Optimizer.")):
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        if dev_us > 0:
-            rows.append((dev_us / 1e3 / runs, ev.count // runs, ev.key))
+    from kair_tpu_torch.utils.timing import device_trace, kernel_name
+    prof, rows = device_trace(fn, runs)
     if not rows:
         return "the profiler saw no device time"
-    rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     out = (f"device time per {what} (profiler, {runs} runs): busy "
            f"{busy:.2f} ms of the {ms:.2f} ms {what}, idle share "
@@ -2881,6 +2864,362 @@ def phase_vrt_train(report: list, card: str, build_dir) -> None:
 
 
 
+# ---------------------------------------------------------------------------
+# The CNN zoo and the timing CLIs (phases 22-23)
+# ---------------------------------------------------------------------------
+
+# label, built from (a cli/test preset, or an option tree through define_g),
+# forward kind, image channels, control ("seed": the weights of seed + 1;
+# "sigma": σ 50 for 25; "pca": another kernel's PCA map; "kernel":
+# kernels_12[11] transposed), conditioning channels of the head conv
+ZOO = (
+    ("DnCNN-17 gray", "dncnn_25", "plain", 1, ("seed",)),
+    ("DnCNN-20 color blind", "dncnn_color_blind", "plain", 3, ("seed",)),
+    ("IRCNN color", "ircnn_color", "plain", 3, ("seed",)),
+    ("FFDNet gray 64/15", "ffdnet_gray", "ffdnet", 1, ("sigma",)),
+    ("FFDNet color 96/12", "ffdnet_color", "ffdnet", 3, ("sigma",)),
+    ("SRMD 128/12", "srmd_x4", "srmd", 3, ("sigma", "pca")),
+    ("DPSR 96/16", {"net_type": "dpsr"}, "dpsr", 3, ("seed",)),
+    ("MSRResNet0 64/16", "msrresnet_x4", "sr4", 3, ("seed",)),
+    ("MSRResNet1 64/16", "options/train_msrresnet_psnr.json", "sr4", 3,
+     ("seed",)),
+    ("RRDB 64/23 gc 32 (ESRGAN)", "rrdb_x4", "sr4", 3, ("seed",)),
+    ("RRDBNet 64/23/32", {"net_type": "rrdbnet"}, "sr4", 3, ("seed",)),
+    ("IMDN 64/8", "imdn_x4", "sr4", 3, ("seed",)),
+    ("DRUNet color 64-512/4", "drunet_color", "drunet", 3, ("sigma",)),
+    ("USRNet 8 iters h_nc 64, 64-512", "usrnet", "usrnet", 3, ("kernel",)),
+)
+# (reference map on the CPU, timed map on the card): the denoisers' image,
+# the SR models' LR image
+ZOO_SIZES = {"plain": (64, 512), "ffdnet": (64, 512), "drunet": (64, 512),
+             "srmd": (32, 256), "dpsr": (32, 256), "sr4": (32, 256),
+             "usrnet": (16, 128)}
+# head-conv input channels a conditioning map feeds, and how much their
+# seeded weights are raised so that the map moves the output (σ is 0.1,
+# the image about 0.5)
+COND_BOOST = {"sigma": 16.0, "pca": 4.0}
+
+
+def zoo_model(source, state_dict=None):
+    """(f32 CPU model) of a ZOO entry: a cli/test preset, an option file's
+    netG or an option tree, through define_g."""
+    from kair_tpu_torch.cli.test import preset_model
+    from kair_tpu_torch.config import load_json_with_comments
+    from kair_tpu_torch.models.registry import define_g
+    if isinstance(source, dict):
+        model = define_g({"netG": dict(source)})
+    elif source.endswith(".json"):
+        model = define_g({"netG": load_json_with_comments(source)["netG"]})
+    else:
+        model = preset_model(source, state_dict or {})[0]
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    return model.eval()
+
+
+def zoo_inputs(kind: str, ch: int, size: int, seed: int, sigma: float = 25,
+               pca_kernel=None, blur=None):
+    """The model's CPU input tensors for one forward kind, from a seeded
+    smooth image: noisy images (+ the σ map) for the denoisers, LR images
+    (+ the degradation maps) for the SR models."""
+    import numpy as np
+    import torch
+    from kair_tpu_torch.degrade import sisr
+    img = smooth_image(size, size, seed)[..., :ch].astype(np.float32) / 255
+    s = sigma / 255.0
+    if kind in ("plain", "ffdnet", "drunet"):
+        img = img + np.random.RandomState(seed).normal(0, s, img.shape)
+    else:
+        # texture, as a natural LR image has (and which the blur kernel's
+        # direction acts on, for USRNet)
+        img = img + np.random.RandomState(seed).normal(0, 0.1, img.shape)
+    x = torch.from_numpy(img[None].astype(np.float32))
+    smap = torch.full((1, size, size, 1), s)
+    if kind == "ffdnet":
+        return (x, torch.full((1, 1, 1, 1), s))
+    if kind == "drunet":
+        return (torch.cat([x, smap], -1),)
+    if kind == "dpsr":
+        return (torch.cat([x, smap], -1),)
+    if kind == "srmd":
+        k = sisr.anisotropic_gaussian(15, np.pi, 0.1, 0.1) \
+            if pca_kernel is None else pca_kernel
+        pca = torch.from_numpy(sisr.pca_project(k, sisr.load_srmd_pca()))
+        return (torch.cat([x, pca.view(1, 1, 1, 15).expand(1, size, size, 15),
+                           smap], -1),)
+    if kind == "usrnet":
+        k = sisr.load_kernels_12()[11] if blur is None else blur
+        k = torch.from_numpy((k / k.sum()).astype(np.float32))
+        return (x, k[None, :, :, None], 4, torch.zeros(1, 1, 1, 1))
+    return (x,)
+
+
+def zoo_last_conv(model, kind: str):
+    import torch.nn as nn
+    if kind == "usrnet":
+        return model.p.m_tail
+    return [m for m in model.modules()
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))][-1]
+
+
+def zoo_state_dict(source, kind: str, ch: int, seed: int, cond=()) -> dict:
+    """Seeded weights in which every layer moves the output: convs
+    He-normal (std sqrt(2 / fan_in)), those inside a residual unit scaled
+    by 0.1 as ESRGAN initialises its trunk (the residual stream stays near
+    the unit scale through 16-28 units), biases 0.01-normal; USRNet at its
+    own seeded initialisation (eight unrolled priors would compound a
+    larger gain). The head conv's conditioning channels are raised by
+    COND_BOOST; then the last conv is scaled so that the part of the output
+    it makes has a spread of 0.1 on the reference input and, but for the
+    residual denoisers (x − n), shifted to an image-like mean of 0.5 (twice
+    for USRNet, whose last conv also feeds the next iteration)."""
+    import torch
+    from kair_tpu_torch.models.rrdbnet import DenseBlock5C
+    from kair_tpu_torch.models.srresnet import ResidualBlockNoBN
+    from kair_tpu_torch.ops import blocks
+    units = (blocks.ResBlock, blocks.ResidualDenseBlock5C, blocks.IMDBlock,
+             DenseBlock5C, ResidualBlockNoBN)
+    torch.manual_seed(seed)
+    model = zoo_model(source)
+    gen = torch.Generator().manual_seed(seed)
+    convs = (torch.nn.Conv2d, torch.nn.ConvTranspose2d)
+    with torch.no_grad():
+        if kind != "usrnet":
+            for m in model.modules():
+                if isinstance(m, convs):
+                    m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                                   * math.sqrt(2 / m.weight[0].numel()))
+                    if m.bias is not None:
+                        m.bias.copy_(torch.randn(m.bias.shape, generator=gen)
+                                     * 0.01)
+            for u in model.modules():
+                if isinstance(u, units):
+                    for m in u.modules():
+                        if isinstance(m, convs):
+                            m.weight.mul_(0.1)
+        head = next(m for m in model.modules() if isinstance(m, convs))
+        for c in cond:
+            if c in COND_BOOST:
+                first = {"sigma": head.in_channels - 1, "pca": 3}[c]
+                n = 1 if c == "sigma" else 15
+                head.weight[:, first:first + n] *= COND_BOOST[c]
+        args = zoo_inputs(kind, ch, ZOO_SIZES[kind][0], seed)
+        last = zoo_last_conv(model, kind)
+        for _ in range(2 if kind == "usrnet" else 1):
+            out1 = model(*args)
+            w = last.weight.clone()
+            last.weight.zero_()
+            out0 = model(*args)
+            last.weight.copy_(w * (0.1 / (out1 - out0).std().item()))
+            if kind == "plain":
+                continue
+            # an image-like output: mean 0.5, by the bias or, where the
+            # last conv has none, on its centre tap (each input channel's
+            # weight moved by the sign of its mean)
+            seen = []
+            hook = last.register_forward_hook(
+                lambda m, i, o: seen.append(i[0].mean((0, 1, 2))))
+            shift = 0.5 - model(*args).mean().item()
+            hook.remove()
+            if last.bias is not None:
+                last.bias.add_(shift)
+            else:
+                k, m = last.kernel_size[0] // 2, seen[-1]
+                last.weight[:, :, k, k] += shift * m.sign() / m.abs().sum()
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def zoo_drift(gpu, cpu, args, dev: str = "cuda", points: int = 8) -> str:
+    """Where a bf16 model's error grows: max_abs / max|ref| of each conv's
+    output along the forward (and of the model's output) against the f32
+    CPU model ``cpu``, for ``gpu`` (bf16 on ``dev``), for ``cpu`` in f32 on
+    ``dev`` with TF32 off (is the card's conv right?) and in bf16 on the
+    CPU (is the error bf16's own?), at ``points`` convs spaced along the
+    forward and the last; and whether two bf16 forwards on ``dev`` are
+    bit-equal."""
+    import copy
+    import torch
+    import torch.nn as nn
+
+    def trace(model, device):
+        outs = []
+        hooks = [m.register_forward_hook(
+            lambda m, i, o, name=name: outs.append((name, o.float().cpu())))
+            for name, m in model.named_modules()
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))]
+        try:
+            with torch.inference_mode():
+                out = model(*[a.to(device) if torch.is_tensor(a) else a
+                              for a in args])
+        finally:
+            for h in hooks:
+                h.remove()
+        return outs + [("output", out.float().cpu())]
+
+    ref = trace(cpu, "cpu")
+    bf_dev = trace(gpu, dev)
+    bit_equal = all(torch.equal(a[1], b[1])
+                    for a, b in zip(bf_dev, trace(gpu, dev)))
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        f32_dev = trace(copy.deepcopy(cpu).to(dev), dev)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    bf_cpu = trace(copy.deepcopy(cpu).to(torch.bfloat16), "cpu")
+    n = len(ref)
+    picks = sorted({round(i * (n - 2) / (points - 1)) for i in range(points)}
+                   | {n - 1})
+    cols = []
+    for i in picks:
+        name, r = ref[i]
+        m = max(r.abs().max().item(), 1e-30)
+        e = [(run[i][1] - r).abs().max().item() / m
+             for run in (bf_dev, f32_dev, bf_cpu)]
+        cols.append(f"{i + 1 if i < n - 1 else 'out'} {name} "
+                    f"{e[0]:.4g}/{e[1]:.2g}/{e[2]:.4g}")
+    return (f"drift along {n - 1} convs (max_abs/max|ref| against f32 CPU: "
+            f"bf16 {dev} / f32 {dev} no TF32 / bf16 cpu): " + ", ".join(cols)
+            + f"; two bf16 {dev} forwards bit-equal: {bit_equal}")
+
+
+def card_forward(model, args):
+    """NHWC f32 CPU tensor out of the model on the card."""
+    import torch
+    dev = [a.cuda() if torch.is_tensor(a) else a for a in args]
+    with torch.inference_mode():
+        out = model(*dev)
+    torch.cuda.synchronize()
+    return out.float().cpu()
+
+
+def phase_zoo(card: str) -> None:
+    import numpy as np
+    import torch
+    from kair_tpu_torch.cli.challenge import count_flops
+    from kair_tpu_torch.cli.test import build_preset
+    from kair_tpu_torch.degrade import sisr
+    from kair_tpu_torch.utils.summary import peak_bf16_tflops
+
+    tol = 2e-2
+    peak = peak_bf16_tflops(torch.cuda.get_device_name(0))
+    with Phase("22 cnn_zoo") as ph, tempfile.TemporaryDirectory() as tmp:
+        ph.note("each model with seeded weights (zoo_state_dict), bf16 on cuda "
+                "(cuDNN convs, USRNet's data step f32/complex64 on cuFFT) "
+                "against f32 on the CPU; limit max_abs <= "
+                f"{tol} * max|ref|; each control must exceed it and 3x the "
+                "error; presets through cli.test.build_preset from a .pth, the "
+                "others through define_g; times: CUDA events, median of 10 "
+                f"after 2 warm-ups, convolution FLOP by FlopCounterMode [{card}]")
+        worst = []
+        for i, (label, source, kind, ch, controls) in enumerate(ZOO):
+            seed = SEED + 220 + i
+            sd = zoo_state_dict(source, kind, ch, seed, controls)
+            cpu = zoo_model(source, sd)
+            if isinstance(source, str) and not source.endswith(".json"):
+                path = os.path.join(tmp, f"{source}.pth")
+                torch.save(sd, path)
+                gpu, _, _ = build_preset(source, path)
+            else:
+                gpu = zoo_model(source, sd).to("cuda", torch.bfloat16)
+            ref_size, time_size = ZOO_SIZES[kind]
+            args = zoo_inputs(kind, ch, ref_size, seed)
+            with LaunchCount() as lc:
+                got = card_forward(gpu, args)
+            lc.expect(label)           # no hand-written kernel on this path
+            with torch.no_grad():
+                ref = cpu(*args).float()
+            e_abs, e_rel, ref_max, _ = compare(got, ref)
+            require(got.shape == ref.shape and torch.isfinite(got).all().item(),
+                    f"{label}: output {tuple(got.shape)} or non-finite values")
+            require(e_rel <= tol, f"{label}: max_rel {e_rel:.4g} > {tol}")
+            if e_rel > tol / 2:        # a thin margin: where does it grow?
+                ph.note(f"{label}: " + zoo_drift(gpu, cpu, args))
+            effects = []
+            for c in controls:
+                if c == "seed":
+                    alt = zoo_model(source, zoo_state_dict(source, kind, ch,
+                                                           seed + 1, controls))
+                    cargs = args
+                else:
+                    alt = cpu
+                    cargs = zoo_inputs(
+                        kind, ch, ref_size, seed, sigma=50 if c == "sigma" else 25,
+                        pca_kernel=sisr.anisotropic_gaussian(15, np.pi / 4, 6, 1)
+                        if c == "pca" else None,
+                        blur=sisr.load_kernels_12()[11].T if c == "kernel"
+                        else None)
+                with torch.no_grad():
+                    eff = (alt(*cargs).float() - ref).abs().max().item()
+                require(eff > tol * ref_max and eff > 3 * e_abs,
+                        f"{label}: the {c} control ({eff / ref_max:.4g}) is not "
+                        "above the limit and 3x the error")
+                effects.append(f"{c} {eff / ref_max:.4g}")
+            worst.append((e_rel, label))
+            targs = [a.cuda() if torch.is_tensor(a) else a
+                     for a in zoo_inputs(kind, ch, time_size, seed)]
+            with torch.inference_mode():
+                ms = cuda_ms(lambda: gpu(*targs), warmup=2, reps=10)
+            flops = count_flops(gpu, *targs)
+            tflops = flops / (ms / 1e3) / 1e12
+
+            def two_forwards():
+                with torch.inference_mode():
+                    gpu(*targs)
+                    gpu(*targs)
+            ph.note(f"{label}: {tuple(ref.shape)} max_abs {e_abs:.4g} max_rel "
+                    f"{e_rel:.4g} (max|ref| {ref_max:.3g}), control "
+                    f"{', '.join(effects)}; 1x{time_size}x{time_size}"
+                    f"{' LR' if kind not in ('plain', 'ffdnet', 'drunet') else ''}"
+                    f": {ms:.3f} ms, {time_size ** 2 / (ms / 1e3) / 1e6:.3f} MP/s,"
+                    f" {tflops:.1f} TFLOP/s (MFU "
+                    f"{'n/a' if not peak else f'{tflops / peak:.4f}'}); "
+                    + device_breakdown(two_forwards, 2, ms, "forward",
+                                       host=True, top=4))
+            del gpu, cpu
+        ph.note(f"largest max_rel {max(worst)[0]:.4g} ({max(worst)[1]})")
+
+
+def phase_timing_clis(card: str) -> None:
+    import contextlib
+    import io
+    import torch
+    from kair_tpu_torch.cli import bench, challenge, video_bench
+
+    runs = (("cli/challenge", lambda: [challenge.main([])]),
+            ("cli/video_bench --net vrt",
+             lambda: video_bench.main(["--net", "vrt"])),
+            ("cli/video_bench --net rvrt",
+             lambda: video_bench.main(["--net", "rvrt"])),
+            ("cli/bench", lambda: [bench.main([])]),
+            # the optional flags: every deform route in turns, profiles
+            ("cli/video_bench --net rvrt --compare --profile",
+             lambda: video_bench.main(["--net", "rvrt", "--compare", "--k",
+                                       "2", "--profile"])),
+            ("cli/bench --batch 1 --profile",
+             lambda: [bench.main(["--batch", "1", "--profile"])]))
+    with Phase("23 timing_clis") as ph:
+        for what, run in runs:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                reps = run()
+            lines = buf.getvalue().strip().splitlines()
+            require([json.loads(l) for l in lines] == reps,
+                    f"{what}: printed lines differ from its result")
+            for rep in reps:
+                require(rep["value"] > 0 and rep["mfu"] is not None,
+                        f"{what}: value {rep['value']} mfu {rep['mfu']}")
+                if "--profile" in what:
+                    require(rep["profile"]["busy_ms"] is not None,
+                            f"{what}: the profiler saw no device time")
+                ph.note(f"{what}: " + json.dumps(rep))
+            torch.cuda.empty_cache()
+        ph.note(f"[{card}]")
+
+
 def phase_build() -> None:
     """Phase 1: build the kernels, check the layout mirrors, print ptxas."""
     from kair_tpu_torch.ops.kernels import _build
@@ -3086,6 +3425,8 @@ def main() -> int:
     phase_rvrt(report, card)
     phase_bilin(report)
     phase_vrt_train(report, card, _build.BUILD_DIR)
+    phase_zoo(card)
+    phase_timing_clis(card)
     faulthandler.cancel_dump_traceback_later()
 
     log(card)

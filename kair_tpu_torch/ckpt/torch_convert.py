@@ -8,7 +8,8 @@ and ``spynet_from_jax`` go the other way: they turn a JAX parameter tree
 (numpy leaves, the output of ``convert_swinir`` :353, ``convert_vrt`` :486,
 ``convert_rvrt`` :602 or ``convert_spynet`` :426, or a tree the JAX package
 initialised) back into a KAIR state dict, so JAX parameters can be carried
-across.
+across. The CNN zoo's ``dncnn_from_jax`` … ``usrnet_from_jax`` invert
+``convert_dncnn`` … ``convert_usrnet`` (:94-345) the same way.
 """
 
 from __future__ import annotations
@@ -364,4 +365,258 @@ def rvrt_from_jax(variables: Dict[str, Any], window_size=(2, 8, 8)
         _conv3d(sd, f"upsampler.{5 * u}", up["conv"])
     _conv3d(sd, f"upsampler.{5 * len(ups)}", p["upsampler_tail"]["conv"])
     _conv3d(sd, "conv_last", p["conv_last"]["conv"])
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# CNN zoo (inverses of kair_tpu/ckpt/torch_convert.py:94-345)
+# ---------------------------------------------------------------------------
+
+def _convT(sd: Dict[str, torch.Tensor], name: str, leaf: Dict[str, Any]) -> None:
+    """The JAX ConvT kernel (k, k, I, O) → torch ConvTranspose2d (I, O, k, k)."""
+    sd[f"{name}.weight"] = _t(np.asarray(leaf["kernel"]).transpose(2, 3, 0, 1))
+    if "bias" in leaf:
+        sd[f"{name}.bias"] = _t(np.asarray(leaf["bias"]))
+
+
+def _convblock(sd: Dict[str, torch.Tensor], key, sub: Dict[str, Any],
+               stats: Optional[Dict[str, Any]], mode: str) -> None:
+    """A JAX ConvBlock (one ``mNN`` slot a mode char) → KAIR keys, the
+    char j's module named ``key(j)``; BatchNorm's running statistics (from
+    ``batch_stats``) go to buffers."""
+    for j, t in enumerate(mode):
+        slot = sub.get(f"m{j:02d}")
+        if t == "C":
+            _conv(sd, key(j), slot["conv"])
+        elif t == "T":
+            _convT(sd, key(j), slot)
+        elif t == "B":
+            bn, st = slot["bn"], stats[f"m{j:02d}"]["bn"]
+            sd[f"{key(j)}.weight"] = _t(np.asarray(bn["scale"]))
+            sd[f"{key(j)}.bias"] = _t(np.asarray(bn["bias"]))
+            sd[f"{key(j)}.running_mean"] = _t(np.asarray(st["mean"]))
+            sd[f"{key(j)}.running_var"] = _t(np.asarray(st["var"]))
+            sd[f"{key(j)}.num_batches_tracked"] = torch.tensor(0)
+
+
+class _Slots:
+    """KAIR's flattened ``sequential``: the next free slot of ``prefix``."""
+
+    def __init__(self, sd: Dict[str, torch.Tensor], prefix: str,
+                 start: int = 0):
+        self.sd, self.prefix, self.i = sd, prefix, start
+
+    def block(self, sub: Dict[str, Any], mode: str,
+              stats: Optional[Dict[str, Any]] = None) -> None:
+        i = self.i
+        _convblock(self.sd, lambda j: f"{self.prefix}.{i + j}", sub, stats,
+                   mode)
+        self.i += len(mode)
+
+    def conv(self, leaf: Dict[str, Any]) -> None:
+        _conv(self.sd, f"{self.prefix}.{self.i}", leaf)
+        self.i += 1
+
+
+def _up_mode(upsample_mode: str, scale: int, act: str) -> str:
+    """The mode string of the JAX package's upsampler blocks."""
+    return {"upconv": {2: "U", 3: "u", 4: "v"}[scale] + "C" + act,
+            "pixelshuffle": "C" + str(scale) + act,
+            "convtranspose": "T" + act}[upsample_mode]
+
+
+def _count(p: Dict[str, Any], pattern: str) -> int:
+    return sum(1 for k in p if re.fullmatch(pattern, k))
+
+
+def _split(variables: Dict[str, Any]):
+    return (variables.get("params", variables),
+            variables.get("batch_stats", {}))
+
+
+def _plain_stack(sd, p, s, act_mode: str, prefix: str = "model") -> _Slots:
+    """head / bodyNN / tail of DnCNN, FDnCNN, FFDNet and SRMD's body."""
+    seq = _Slots(sd, prefix)
+    seq.block(p["head"], "C" + act_mode[-1], s.get("head"))
+    for i in range(_count(p, r"body\d+")):
+        seq.block(p[f"body{i:02d}"], "C" + act_mode, s.get(f"body{i:02d}"))
+    return seq
+
+
+def dncnn_from_jax(variables: Dict[str, Any], act_mode: str = "R"
+                   ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_dncnn`` (DnCNN and FDnCNN), and of a JAX tree
+    with BatchNorm (act_mode 'BR', ``batch_stats`` beside ``params``)."""
+    p, s = _split(variables)
+    sd: Dict[str, torch.Tensor] = {}
+    _plain_stack(sd, p, s, act_mode).conv(p["tail"]["conv"])
+    return sd
+
+
+def ffdnet_from_jax(variables: Dict[str, Any], act_mode: str = "R"
+                    ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_ffdnet``."""
+    return dncnn_from_jax(variables, act_mode)
+
+
+def ircnn_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_ircnn``: ``conv{i}`` → ``model.{2i}``."""
+    p, _ = _split(variables)
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(7):
+        _conv(sd, f"model.{2 * i}", p[f"conv{i}"]["conv"])
+    return sd
+
+
+def srmd_from_jax(variables: Dict[str, Any], upscale: int = 4,
+                  act_mode: str = "R", upsample_mode: str = "pixelshuffle"
+                  ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_srmd``."""
+    p, s = _split(variables)
+    sd: Dict[str, torch.Tensor] = {}
+    _plain_stack(sd, p, s, act_mode).block(
+        p["tail"]["up"], _up_mode(upsample_mode, upscale, ""))
+    return sd
+
+
+def _shortcut_tail(sd, p, nb: int, upscale: int, act_mode: str,
+                   upsample_mode: str, tail_act: str) -> None:
+    """model.1.sub.{nb} (the body's last conv), then the upsamplers, the
+    HR conv and the last conv from slot 2 on: MSRResNet0 and old RRDB."""
+    _conv(sd, f"model.1.sub.{nb}", p["body_tail"]["conv"])
+    seq = _Slots(sd, "model", 2)
+    for u in range(_count(p, r"up\d+")):
+        seq.block(p[f"up{u}"]["up"],
+                  _up_mode(upsample_mode, 3 if upscale == 3 else 2, act_mode))
+    seq.block(p["hr"], "C" + tail_act)
+    seq.block(p["tail"], "C")
+
+
+def msrresnet0_from_jax(variables: Dict[str, Any], upscale: int = 4,
+                        act_mode: str = "R", upsample_mode: str = "upconv"
+                        ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_msrresnet0`` (MSRResNet0, DPSR)."""
+    p, _ = _split(variables)
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "model.0", p["head"]["conv"])
+    nb = _count(p, r"body\d+")
+    for i in range(nb):
+        _convblock(sd, lambda j: f"model.1.sub.{i}.res.{j}",
+                   p[f"body{i:02d}"]["res"], None, "C" + act_mode + "C")
+    _shortcut_tail(sd, p, nb, upscale, act_mode, upsample_mode, act_mode)
+    return sd
+
+
+def msrresnet1_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_msrresnet1``: KAIR's named modules."""
+    p, _ = _split(variables)
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "conv_first", p["conv_first"]["conv"])
+    for i in range(_count(p, r"trunk\d+_conv1")):
+        for c in ("conv1", "conv2"):
+            _conv(sd, f"recon_trunk.{i}.{c}", p[f"trunk{i:02d}_{c}"]["conv"])
+    for name in ("upconv1", "upconv2", "HRconv", "conv_last"):
+        if name in p:
+            _conv(sd, name, p[name]["conv"])
+    return sd
+
+
+def rrdb_from_jax(variables: Dict[str, Any], upscale: int = 4,
+                  act_mode: str = "L", upsample_mode: str = "upconv"
+                  ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_rrdb_old``: the blocks' convs ``conv{j}.0``
+    (conv + leaky) and ``conv5``."""
+    p, _ = _split(variables)
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "model.0", p["head"]["conv"])
+    nb = _count(p, r"body\d+")
+    for i in range(nb):
+        for k in (1, 2, 3):
+            rdb = p[f"body{i:02d}"][f"rdb{k}"]
+            pre = f"model.1.sub.{i}.RDB{k}"
+            for j in range(1, 5):
+                _conv(sd, f"{pre}.conv{j}.0", rdb[f"conv{j}"]["conv"])
+            _conv(sd, f"{pre}.conv5", rdb["conv5"]["conv"])
+    _shortcut_tail(sd, p, nb, upscale, act_mode, upsample_mode, act_mode)
+    return sd
+
+
+def rrdbnet_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_rrdbnet`` and ``convert_rrdbnet_noup``."""
+    p, _ = _split(variables)
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "conv_first", p["conv_first"]["conv"])
+    for i in range(_count(p, r"rrdb\d+")):
+        for k in (1, 2, 3):
+            for j in range(1, 6):
+                _conv(sd, f"RRDB_trunk.{i}.RDB{k}.conv{j}",
+                      p[f"rrdb{i:02d}"][f"rdb{k}"][f"conv{j}"]["conv"])
+    for name in ("trunk_conv", "upconv1", "upconv2", "HRconv", "conv_last"):
+        if name in p:
+            _conv(sd, name, p[name]["conv"])
+    return sd
+
+
+def imdn_from_jax(variables: Dict[str, Any], upscale: int = 4,
+                  upsample_mode: str = "pixelshuffle"
+                  ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_imdn``."""
+    p, _ = _split(variables)
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "model.0", p["head"]["conv"])
+    nb = _count(p, r"body\d+")
+    for i in range(nb):
+        blk, pre = p[f"body{i:02d}"], f"model.1.sub.{i}"
+        for c in ("conv1", "conv2", "conv3"):
+            _conv(sd, f"{pre}.{c}.0", blk[c]["conv"])
+        for c in ("conv4", "conv1x1"):
+            _conv(sd, f"{pre}.{c}", blk[c]["conv"])
+    _conv(sd, f"model.1.sub.{nb}", p["body_tail"]["conv"])
+    _Slots(sd, "model", 2).block(p["tail"]["up"],
+                                 _up_mode(upsample_mode, upscale, ""))
+    return sd
+
+
+def unetres_from_jax(variables: Dict[str, Any], act_mode: str = "R",
+                     downsample_mode: str = "strideconv",
+                     upsample_mode: str = "convtranspose", prefix: str = ""
+                     ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_unetres`` (DRUNet), at any of the JAX package's
+    down/up modes; bias-free trees give bias-free state dicts."""
+    p, _ = _split(variables)
+    sd: Dict[str, torch.Tensor] = {}
+    nb = _count(p, r"body_b\d+")
+    res = "C" + act_mode + "C"
+
+    def res_blocks(seq: str, name: str, start: int) -> None:
+        for i in range(nb):
+            _convblock(sd, lambda j: f"{prefix}{seq}.{start + i}.res.{j}",
+                       p[f"{name}_b{i:02d}"]["res"], None, res)
+
+    _conv(sd, f"{prefix}m_head", p["head"]["conv"])
+    pool = int(downsample_mode != "strideconv")
+    for d in (1, 2, 3):
+        res_blocks(f"m_down{d}", f"down{d}", 0)
+        _Slots(sd, f"{prefix}m_down{d}", nb + pool).block(
+            p[f"down{d}_pool"]["down"], "C")
+    res_blocks("m_body", "body", 0)
+    up = _up_mode(upsample_mode, 2, "")
+    for u in (3, 2, 1):
+        _Slots(sd, f"{prefix}m_up{u}").block(p[f"up{u}_up"]["up"], up)
+        res_blocks(f"m_up{u}", f"up{u}", len(up))
+    _conv(sd, f"{prefix}m_tail", p["tail"]["conv"])
+    return sd
+
+
+def usrnet_from_jax(variables: Dict[str, Any], act_mode: str = "R",
+                    downsample_mode: str = "strideconv",
+                    upsample_mode: str = "convtranspose"
+                    ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_usrnet``: the prior under ``p.``, HyPaNet's
+    ``fc1-3`` → ``h.mlp.{0,2,4}``."""
+    p, _ = _split(variables)
+    sd = unetres_from_jax({"params": p["p"]}, act_mode, downsample_mode,
+                          upsample_mode, prefix="p.")
+    for i, name in enumerate(("fc1", "fc2", "fc3")):
+        _conv(sd, f"h.mlp.{2 * i}", p["h"][name]["conv"])
     return sd

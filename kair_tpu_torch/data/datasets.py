@@ -235,8 +235,8 @@ class DatasetL(Dataset):
 # dataset types of the JAX package's extra registry, by the slice of the
 # port that brings them (ROADMAP.md, Queue 1)
 LATER_SLICES = {
-    "usrnet": "CNN zoo", "srmd": "CNN zoo", "dpsr": "CNN zoo",
-    "blindsr": "CNN zoo",
+    "usrnet": "CNN zoo training", "srmd": "CNN zoo training",
+    "dpsr": "CNN zoo training", "blindsr": "CNN zoo training",
     "dnpatch": "training (patch datasets)",
     "plainpatch": "training (patch datasets)",
     "spect": "SPECT", "spectpatch": "SPECT",

@@ -2,22 +2,15 @@
 ``kair_tpu/models/registry.py``; reference models/select_network.py:16-274).
 
 Keyed by the same ``net_type`` strings and hyper-parameter keys as the
-reference option files. The port builds SwinIR, VRT and RVRT so far; every
-other network raises NotImplementedError naming the slice that brings it.
+reference option files. The port builds the CNN zoo, SwinIR, VRT and RVRT;
+SpyNet alone raises NotImplementedError naming the slice that brings it.
 """
 
 from __future__ import annotations
 
 import torch.nn as nn
 
-LATER_SLICES = {
-    "dncnn": "CNN zoo", "fdncnn": "CNN zoo", "ircnn": "CNN zoo",
-    "ffdnet": "CNN zoo", "srmd": "CNN zoo", "dpsr": "CNN zoo",
-    "msrresnet0": "CNN zoo", "msrresnet1": "CNN zoo", "rrdb": "CNN zoo",
-    "rrdbnet": "CNN zoo", "rrdbnet_no_up": "CNN zoo", "imdn": "CNN zoo",
-    "drunet": "CNN zoo", "usrnet": "CNN zoo",
-    "spynet": "video",
-}
+LATER_SLICES = {"spynet": "video"}
 
 
 def _get(o, key, default=None):
@@ -30,6 +23,83 @@ def define_g(opt: dict) -> nn.Module:
     (reference select_network.py:16-274)."""
     o = opt["netG"]
     t = o["net_type"]
+    if t == "dncnn":
+        from kair_tpu_torch.models.dncnn import DnCNN
+        return DnCNN(_get(o, "in_nc", 1), _get(o, "out_nc", 1),
+                     _get(o, "nc", 64), _get(o, "nb", 17),
+                     _get(o, "act_mode", "BR"))
+    if t == "fdncnn":
+        from kair_tpu_torch.models.dncnn import FDnCNN
+        return FDnCNN(_get(o, "in_nc", 2), _get(o, "out_nc", 1),
+                      _get(o, "nc", 64), _get(o, "nb", 20),
+                      _get(o, "act_mode", "R"))
+    if t == "ircnn":
+        from kair_tpu_torch.models.dncnn import IRCNN
+        return IRCNN(_get(o, "in_nc", 1), _get(o, "out_nc", 1),
+                     _get(o, "nc", 64))
+    if t == "ffdnet":
+        from kair_tpu_torch.models.ffdnet import FFDNet
+        return FFDNet(_get(o, "in_nc", 1), _get(o, "out_nc", 1),
+                      _get(o, "nc", 64), _get(o, "nb", 15),
+                      _get(o, "act_mode", "R"))
+    if t == "srmd":
+        from kair_tpu_torch.models.srresnet import SRMD
+        return SRMD(_get(o, "in_nc", 19), _get(o, "out_nc", 3),
+                    _get(o, "nc", 128), _get(o, "nb", 12), _get(o, "scale", 4),
+                    _get(o, "act_mode", "R"),
+                    _get(o, "upsample_mode", "pixelshuffle"))
+    if t in ("dpsr", "msrresnet0"):
+        from kair_tpu_torch.models.srresnet import MSRResNet0
+        dpsr = t == "dpsr"
+        return MSRResNet0(_get(o, "in_nc", 4 if dpsr else 3),
+                          _get(o, "out_nc", 3), _get(o, "nc", 96 if dpsr else 64),
+                          _get(o, "nb", 16), _get(o, "scale", 4),
+                          _get(o, "act_mode", "R"),
+                          _get(o, "upsample_mode",
+                               "pixelshuffle" if dpsr else "upconv"))
+    if t == "msrresnet1":
+        from kair_tpu_torch.models.srresnet import MSRResNet1
+        return MSRResNet1(_get(o, "in_nc", 3), _get(o, "out_nc", 3),
+                          _get(o, "nc", 64), _get(o, "nb", 16),
+                          _get(o, "scale", 4))
+    if t == "rrdb":
+        from kair_tpu_torch.models.rrdbnet import RRDB
+        return RRDB(_get(o, "in_nc", 3), _get(o, "out_nc", 3),
+                    _get(o, "nc", 64), _get(o, "nb", 23), _get(o, "gc", 32),
+                    _get(o, "scale", 4), _get(o, "act_mode", "L"),
+                    _get(o, "upsample_mode", "upconv"))
+    if t == "rrdbnet":
+        from kair_tpu_torch.models.rrdbnet import RRDBNet
+        return RRDBNet(_get(o, "in_nc", 3), _get(o, "out_nc", 3),
+                       _get(o, "nf", 64), _get(o, "nb", 23), _get(o, "gc", 32),
+                       _get(o, "sf", 4))
+    if t == "rrdbnet_no_up":
+        from kair_tpu_torch.models.rrdbnet import RRDBNetNoUp
+        return RRDBNetNoUp(_get(o, "in_nc", 3), _get(o, "out_nc", 3),
+                           _get(o, "nf", 64), _get(o, "nb", 23),
+                           _get(o, "gc", 32))
+    if t == "imdn":
+        from kair_tpu_torch.models.imdn import IMDN
+        return IMDN(_get(o, "in_nc", 3), _get(o, "out_nc", 3),
+                    _get(o, "nc", 64), _get(o, "nb", 8), _get(o, "scale", 4),
+                    _get(o, "act_mode", "L"),
+                    _get(o, "upsample_mode", "pixelshuffle"))
+    if t == "drunet":
+        from kair_tpu_torch.models.drunet import UNetRes
+        return UNetRes(_get(o, "in_nc", 3), _get(o, "out_nc", 3),
+                       tuple(_get(o, "nc", [64, 128, 256, 512])),
+                       _get(o, "nb", 4), _get(o, "act_mode", "R"),
+                       _get(o, "downsample_mode", "strideconv"),
+                       _get(o, "upsample_mode", "convtranspose"),
+                       _get(o, "bias", True))
+    if t == "usrnet":
+        from kair_tpu_torch.models.usrnet import USRNet
+        return USRNet(_get(o, "n_iter", 8), _get(o, "h_nc", 64),
+                      _get(o, "in_nc", 4), _get(o, "out_nc", 3),
+                      tuple(_get(o, "nc", [64, 128, 256, 512])),
+                      _get(o, "nb", 2), _get(o, "act_mode", "R"),
+                      _get(o, "downsample_mode", "strideconv"),
+                      _get(o, "upsample_mode", "convtranspose"))
     if t == "swinir":
         from kair_tpu_torch.models.swinir import SwinIR
         # fuse_block absent or true: the fused block kernels (KAIR's own

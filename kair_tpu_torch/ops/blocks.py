@@ -1,20 +1,29 @@
 """Network blocks for the port, NHWC (counterpart of ``kair_tpu/ops/blocks.py``).
 
-What SwinIR and VRT need so far: ``pixel_shuffle`` (:40),
-``upsample_nearest`` (:60), ``resize_bilinear`` (:65) and ``Conv``
-(:91-135) with its fused-tail mode. Feature maps are
-(B, H, W, C) as in the JAX package; a ``Conv`` hands PyTorch's convolution a
+SwinIR and VRT use ``pixel_shuffle`` (:40), ``upsample_nearest`` (:60),
+``resize_bilinear`` (:65) and ``Conv`` (:91-135) with its fused-tail mode.
+The CNN zoo adds ``pixel_unshuffle`` (:50), ``ConvT`` (:137), ``BatchNorm``
+(:169), the mode-string factory ``ConvBlock`` (:192-253), ``ResBlock``
+(:255), ``ResidualDenseBlock5C`` and ``RRDB`` (:323-356), ``IMDBlock``
+(:358) and the up/down samplers (:450-542). Feature maps are (B, H, W, C)
+as in the JAX package; a ``Conv`` hands PyTorch's convolution a
 channels-last view of the same memory, so no copy is made on the card.
+
+The factories build KAIR's own module trees (``models/basicblock.py``:
+``conv`` and ``sequential``, which flattens nested ``nn.Sequential`` and
+returns a lone module as it is), so a released state dict's keys
+(``model.0.weight``, ``model.1.sub.3.res.2.bias``, …) load unchanged.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from kair_tpu_torch.ops.kernels.conv_block import conv3x3_residual, pack_conv3x3
 
@@ -26,6 +35,14 @@ def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
     co = c // (r * r)
     x = x.reshape(n, h, w, co, r, r).permute(0, 1, 4, 2, 5, 3)
     return x.reshape(n, h * r, w * r, co)
+
+
+def pixel_unshuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Inverse of :func:`pixel_shuffle`, KAIR's FFDNet order
+    (basicblock.py:104-127): output channel c*r² + i*r + j."""
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // r, r, w // r, r, c).permute(0, 1, 3, 5, 2, 4)
+    return x.reshape(n, h // r, w // r, c * r * r)
 
 
 def upsample_nearest(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -109,3 +126,258 @@ class Conv(nn.Conv2d):
             self._pack = pack_conv3x3(self.weight)
             self._pack_key = key
         return self._pack
+
+
+class ConvT(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d on NHWC tensors (KAIR's ``weight`` (in, out, kh,
+    kw)): out = (in - 1) * stride - 2 * padding + kernel."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().forward(x.permute(0, 3, 1, 2))
+        return y.permute(0, 2, 3, 1).contiguous()
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """nn.BatchNorm2d on NHWC tensors, as KAIR's conv factory configures it
+    (basicblock.py:69: momentum 0.9 in torch's sense, eps 1e-4); the
+    running statistics are buffers."""
+
+    def __init__(self, channels: int, momentum: float = 0.9,
+                 eps: float = 1e-4):
+        super().__init__(channels, eps=eps, momentum=momentum, affine=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class InstanceNorm(nn.InstanceNorm2d):
+    """nn.InstanceNorm2d(affine=True) on NHWC tensors (mode char I)."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, affine=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class PixelShuffle(nn.Module):
+    """Mode chars 2/3/4: :func:`pixel_shuffle` as a module."""
+
+    def __init__(self, r: int):
+        super().__init__()
+        self.upscale_factor = r
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return pixel_shuffle(x, self.upscale_factor)
+
+
+class UpsampleNearest(nn.Module):
+    """Mode chars U/u/v: :func:`upsample_nearest` as a module."""
+
+    def __init__(self, r: int):
+        super().__init__()
+        self.scale_factor = r
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return upsample_nearest(x, self.scale_factor)
+
+
+class Pool(nn.Module):
+    """Mode chars M/A: max or average pooling, VALID, on NHWC tensors."""
+
+    def __init__(self, kind: str, kernel_size: int, stride: int):
+        super().__init__()
+        self.kind, self.kernel_size, self.stride = kind, kernel_size, stride
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pool = F.max_pool2d if self.kind == "max" else F.avg_pool2d
+        y = pool(x.permute(0, 3, 1, 2), self.kernel_size, self.stride)
+        return y.permute(0, 2, 3, 1)
+
+
+def sequential(*mods: nn.Module) -> nn.Module:
+    """KAIR's ``sequential`` (basicblock.py:36-56): nested nn.Sequential
+    arguments are flattened into one; a lone argument is returned as is."""
+    if len(mods) == 1:
+        return mods[0]
+    flat: List[nn.Module] = []
+    for m in mods:
+        flat.extend(m.children() if isinstance(m, nn.Sequential) else [m])
+    return nn.Sequential(*flat)
+
+
+def ConvBlock(in_channels: int = 64, out_channels: int = 64,
+              kernel_size: int = 3, stride: int = 1, padding: int = 1,
+              bias: bool = True, mode: str = "CBR",
+              negative_slope: float = 0.2) -> nn.Module:
+    """KAIR's mode-string conv factory (basicblock.py:61-101): one module
+    per mode char, C conv | T conv-transpose | B batchnorm | I instancenorm
+    | R/r relu | L/l leaky-relu | 2/3/4 pixel-shuffle | U/u/v nearest x2/3/4
+    | M maxpool | A avgpool, joined by :func:`sequential` (so KAIR's slot
+    indices name the parameters; a one-char mode is the module itself)."""
+    layers: List[nn.Module] = []
+    for t in mode:
+        if t == "C":
+            layers.append(Conv(in_channels, out_channels, kernel_size, stride,
+                               padding, bias=bias))
+        elif t == "T":
+            layers.append(ConvT(in_channels, out_channels, kernel_size,
+                                stride, padding, bias=bias))
+        elif t == "B":
+            layers.append(BatchNorm(out_channels))
+        elif t == "I":
+            layers.append(InstanceNorm(out_channels))
+        elif t in "Rr":
+            layers.append(nn.ReLU())
+        elif t in "Ll":
+            layers.append(nn.LeakyReLU(negative_slope))
+        elif t in "234":
+            layers.append(PixelShuffle(int(t)))
+        elif t in "Uuv":
+            layers.append(UpsampleNearest({"U": 2, "u": 3, "v": 4}[t]))
+        elif t in "MA":
+            layers.append(Pool("max" if t == "M" else "avg", kernel_size,
+                               stride))
+        else:
+            raise NotImplementedError(f"Undefined mode char: {t}")
+    return sequential(*layers)
+
+
+class ShortcutBlock(nn.Module):
+    """x + sub(x) (basicblock.py:190-204); the body's keys under ``sub``."""
+
+    def __init__(self, sub: nn.Module):
+        super().__init__()
+        self.sub = sub
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.sub(x)
+
+
+class ResBlock(nn.Module):
+    """x + conv(act(conv(x))) (basicblock.py:211-224); keys ``res.0``,
+    ``res.2``."""
+
+    def __init__(self, channels: int = 64, kernel_size: int = 3,
+                 mode: str = "CRC", negative_slope: float = 0.2,
+                 bias: bool = True):
+        super().__init__()
+        self.res = ConvBlock(channels, channels, kernel_size,
+                             padding=kernel_size // 2, bias=bias, mode=mode,
+                             negative_slope=negative_slope)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.res(x)
+
+
+class ResidualDenseBlock5C(nn.Module):
+    """Five dense convs, leaky 0.2, residual scaled by 0.2 (basicblock.py:
+    393-412; keys ``conv1.0`` … ``conv4.0``, ``conv5``)."""
+
+    def __init__(self, nc: int = 64, gc: int = 32):
+        super().__init__()
+        for j in range(1, 5):
+            setattr(self, f"conv{j}", ConvBlock(nc + (j - 1) * gc, gc,
+                                                mode="CL"))
+        self.conv5 = ConvBlock(nc + 4 * gc, nc, mode="C")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        feats = [x]
+        for j in range(1, 5):
+            feats.append(getattr(self, f"conv{j}")(torch.cat(feats, -1)))
+        return self.conv5(torch.cat(feats, -1)) * 0.2 + x
+
+
+class RRDB(nn.Module):
+    """Residual-in-residual dense block (basicblock.py:416-431; keys
+    ``RDB1`` … ``RDB3``)."""
+
+    def __init__(self, nc: int = 64, gc: int = 32):
+        super().__init__()
+        self.RDB1 = ResidualDenseBlock5C(nc, gc)
+        self.RDB2 = ResidualDenseBlock5C(nc, gc)
+        self.RDB3 = ResidualDenseBlock5C(nc, gc)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.RDB3(self.RDB2(self.RDB1(x))) * 0.2 + x
+
+
+class IMDBlock(nn.Module):
+    """Information multi-distillation block (basicblock.py:230-265): three
+    conv + leaky (``negative_slope``, 0.05 in IMDN) steps each splitting off
+    a quarter of the channels, a fourth conv, a 1x1 fusion, residual."""
+
+    def __init__(self, channels: int = 64, d_rate: float = 0.25,
+                 negative_slope: float = 0.05):
+        super().__init__()
+        self.d_nc = int(channels * d_rate)
+        r_nc = channels - self.d_nc
+        self.conv1 = ConvBlock(channels, channels, mode="CL",
+                               negative_slope=negative_slope)
+        self.conv2 = ConvBlock(r_nc, channels, mode="CL",
+                               negative_slope=negative_slope)
+        self.conv3 = ConvBlock(r_nc, channels, mode="CL",
+                               negative_slope=negative_slope)
+        self.conv4 = ConvBlock(r_nc, self.d_nc, mode="C")
+        self.conv1x1 = ConvBlock(self.d_nc * 4, channels, 1, padding=0,
+                                 mode="C")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.d_nc
+        c1 = self.conv1(x)
+        c2 = self.conv2(c1[..., d:])
+        c3 = self.conv3(c2[..., d:])
+        d4 = self.conv4(c3[..., d:])
+        return x + self.conv1x1(torch.cat(
+            [c1[..., :d], c2[..., :d], c3[..., :d], d4], -1))
+
+
+def UpsamplePixelShuffle(in_channels: int = 64, out_channels: int = 3,
+                         scale: int = 2, mode: str = "", bias: bool = True
+                         ) -> nn.Module:
+    """conv → pixel shuffle (+ act) (basicblock.py:446-452)."""
+    return ConvBlock(in_channels, out_channels * scale ** 2, bias=bias,
+                     mode="C" + str(scale) + mode)
+
+
+def UpsampleUpConv(in_channels: int = 64, out_channels: int = 3,
+                   scale: int = 2, mode: str = "", bias: bool = True
+                   ) -> nn.Module:
+    """nearest upsample → conv (+ act) (basicblock.py:455-467)."""
+    return ConvBlock(in_channels, out_channels, bias=bias,
+                     mode={2: "U", 3: "u", 4: "v"}[scale] + "C" + mode)
+
+
+def UpsampleConvTranspose(in_channels: int = 64, out_channels: int = 3,
+                          scale: int = 2, mode: str = "", bias: bool = True
+                          ) -> nn.Module:
+    """scale x scale, stride-scale transposed conv (basicblock.py:471-481)."""
+    return ConvBlock(in_channels, out_channels, scale, scale, 0, bias=bias,
+                     mode="T" + mode)
+
+
+def DownsampleStrideConv(in_channels: int = 64, out_channels: int = 64,
+                         scale: int = 2, mode: str = "", bias: bool = True
+                         ) -> nn.Module:
+    """scale x scale, stride-scale conv (basicblock.py:495-505)."""
+    return ConvBlock(in_channels, out_channels, scale, scale, 0, bias=bias,
+                     mode="C" + mode)
+
+
+def DownsampleMaxPool(in_channels: int = 64, out_channels: int = 64,
+                      scale: int = 2, mode: str = "", bias: bool = True
+                      ) -> nn.Module:
+    """max pool → 3x3 conv (basicblock.py:507-517; the conv padded as in the
+    JAX package)."""
+    return sequential(Pool("max", scale, scale),
+                      ConvBlock(in_channels, out_channels, bias=bias,
+                                mode="C" + mode))
+
+
+def DownsampleAvgPool(in_channels: int = 64, out_channels: int = 64,
+                      scale: int = 2, mode: str = "", bias: bool = True
+                      ) -> nn.Module:
+    """average pool → 3x3 conv (basicblock.py:520-530)."""
+    return sequential(Pool("avg", scale, scale),
+                      ConvBlock(in_channels, out_channels, bias=bias,
+                                mode="C" + mode))

@@ -354,7 +354,8 @@ def test_cli_test_main_runs_sr4_on_cpu(tmp_path):
     img = (rng.rand(60, 68, 3) * 255).astype(np.uint8)
     cv2.imwrite(str(hr / "a.png"), img)
     out = tmp_path / "out"
-    psnr, ssim = main(["--model_path", str(tmp_path / "m.pth"), "--testset_dir",
+    psnr, ssim = main(["--model_name", "swinir_classical_x4",
+                       "--model_path", str(tmp_path / "m.pth"), "--testset_dir",
                        str(hr), "--device", "cpu", "--results", str(out)])
     assert np.isfinite(psnr) and -1.0 <= ssim <= 1.0
     assert cv2.imread(str(out / "a.png")).shape == (60, 68, 3)
@@ -371,7 +372,8 @@ def test_cli_test_main_x8_and_unfused_on_cpu(tmp_path):
     hr.mkdir()
     img = (np.random.RandomState(10).rand(32, 40, 3) * 255).astype(np.uint8)
     cv2.imwrite(str(hr / "a.png"), img)
-    base = ["--model_path", str(tmp_path / "m.pth"), "--testset_dir", str(hr),
+    base = ["--model_name", "swinir_classical_x4",
+            "--model_path", str(tmp_path / "m.pth"), "--testset_dir", str(hr),
             "--device", "cpu", "--x8"]
     on = main(base + ["--fuse", "on"])
     off = main(base + ["--fuse", "off"])

@@ -386,7 +386,7 @@ def test_no_card_raises(tmp_path, hr_dir, monkeypatch):
 
 
 @pytest.mark.parametrize("what,name", [
-    ("net", "dncnn"), ("net", "spynet"), ("dataset", "usrnet"),
+    ("dataset", "srmd"), ("net", "spynet"), ("dataset", "usrnet"),
     ("dataset", "videorecurrenttrainvimeodataset"), ("dataset", "dnpatch"),
     ("trainer", "gan"), ("dataset", "vfi_davis")])
 def test_later_slices_raise_naming_their_slice(what, name):
