@@ -14,8 +14,9 @@ video SR through the STL2 block, the 2-D Swin block and the guided
 deformable attention kernels; then VRT-001 training with its alignment
 sampled by the bilinear sampler's forward and backward kernels; then the
 CNN zoo's inference (cuDNN and cuFFT, no hand-written kernel on its path)
-and the port's timing CLIs. Phases, one flushed line each with its
-seconds:
+and the port's timing CLIs; then training the CNN zoo and SwinIR's gray
+denoising recipe from their option files. Phases, one flushed line each
+with its seconds:
 
   0 device      card name, power limit (nvidia-smi), torch and CUDA versions
   1 build       the kernels, from csrc/, one nvcc process per source, all
@@ -187,6 +188,27 @@ seconds:
                 128x128), then video_bench --net rvrt --compare --profile and
                 bench --batch 1 --profile: each one's JSON lines, value > 0,
                 mfu not null, a profile with device time
+ 24 train_zoo   (a) options/train_dncnn.json, train_ffdnet.json (plain2),
+                train_msrresnet_psnr.json and train_usrnet.json (plain4)
+                through config.parse -> cli.train.build_trainer at full
+                width and the option's batch, f32 (cuDNN and cuFFT, TF32
+                off), batches from the port's Loader over seeded smooth
+                images (the datasets' read hooks: the card has no cv2): the
+                gradient at B=2 against the f32 CPU run (relative norm
+                <= 1e-4), with a control above the limit (the weights of
+                seed + 1, FFDNet's σ map moved, USRNet's kernels
+                transposed); USRNet's batches one scale factor each, two
+                or more over the run; 1 warm-up and 3 timed steps, ms per
+                step, device time and idle share from two profiled steps;
+                (b) options/swinir/train_swinir_denoising_gray.json, bf16,
+                B=8 of 128x128 gray, use_checkpoint: the gradient on a
+                2x64x64 crop against the f32 CPU run (relative norm
+                <= 8e-3 over all parameters, from this recipe's readings;
+                phase 7's 0.1 per block parameter) with the dropped-mask
+                control above both; 72 swin_block_2d (36 and 36
+                recomputed), 36 backward and 0 conv-tail launches a step, no
+                composed block; ms per step, busy ms and idle share; the
+                block backward at B=2 128x128 against its plain version
 
 Any failed check raises and the script exits non-zero; a watchdog ends a
 hung run with a traceback. The line before the last is one JSON object with
@@ -837,38 +859,19 @@ def phase_swin_bwd(report: list) -> None:
 OPTION_FILE = "options/swinir/train_swinir_sr_classical_x4.json"
 
 
-def train_options(tmp: str):
-    """The shipped option file, parsed by the port, with its output paths
+def train_options(tmp: str, option_file: str = OPTION_FILE):
+    """A shipped option file, parsed by the port, with its output paths
     and image folder moved into `tmp`."""
     from kair_tpu_torch import config
     raw = config.load_json_with_comments(
-        os.path.join(os.path.dirname(os.path.abspath(__file__)), OPTION_FILE))
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), option_file))
     raw["path"]["root"] = os.path.join(tmp, "runs")
     raw["datasets"]["train"]["dataroot_H"] = os.path.join(tmp, "trainH")
-    path = os.path.join(tmp, os.path.basename(OPTION_FILE))
+    os.makedirs(tmp, exist_ok=True)
+    path = os.path.join(tmp, os.path.basename(option_file))
     with open(path, "w") as f:
         json.dump(raw, f)
     return config.parse(path)
-
-
-def seeded_sr_dataset(ds_opt, n_images: int = 64, size: int = 200):
-    """The port's DatasetSR over `n_images` seeded smooth HR images (the card
-    has no image set and no cv2): its two file-system hooks replaced."""
-    from kair_tpu_torch.data.datasets import DatasetSR
-
-    class SeededSR(DatasetSR):
-        cache: dict = {}
-
-        def image_paths(self, root):
-            return [f"{root}/seed{i}.png" for i in range(n_images)]
-
-        def read_uint(self, path):
-            if path not in self.cache:
-                seed = int(path.rsplit("seed", 1)[1].split(".")[0])
-                self.cache[path] = smooth_image(size, size, SEED + 100 + seed)
-            return self.cache[path]
-
-    return SeededSR(ds_opt)
 
 
 def seeded_train_weights(model, seed: int) -> dict:
@@ -954,7 +957,6 @@ def phase_train(report: list, card: str, build_dir) -> None:
     import torch
     from kair_tpu_torch import config
     from kair_tpu_torch.cli.train import build_trainer
-    from kair_tpu_torch.data.base import Loader
     from kair_tpu_torch.models import swinir as msw
     from kair_tpu_torch.ops.kernels.conv_block import conv3x3_residual
     from kair_tpu_torch.ops.kernels.swin_block import (swin_block_2d,
@@ -987,13 +989,9 @@ def phase_train(report: list, card: str, build_dir) -> None:
                 f"{opt['train']['G_optimizer_lr']}, EMA {opt['train']['E_decay']}; "
                 f"{sum(p.numel() for p in trainer.model.parameters())} params "
                 "(blocks drawn by BLOCK_INIT)")
-        loader = Loader(seeded_sr_dataset(ds_opt), bs, seed=SEED)
-        batches, epoch = [], 0
-        while len(batches) < warmup + timed:
-            batches += [{k: v for k, v in bt.items() if isinstance(v, np.ndarray)}
-                        for bt in loader.epoch(epoch)]
-            epoch += 1
-        batches = batches[:warmup + timed]
+        batches = [{k: v for k, v in bt.items() if isinstance(v, np.ndarray)}
+                   for bt in loader_batches(ds_opt, warmup + timed, 64,
+                                            SEED + 100)]
         hs, sf = ds_opt["H_size"], opt["scale"]
         lr_hw = batches[0]["L"].shape[1:3]
         require(batches[0]["L"].shape == (bs, hs // sf, hs // sf, 3)
@@ -3220,6 +3218,290 @@ def phase_timing_clis(card: str) -> None:
         ph.note(f"[{card}]")
 
 
+ZOO_TRAIN = (
+    # (label, option file, gradient control)
+    ("DnCNN-17 gray", "options/train_dncnn.json", "seed"),
+    ("FFDNet color 96/12", "options/train_ffdnet.json", "sigma"),
+    ("MSRResNet1 x4", "options/train_msrresnet_psnr.json", "seed"),
+    ("USRNet", "options/train_usrnet.json", "kernel"),
+)
+GRAY_OPTION = "options/swinir/train_swinir_denoising_gray.json"
+
+
+def seeded_dataset(ds_opt, n_images: int, seed: int, size: int = 200,
+                   distinct: int = 64):
+    """The option block's dataset class (``define_dataset``'s) over
+    ``n_images`` smooth images seeded from ``seed`` on (``distinct`` of
+    them, repeated):
+    its two file-system hooks, ``image_paths`` and ``read_uint``, replaced,
+    since the card has no image set and no cv2."""
+    from kair_tpu_torch.data.datasets import dataset_class
+    cache: dict = {}
+
+    class Seeded(dataset_class(ds_opt)):
+        def image_paths(self, root):
+            return [f"{root}/seed{i}.png" for i in range(n_images)]
+
+        def read_uint(self, path):
+            i = int(path.rsplit("seed", 1)[1].split(".")[0]) % distinct
+            if i not in cache:
+                cache[i] = smooth_image(size, size, seed + i)
+            return cache[i][..., :self.n_channels].copy()
+
+    return Seeded(ds_opt)
+
+
+def loader_batches(ds_opt, n: int, n_images: int = 0,
+                   seed: int = SEED + 300) -> list:
+    """``n`` training batches of the option block's seeded dataset (images
+    from ``seed`` on) through the port's Loader, epoch after epoch (a
+    dataset that raises stops here, with its traceback)."""
+    from kair_tpu_torch.data.base import Loader
+    bs = ds_opt["dataloader_batch_size"]
+    loader = Loader(seeded_dataset(ds_opt, n_images or bs, seed), bs,
+                    seed=SEED)
+    batches, epoch = [], 0
+    while len(batches) < n:
+        batches += list(loader.epoch(epoch))
+        epoch += 1
+    return batches[:n]
+
+
+def timed_steps(trainer, batches, warmup: int = 1):
+    """(ms per step over the batches after ``warmup``, CUDA events; the
+    losses, all of them finite)."""
+    import torch
+    losses = [trainer.train_step(bt)["G_loss"] for bt in batches[:warmup]]
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    s.record()
+    losses += [trainer.train_step(bt)["G_loss"] for bt in batches[warmup:]]
+    e.record()
+    torch.cuda.synchronize()
+    vals = [float(v) for v in losses]
+    require(all(math.isfinite(v) for v in vals), f"losses {vals}")
+    return s.elapsed_time(e) / (len(batches) - warmup), vals
+
+
+def zoo_train_case(ph, label: str, option_file: str, control: str, tmp: str,
+                   seed: int, card: str) -> None:
+    """One zoo option file on the card in f32: the gradient against the
+    CPU's, with its control; 1 warm-up and 3 timed steps; two profiled."""
+    import numpy as np
+    import torch
+    from kair_tpu_torch.cli.train import build_trainer
+
+    tol = 1e-4
+    opt = train_options(os.path.join(tmp, label.split()[0]), option_file)
+    ds_opt = opt["datasets"]["train"]
+    bs = ds_opt["dataloader_batch_size"]
+    torch.manual_seed(seed)
+    trainer = build_trainer(opt, dtype=torch.float32)
+    require(trainer.dtype == torch.float32, f"{label}: trainer dtype")
+    if control == "sigma":
+        # the σ map is one input channel of the head conv: raised as in
+        # phase 22 (COND_BOOST), so that a σ change moves the gradient
+        head = next(m for m in trainer.model.modules()
+                    if isinstance(m, torch.nn.Conv2d))
+        with torch.no_grad():
+            head.weight[:, -1] *= COND_BOOST["sigma"]
+    net = opt["netG"]
+    batches = loader_batches(ds_opt, 4)
+    shapes = {k: tuple(v.shape) for k, v in batches[0].items()
+              if isinstance(v, np.ndarray)}
+    extra = ""
+    if "sf" in batches[0]:
+        sfs = [bt["sf"] for bt in batches]
+        require(all(len(set(v)) == 1 for v in sfs),
+                f"{label}: a batch mixes scale factors: {sfs}")
+        require(len({v[0] for v in sfs}) >= 2,
+                f"{label}: one scale factor in all batches: {sfs}")
+        extra = (f"; scale factors a batch {[v[0] for v in sfs]}, L "
+                 f"{[tuple(bt['L'].shape[1:3]) for bt in batches]}")
+
+    # the gradient at B=2: card f32 (no TF32) against the CPU's f32
+    small = {k: v[:2] for k, v in batches[0].items()}
+    g_card = grads_of(trainer, small)
+    cpu = build_trainer(opt, dtype=torch.float32, device="cpu")
+    cpu.model.load_state_dict(trainer.model.state_dict())
+    g_cpu = grads_of(cpu, small)
+    names = list(g_cpu)
+    err = rel_norm(g_card, g_cpu, names)
+    if control == "seed":
+        torch.manual_seed(seed + 1)
+        alt, alt_batch, what = build_trainer(opt, dtype=torch.float32,
+                                             device="cpu"), small, "seed + 1"
+    elif control == "sigma":
+        alt, what = cpu, "σ map of level 255 − σ"
+        alt_batch = {**small, "C": np.float32(1) - small["C"]}
+    else:
+        alt, what = cpu, "kernels transposed"
+        alt_batch = {**small, "k": np.ascontiguousarray(
+            small["k"].transpose(0, 2, 1, 3))}
+    eff = rel_norm(grads_of(alt, alt_batch), g_cpu, names)
+    del cpu, alt
+    ph.note(f"{label} ({option_file}: {net['net_type']}, "
+            f"{sum(p.numel() for p in trainer.model.parameters())} params, "
+            f"{type(trainer).__name__} {opt.get('model')}, batch {bs}, "
+            f"{shapes}{extra}): gradient B=2 f32 card vs CPU relative norm "
+            f"{err:.4g} (limit {tol}), control ({what}) {eff:.4g}")
+    require(err <= tol, f"{label}: gradient error {err:.4g} > {tol}")
+    require(eff > tol and eff > 3 * err,
+            f"{label}: the {what} control ({eff:.4g}) is not above the limit "
+            "and 3x the error")
+
+    ms, losses = timed_steps(trainer, batches)
+    prof = device_breakdown(lambda: [trainer.train_step(bt)
+                                     for bt in batches[1:3]], 2, ms, "step",
+                            top=4)
+    ph.note(f"{label}: losses {losses[0]:.4g} .. {losses[-1]:.4g}; "
+            f"ms_per_step {ms:.2f} (f32, mean of 3 after 1, CUDA events), "
+            f"{bs / (ms / 1e3):.1f} patches/s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; {prof} "
+            f"[{card}]")
+    torch.cuda.reset_peak_memory_stats()
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def phase_train_zoo(card: str, build_dir) -> None:
+    import numpy as np
+    import torch
+    from kair_tpu_torch.cli.train import build_trainer
+    from kair_tpu_torch.ops.kernels.swin_block import (SwinBlockParams,
+                                                        pack_swin_block,
+                                                        swin_block_2d_bwd,
+                                                        swin_block_2d_bwd_reference)
+    from kair_tpu_torch.ops.kernels.window_msa import shift_mask_tensor
+    from kair_tpu_torch.train.trainer import PlainTrainer
+
+    with Phase("24 train_zoo") as ph, \
+            tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        # (a) the zoo's option files in f32, cuDNN and cuFFT
+        for i, (label, option_file, control) in enumerate(ZOO_TRAIN):
+            zoo_train_case(ph, label, option_file, control, tmp,
+                           SEED + 240 + i, card)
+
+        # (b) SwinIR-M gray denoising, bf16, use_checkpoint
+        # the global limit from this recipe's readings on an H100
+        # (PERF.md): 0.0058 sound, 0.0117 without the shift mask (the mask
+        # acts at the border windows only, so it moves this net's gradient
+        # less than phase 7's x4 net's, 0.025); per block parameter
+        # phase 7's limit
+        tol_global, tol_param = 8e-3, 1e-1
+        opt = train_options(os.path.join(tmp, "gray"), GRAY_OPTION)
+        ds_opt, net = opt["datasets"]["train"], opt["netG"]
+        bs = ds_opt["dataloader_batch_size"]
+        torch.manual_seed(SEED + 250)        # the convs and norms outside the blocks
+        trainer = build_trainer(opt, dtype=torch.bfloat16)
+        sd = seeded_train_weights(trainer.model, SEED + 250)
+        trainer.model.load_state_dict(sd)
+        trainer.ema.load_state_dict(sd)
+        batches = loader_batches(ds_opt, 4, n_images=16)
+        require(batches[0]["L"].shape == (bs, ds_opt["H_size"],
+                                          ds_opt["H_size"], 1),
+                f"gray batch {batches[0]['L'].shape}")
+        # the gradient on a 64x64 crop of two patches
+        small = {k: np.ascontiguousarray(batches[0][k][:2, :64, :64])
+                 for k in ("L", "H")}
+        g_card = grads_of(trainer, small)
+        cpu = PlainTrainer(opt, device="cpu", dtype=torch.float32)
+        cpu.model.load_state_dict(sd)
+        g_cpu = grads_of(cpu, small)
+        g_nomask = cpu_without_shift_mask(lambda: grads_of(cpu, small))
+        del cpu
+        names = list(g_cpu)
+        block = [n for n in names if ".residual_group.blocks." in n]
+        err = rel_norm(g_card, g_cpu, names)
+        per = {n: rel_norm(g_card, g_cpu, [n]) for n in block}
+        worst = max(per, key=per.get)
+        eff = {n: rel_norm(g_nomask, g_cpu, [n]) for n in block}
+        eff_worst = max(eff, key=eff.get)
+        eff_global = rel_norm(g_nomask, g_cpu, names)
+        ph.note(f"SwinIR-M gray denoising ({GRAY_OPTION}: embed "
+                f"{net['embed_dim']}, depths {net['depths']}, window "
+                f"{net['window_size']}, use_checkpoint "
+                f"{net['use_checkpoint']}, batch {bs} of {ds_opt['H_size']}² "
+                f"gray, sigma {ds_opt['sigma']}, "
+                f"{opt['train']['G_lossfn_type']}): gradient on a 2x64x64 "
+                f"crop, bf16 card vs f32 CPU, relative norm {err:.4g} (limit "
+                f"{tol_global}), worst block parameter {worst} "
+                f"{per[worst]:.4g} (limit {tol_param}); control without the "
+                f"shift mask {eff_global:.4g} over all, "
+                f"{eff[eff_worst]:.4g} at {eff_worst}")
+        require(err <= tol_global, f"gray gradient error {err:.4g} > "
+                f"{tol_global}")
+        require(per[worst] <= tol_param,
+                f"gray block parameter {worst}: {per[worst]:.4g} > {tol_param}")
+        require(eff_global > tol_global,
+                f"gray: the dropped-mask control ({eff_global:.4g}) is not "
+                "above the global limit")
+        require(eff[eff_worst] > tol_param and eff[eff_worst] > 3 * per[worst],
+                "gray: the dropped-mask control is not above the "
+                "per-parameter limit and 3x the worst error")
+        # steps: 36 forward launches and 36 recomputed under
+        # use_checkpoint, 36 backward, no conv kernel, no composed block
+        steps, n_blocks = len(batches), sum(net["depths"])
+        swin_block_2d_bwd.launches = 0
+        with LaunchCount() as lc:
+            ms, losses = timed_steps(trainer, batches)
+        n_bwd = swin_block_2d_bwd.launches
+        prof = device_breakdown(lambda: [trainer.train_step(bt)
+                                         for bt in batches[1:3]], 2, ms,
+                                "step", sums=("swin_",))
+        counts = ", ".join(f"{k} {v}" for k, v in lc.counts.items())
+        ph.note(f"SwinIR-M gray denoising: launches in {steps} steps: {counts}, "
+                f"swin_block_2d_bwd {n_bwd} (per step {2 * n_blocks} forward "
+                f"with the recompute, {n_blocks} backward, 0 conv tail); "
+                f"losses {losses[0]:.4g} .. {losses[-1]:.4g}; ms_per_step "
+                f"{ms:.2f} (bf16, mean of 3 after 1, CUDA events), "
+                f"{bs / (ms / 1e3):.1f} patches/s, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+                f"{prof} [{card}]")
+        lc.expect("gray training", swin_block_2d=2 * n_blocks * steps)
+        require(n_bwd == n_blocks * steps,
+                f"gray training: {n_bwd} backward launches in {steps} steps")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # row 3 at the gray step's 128x128 map, B=2, against its plain
+        # version, phase 4 (the shifted block), with the dropped-mask control
+        tol = 2e-2
+        b, h, c, nh, hidden = 2, 128, 180, 6, 360
+        dev = torch.device("cuda")
+        gen = torch.Generator().manual_seed(SEED + 251)
+        p = swin_params(c, nh, hidden, gen, dev, torch.float32)
+        x = torch.randn(b, h, h, c, generator=gen).to(dev, torch.bfloat16)
+        dy = torch.randn(b, h, h, c, generator=gen).to(dev, torch.bfloat16)
+        mask = shift_mask_tensor(h, h, 8, 4, dev)
+        got = swin_block_2d_bwd(x, dy, p, nh, mask,
+                                pack_swin_block(p, nh, folded=False), 4)
+        torch.cuda.synchronize()
+        ref = swin_block_2d_bwd_reference(x, dy, p, nh, mask, 4)
+        control = swin_block_2d_bwd_reference(x, dy, p, nh, None, 4)[0]
+        worst_rel, worst_name = 0.0, ""
+        for name, a, r in zip(("dx",) + SwinBlockParams._fields,
+                              (got[0],) + tuple(got[1]),
+                              (ref[0],) + tuple(ref[1])):
+            e_abs, e_rel, _, _ = compare(a, r)
+            require(e_rel <= tol, f"row 3 at {b}x{h}x{h} {name}: max_rel "
+                    f"{e_rel:.4g} > {tol}")
+            if name == "dx":
+                dx_abs = e_abs
+            if e_rel > worst_rel:
+                worst_rel, worst_name = e_rel, name
+        ctl = (control.float() - ref[0].float()).abs().max().item()
+        ref_max = ref[0].float().abs().max().item()
+        require(ctl > tol * ref_max and ctl > 3 * dx_abs,
+                "row 3 at 128x128: the dropped-mask control is not above the "
+                "limit and 3x the error")
+        ph.note(f"swin_block_2d_bwd at B={b} {h}x{h} C={c} phase 4 against "
+                f"its plain version: worst max_rel {worst_rel:.4g} "
+                f"({worst_name}, limit {tol} per tensor), mask effect on dx "
+                f"max_rel {ctl / ref_max:.4g}")
+
+
 def phase_build() -> None:
     """Phase 1: build the kernels, check the layout mirrors, print ptxas."""
     from kair_tpu_torch.ops.kernels import _build
@@ -3427,6 +3709,7 @@ def main() -> int:
     phase_vrt_train(report, card, _build.BUILD_DIR)
     phase_zoo(card)
     phase_timing_clis(card)
+    phase_train_zoo(card, _build.BUILD_DIR)
     faulthandler.cancel_dump_traceback_later()
 
     log(card)

@@ -9,7 +9,9 @@ and ``spynet_from_jax`` go the other way: they turn a JAX parameter tree
 ``convert_rvrt`` :602 or ``convert_spynet`` :426, or a tree the JAX package
 initialised) back into a KAIR state dict, so JAX parameters can be carried
 across. The CNN zoo's ``dncnn_from_jax`` … ``usrnet_from_jax`` invert
-``convert_dncnn`` … ``convert_usrnet`` (:94-345) the same way.
+``convert_dncnn`` … ``convert_usrnet`` (:94-345) the same way, and
+``block_from_jax`` carries the blocks no model builds (CALayer, RCABlock,
+RCAGroup, ESA, CFRB, NonLocalBlock2D) across.
 """
 
 from __future__ import annotations
@@ -590,7 +592,10 @@ def unetres_from_jax(variables: Dict[str, Any], act_mode: str = "R",
 
     def res_blocks(seq: str, name: str, start: int) -> None:
         for i in range(nb):
-            _convblock(sd, lambda j: f"{prefix}{seq}.{start + i}.res.{j}",
+            # KAIR's sequential returns a lone module as it is: m_body of
+            # one block has no index
+            at = "" if seq == "m_body" and nb == 1 else f".{start + i}"
+            _convblock(sd, lambda j: f"{prefix}{seq}{at}.res.{j}",
                        p[f"{name}_b{i:02d}"]["res"], None, res)
 
     _conv(sd, f"{prefix}m_head", p["head"]["conv"])
@@ -619,4 +624,54 @@ def usrnet_from_jax(variables: Dict[str, Any], act_mode: str = "R",
                           upsample_mode, prefix="p.")
     for i, name in enumerate(("fc1", "fc2", "fc3")):
         _conv(sd, f"h.mlp.{2 * i}", p["h"][name]["conv"])
+    return sd
+
+
+def block_from_jax(variables: Dict[str, Any], kind: str, mode: str = "CRC"
+                   ) -> Dict[str, torch.Tensor]:
+    """A JAX parameter tree of one of the blocks no model builds —
+    ``kind`` "calayer", "rcablock", "rcagroup", "esa", "cfrb" or
+    "nonlocal" (``kair_tpu/ops/blocks.py:273-321, 381-448``) — as the
+    state dict of the port's block of the same name (KAIR's keys,
+    basicblock.py:271-391, 543-591); ``mode`` is the RCA blocks' conv
+    mode."""
+    p, _ = _split(variables)
+    sd: Dict[str, torch.Tensor] = {}
+
+    def convs(pre: str, tree: Dict[str, Any], names) -> None:
+        for n in names:
+            _conv(sd, f"{pre}{n}", tree[n]["conv"])
+
+    def ca(pre: str, tree: Dict[str, Any]) -> None:
+        _conv(sd, f"{pre}conv_fc.0", tree["fc1"]["conv"])
+        _conv(sd, f"{pre}conv_fc.2", tree["fc2"]["conv"])
+
+    def rcab(pre: str, tree: Dict[str, Any]) -> None:
+        _convblock(sd, lambda j: f"{pre}res.{j}", tree["res"], None, mode)
+        ca(f"{pre}ca.", tree["ca"])
+
+    def esa(pre: str, tree: Dict[str, Any]) -> None:
+        convs(pre, tree, ("conv1", "conv21", "conv2", "conv3", "conv4",
+                          "conv5", "conv6"))
+
+    if kind == "calayer":
+        ca("", p)
+    elif kind == "rcablock":
+        rcab("", p)
+    elif kind == "rcagroup":
+        nb = _count(p, r"b\d+")
+        for i in range(nb):
+            rcab(f"rg.{i}.", p[f"b{i:02d}"])
+        _conv(sd, f"rg.{nb}", p["tail"]["conv"])
+    elif kind == "esa":
+        esa("", p)
+    elif kind == "cfrb":
+        convs("", p, ("conv1_d", "conv1_r", "conv2_d", "conv2_r", "conv3_d",
+                      "conv3_r", "conv4_d", "conv1x1"))
+        esa("esa.", p["esa"])
+    elif kind == "nonlocal":
+        convs("", p, ("g", "theta", "phi"))
+        _conv(sd, "W", p["w"]["conv"])
+    else:
+        raise ValueError(f"no block [{kind}]")
     return sd

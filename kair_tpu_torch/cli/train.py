@@ -47,11 +47,14 @@ def build_trainer(opt, dtype: Optional[torch.dtype] = torch.bfloat16,
 
 def evaluate(trainer: PlainTrainer, test_loader: Loader, border: int = 0,
              use_ema: bool = False, logger=None):
-    """PSNR/SSIM over a test set (reference main_train_psnr.py:208-246)."""
+    """PSNR/SSIM over a test set (reference main_train_psnr.py:208-246).
+    The model takes the batch's arrays and the trainer's extra keys, lists
+    among them (USRNet's ``sf``); the path lists stay behind."""
     psnrs, ssims = [], []
     for batch in test_loader.epoch(0):
         e = trainer.eval_step({k: v for k, v in batch.items()
-                               if isinstance(v, np.ndarray)},
+                               if isinstance(v, np.ndarray)
+                               or k in trainer.extra_keys},
                               use_ema=use_ema).cpu().numpy()
         for i in range(e.shape[0]):
             img_e = im.nhwc_to_uint(e[i:i + 1])

@@ -10,6 +10,15 @@ during decode). With the same seed the port draws the same batches as the
 JAX package: same Generator protocol, same epoch seeding (seed + epoch, the
 analog of the reference's ``DistributedSampler.set_epoch``,
 main_train_psnr.py:166-167).
+
+A dataset may also define ``begin_batch(rng)``: the Loader calls it from
+the same epoch Generator before the items of each batch, so a dataset can
+draw once per batch what all its items share (USRNet's scale factor).
+
+An exception raised while a batch is made (``begin_batch``, ``get_example``
+or ``collate``) reaches the consumer at its next ``next()``, with its
+traceback, and ends the epoch; the JAX package's Loader leaves the consumer
+waiting on the queue forever there (``kair_tpu/data/base.py:92-110``).
 """
 
 from __future__ import annotations
@@ -89,14 +98,22 @@ class Loader:
                     continue
             return False
 
+        begin = getattr(self.dataset, "begin_batch", None)
+
         def produce(q: queue.Queue):
-            for b in range(n_batches):
-                if stop.is_set():
-                    return
-                idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
-                exs = [self.dataset.get_example(int(i), rng) for i in idxs]
-                if not put(q, collate(exs)):
-                    return
+            try:
+                for b in range(n_batches):
+                    if stop.is_set():
+                        return
+                    idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
+                    if begin is not None:
+                        begin(rng)
+                    exs = [self.dataset.get_example(int(i), rng) for i in idxs]
+                    if not put(q, collate(exs)):
+                        return
+            except BaseException as e:     # raised by the consumer, traceback kept
+                put(q, e)
+                return
             put(q, None)
 
         q: queue.Queue = queue.Queue(maxsize=self.num_prefetch)
@@ -107,6 +124,8 @@ class Loader:
                 item = q.get()
                 if item is None:
                     return
+                if isinstance(item, BaseException):
+                    raise item
                 yield item
         finally:
             # abandoning the generator mid-epoch must not leave the producer

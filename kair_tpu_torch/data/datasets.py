@@ -16,6 +16,11 @@ are HWC float32 in [0,1]; the Loader stacks them to NHWC.
                  bicubic-synthesised L, aligned L/H crops)
   DatasetPlain   reference data/dataset_plain.py         (generic pairs)
   DatasetL       reference data/dataset_l.py             (L only, inference)
+
+Every dataset of the port reads its images through two hooks of
+:class:`ImageFiles`, ``image_paths`` and ``read_uint``: a subclass can
+serve images from elsewhere (chip_smoke.py draws seeded ones, since the
+card has no cv2 to decode files with).
 """
 
 from __future__ import annotations
@@ -29,6 +34,20 @@ from kair_tpu_torch.utils import image as im
 from kair_tpu_torch.utils.logger import warn_once
 
 
+class ImageFiles(Dataset):
+    """The two file-system calls of a dataset: ``image_paths(root)`` lists
+    a folder's images, ``read_uint(path)`` reads one as HWC uint8 with the
+    dataset's ``n_channels``."""
+
+    n_channels = 3
+
+    def image_paths(self, root: str):
+        return im.get_image_paths(root)
+
+    def read_uint(self, path: str) -> np.ndarray:
+        return im.imread_uint(path, self.n_channels)
+
+
 def _rand_crop(img: np.ndarray, size: int, rng: np.random.Generator):
     h, w = img.shape[:2]
     rh = int(rng.integers(0, max(0, h - size) + 1))
@@ -36,7 +55,7 @@ def _rand_crop(img: np.ndarray, size: int, rng: np.random.Generator):
     return img[rh: rh + size, rw: rw + size, ...], rh, rw
 
 
-class DatasetDnCNN(Dataset):
+class DatasetDnCNN(ImageFiles):
     def __init__(self, opt: dict):
         self.opt = opt
         self.n_channels = opt.get("n_channels") or 3
@@ -44,14 +63,14 @@ class DatasetDnCNN(Dataset):
         self.sigma = opt.get("sigma") or 25
         self.sigma_test = opt.get("sigma_test") or self.sigma
         self.phase = opt.get("phase") or "train"
-        self.paths_H = im.get_image_paths(opt["dataroot_H"])
+        self.paths_H = self.image_paths(opt["dataroot_H"])
 
     def __len__(self):
         return len(self.paths_H)
 
     def get_example(self, index: int, rng: np.random.Generator) -> Dict[str, Any]:
         h_path = self.paths_H[index]
-        img_h = im.imread_uint(h_path, self.n_channels)
+        img_h = self.read_uint(h_path)
         if self.phase == "train":
             patch, _, _ = _rand_crop(img_h, self.patch_size, rng)
             patch = im.augment_img(patch, int(rng.integers(0, 8)))
@@ -65,7 +84,7 @@ class DatasetDnCNN(Dataset):
                 "L_path": h_path, "H_path": h_path}
 
 
-class DatasetFDnCNN(Dataset):
+class DatasetFDnCNN(ImageFiles):
     """Noise-level map concatenated into L (in_nc = n_channels+1)."""
 
     def __init__(self, opt: dict):
@@ -76,14 +95,14 @@ class DatasetFDnCNN(Dataset):
         self.sigma_min, self.sigma_max = self.sigma[0], self.sigma[1]
         self.sigma_test = opt.get("sigma_test") or 25
         self.phase = opt.get("phase") or "train"
-        self.paths_H = im.get_image_paths(opt["dataroot_H"])
+        self.paths_H = self.image_paths(opt["dataroot_H"])
 
     def __len__(self):
         return len(self.paths_H)
 
     def get_example(self, index, rng):
         h_path = self.paths_H[index]
-        img_h = im.imread_uint(h_path, self.n_channels)
+        img_h = self.read_uint(h_path)
         if self.phase == "train":
             patch, _, _ = _rand_crop(img_h, self.patch_size, rng)
             patch = im.augment_img(patch, int(rng.integers(0, 8)))
@@ -100,7 +119,7 @@ class DatasetFDnCNN(Dataset):
         return {"L": l, "H": h.astype(np.float32), "L_path": h_path, "H_path": h_path}
 
 
-class DatasetFFDNet(Dataset):
+class DatasetFFDNet(ImageFiles):
     """Scalar σ conditioning channel 'C' of shape (1,1,1)."""
 
     def __init__(self, opt: dict):
@@ -111,14 +130,14 @@ class DatasetFFDNet(Dataset):
         self.sigma_min, self.sigma_max = self.sigma[0], self.sigma[1]
         self.sigma_test = opt.get("sigma_test") or 25
         self.phase = opt.get("phase") or "train"
-        self.paths_H = im.get_image_paths(opt["dataroot_H"])
+        self.paths_H = self.image_paths(opt["dataroot_H"])
 
     def __len__(self):
         return len(self.paths_H)
 
     def get_example(self, index, rng):
         h_path = self.paths_H[index]
-        img_h = im.imread_uint(h_path, self.n_channels)
+        img_h = self.read_uint(h_path)
         if self.phase == "train":
             patch, _, _ = _rand_crop(img_h, self.patch_size, rng)
             patch = im.augment_img(patch, int(rng.integers(0, 8)))
@@ -135,10 +154,7 @@ class DatasetFFDNet(Dataset):
                 "L_path": h_path, "H_path": h_path}
 
 
-class DatasetSR(Dataset):
-    """``image_paths`` and ``read_uint`` are its only file-system calls, so
-    a subclass can serve images from elsewhere (chip_smoke.py draws seeded
-    ones)."""
+class DatasetSR(ImageFiles):
 
     def __init__(self, opt: dict):
         self.opt = opt
@@ -151,12 +167,6 @@ class DatasetSR(Dataset):
         self.paths_L = self.image_paths(opt["dataroot_L"]) if opt.get("dataroot_L") else None
         if self.paths_L:
             assert len(self.paths_L) == len(self.paths_H)
-
-    def image_paths(self, root: str):
-        return im.get_image_paths(root)
-
-    def read_uint(self, path: str) -> np.ndarray:
-        return im.imread_uint(path, self.n_channels)
 
     def __len__(self):
         return len(self.paths_H)
@@ -183,7 +193,7 @@ class DatasetSR(Dataset):
                 "L_path": l_path, "H_path": h_path}
 
 
-class DatasetPlain(Dataset):
+class DatasetPlain(ImageFiles):
     """Generic paired L/H (reference data/dataset_plain.py)."""
 
     def __init__(self, opt: dict):
@@ -191,8 +201,8 @@ class DatasetPlain(Dataset):
         self.n_channels = opt.get("n_channels") or 3
         self.patch_size = opt.get("H_size") or 64
         self.phase = opt.get("phase") or "train"
-        self.paths_H = im.get_image_paths(opt["dataroot_H"])
-        self.paths_L = im.get_image_paths(opt["dataroot_L"])
+        self.paths_H = self.image_paths(opt["dataroot_H"])
+        self.paths_L = self.image_paths(opt["dataroot_L"])
         assert len(self.paths_L) == len(self.paths_H)
 
     def __len__(self):
@@ -200,8 +210,8 @@ class DatasetPlain(Dataset):
 
     def get_example(self, index, rng):
         h_path, l_path = self.paths_H[index], self.paths_L[index]
-        img_h = im.uint2single(im.imread_uint(h_path, self.n_channels))
-        img_l = im.uint2single(im.imread_uint(l_path, self.n_channels))
+        img_h = im.uint2single(self.read_uint(h_path))
+        img_l = im.uint2single(self.read_uint(l_path))
         if self.phase == "train":
             hh, ww = img_h.shape[:2]
             rh = int(rng.integers(0, max(0, hh - self.patch_size) + 1))
@@ -216,36 +226,52 @@ class DatasetPlain(Dataset):
                 "L_path": l_path, "H_path": h_path}
 
 
-class DatasetL(Dataset):
+class DatasetL(ImageFiles):
     """L-only inference set (reference data/dataset_l.py)."""
 
     def __init__(self, opt: dict):
         self.n_channels = opt.get("n_channels") or 3
-        self.paths_L = im.get_image_paths(opt["dataroot_L"])
+        self.paths_L = self.image_paths(opt["dataroot_L"])
 
     def __len__(self):
         return len(self.paths_L)
 
     def get_example(self, index, rng):
         l_path = self.paths_L[index]
-        img_l = im.uint2single(im.imread_uint(l_path, self.n_channels))
+        img_l = im.uint2single(self.read_uint(l_path))
         return {"L": img_l.astype(np.float32), "L_path": l_path}
 
 
 # dataset types of the JAX package's extra registry, by the slice of the
 # port that brings them (ROADMAP.md, Queue 1)
 LATER_SLICES = {
-    "usrnet": "CNN zoo training", "srmd": "CNN zoo training",
-    "dpsr": "CNN zoo training", "blindsr": "CNN zoo training",
-    "dnpatch": "training (patch datasets)",
-    "plainpatch": "training (patch datasets)",
     "spect": "SPECT", "spectpatch": "SPECT",
     "vfi_davis": "video", "vfi_ucf101": "video", "vfi_vid4": "video",
 }
+# types whose classes live in modules of their own: (module, class)
+MODULES = {
+    "usrnet": ("dataset_usrnet", "DatasetUSRNet"),
+    "srmd": ("dataset_srmd", "DatasetSRMD"),
+    "dpsr": ("dataset_srmd", "DatasetDPSR"),
+    "dnpatch": ("dataset_patch", "DatasetDnPatch"),
+    "plainpatch": ("dataset_patch", "DatasetPlainPatch"),
+    "blindsr": ("dataset_blindsr", "DatasetBlindSR"),
+    "jpeg": ("dataset_jpeg", "DatasetJPEG"),
+    "videorecurrenttraindataset": ("dataset_video", "VideoRecurrentTrainDataset"),
+    "video_train": ("dataset_video", "VideoRecurrentTrainDataset"),
+    "videorecurrenttestdataset": ("dataset_video", "VideoRecurrentTestDataset"),
+    "video_test": ("dataset_video", "VideoRecurrentTestDataset"),
+    "singlevideorecurrenttestdataset": ("dataset_video",
+                                        "SingleVideoRecurrentTestDataset"),
+    "video_test_single": ("dataset_video", "SingleVideoRecurrentTestDataset"),
+    "videotestvimeo90kdataset": ("dataset_video", "VideoTestVimeo90KDataset"),
+    "video_test_vimeo": ("dataset_video", "VideoTestVimeo90KDataset"),
+}
 
 
-def define_dataset(opt_ds: dict) -> Dataset:
-    """Dataset registry (reference data/select_dataset.py:12-100)."""
+def dataset_class(opt_ds: dict) -> type:
+    """The dataset class of an option block's ``dataset_type`` (reference
+    data/select_dataset.py:12-100)."""
     t = (opt_ds.get("dataset_type") or "plain").lower()
     table = {
         "dncnn": DatasetDnCNN, "denoising": DatasetDnCNN,
@@ -256,28 +282,23 @@ def define_dataset(opt_ds: dict) -> Dataset:
         "l": DatasetL,
     }
     if t in table:
-        return table[t](opt_ds)
-    if t == "jpeg":
-        from kair_tpu_torch.data.dataset_jpeg import DatasetJPEG
-        return DatasetJPEG(opt_ds)
-    video = {"videorecurrenttraindataset": "VideoRecurrentTrainDataset",
-             "video_train": "VideoRecurrentTrainDataset",
-             "videorecurrenttestdataset": "VideoRecurrentTestDataset",
-             "video_test": "VideoRecurrentTestDataset",
-             "singlevideorecurrenttestdataset":
-                 "SingleVideoRecurrentTestDataset",
-             "video_test_single": "SingleVideoRecurrentTestDataset",
-             "videotestvimeo90kdataset": "VideoTestVimeo90KDataset",
-             "video_test_vimeo": "VideoTestVimeo90KDataset"}
-    if t in video:
-        from kair_tpu_torch.data import dataset_video
-        return getattr(dataset_video, video[t])(opt_ds)
+        return table[t]
+    if t in MODULES:
+        import importlib
+        module, cls = MODULES[t]
+        return getattr(importlib.import_module(
+            f"kair_tpu_torch.data.{module}"), cls)
     slice_name = LATER_SLICES.get(t) or ("video" if "video" in t else None)
     if slice_name:
         raise NotImplementedError(
             f"dataset type [{t}] belongs to the {slice_name} slice of the "
             "port, not ported yet")
     raise NotImplementedError(f"dataset type [{t}] is not implemented yet")
+
+
+def define_dataset(opt_ds: dict) -> Dataset:
+    """The dataset of an option block (reference data/select_dataset.py)."""
+    return dataset_class(opt_ds)(opt_ds)
 
 
 def make_train_loader(ds_opt: dict, batch_size: int, seed: int = 0,

@@ -28,7 +28,9 @@ package leaves it to XLA in training. ``use_checkpoint`` recomputes each
 RSTB in the backward (``torch.utils.checkpoint``, non-reentrant; JAX's
 ``nn.remat``). A window that no kernel takes (training at a window under 8,
 or any window above 8) runs the block kernels' plain version, composed
-PyTorch, as the JAX package's ``_flat_block_xla`` does, and says so once.
+PyTorch, as the JAX package's ``_flat_block_xla`` does, and says so once,
+on the CPU and, at inference, on the card; training on the card at such a
+window raises, since its only route there is the kernels.
 
 The head's normalisation and the final ``x + conv_last(res)`` (denoising,
 JPEG-CAR) or ``/ img_range + mean`` stay in f32 whatever the weights'
@@ -117,6 +119,12 @@ class SwinBlock(nn.Module):
         self._pack_key: Optional[tuple] = None
         self._packs: dict = {}
 
+    def bf16_only_kernel(self) -> str:
+        """The kernels, bfloat16 only, that are this block's one training
+        route on the card: at another window than 8 the block raises there
+        (``forward``) rather than run composed PyTorch."""
+        return "swin_block_2d and swin_block_2d_bwd"
+
     def params(self) -> SwinBlockParams:
         a, m = self.attn, self.mlp
         return SwinBlockParams(
@@ -176,6 +184,12 @@ class SwinBlock(nn.Module):
                 packed_bwd=self._packed("bwd") if cuda and torch.is_grad_enabled()
                 else None, phase=shift)
             return torch.roll(x, (shift, shift), (1, 2)) if shift else x
+        if self.training and cuda:
+            raise NotImplementedError(
+                f"SwinIR training on the card at window {ws}, map {h}x{w}: "
+                f"the block kernels train window {WS} only (swin_block_2d "
+                "and swin_block_2d_bwd) and there is no composed fallback; "
+                "another training window is a ROADMAP item")
         warn_once(f"swin-composed-fallback-{h}x{w}x{ws}-{self.training}",
                   f"SwinIR block kernels not used at {h}x{w}, window {ws}, "
                   f"training={self.training} (inference takes windows up to "

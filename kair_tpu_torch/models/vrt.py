@@ -187,6 +187,13 @@ class TMSA(_Packed, nn.Module):
         self.mlp = GEGLU(dim, hidden, dim) if geglu else Mlp(dim, hidden, dim)
         self.widths = (dim, num_heads, hidden)   # what the kernels refuse by
 
+    def bf16_only_kernel(self) -> Optional[str]:
+        """The kernel a training step runs for this block on the card, which
+        takes bfloat16 only: VRT's TMSA and self blocks keep their kernel
+        routes in training; RVRT's STL blocks (``geglu=False``) take the
+        composed block there (``_window_route``)."""
+        return "kair_win3d_block" if self.fuse_block and self.geglu else None
+
     def params(self) -> Tmsa3dParams:
         a, m = self.attn, self.mlp
         mut = self.mut_attn
@@ -382,6 +389,11 @@ class DCNv2PackFlowGuided(_Packed, nn.Module):
             nn.Conv2d(dim, 3 * 9 * deformable_groups, 3, 1, 1))
         nn.init.zeros_(self.conv_offset[-1].weight)
         nn.init.zeros_(self.conv_offset[-1].bias)
+
+    def bf16_only_kernel(self) -> Optional[str]:
+        """The DCN kernel ("auto" on the card, "fused") computes in bfloat16
+        only; the "mxu" and "gather" routes take f32."""
+        return "kair_dcn" if self.deform_impl in ("auto", "fused") else None
 
     def forward(self, x: torch.Tensor, x_flow_warpeds: List[torch.Tensor],
                 x_current: torch.Tensor, flows: List[torch.Tensor]

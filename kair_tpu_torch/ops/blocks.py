@@ -5,7 +5,10 @@ SwinIR and VRT use ``pixel_shuffle`` (:40), ``upsample_nearest`` (:60),
 The CNN zoo adds ``pixel_unshuffle`` (:50), ``ConvT`` (:137), ``BatchNorm``
 (:169), the mode-string factory ``ConvBlock`` (:192-253), ``ResBlock``
 (:255), ``ResidualDenseBlock5C`` and ``RRDB`` (:323-356), ``IMDBlock``
-(:358) and the up/down samplers (:450-542). Feature maps are (B, H, W, C)
+(:358) and the up/down samplers (:450-542). The blocks no model of either
+package builds, ``CALayer``, ``RCABlock``, ``RCAGroup`` (:273-321), ``ESA``,
+``CFRB`` and ``NonLocalBlock2D`` (:381-448), are here too, for option
+trees and user models that name them. Feature maps are (B, H, W, C)
 as in the JAX package; a ``Conv`` hands PyTorch's convolution a
 channels-last view of the same memory, so no copy is made on the card.
 
@@ -330,6 +333,130 @@ class IMDBlock(nn.Module):
         d4 = self.conv4(c3[..., d:])
         return x + self.conv1x1(torch.cat(
             [c1[..., :d], c2[..., :d], c3[..., :d], d4], -1))
+
+
+class CALayer(nn.Module):
+    """Squeeze-excite channel attention (basicblock.py:333-350): the mean
+    over the map, 1x1 conv, ReLU, 1x1 conv, sigmoid, times x; keys
+    ``conv_fc.0``, ``conv_fc.2``."""
+
+    def __init__(self, channels: int = 64, reduction: int = 16):
+        super().__init__()
+        self.conv_fc = nn.Sequential(
+            Conv(channels, channels // reduction, 1, padding=0), nn.ReLU(),
+            Conv(channels // reduction, channels, 1, padding=0), nn.Sigmoid())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.conv_fc(x.mean((1, 2), keepdim=True))
+
+
+class RCABlock(nn.Module):
+    """Residual channel-attention block (basicblock.py:354-369):
+    x + CA(conv(act(conv(x)))); keys ``res.0``, ``res.2``, ``ca.*``."""
+
+    def __init__(self, channels: int = 64, reduction: int = 16,
+                 mode: str = "CRC", negative_slope: float = 0.2):
+        super().__init__()
+        self.res = ConvBlock(channels, channels, mode=mode,
+                             negative_slope=negative_slope)
+        self.ca = CALayer(channels, reduction)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.ca(self.res(x)) + x
+
+
+class RCAGroup(nn.Module):
+    """``nb`` RCABlocks and a 3x3 conv, residual (basicblock.py:373-390);
+    keys ``rg.0`` … ``rg.{nb-1}`` (the blocks), ``rg.{nb}`` (the conv)."""
+
+    def __init__(self, channels: int = 64, reduction: int = 16, nb: int = 12,
+                 mode: str = "CRC", negative_slope: float = 0.2):
+        super().__init__()
+        self.rg = sequential(*[RCABlock(channels, reduction, mode,
+                                        negative_slope) for _ in range(nb)],
+                             Conv(channels, channels, 3, padding=1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.rg(x) + x
+
+
+class ESA(nn.Module):
+    """Enhanced spatial attention (basicblock.py:271-295): a 1x1 reduction,
+    a stride-2 conv, 7/3 max pooling, three 3x3 convs, a bilinear resize
+    back, the 1x1 ``conv21`` branch added, a 1x1 conv and a sigmoid gate on
+    x; keys ``conv1`` … ``conv6``, ``conv21``."""
+
+    def __init__(self, channels: int = 64, reduction: int = 4):
+        super().__init__()
+        r = channels // reduction
+        self.conv1 = Conv(channels, r, 1, padding=0)
+        self.conv21 = Conv(r, r, 1, padding=0)
+        self.conv2 = Conv(r, r, 3, stride=2, padding=0)
+        self.conv3 = Conv(r, r, 3, padding=1)
+        self.conv4 = Conv(r, r, 3, padding=1)
+        self.conv5 = Conv(r, r, 3, padding=1)
+        self.conv6 = Conv(r, channels, 1, padding=0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1 = self.conv1(x)
+        x2 = F.max_pool2d(self.conv2(x1).permute(0, 3, 1, 2), 7, 3)
+        x2 = F.relu(self.conv3(x2.permute(0, 2, 3, 1)))
+        x2 = self.conv5(F.relu(self.conv4(x2)))
+        x2 = resize_bilinear(x2, (x.shape[1], x.shape[2]))
+        return x * torch.sigmoid(self.conv6(x2 + self.conv21(x1)))
+
+
+class CFRB(nn.Module):
+    """Concat-feature residual block with ESA (basicblock.py:298-329): three
+    1x1 "distilled" branches beside three residual 3x3 convs, a fourth 3x3
+    conv, their concatenation through a leaky ReLU and a 1x1 fusion, then
+    ESA; keys ``conv1_d`` … ``conv4_d``, ``conv1_r`` … ``conv3_r``,
+    ``conv1x1``, ``esa.*``."""
+
+    def __init__(self, channels: int = 50, d_rate: float = 0.5,
+                 negative_slope: float = 0.05):
+        super().__init__()
+        d = int(channels * d_rate)
+        self.negative_slope = negative_slope
+        for i in (1, 2, 3):
+            setattr(self, f"conv{i}_d", Conv(channels, d, 1, padding=0))
+            setattr(self, f"conv{i}_r", Conv(channels, channels, 3, padding=1))
+        self.conv4_d = Conv(channels, d, 3, padding=1)
+        self.conv1x1 = Conv(4 * d, channels, 1, padding=0)
+        self.esa = ESA(channels, 4)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        act = lambda v: F.leaky_relu(v, self.negative_slope)
+        ds = []
+        for i in (1, 2, 3):
+            ds.append(getattr(self, f"conv{i}_d")(x))
+            x = act(getattr(self, f"conv{i}_r")(x) + x)
+        x = act(torch.cat(ds + [self.conv4_d(x)], -1))
+        return self.esa(self.conv1x1(x))
+
+
+class NonLocalBlock2D(nn.Module):
+    """Embedded-Gaussian non-local block (basicblock.py:543-591): 1x1 convs
+    ``g``, ``theta``, ``phi`` to nc / reduction channels, softmax(θ φᵀ) over
+    all pixels (in f32) times g, a 1x1 conv ``W``, residual. ``act_mode``
+    follows ``W`` ("" as in the JAX package; KAIR's default "B" adds a
+    BatchNorm, keys ``W.0`` / ``W.1``)."""
+
+    def __init__(self, nc: int = 64, reduction: int = 2, act_mode: str = ""):
+        super().__init__()
+        inter = nc // reduction
+        self.g = Conv(nc, inter, 1, padding=0)
+        self.theta = Conv(nc, inter, 1, padding=0)
+        self.phi = Conv(nc, inter, 1, padding=0)
+        self.W = ConvBlock(inter, nc, 1, padding=0, mode="C" + act_mode)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, h, w, _ = x.shape
+        g, theta, phi = (m(x).reshape(n, h * w, -1)
+                         for m in (self.g, self.theta, self.phi))
+        attn = torch.softmax((theta @ phi.transpose(1, 2)).float(), -1)
+        y = (attn.to(g.dtype) @ g).reshape(n, h, w, -1)
+        return x + self.W(y)
 
 
 def UpsamplePixelShuffle(in_channels: int = 64, out_channels: int = 3,

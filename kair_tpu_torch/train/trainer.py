@@ -11,15 +11,25 @@ jitted step:
 * ``dtype=torch.bfloat16`` runs the forward under
   ``torch.autocast(..., bfloat16)`` over f32 parameters, the counterpart of
   flax ``dtype=bf16`` with f32 params; the Swin blocks go through the
-  bf16 kernels and return f32 parameter grads. On the card this is the
-  only dtype: the block kernels take bf16, so f32 raises
-  NotImplementedError rather than running composed PyTorch. f32 is for
-  the CPU, where the kernels' plain versions run.
+  bf16 kernels and return f32 parameter grads. f32 runs the CNN zoo on the
+  card (cuDNN and cuFFT; the JAX training CLI's default dtype). A model
+  whose training route reaches a kernel that takes bf16 only (SwinIR's
+  window-8 blocks, VRT's TMSA and self blocks, the DCN kernel:
+  :func:`bf16_only_route`) raises NotImplementedError in f32 on the card
+  before any work, naming the module, rather than running composed
+  PyTorch; on the CPU the kernels' plain versions run in f32.
+* ``extra_keys`` feed the model after 'L'; USRNet's ``sf`` goes in as one
+  Python int read from the host batch (no copy to the card, no sync), and
+  a batch whose items disagree on it raises.
 * the lr of update n is ``schedule(n)``, n updates made before it: the
   count at which optax evaluates the JAX schedule.
 * clipping matches ``optax.clip_by_global_norm`` (no epsilon on the norm,
   unlike ``torch.nn.utils.clip_grad_norm_``).
-* EMA after the update: ema·d + p·(1−d).
+* EMA after the update: ema·d + p·(1−d); the EMA copy's BatchNorm running
+  statistics are the model's (the JAX package keeps one ``batch_stats``
+  for both). BatchNorm's running variance is PyTorch's and KAIR's, from
+  the unbiased batch variance; flax updates it with the biased one
+  (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -34,6 +44,29 @@ from kair_tpu_torch import default_device
 from kair_tpu_torch.train.losses import get_loss_fn
 from kair_tpu_torch.train.regularizers import regularizer_clip, regularizer_orth
 from kair_tpu_torch.train.schedulers import get_schedule
+
+
+def bf16_only_route(model: torch.nn.Module) -> Optional[str]:
+    """The first module whose training route on the card runs a kernel
+    that takes bfloat16 only, with the kernel's name, or None (the CNN zoo:
+    cuDNN and cuFFT). Each such module says so by its
+    ``bf16_only_kernel()``."""
+    for name, m in model.named_modules():
+        kernel = m.bf16_only_kernel() if hasattr(m, "bf16_only_kernel") \
+            else None
+        if kernel:
+            return f"{name} ({type(m).__name__}) runs {kernel}"
+    return None
+
+
+def scale_factor(v) -> int:
+    """USRNet's ``sf`` as one Python int, from the host batch (the items'
+    ints, as ``collate`` lists them, or one int)."""
+    vals = sorted({int(x) for x in np.ravel(np.asarray(v))})
+    if len(vals) != 1:
+        raise ValueError(f"the batch's items disagree on sf: {vals}; USRNet "
+                         "takes one scale factor a batch")
+    return vals[0]
 
 
 def build_optimizer(params, opt_train: dict) -> torch.optim.Optimizer:
@@ -89,15 +122,18 @@ class PlainTrainer:
         self.device = default_device(device)
         if dtype is None:
             dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
-        if self.device.type == "cuda" and dtype != torch.bfloat16:
+        model = define_g(opt)
+        where = bf16_only_route(model) if self.device.type == "cuda" \
+            and dtype != torch.bfloat16 else None
+        if where:
             raise NotImplementedError(
-                f"training in {dtype} on the card: the Swin block kernels take "
+                f"training in {dtype} on the card: {where}, which takes "
                 "bfloat16 only (an f32 kernel is a ROADMAP item); use "
                 "--dtype bf16, or device='cpu' for f32")
         self.dtype = dtype
         self.opt = opt
         self.opt_train = opt["train"]
-        self.model = define_g(opt).to(self.device).train()
+        self.model = model.to(self.device).train()
         self.loss_fn = get_loss_fn(self.opt_train["G_lossfn_type"] or "l1",
                                    self.opt_train)
         self.loss_weight = self.opt_train.get("G_lossfn_weight") or 1.0
@@ -106,8 +142,13 @@ class PlainTrainer:
         self.clip = self.opt_train.get("G_optimizer_clipgrad") or 0
         self.ema_decay = self.opt_train.get("E_decay") or 0
         self.ema = None
+        self._ema_buffers = []
         if self.ema_decay > 0:
             self.ema = copy.deepcopy(self.model).eval().requires_grad_(False)
+            self._ema_buffers = [
+                (e, b) for me, mm in zip(self.ema.modules(), self.model.modules())
+                if isinstance(mm, torch.nn.modules.batchnorm._BatchNorm)
+                for e, b in zip(me.buffers(), mm.buffers())]
         self.extra_keys = tuple(extra_keys)
         self.step = 0                     # optimizer updates made
 
@@ -116,7 +157,8 @@ class PlainTrainer:
                               enabled=self.dtype == torch.bfloat16)
 
     def _args(self, batch: Dict[str, Any]):
-        return [_tensor(batch[k], self.device)
+        return [scale_factor(batch[k]) if k == "sf" else
+                _tensor(batch[k], self.device)
                 for k in ("L",) + self.extra_keys]
 
     # ------------------------------------------------------------------
@@ -148,6 +190,8 @@ class PlainTrainer:
             ema, params = list(self.ema.parameters()), list(self.model.parameters())
             torch._foreach_mul_(ema, self.ema_decay)
             torch._foreach_add_(ema, params, alpha=1 - self.ema_decay)
+            for e, b in self._ema_buffers:
+                e.copy_(b)
 
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """One update; the loss stays on the device (no host sync)."""
@@ -168,7 +212,8 @@ class PlainTrainer:
         model.eval()
         p = next(model.parameters())
         with torch.inference_mode():
-            out = model(*[a.to(p.dtype) if a.is_floating_point() else a
+            out = model(*[a.to(p.dtype) if torch.is_tensor(a)
+                          and a.is_floating_point() else a
                           for a in self._args(batch)]).float()
         model.train(was_training)
         return out

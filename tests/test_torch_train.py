@@ -386,8 +386,8 @@ def test_no_card_raises(tmp_path, hr_dir, monkeypatch):
 
 
 @pytest.mark.parametrize("what,name", [
-    ("dataset", "srmd"), ("net", "spynet"), ("dataset", "usrnet"),
-    ("dataset", "videorecurrenttrainvimeodataset"), ("dataset", "dnpatch"),
+    ("dataset", "spect"), ("net", "spynet"), ("dataset", "spectpatch"),
+    ("dataset", "videorecurrenttrainvimeodataset"), ("dataset", "vfi_vid4"),
     ("trainer", "gan"), ("dataset", "vfi_davis")])
 def test_later_slices_raise_naming_their_slice(what, name):
     from kair_tpu_torch.models.registry import define_g

@@ -272,7 +272,8 @@ def test_train_bench_prints_the_jax_keys():
                                  for k, v in TINY.items()}}
     with mock.patch.dict(train_bench.VRT_NET, net, clear=True), \
             mock.patch.object(train_bench, "FRAMES", 2):
-        rep = train_bench.main(["--device", "cpu", "--batch", "1", "--steps",
+        rep = train_bench.main(["--net", "vrt", "--device", "cpu", "--batch",
+                                "1", "--steps",
                                 "1", "--deform", "mxu", "--fuse", "--remat"])
     for k in ("step_ms", "steps_per_s", "patches_per_s", "megapixels_per_s",
               "device"):
