@@ -15,7 +15,8 @@ deformable attention kernels; then VRT-001 training with its alignment
 sampled by the bilinear sampler's forward and backward kernels; then the
 CNN zoo's inference (cuDNN and cuFFT, no hand-written kernel on its path)
 and the port's timing CLIs; then training the CNN zoo and SwinIR's gray
-denoising recipe from their option files. Phases, one flushed line each
+denoising recipe from their option files; then RVRT-001 training through
+the STL2, GDA and 2-D Swin block kernels. Phases, one flushed line each
 with its seconds:
 
   0 device      card name, power limit (nvidia-smi), torch and CUDA versions
@@ -209,6 +210,22 @@ with its seconds:
                 recomputed), 36 backward and 0 conv-tail launches a step, no
                 composed block; ms per step, busy ms and idle share; the
                 block backward at B=2 128x128 against its plain version
+ 25 rvrt_train  RVRT-001's network (fuse_block on, deform_impl "auto") with
+                the training fields of VRT-001's option file, bf16 autocast,
+                B=4 clips of 8 frames at 64x64 LR (KAIR trains 30-frame
+                clips; the clip is cut) from seeded moving clips: (a) the
+                gradient at B=1 of 4 frames against the f32 composed route
+                on the card (fuse_block off, gather), relative norm <= 2e-2
+                over all and over the flow group, <= 4e-2 a part, with the
+                GDA offsets at zero as the control above both over the flow
+                group; (b) the block backward at C=144 (6 heads, hidden
+                288), B=8 64x64, phases 0 and 4, within 2e-2 per tensor of
+                its plain version; (c) 64 STL2, 12 GDA, 4 + 4 Swin block
+                forward and backward launches a step, no composed call; (d)
+                ms per step over 3 after 1, MFU from the analytic FLOP, peak
+                memory, busy ms and idle share from two profiled steps, a
+                remat step's launches (128 STL2, 8 Swin forward); (e) --dtype
+                f32 refused naming the kernel
 
 Any failed check raises and the script exits non-zero; a watchdog ends a
 hung run with a traceback. The line before the last is one JSON object with
@@ -907,10 +924,11 @@ def device_breakdown(fn, runs: int, ms: float, what: str,
     own CPU time (what keeps an idle card waiting); ``top`` kernels are
     listed; each op named in ``count`` adds its outermost calls per run;
     each kernel-name prefix in ``sums`` adds its kernels' device time per
-    run, in all and by kernel."""
+    run, in all and by kernel. Without ``host`` or ``count`` the profiler
+    records the device alone."""
     import torch
     from kair_tpu_torch.utils.timing import device_trace, kernel_name
-    prof, rows = device_trace(fn, runs)
+    prof, rows = device_trace(fn, runs, cpu=host or bool(count))
     if not rows:
         return "the profiler saw no device time"
     busy = sum(r[0] for r in rows)
@@ -3369,11 +3387,7 @@ def phase_train_zoo(card: str, build_dir) -> None:
     import numpy as np
     import torch
     from kair_tpu_torch.cli.train import build_trainer
-    from kair_tpu_torch.ops.kernels.swin_block import (SwinBlockParams,
-                                                        pack_swin_block,
-                                                        swin_block_2d_bwd,
-                                                        swin_block_2d_bwd_reference)
-    from kair_tpu_torch.ops.kernels.window_msa import shift_mask_tensor
+    from kair_tpu_torch.ops.kernels.swin_block import swin_block_2d_bwd
     from kair_tpu_torch.train.trainer import PlainTrainer
 
     with Phase("24 train_zoo") as ph, \
@@ -3467,39 +3481,362 @@ def phase_train_zoo(card: str, build_dir) -> None:
 
         # row 3 at the gray step's 128x128 map, B=2, against its plain
         # version, phase 4 (the shifted block), with the dropped-mask control
-        tol = 2e-2
-        b, h, c, nh, hidden = 2, 128, 180, 6, 360
-        dev = torch.device("cuda")
-        gen = torch.Generator().manual_seed(SEED + 251)
-        p = swin_params(c, nh, hidden, gen, dev, torch.float32)
-        x = torch.randn(b, h, h, c, generator=gen).to(dev, torch.bfloat16)
-        dy = torch.randn(b, h, h, c, generator=gen).to(dev, torch.bfloat16)
-        mask = shift_mask_tensor(h, h, 8, 4, dev)
-        got = swin_block_2d_bwd(x, dy, p, nh, mask,
-                                pack_swin_block(p, nh, folded=False), 4)
-        torch.cuda.synchronize()
-        ref = swin_block_2d_bwd_reference(x, dy, p, nh, mask, 4)
-        control = swin_block_2d_bwd_reference(x, dy, p, nh, None, 4)[0]
-        worst_rel, worst_name = 0.0, ""
-        for name, a, r in zip(("dx",) + SwinBlockParams._fields,
-                              (got[0],) + tuple(got[1]),
-                              (ref[0],) + tuple(ref[1])):
-            e_abs, e_rel, _, _ = compare(a, r)
-            require(e_rel <= tol, f"row 3 at {b}x{h}x{h} {name}: max_rel "
-                    f"{e_rel:.4g} > {tol}")
-            if name == "dx":
-                dx_abs = e_abs
-            if e_rel > worst_rel:
-                worst_rel, worst_name = e_rel, name
-        ctl = (control.float() - ref[0].float()).abs().max().item()
-        ref_max = ref[0].float().abs().max().item()
-        require(ctl > tol * ref_max and ctl > 3 * dx_abs,
-                "row 3 at 128x128: the dropped-mask control is not above the "
+        ph.note(row3_case(2, 128, 180, 6, 360, 4, SEED + 251, "mask"))
+
+
+def row3_case(b: int, h: int, c: int, nh: int, hidden: int, phase: int,
+              seed: int, control: str) -> str:
+    """Row 3 (``swin_block_2d_bwd``) on seeded bf16 x and dy (B, h, h, C)
+    and f32 parameters against its plain version at ``phase`` (the shift
+    mask where the phase is not 0): every tensor within 2e-2 of its own
+    max; the control ("mask": the plain dx without the mask, "phase": at
+    phase + 1) moves dx by more than the limit and 3x the error."""
+    import torch
+    from kair_tpu_torch.ops.kernels.swin_block import (
+        SwinBlockParams, pack_swin_block, swin_block_2d_bwd,
+        swin_block_2d_bwd_reference)
+    from kair_tpu_torch.ops.kernels.window_msa import shift_mask_tensor
+    tol = 2e-2
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    p = swin_params(c, nh, hidden, gen, dev, torch.float32)
+    x = torch.randn(b, h, h, c, generator=gen).to(dev, torch.bfloat16)
+    dy = torch.randn(b, h, h, c, generator=gen).to(dev, torch.bfloat16)
+    mask = shift_mask_tensor(h, h, 8, 4, dev) if phase else None
+    got = swin_block_2d_bwd(x, dy, p, nh, mask,
+                            pack_swin_block(p, nh, folded=False), phase)
+    torch.cuda.synchronize()
+    ref = swin_block_2d_bwd_reference(x, dy, p, nh, mask, phase)
+    ctl_dx = (swin_block_2d_bwd_reference(x, dy, p, nh, None, phase)
+              if control == "mask" else
+              swin_block_2d_bwd_reference(x, dy, p, nh, mask, phase + 1))[0]
+    what = f"row 3 at B={b} {h}x{h} C={c} {nh} heads hidden {hidden} " \
+           f"phase {phase}"
+    worst_rel, worst_name, dx_abs = 0.0, "", 0.0
+    for name, a, r in zip(("dx",) + SwinBlockParams._fields,
+                          (got[0],) + tuple(got[1]), (ref[0],) + tuple(ref[1])):
+        e_abs, e_rel, _, _ = compare(a, r)
+        require(e_rel <= tol, f"{what} {name}: max_rel {e_rel:.4g} > {tol}")
+        if name == "dx":
+            dx_abs = e_abs
+        if e_rel > worst_rel:
+            worst_rel, worst_name = e_rel, name
+    ctl = (ctl_dx.float() - ref[0].float()).abs().max().item()
+    ref_max = ref[0].float().abs().max().item()
+    require(ctl > tol * ref_max and ctl > 3 * dx_abs,
+            f"{what}: the {control} control is not above the limit and 3x "
+            "the error")
+    return (f"{what} against its plain version: worst max_rel "
+            f"{worst_rel:.4g} ({worst_name}, limit {tol} per tensor), "
+            f"{control} control's effect on dx max_rel {ctl / ref_max:.4g}")
+
+
+# ---------------------------------------------------------------------------
+# RVRT-001 training through its kernels (phase 25)
+# ---------------------------------------------------------------------------
+
+# relative gradient norm, bf16 kernels against the f32 composed route: over
+# all parameters and the flow group, and the worst part (set from this
+# phase's readings on an H100: 0.00925 / 0.0122 and 0.0136 at
+# deform_align.backward_2; PERF.md)
+RVRT_TRAIN_GRAD_LIMITS = (2e-2, 4e-2)
+RVRT_TRAIN_BATCH, RVRT_TRAIN_FRAMES = 4, 8
+
+
+def rvrt_train_options(tmp: str):
+    """The training fields of the shipped VRT-001 option file with RVRT's
+    network (``net_type`` "rvrt": the RVRT-001 defaults, ``fuse_block`` on,
+    ``deform_impl`` "auto"), clips of RVRT_TRAIN_FRAMES frames,
+    RVRT_TRAIN_BATCH a batch, paths in `tmp`."""
+    from kair_tpu_torch import config
+    raw = config.load_json_with_comments(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), VRT_TRAIN_OPTION))
+    raw["task"] = "rvrt_001_train"
+    raw["path"]["root"] = os.path.join(tmp, "runs")
+    train = raw["datasets"]["train"]
+    train.update(dataroot_gt=os.path.join(tmp, "gt"),
+                 dataroot_lq=os.path.join(tmp, "lq"), meta_info_file=None,
+                 num_frame=RVRT_TRAIN_FRAMES,
+                 dataloader_batch_size=RVRT_TRAIN_BATCH)
+    del raw["datasets"]["test"]
+    raw["netG"] = {"net_type": "rvrt", "fuse_block": True,
+                   "deform_impl": "auto", "use_checkpoint_attn": False}
+    path = os.path.join(tmp, "rvrt001.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return config.parse(path)
+
+
+def rvrt_param_parts(names) -> dict:
+    """RVRT's parameter names by part: SpyNet, feat_extract, each branch's
+    backbone and deform_align, reconstruction, the rest."""
+    parts: dict = {}
+    for n in names:
+        head = n.split(".")
+        key = ".".join(head[:2]) if head[0] in ("backbone", "deform_align") \
+            else head[0] if head[0] in ("spynet", "feat_extract",
+                                        "reconstruction") else "rest"
+        parts.setdefault(key, []).append(n)
+    return parts
+
+
+def without_gda_offsets(fn):
+    """fn() with RVRT's guided deformable attention at zero offsets: every
+    tap at its own pixel, the flows and the offset nets left out."""
+    from kair_tpu_torch.models import rvrt as mrvrt
+    with_offsets = mrvrt.deform_attention
+    mrvrt.deform_attention = lambda q, k, v, off, *a: with_offsets(
+        q, k, v, off * 0, *a)
+    try:
+        return fn()
+    finally:
+        mrvrt.deform_attention = with_offsets
+
+
+def composed_backward_times(b: int, d: int, s: int) -> str:
+    """ms of one ``gda_train`` and one ``stl2_block_train`` call at RVRT-001
+    training's shapes (B clips of d frames at s x s; GDA on B·2 query
+    frames of 288 channels, flow-like offsets; STL2 on (B, 2, s, s, 144)),
+    forward and backward timed apart with CUDA events (median of 3 after
+    1), under bf16 autocast as in a step."""
+    import torch
+    from kair_tpu_torch.ops.kernels import gda_block, stl2_block
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 254)
+    bf = torch.bfloat16
+    rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev, bf)
+    q, k, v = rnd(2 * b, s, s, 288), rnd(b, 2, s, s, 288), rnd(b, 2, s, s, 288)
+    off = gda_offsets("flow", 2 * b, 2, s, s, 12, 9, gen, dev)
+    x = rnd(b, 2, s, s, 144)
+    p = stl_params(144, 6, 2, gen, dev)
+    p = p._replace(**{k_: t.requires_grad_() for k_, t in p._asdict().items()
+                      if t is not None})
+
+    def times(fwd):
+        f_ms, b_ms = [], []
+        for _ in range(4):
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            with torch.autocast("cuda", torch.bfloat16):
+                e[0].record()
+                y = fwd()
+                e[1].record()
+            y.float().square().mean().backward()
+            e[2].record()
+            torch.cuda.synchronize()
+            f_ms.append(e[0].elapsed_time(e[1]))
+            b_ms.append(e[1].elapsed_time(e[2]))
+        return statistics.median(f_ms[1:]), statistics.median(b_ms[1:])
+    leaves = [t.requires_grad_() for t in (q, k, v, off)]
+    g_f, g_b = times(lambda: gda_block.gda_train(*leaves, (3, 3), 12, 12))
+    s_f, s_b = times(lambda: stl2_block.stl2_block_train(
+        x.requires_grad_(), p, 6, (1, 4, 4)))
+    return (f"one GDA call ({2 * b}x{s}x{s}x288, 2 slots, 9 taps, 12 groups): "
+            f"forward {g_f:.2f} ms, composed backward {g_b:.2f} ms (x12 a "
+            f"step: {12 * g_b:.1f} ms); one STL2 call ({b}x2x{s}x{s}x144, "
+            f"shifted): forward {s_f:.2f} ms, composed backward {s_b:.2f} ms "
+            f"(x64 a step: {64 * s_b:.1f} ms)")
+
+
+def phase_rvrt_train(report: list, card: str, build_dir) -> None:
+    import itertools
+    import torch
+    from kair_tpu_torch.cli.train import build_trainer
+    from kair_tpu_torch.data.base import Loader
+    from kair_tpu_torch.models import vrt as mvrt
+    from kair_tpu_torch.models.registry import define_g
+    from kair_tpu_torch.ops.deform_attn import deform_attention
+    from kair_tpu_torch.ops.kernels import gda_block, stl2_block, swin_block
+    from kair_tpu_torch.train.trainer import bf16_only_route
+    from kair_tpu_torch.train.video import VideoTrainer
+    from kair_tpu_torch.utils.summary import peak_bf16_tflops, rvrt_flops_per_clip
+
+    tol_global, tol_part = RVRT_TRAIN_GRAD_LIMITS
+    timed = 3
+    counters = ((stl2_block.stl2_block, "launches", "stl2"),
+                (gda_block.gda_fused, "launches", "gda"),
+                (swin_block.swin_block_2d, "launches", "swin"),
+                (swin_block.swin_block_2d, "launches_win", "swin_win"),
+                (swin_block.swin_block_2d_bwd, "launches", "swin_bwd"))
+
+    def zero_counts():
+        for f, attr, _ in counters:
+            setattr(f, attr, 0)
+        mvrt.TMSA.composed_calls = 0
+        deform_attention.composed_calls = 0
+
+    def read_counts():
+        out = {k: getattr(f, attr) for f, attr, k in counters}
+        out["composed_tmsa"] = mvrt.TMSA.composed_calls
+        out["composed_deform"] = deform_attention.composed_calls
+        return out
+
+    t0 = time.perf_counter()
+    lap = lambda: f" [{time.perf_counter() - t0:.1f} s into the phase]"
+    with Phase("25 rvrt_train") as ph, \
+            tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        opt = rvrt_train_options(tmp)
+        ds_opt, ot = opt["datasets"]["train"], opt["train"]
+        bs, nf, gs, sf = (RVRT_TRAIN_BATCH, RVRT_TRAIN_FRAMES,
+                          ds_opt["gt_size"], opt["scale"])
+        trainer = build_trainer(opt, dtype=torch.bfloat16)
+        require(isinstance(trainer, VideoTrainer), f"{type(trainer).__name__}")
+        sd = rvrt_state_dict(SEED + 25)
+        trainer.model.load_state_dict(sd, strict=True)
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        ph.note(f"RVRT-001's network (embed 144, num_blocks (1,2,1), depths "
+                "(2,2,2), 6 heads, window (2,8,8), clip 2, 12 groups = 12 "
+                "attention heads, fuse_block on, deform_impl 'auto') with the "
+                f"training fields of {VRT_TRAIN_OPTION} through cli.train."
+                f"build_trainer -> VideoTrainer, bf16 autocast over f32: "
+                f"{ot['G_lossfn_type']}, Adam {ot['G_optimizer_lr']}, fix_iter "
+                f"{ot['fix_iter']} over {ot['fix_keys']}; {n_params} params "
+                f"seeded by RVRT_INIT; B={bs} clips of {nf} frames at "
+                f"{gs // sf}x{gs // sf} LR (KAIR trains 30-frame clips: the "
+                "clip length is cut, a longer clip is a longer loop over the "
+                "same kernels)")
+        loader = Loader(seeded_clip_dataset(ds_opt, tmp, clips=2), bs,
+                        seed=SEED)
+        batches = [{k: v for k, v in bt.items() if hasattr(v, "shape")}
+                   for bt in itertools.islice(loader.epoch(0), 6)]
+        require(len(batches) == 6
+                and batches[0]["L"].shape == (bs, nf, gs // sf, gs // sf, 3)
+                and batches[0]["H"].shape == (bs, nf, gs, gs, 3),
+                f"{len(batches)} batches, shapes {batches[0]['L'].shape} "
+                f"{batches[0]['H'].shape}")
+
+        # (e) every kernel of the training route is bf16 only: f32 refuses
+        kernels = {m.bf16_only_kernel() for m in trainer.model.modules()
+                   if hasattr(m, "bf16_only_kernel")} - {None}
+        require(kernels == {"kair_win3d_block", "kair_gda",
+                            "swin_block_2d and swin_block_2d_bwd"},
+                f"bf16-only kernels {kernels}")
+        try:
+            build_trainer(opt, dtype=torch.float32)
+            refusal = None
+        except NotImplementedError as e:
+            refusal = str(e)
+        require(refusal is not None and bf16_only_route(trainer.model)
+                in refusal, f"--dtype f32 on the card: {refusal}")
+        ph.note(f"(e) --dtype f32 refused before any work: '{refusal[:160]}'; "
+                f"the route's bf16-only kernels {sorted(kernels)}" + lap())
+
+        # (a) one gradient at B=1 of a 4-frame clip against the f32 composed
+        # route on the card (fuse_block off, the gather route)
+        small = {k: v[:1, :4] for k, v in batches[0].items()}
+        zero_counts()
+        g_card = grads_of(trainer, small)
+        fwd_counts = read_counts()
+        ref = define_g({**opt, "netG": {**opt["netG"], "fuse_block": False,
+                                        "deform_impl": "gather"}})
+        ref = ref.cuda().train()
+        ref.load_state_dict(sd, strict=True)
+        g_ref = model_grads(ref, trainer.loss_fn, small)
+        g_ctrl = without_gda_offsets(
+            lambda: model_grads(ref, trainer.loss_fn, small))
+        del ref
+        torch.cuda.empty_cache()
+        parts = rvrt_param_parts(g_ref)
+        flow = [n for n in g_ref if "spynet" in n or "deform" in n]
+        err = {k: rel_norm(g_card, g_ref, v) for k, v in parts.items()}
+        ctrl = {k: rel_norm(g_ctrl, g_ref, v) for k, v in parts.items()}
+        for d, g in ((err, g_card), (ctrl, g_ctrl)):
+            d["flow group"] = rel_norm(g, g_ref, flow)
+            d["all"] = rel_norm(g, g_ref, list(g_ref))
+        worst = max((k for k in parts), key=err.get)
+        ph.note(f"(a) gradient at B=1 of 4 frames, bf16 kernels vs the f32 "
+                f"composed route (fuse_block off, gather) on the card, "
+                f"relative norm: " + ", ".join(f"{k} {v:.4g}"
+                                               for k, v in err.items())
+                + f" (limits {tol_global} over all and the flow group, "
+                f"{tol_part} a part; worst {worst}); control, the f32 route "
+                "with the GDA offsets at zero: "
+                + ", ".join(f"{k} {v:.4g}" for k, v in ctrl.items())
+                + f"; launches in that step {fwd_counts}" + lap())
+        require(err["all"] <= tol_global and err["flow group"] <= tol_global,
+                f"gradient error {err['all']:.4g} / flow group "
+                f"{err['flow group']:.4g} > {tol_global}")
+        require(err[worst] <= tol_part, f"{worst}: {err[worst]:.4g} > {tol_part}")
+        # the offsets reach the flow group's gradients (SpyNet's through
+        # the flows in them, the offset nets'); the blocks' barely move
+        moved = max(parts, key=lambda k: ctrl[k] / max(err[k], 1e-12))
+        require(ctrl["flow group"] > tol_global
+                and ctrl["flow group"] > 3 * err["flow group"],
+                "the zero-offset control is not above the global limit and 3x "
+                "the error over the flow group")
+        require(ctrl[moved] > tol_part and ctrl[moved] > 3 * err[moved],
+                f"the zero-offset control at {moved} is not above the part "
                 "limit and 3x the error")
-        ph.note(f"swin_block_2d_bwd at B={b} {h}x{h} C={c} phase 4 against "
-                f"its plain version: worst max_rel {worst_rel:.4g} "
-                f"({worst_name}, limit {tol} per tensor), mask effect on dx "
-                f"max_rel {ctl / ref_max:.4g}")
+
+        # (b) row 3 at RVRT's width (C=144, 6 heads of 24, hidden 288) at
+        # the (1, 8, 8) blocks' shape in this step, B·D = 8 maps of 64x64
+        ph.note("(b) " + row3_case(8, 64, 144, 6, 288, 0, SEED + 252, "phase"))
+        ph.note("(b) " + row3_case(8, 64, 144, 6, 288, 4, SEED + 253, "mask")
+                + lap())
+
+        # (c)-(d) the main path: one warm-up step, then timed steps
+        trainer.train_step(batches[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        s.record()
+        losses = [trainer.train_step(bt)["G_loss"] for bt in batches[1:1 + timed]]
+        e.record()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        ms = s.elapsed_time(e) / timed
+        mem = torch.cuda.max_memory_allocated()
+        vals = [float(v) for v in losses]
+        require(all(math.isfinite(v) for v in vals), f"losses {vals}")
+        per = {k: v // timed for k, v in counts.items()}
+        want = dict(stl2=64, gda=12, swin=4, swin_win=0, swin_bwd=4,
+                    composed_tmsa=0, composed_deform=0)
+        ph.note(f"(c) launches per step over {timed} timed steps: {per} (STL2 "
+                "and GDA forwards, their backward the composed routes' "
+                "autograd; the (1, 8, 8) blocks forward and backward)")
+        require(per == want and all(v % timed == 0 for v in counts.values()),
+                f"launch counts {counts} in {timed} steps, want {want} a step")
+        for k in report:
+            if k["name"] in ("stl2_block", "gda_fused", "swin_block_2d",
+                             "swin_block_2d_bwd"):
+                k["rvrt_train_launches_per_step"] = per[{
+                    "stl2_block": "stl2", "gda_fused": "gda",
+                    "swin_block_2d": "swin",
+                    "swin_block_2d_bwd": "swin_bwd"}[k["name"]]]
+        flops = 3 * rvrt_flops_per_clip(nf, gs // sf, gs // sf) * bs
+        peak = peak_bf16_tflops(torch.cuda.get_device_name(0))
+        mfu = flops / (ms / 1e3) / 1e12 / peak if peak else None
+        ph.note(f"(d) batch {bs} of {nf}x{gs // sf}x{gs // sf}: losses "
+                f"{vals[0]:.4g} .. {vals[-1]:.4g}; ms_per_step {ms:.2f} (mean "
+                f"of {timed} after 1 warm-up, CUDA events), "
+                f"{bs / (ms / 1e3):.3f} clips/s, training MFU "
+                f"{'n/a' if mfu is None else f'{mfu:.4f}'} against {peak} "
+                f"TFLOP/s (3x the {flops / 3 / bs / 1e12:.4f} TFLOP analytic "
+                f"forward a clip, utils/summary); peak memory "
+                f"{mem / 2 ** 30:.2f} GiB [{card}]" + lap())
+        ph.note("(d) " + device_breakdown(
+            lambda: [trainer.train_step(bt) for bt in batches[4:6]], 2, ms,
+            "step", top=10, sums=WIN3D_PASSES + ("gda_", "swin_")) + lap())
+
+        # what the composed backwards cost: one GDA and one STL2 call of
+        # this step's shapes, forward (the kernel) and backward apart
+        ph.note("(d) " + composed_backward_times(bs, nf, gs // sf) + lap())
+
+        # remat (use_checkpoint_attn): the STL blocks' forwards run again
+        # in the backward, the (1, 8, 8) backward kernel once
+        for m in trainer.model.modules():
+            if isinstance(m, mvrt.TMSAG):
+                m.remat = True
+        zero_counts()
+        trainer.train_step(batches[5])
+        torch.cuda.synchronize()
+        rc = read_counts()
+        want_r = {**want, "stl2": 128, "swin": 8}
+        ph.note(f"remat step launches {rc}")
+        require(rc == want_r, f"remat launches {rc}, want {want_r}")
+        del trainer
+        torch.cuda.empty_cache()
 
 
 def phase_build() -> None:
@@ -3710,6 +4047,7 @@ def main() -> int:
     phase_zoo(card)
     phase_timing_clis(card)
     phase_train_zoo(card, _build.BUILD_DIR)
+    phase_rvrt_train(report, card, _build.BUILD_DIR)
     faulthandler.cancel_dump_traceback_later()
 
     log(card)

@@ -143,11 +143,11 @@ def select_dataset(args):
         return dv.VideoTestVimeo90KDataset({
             "dataroot_gt": args.folder_gt, "dataroot_lq": args.folder_lq,
             "meta_info_file": meta, "pad_sequence": True, "num_frame": 7})
-    if "videofi" in args.task and any(k in lq for k in ("davis", "ucf101",
-                                                         "vid4")):
-        raise NotImplementedError(
-            "the DAVIS/UCF101/Vid4 frame-interpolation test sets are a "
-            "later slice of the port (ROADMAP Queue 1)")
+    if "videofi" in args.task:
+        for name, cls in (("davis", dv.VFI_DAVIS), ("ucf101", dv.VFI_UCF101),
+                          ("vid4", dv.VFI_Vid4)):
+            if name in lq:
+                return cls(args.folder_gt)
     if args.folder_gt is not None:
         return dv.VideoRecurrentTestDataset({
             "dataroot_gt": args.folder_gt, "dataroot_lq": args.folder_lq,

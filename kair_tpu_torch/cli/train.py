@@ -4,7 +4,8 @@
     python -m kair_tpu_torch.cli.train \
         --opt options/swinir/train_swinir_sr_classical_x4.json --dtype bf16
 
-``model: "vrt"`` trains through ``train/video.VideoTrainer`` (e.g.
+``model: "vrt"`` trains a VRT or an RVRT (``netG.net_type``) through
+``train/video.VideoTrainer`` (e.g.
 ``options/vrt/001_train_vrt_videosr_bi_reds_6frames.json``) and evaluates
 video test sets with ``evaluate_video``.
 
@@ -74,13 +75,16 @@ def evaluate_video(trainer: PlainTrainer, test_loader: Loader, opt: dict,
     ``val.num_frame_testing`` frames, patches of ``val.size_patch_testing``,
     PSNR/SSIM per frame averaged per folder, then over folders. The EMA
     copy when there is one; on the card a bf16 copy (SpyNet in f32, as
-    ``cli.test_video`` serves it), on the CPU an f32 copy."""
+    ``cli.test_video`` serves it), on the CPU an f32 copy. VRT or RVRT:
+    the window defaults to the network's own ((6, 8, 8) and (2, 8, 8))."""
     import copy
     from kair_tpu_torch.eval.video_test import test_video
     from kair_tpu_torch.models.vrt import cast_for_inference
 
     val = opt.get("val") or {}
-    ws = tuple((opt.get("netG") or {}).get("window_size") or (6, 8, 8))
+    net = opt.get("netG") or {}
+    ws = tuple(net.get("window_size") or (
+        (2, 8, 8) if net.get("net_type") == "rvrt" else (6, 8, 8)))
     sf = opt.get("scale") or 1
     src = trainer.ema if (use_ema and trainer.ema is not None) else trainer.model
     dt = torch.bfloat16 if trainer.device.type == "cuda" else torch.float32

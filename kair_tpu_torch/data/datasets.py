@@ -244,10 +244,7 @@ class DatasetL(ImageFiles):
 
 # dataset types of the JAX package's extra registry, by the slice of the
 # port that brings them (ROADMAP.md, Queue 1)
-LATER_SLICES = {
-    "spect": "SPECT", "spectpatch": "SPECT",
-    "vfi_davis": "video", "vfi_ucf101": "video", "vfi_vid4": "video",
-}
+LATER_SLICES = {"spect": "SPECT", "spectpatch": "SPECT"}
 # types whose classes live in modules of their own: (module, class)
 MODULES = {
     "usrnet": ("dataset_usrnet", "DatasetUSRNet"),
@@ -266,6 +263,21 @@ MODULES = {
     "video_test_single": ("dataset_video", "SingleVideoRecurrentTestDataset"),
     "videotestvimeo90kdataset": ("dataset_video", "VideoTestVimeo90KDataset"),
     "video_test_vimeo": ("dataset_video", "VideoTestVimeo90KDataset"),
+    "videorecurrenttrainnonblinddenoisingdataset": (
+        "dataset_video", "VideoRecurrentTrainNonblindDenoisingDataset"),
+    "video_train_dn": ("dataset_video",
+                       "VideoRecurrentTrainNonblindDenoisingDataset"),
+    "videorecurrenttrainvimeodataset": ("dataset_video",
+                                        "VideoRecurrentTrainVimeoDataset"),
+    "video_train_vimeo": ("dataset_video", "VideoRecurrentTrainVimeoDataset"),
+    "videorecurrenttrainvimeovfidataset": (
+        "dataset_video", "VideoRecurrentTrainVimeoVFIDataset"),
+    "video_train_vimeo_vfi": ("dataset_video",
+                              "VideoRecurrentTrainVimeoVFIDataset"),
+    # the frame-interpolation test sets take their folder, dataroot_lq
+    "vfi_davis": ("dataset_video", "VFI_DAVIS"),
+    "vfi_ucf101": ("dataset_video", "VFI_UCF101"),
+    "vfi_vid4": ("dataset_video", "VFI_Vid4"),
 }
 
 
@@ -288,7 +300,7 @@ def dataset_class(opt_ds: dict) -> type:
         module, cls = MODULES[t]
         return getattr(importlib.import_module(
             f"kair_tpu_torch.data.{module}"), cls)
-    slice_name = LATER_SLICES.get(t) or ("video" if "video" in t else None)
+    slice_name = LATER_SLICES.get(t)
     if slice_name:
         raise NotImplementedError(
             f"dataset type [{t}] belongs to the {slice_name} slice of the "
@@ -298,7 +310,10 @@ def dataset_class(opt_ds: dict) -> type:
 
 def define_dataset(opt_ds: dict) -> Dataset:
     """The dataset of an option block (reference data/select_dataset.py)."""
-    return dataset_class(opt_ds)(opt_ds)
+    cls = dataset_class(opt_ds)
+    if getattr(cls, "takes_root", False):
+        return cls(opt_ds["dataroot_lq"])
+    return cls(opt_ds)
 
 
 def make_train_loader(ds_opt: dict, batch_size: int, seed: int = 0,

@@ -10,7 +10,9 @@ from __future__ import annotations
 
 import torch.nn as nn
 
-LATER_SLICES = {"spynet": "video"}
+LATER_SLICES = {"spynet": "video", "discriminator_patchgan": "GAN",
+                "discriminator_unet": "GAN", "discriminator_vgg_96": "GAN",
+                "discriminator_vgg_128": "GAN", "discriminator_vgg_192": "GAN"}
 
 
 def _get(o, key, default=None):
@@ -146,7 +148,8 @@ def define_g(opt: dict) -> nn.Module:
     if t == "rvrt":
         from kair_tpu_torch.models.rvrt import RVRT
         # as for VRT: fuse_block absent or true, the STL block kernels;
-        # deform_impl absent, "auto" (the GDA kernel on the card)
+        # deform_impl absent, "auto" (the GDA kernel on the card);
+        # use_checkpoint_attn, the STL block pairs recomputed in training
         return RVRT(upscale=_get(o, "upscale", 4),
                     clip_size=_get(o, "clip_size", 2),
                     window_size=tuple(_get(o, "window_size", [2, 8, 8])),
@@ -162,7 +165,8 @@ def define_g(opt: dict) -> nn.Module:
                     nonblind_denoising=bool(_get(o, "nonblind_denoising",
                                                  False)),
                     fuse_block=bool(_get(o, "fuse_block", True)),
-                    deform_impl=_get(o, "deform_impl", "auto"))
+                    deform_impl=_get(o, "deform_impl", "auto"),
+                    remat=bool(_get(o, "use_checkpoint_attn", False)))
     if t in LATER_SLICES:
         raise NotImplementedError(
             f"netG [{t}] belongs to the {LATER_SLICES[t]} slice of the port, "

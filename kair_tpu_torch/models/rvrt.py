@@ -23,10 +23,15 @@ Counterpart of ``kair_tpu/models/rvrt.py`` (KAIR ``models/network_rvrt.py:
 With ``fuse_block`` (the default) the (2, 8, 8) STL blocks run the
 ``stl2_block`` kernel and the (1, 8, 8) ones the 2-D Swin block kernel;
 ``deform_impl`` "auto" runs the GDA kernel (``ops/deform_attn``): on a CPU
-tensor their plain versions. SpyNet, the flows, their composition, the GDA
-offsets (10·tanh(·) + the flipped flow) and the updated flows that the
-``_2`` branches reuse stay in f32 whatever the model's type: offsets reach
-tens of pixels, where bf16 keeps 1/8 px.
+tensor their plain versions. Training takes the same kernels: their
+forwards, the 2-D Swin block's backward kernel, and the composed routes'
+autograd as the STL2 and GDA kernels' backwards (``ops/kernels``);
+``remat`` (KAIR's ``use_checkpoint_attn``) recomputes each pair of STL
+blocks in the backward, as ``kair_tpu/models/rvrt.py`` does (:43-82).
+SpyNet, the flows, their composition, the GDA offsets (10·tanh(·) + the
+flipped flow) and the updated flows that the ``_2`` branches reuse stay in
+f32 whatever the model's type: offsets reach tens of pixels, where bf16
+keeps 1/8 px.
 
 ``propagate`` takes where the produced clips live (``keep``) and how a clip
 comes back (``fetch``): the forward keeps them on the device;
@@ -36,7 +41,7 @@ comes back (``fetch``): the forward keeps them on the device;
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -46,6 +51,7 @@ from kair_tpu_torch.models.spynet import SpyNet
 from kair_tpu_torch.models.vrt import TMSAG, FrameConv, Mlp
 from kair_tpu_torch.ops.blocks import pixel_shuffle, resize_bilinear
 from kair_tpu_torch.ops.deform_attn import deform_attention
+from kair_tpu_torch.ops.kernels.gda_block import gda_supported
 from kair_tpu_torch.ops.warp import flow_warp
 
 ORDER = ("backward_1", "forward_1", "backward_2", "forward_2")
@@ -61,12 +67,12 @@ class RSTB(nn.Module):
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size,
                  mlp_ratio: float = 2.0, qkv_bias: bool = True,
-                 fuse_block: bool = True):
+                 fuse_block: bool = True, remat: bool = False):
         super().__init__()
         self.residual_group = TMSAG(dim, depth, num_heads, window_size,
                                     mut_attn=False, mlp_ratio=mlp_ratio,
                                     qkv_bias=qkv_bias, fuse_block=fuse_block,
-                                    geglu=False)
+                                    geglu=False, remat=remat)
         self.linear = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -80,13 +86,13 @@ class RSTBWithInputConv(nn.Module):
     def __init__(self, in_channels: int, dim: int, depth: int, num_heads: int,
                  window_size, num_blocks: int = 2, groups: int = 1,
                  mlp_ratio: float = 2.0, qkv_bias: bool = True,
-                 fuse_block: bool = True):
+                 fuse_block: bool = True, remat: bool = False):
         super().__init__()
         self.main = nn.Sequential(
             nn.Identity(), FrameConv(in_channels, dim, 3, groups=groups),
             nn.Identity(), nn.LayerNorm(dim), nn.Identity(),
             nn.Sequential(*[RSTB(dim, depth, num_heads, window_size,
-                                 mlp_ratio, qkv_bias, fuse_block)
+                                 mlp_ratio, qkv_bias, fuse_block, remat)
                             for _ in range(num_blocks)]),
             nn.Identity(), nn.LayerNorm(dim), nn.Identity())
 
@@ -126,6 +132,15 @@ class GuidedDeformAttnPack(nn.Module):
         self.proj_v = nn.Sequential(nn.Identity(), nn.Linear(dim, pc))
         self.proj = nn.Sequential(nn.Identity(), nn.Linear(pc, dim))
         self.mlp = nn.Sequential(nn.Identity(), Mlp(dim, 2 * dim, dim))
+
+    def bf16_only_kernel(self) -> Optional[str]:
+        """``kair_gda`` where the route on the card is the GDA kernel, which
+        takes bfloat16 only ("fused", or "auto" where the kernel takes the
+        2C-channel geometry); the "gather" and "mxu" routes take f32."""
+        takes = gda_supported(self.proj_q[1].out_features, self.heads,
+                              self.dg, self.window, self.clip_size)
+        return "kair_gda" if self.deform_impl == "fused" or (
+            self.deform_impl == "auto" and takes) else None
 
     def forward(self, q, k, v, v_prop_warped: List[torch.Tensor],
                 flows: List[torch.Tensor], return_updateflow: bool = False):
@@ -174,7 +189,7 @@ class RVRT(nn.Module):
                  deformable_groups: int = 12, attention_heads: int = 12,
                  attention_window: Sequence[int] = (3, 3),
                  nonblind_denoising: bool = False, fuse_block: bool = True,
-                 deform_impl: str = "auto"):
+                 deform_impl: str = "auto", remat: bool = False):
         super().__init__()
         self.upscale = upscale
         self.clip_size = clip_size
@@ -182,7 +197,7 @@ class RVRT(nn.Module):
         ws1 = (1,) + ws[1:]
         e, g = tuple(embed_dims), tuple(inputconv_groups)
         common = dict(mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
-                      fuse_block=fuse_block)
+                      fuse_block=fuse_block, remat=remat)
         self.spynet = SpyNet((5,))
         if upscale == 4:
             self.feat_extract = RSTBWithInputConv(

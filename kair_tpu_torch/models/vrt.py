@@ -29,12 +29,14 @@ DCN kernel on the card; "mxu": the bilinear sampler kernels).
 Training takes VRT's kernel routes too, as the JAX package does
 (``kair_tpu/models/vrt.py:316-330``): with grad enabled the TMSA and self
 blocks run ``tmsa_block_train`` / ``self6_block_train`` and the DCN
-``dcn_train`` (the kernel forward, the composed route's backward). RVRT's
-STL blocks have no training route yet and take the composed block in
-training. ``remat`` (KAIR's ``use_checkpoint_attn``) recomputes each pair
-of blocks of every TMSAG in the backward (``torch.utils.checkpoint``,
-non-reentrant; each block alone when the depth is odd), the units of the
-JAX package's ``nn.remat`` (:598-642).
+``dcn_train`` (the kernel forward, the composed route's backward), and
+RVRT's STL blocks ``stl2_block_train`` (likewise) on (2, 8, 8) windows and
+``swin_block_train`` on (1, 8, 8) ones (the 2-D kernel forward and its
+backward kernel, the shift folded into both). ``remat`` (KAIR's
+``use_checkpoint_attn``) recomputes each pair of blocks of every TMSAG in
+the backward (``torch.utils.checkpoint``, non-reentrant; each block alone
+when the depth is odd), the units of the JAX package's ``nn.remat``
+(:598-642).
 
 SpyNet, the flows and the deformable offsets stay in f32 whatever the
 model's type (``cast_for_inference``): a bf16 flow of 20 px is off by up to
@@ -57,11 +59,13 @@ from kair_tpu_torch.ops.blocks import pixel_shuffle, resize_bilinear
 from kair_tpu_torch.ops.kernels.dcn_block import pack_dcn_weight
 from kair_tpu_torch.ops.kernels.self6_block import (self6_block,
                                                     self6_block_train)
-from kair_tpu_torch.ops.kernels.stl2_block import stl2_block
+from kair_tpu_torch.ops.kernels.stl2_block import (stl2_block,
+                                                    stl2_block_train)
 from kair_tpu_torch.ops.kernels.swin_block import (SwinBlockParams,
                                                     block_refusal,
                                                     pack_swin_block,
-                                                    swin_block_2d)
+                                                    swin_block_2d,
+                                                    swin_block_train)
 from kair_tpu_torch.ops.kernels.tmsa_block import tmsa_block, tmsa_block_train
 from kair_tpu_torch.ops.kernels.window_msa import shift_mask_tensor
 from kair_tpu_torch.ops.kernels.win3d import pack_win3d_stages, refusal
@@ -101,17 +105,22 @@ class FrameConv(nn.Conv3d):
 
 
 class _Packed:
-    """Caches a module's kernel operands, rebuilt when a parameter changes."""
+    """Caches a module's kernel operands, one slot per ``kind`` (a training
+    block keeps its forward and backward packs side by side), all rebuilt
+    when a parameter changes: an optimizer step bumps the parameters'
+    versions, so each step packs anew."""
 
     _pack_key: Optional[tuple] = None
-    _pack = None
+    _packs: Optional[dict] = None
 
     @torch.no_grad()
-    def packed(self, make):
+    def packed(self, make, kind: str = "fwd"):
         key = tuple((t.data_ptr(), t._version) for t in self.parameters())
         if key != self._pack_key:
-            self._pack, self._pack_key = make(), key
-        return self._pack
+            self._packs, self._pack_key = {}, key
+        if kind not in self._packs:
+            self._packs[kind] = make()
+        return self._packs[kind]
 
 
 class GEGLU(nn.Module):
@@ -189,10 +198,14 @@ class TMSA(_Packed, nn.Module):
 
     def bf16_only_kernel(self) -> Optional[str]:
         """The kernel a training step runs for this block on the card, which
-        takes bfloat16 only: VRT's TMSA and self blocks keep their kernel
-        routes in training; RVRT's STL blocks (``geglu=False``) take the
-        composed block there (``_window_route``)."""
-        return "kair_win3d_block" if self.fuse_block and self.geglu else None
+        takes bfloat16 only: VRT's TMSA and self blocks and RVRT's (2, 8, 8)
+        STL blocks run ``kair_win3d_block``, RVRT's (1, 8, 8) blocks the 2-D
+        Swin block's forward and backward kernels."""
+        if not self.fuse_block:
+            return None
+        if not self.geglu and self.window_size == (1, 8, 8):
+            return "swin_block_2d and swin_block_2d_bwd"
+        return "kair_win3d_block"
 
     def params(self) -> Tmsa3dParams:
         a, m = self.attn, self.mlp
@@ -240,8 +253,7 @@ class TMSA(_Packed, nn.Module):
         kernel's VMEM limits and have no counterpart here; the 2-D kernel
         takes one shift for both axes, so (1, 8, 8) needs the h and w
         shifts equal, and one 8x8 table, so a block whose own window is one
-        frame deep. In training VRT's blocks keep their routes; RVRT's STL
-        blocks (no training route yet) take the composed block."""
+        frame deep. Training takes the same routes."""
         if not self.fuse_block or h % 8 or w % 8:
             return None
         if self.mut_attn:
@@ -250,8 +262,6 @@ class TMSA(_Packed, nn.Module):
         if self.geglu:
             return "self6" if tuple(ws[1:]) == (8, 8) and d % ws[0] == 0 \
                 else None
-        if self.training:
-            return None
         if tuple(ws) == (2, 8, 8) and d % 2 == 0:
             return "stl2"
         if self.window_size == (1, 8, 8) and tuple(ws) == (1, 8, 8) \
@@ -284,7 +294,8 @@ class TMSA(_Packed, nn.Module):
             fn = self6_block_train if grad else self6_block
             return fn(x.contiguous(), p, self.num_heads, ws[0], ss, packed=pk)
         if route == "stl2":
-            return stl2_block(x.contiguous(), p, self.num_heads, ss, packed=pk)
+            fn = stl2_block_train if grad else stl2_block
+            return fn(x.contiguous(), p, self.num_heads, ss, packed=pk)
         if x.is_cuda:
             TMSA.composed_calls += 1
         return tmsa_composed(x, p, self.num_heads, ws, ss)
@@ -295,17 +306,23 @@ class TMSA(_Packed, nn.Module):
         phase = the (h, w) shift, with the block's 3-D table:
         ``rel_position_index_3d(1, 8, 8)`` is the 2-D index. The kernel
         writes the block in its rolled coordinates; one roll puts it
-        back."""
+        back. Under grad ``swin_block_train``: the forward kernel and the
+        backward kernel, each with its own pack."""
         b, d, h, w, c = x.shape
         sp = SwinBlockParams(
             p.qkv_self_weight, p.qkv_self_bias, p.proj_weight, p.proj_bias,
             p.rel_table, p.norm1_weight, p.norm1_bias, p.norm2_weight,
             p.norm2_bias, p.fc11_weight, p.fc11_bias, p.fc2_weight, p.fc2_bias)
-        pk = (self.packed(lambda: pack_swin_block(sp, self.num_heads))
-              if x.is_cuda else None)
+        cuda, nh = x.is_cuda, self.num_heads
+        pk = self.packed(lambda: pack_swin_block(sp, nh)) if cuda else None
         mask = shift_mask_tensor(h, w, 8, shift, x.device)
-        y = swin_block_2d(x.reshape(b * d, h, w, c).contiguous(), sp,
-                          self.num_heads, mask, shift, packed=pk)
+        xs = x.reshape(b * d, h, w, c).contiguous()
+        if torch.is_grad_enabled():
+            pk_bwd = self.packed(lambda: pack_swin_block(
+                sp, nh, folded=False), "bwd") if cuda else None
+            y = swin_block_train(xs, sp, nh, mask, pk, pk_bwd, shift)
+        else:
+            y = swin_block_2d(xs, sp, nh, mask, shift, packed=pk)
         if shift:
             y = torch.roll(y, (shift, shift), (1, 2))
         return y.reshape(b, d, h, w, c)

@@ -11,7 +11,9 @@ attention of the one query over its S keys.
                 replaces the JAX package's fused Pallas kernel; it needs
                 heads == deformable groups (every released RVRT). On a CPU
                 tensor the kernel's plain version; on a CUDA tensor a
-                geometry the kernel does not take raises;
+                geometry the kernel does not take raises. Under autograd
+                ``gda_train``: the kernel forward, the gather route's
+                backward (the JAX custom VJP);
   ``"gather"``  the composed route: the samples gathered into (…, S, C)
                 keys and values, then the attention (the JAX package's XLA
                 gather path); it is the kernel's plain version;
@@ -158,15 +160,11 @@ def deform_attention(q: torch.Tensor, k_feat: torch.Tensor,
     supported = gda_block.gda_supported(q.shape[-1], heads, dg, kernel,
                                         k_feat.shape[1])
     if impl == "fused" or (impl == "auto" and q.is_cuda and supported):
-        if q.is_cuda and torch.is_grad_enabled() and any(
-                t.requires_grad for t in (q, k_feat, v_feat, offset)):
-            raise NotImplementedError(
-                "the GDA kernel has no backward (RVRT training is a later "
-                "slice of the port); use deform_impl 'mxu' or 'gather' to "
-                "train")
         if supported or not q.is_cuda:
-            return gda_block.gda_fused(q, k_feat, v_feat, offset, kernel,
-                                       heads, dg)
+            grad = torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k_feat, v_feat, offset))
+            fn = gda_block.gda_train if grad else gda_block.gda_fused
+            return fn(q, k_feat, v_feat, offset, kernel, heads, dg)
         raise ValueError(
             f"the GDA kernel does not take C={q.shape[-1]}, {heads} heads, "
             f"{dg} groups, kernel {tuple(kernel)}, clip {k_feat.shape[1]} (it "

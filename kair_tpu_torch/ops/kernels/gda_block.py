@@ -17,7 +17,10 @@ Layouts are ``deform_attention``'s: q (B·T, H, W, C), k and v (B, clip, H,
 W, C) un-rotated (query frame j pairs KV slot n with frame (n + j) % clip;
 T = 1: already rotated, the JAX contract), offsets (B·T, clip, H, W,
 dg·K·2) f32. A CPU tensor takes the plain version; a CUDA tensor the
-kernel, or an exception.
+kernel, or an exception. ``gda_train`` is the training route (JAX
+``_gda_vjp_fwd/_bwd``, ``gda_block.py:210-224``): the kernel forward and
+autograd through the composed gather route recomputed from the saved q, k,
+v and offsets.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 
 from kair_tpu_torch.ops import deform_attn
 from kair_tpu_torch.ops.kernels import _build
+from kair_tpu_torch.ops.kernels.recompute import composed_vjp
 
 MAX_GROUP = 32              # channels of a group: at most 32 threads an item
 MAX_TAPS = 32               # clip·kh·kw
@@ -144,3 +148,40 @@ def gda_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 gda_fused.launches = 0
+
+
+class GdaFunction(torch.autograd.Function):
+    """``gda_fused`` forward; backward by autograd through
+    ``deform_attention_gather`` recomputed from the saved q, k, v and
+    offsets under the forward's autocast state. On the card q, k and v run
+    in bf16 and the offsets in f32 whatever they arrive in, as at
+    inference; each gradient goes back in its input's type. Nothing but
+    ``ctx`` holds state, so a checkpoint's recompute may run it again."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, q, k, v, offset, kernel, heads, dg):
+        ctx.kernel, ctx.heads, ctx.dg = tuple(kernel), heads, dg
+        ctx.dtypes = (q.dtype, k.dtype, v.dtype, offset.dtype)
+        if q.is_cuda:
+            q, k, v = (t.to(torch.bfloat16).contiguous() for t in (q, k, v))
+            offset = offset.float().contiguous()
+        ctx.save_for_backward(q, k, v, offset)
+        return gda_fused(q, k, v, offset, kernel, heads, dg)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dy):
+        grads = composed_vjp(
+            lambda q, k, v, o: deform_attn.deform_attention_gather(
+                q, k, v, o, ctx.kernel, ctx.heads, ctx.dg),
+            ctx.saved_tensors, ctx.needs_input_grad[:4], dy)
+        return (*[None if g is None else g.to(t)
+                  for g, t in zip(grads, ctx.dtypes)], None, None, None)
+
+
+def gda_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              offset: torch.Tensor, kernel: Tuple[int, int] = (3, 3),
+              heads: int = 12, dg: int = 12) -> torch.Tensor:
+    """Differentiable ``gda_fused``: ``GdaFunction``."""
+    return GdaFunction.apply(q, k, v, offset, tuple(kernel), heads, dg)

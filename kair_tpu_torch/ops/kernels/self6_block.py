@@ -27,7 +27,7 @@ from typing import Optional, Sequence
 import torch
 
 from kair_tpu_torch.ops import window3d
-from kair_tpu_torch.ops.kernels.recompute import composed_vjp
+from kair_tpu_torch.ops.kernels.recompute import win3d_train
 from kair_tpu_torch.ops.kernels.win3d import (Win3dStages, check_geometry,
                                               launch_win3d, pack_win3d_stages)
 from kair_tpu_torch.ops.window3d import Tmsa3dParams
@@ -64,36 +64,12 @@ def self6_block(x: torch.Tensor, p: Tmsa3dParams, num_heads: int, wd: int,
 self6_block.launches = 0
 
 
-class Self6BlockFunction(torch.autograd.Function):
-    """``self6_block`` forward; backward by autograd through
-    ``window3d.tmsa_composed`` at window (wd, 8, 8), recomputed from the
-    saved x and parameters under the forward's autocast state (as
-    ``TmsaBlockFunction``)."""
-
-    @staticmethod
-    @torch.amp.custom_fwd(device_type="cuda")
-    def forward(ctx, x, num_heads, wd, shift, packed, *params):
-        ctx.num_heads, ctx.wd, ctx.shift = num_heads, wd, tuple(shift)
-        ctx.x_dtype = x.dtype
-        xin = x.to(torch.bfloat16).contiguous() if x.is_cuda else x
-        ctx.save_for_backward(xin, *params)
-        return self6_block(xin, Tmsa3dParams(*params), num_heads, wd, shift,
-                           packed=packed)
-
-    @staticmethod
-    @torch.amp.custom_bwd(device_type="cuda")
-    def backward(ctx, dy):
-        needs = ctx.needs_input_grad[:1] + ctx.needs_input_grad[5:]
-        dx, *grads = composed_vjp(
-            lambda x, *p: window3d.tmsa_composed(
-                x, Tmsa3dParams(*p), ctx.num_heads, (ctx.wd, 8, 8), ctx.shift),
-            ctx.saved_tensors, needs, dy)
-        return (None if dx is None else dx.to(ctx.x_dtype), None, None, None,
-                None, *grads)
-
-
 def self6_block_train(x: torch.Tensor, p: Tmsa3dParams, num_heads: int,
                       wd: int, shift: Sequence[int] = (0, 0, 0),
                       packed: Optional[Win3dStages] = None) -> torch.Tensor:
-    """Differentiable ``self6_block``: ``Self6BlockFunction``."""
-    return Self6BlockFunction.apply(x, num_heads, wd, tuple(shift), packed, *p)
+    """Differentiable ``self6_block``: the kernel forward, the composed
+    block's autograd at window (wd, 8, 8) as its backward
+    (``recompute.win3d_train``)."""
+    return win3d_train(lambda xin, pp: self6_block(xin, pp, num_heads, wd,
+                                                   shift, packed=packed),
+                       x, p, num_heads, (wd, 8, 8), shift)

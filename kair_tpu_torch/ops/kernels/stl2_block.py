@@ -19,7 +19,10 @@ composed block of ``ops/window3d.py`` in f32. The TPU kernel's max-free
 inference softmax is not copied: the kernel keeps a running row max.
 
 A CPU tensor takes the plain version; a CUDA tensor the kernel, or an
-exception. Nothing falls back.
+exception. Nothing falls back. ``stl2_block_train`` is the training route
+(JAX ``_fused_stl2_fwd/_bwd``, ``stl_block.py:187-201``): the kernel
+forward and autograd through the composed block recomputed from the saved
+input and parameters, as ``tmsa_block_train`` does for VRT's mutual block.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import Optional, Sequence
 import torch
 
 from kair_tpu_torch.ops import window3d
+from kair_tpu_torch.ops.kernels.recompute import win3d_train
 from kair_tpu_torch.ops.kernels.win3d import (Win3dStages, check_geometry,
                                               launch_win3d, pack_win3d_stages)
 from kair_tpu_torch.ops.window3d import Tmsa3dParams
@@ -66,3 +70,13 @@ def stl2_block(x: torch.Tensor, p: Tmsa3dParams, num_heads: int,
 
 
 stl2_block.launches = 0
+
+
+def stl2_block_train(x: torch.Tensor, p: Tmsa3dParams, num_heads: int,
+                     shift: Sequence[int] = (0, 0, 0),
+                     packed: Optional[Win3dStages] = None) -> torch.Tensor:
+    """Differentiable ``stl2_block``: the kernel forward, the composed
+    block's autograd as its backward (``recompute.win3d_train``)."""
+    return win3d_train(lambda xin, pp: stl2_block(xin, pp, num_heads, shift,
+                                                  packed=packed),
+                       x, p, num_heads, WS, shift)

@@ -33,7 +33,7 @@ from typing import Optional, Sequence
 import torch
 
 from kair_tpu_torch.ops import window3d
-from kair_tpu_torch.ops.kernels.recompute import composed_vjp
+from kair_tpu_torch.ops.kernels.recompute import win3d_train
 from kair_tpu_torch.ops.kernels.win3d import (Win3dStages, check_geometry,
                                               launch_win3d, pack_win3d_stages)
 from kair_tpu_torch.ops.window3d import Tmsa3dParams
@@ -73,36 +73,11 @@ def tmsa_block(x: torch.Tensor, p: Tmsa3dParams, num_heads: int,
 tmsa_block.launches = 0
 
 
-class TmsaBlockFunction(torch.autograd.Function):
-    """``tmsa_block`` forward; backward by autograd through
-    ``window3d.tmsa_composed`` recomputed from the saved x and parameters
-    under the forward's autocast state. On the card x runs in bf16 whatever
-    it arrives in (the kernel takes bf16; the f32 parameters get f32
-    grads) and dx goes back in x's type."""
-
-    @staticmethod
-    @torch.amp.custom_fwd(device_type="cuda")
-    def forward(ctx, x, num_heads, shift, packed, *params):
-        ctx.num_heads, ctx.shift, ctx.x_dtype = num_heads, tuple(shift), x.dtype
-        xin = x.to(torch.bfloat16).contiguous() if x.is_cuda else x
-        ctx.save_for_backward(xin, *params)
-        return tmsa_block(xin, Tmsa3dParams(*params), num_heads, shift,
-                          packed=packed)
-
-    @staticmethod
-    @torch.amp.custom_bwd(device_type="cuda")
-    def backward(ctx, dy):
-        needs = ctx.needs_input_grad[:1] + ctx.needs_input_grad[4:]
-        dx, *grads = composed_vjp(
-            lambda x, *p: window3d.tmsa_composed(x, Tmsa3dParams(*p),
-                                                 ctx.num_heads, WS, ctx.shift),
-            ctx.saved_tensors, needs, dy)
-        return (None if dx is None else dx.to(ctx.x_dtype), None, None, None,
-                *grads)
-
-
 def tmsa_block_train(x: torch.Tensor, p: Tmsa3dParams, num_heads: int,
                      shift: Sequence[int] = (0, 0, 0),
                      packed: Optional[Win3dStages] = None) -> torch.Tensor:
-    """Differentiable ``tmsa_block``: ``TmsaBlockFunction``."""
-    return TmsaBlockFunction.apply(x, num_heads, tuple(shift), packed, *p)
+    """Differentiable ``tmsa_block``: the kernel forward, the composed
+    block's autograd as its backward (``recompute.win3d_train``)."""
+    return win3d_train(lambda xin, pp: tmsa_block(xin, pp, num_heads, shift,
+                                                  packed=packed),
+                       x, p, num_heads, WS, shift)

@@ -3,8 +3,9 @@
 Counterpart of ``kair_tpu/ops/warp.py`` on NHWC tensors (KAIR
 ``network_vrt.py:20-89, 208-264``): ``flow_warp`` (bilinear, nearest,
 ``nearest4``; zeros or border padding) on ``F.grid_sample`` as KAIR
-computes it, and the DCNv2 ``modulated_deform_conv`` with torchvision's
-semantics.
+computes it, ``grid_sample`` (the JAX package's NHWC ``F.grid_sample``;
+no model's path calls it), and the DCNv2 ``modulated_deform_conv`` with
+torchvision's semantics.
 
 ``modulated_deform_conv``'s ``impl``:
   ``"fused"``   the port's CUDA kernel (``ops/kernels/dcn_block.py``), which
@@ -76,6 +77,19 @@ def _sample_bilinear(x: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor
            + corner(y0 + 1, x0) * wy * (1 - wx)
            + corner(y0 + 1, x0 + 1) * wy * wx)
     return out.reshape(*shape, c)
+
+
+def grid_sample(x: torch.Tensor, grid: torch.Tensor, mode: str = "bilinear",
+                padding_mode: str = "zeros",
+                align_corners: bool = True) -> torch.Tensor:
+    """``F.grid_sample`` on NHWC x (counterpart of the JAX package's
+    ``grid_sample``, ``warp.py:128``): grid (N, Ho, Wo, 2) in [−1, 1], (x,
+    y) order; mode "bilinear" or "nearest", padding "zeros" or "border"."""
+    if mode not in ("bilinear", "nearest"):
+        raise NotImplementedError(mode)
+    y = F.grid_sample(x.permute(0, 3, 1, 2), grid.to(x.dtype), mode=mode,
+                      padding_mode=padding_mode, align_corners=align_corners)
+    return y.permute(0, 2, 3, 1)
 
 
 def _grid_sample(x: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor,

@@ -14,8 +14,8 @@ jitted step:
   bf16 kernels and return f32 parameter grads. f32 runs the CNN zoo on the
   card (cuDNN and cuFFT; the JAX training CLI's default dtype). A model
   whose training route reaches a kernel that takes bf16 only (SwinIR's
-  window-8 blocks, VRT's TMSA and self blocks, the DCN kernel:
-  :func:`bf16_only_route`) raises NotImplementedError in f32 on the card
+  window-8 blocks, VRT's TMSA and self blocks, the DCN kernel, RVRT's STL
+  blocks and the GDA kernel: :func:`bf16_only_route`) raises NotImplementedError in f32 on the card
   before any work, naming the module, rather than running composed
   PyTorch; on the CPU the kernels' plain versions run in f32.
 * ``extra_keys`` feed the model after 'L'; USRNet's ``sf`` goes in as one

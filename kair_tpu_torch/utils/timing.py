@@ -64,14 +64,17 @@ def kernel_name(key: str) -> str:
     return key.split("(")[0].split("<")[0].strip()[:60]
 
 
-def device_trace(fn: Callable[[], object], runs: int):
+def device_trace(fn: Callable[[], object], runs: int, cpu: bool = True):
     """Profile one call of ``fn`` (which makes ``runs`` runs) with
     torch.profiler: ``(prof, rows)``, rows ``(device ms per run, launches
     per run, key)`` of the device events only (a CPU op that launched a
     ctypes-bound kernel would count that kernel's time again), user
-    annotations and optimizer spans left out, the most time first."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    annotations and optimizer spans left out, the most time first.
+    ``cpu=False`` records the device alone: a run of tens of thousands of
+    small ops then costs seconds of profiling, not minutes."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if cpu:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()

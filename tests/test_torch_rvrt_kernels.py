@@ -327,17 +327,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 def test_deform_attention_routes():
     """"fused" on a CUDA tensor raises where the kernel does not take the
-    geometry, and where a gradient is wanted (the kernel has no backward);
-    "auto" there takes the gather route and counts it; "mxu" (the bilinear
-    sampler route, tests/test_torch_bilin.py) agrees with the gather route.
-    On the CPU "fused" is the kernel's plain version."""
+    geometry; where a gradient is wanted it takes the kernel's training
+    function (tests/test_torch_rvrt_train_kernels.py); "auto" there takes
+    the gather route where heads != groups and counts it; "mxu" (the
+    bilinear sampler route, tests/test_torch_bilin.py) agrees with the
+    gather route. On the CPU "fused" is the kernel's plain version."""
     q, k, v, off = map(torch.from_numpy, make_case(h=8, w=8, c=24, dg=3))
     with mock.patch.object(torch.Tensor, "is_cuda", property(lambda t: True)):
         with pytest.raises(ValueError, match="does not take"):
             deform_attn.deform_attention(q, k, v, off, (3, 3), 6, 3, "fused")
-        with pytest.raises(NotImplementedError, match="no backward"):
-            deform_attn.deform_attention(q.clone().requires_grad_(), k, v, off,
-                                         (3, 3), 3, 3, "fused")
+        qg = q.clone().requires_grad_()
+        deform_attn.deform_attention(qg, k, v, off, (3, 3), 3, 3,
+                                     "fused").float().sum().backward()
+        assert qg.grad is not None and qg.grad.abs().max() > 0
         n = deform_attn.deform_attention.composed_calls
         deform_attn.deform_attention(q, k, v, off, (3, 3), 6, 3, "auto")
         assert deform_attn.deform_attention.composed_calls == n + 1

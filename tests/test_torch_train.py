@@ -387,8 +387,8 @@ def test_no_card_raises(tmp_path, hr_dir, monkeypatch):
 
 @pytest.mark.parametrize("what,name", [
     ("dataset", "spect"), ("net", "spynet"), ("dataset", "spectpatch"),
-    ("dataset", "videorecurrenttrainvimeodataset"), ("dataset", "vfi_vid4"),
-    ("trainer", "gan"), ("dataset", "vfi_davis")])
+    ("net", "discriminator_patchgan"), ("net", "discriminator_unet"),
+    ("trainer", "gan"), ("net", "discriminator_vgg_128")])
 def test_later_slices_raise_naming_their_slice(what, name):
     from kair_tpu_torch.models.registry import define_g
     from kair_tpu_torch.train.select import define_trainer

@@ -243,7 +243,10 @@ def test_define_dataset_builds_the_new_types(folders):
                                       "dataroot_L": folders["L"],
                                       "num_patches_per_image": 1})
         assert type(ds).__name__ == cls
-    for t in ("spect", "vfi_davis", "videorecurrenttrainvimeodataset"):
+    for t, cls in (("video_train_vimeo", "VideoRecurrentTrainVimeoDataset"),
+                   ("vfi_davis", "VFI_DAVIS")):
+        assert datasets.dataset_class({"dataset_type": t}).__name__ == cls
+    for t in ("spect", "spectpatch"):
         with pytest.raises(NotImplementedError, match="slice"):
             datasets.define_dataset({"dataset_type": t})
 

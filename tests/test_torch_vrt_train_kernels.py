@@ -1,11 +1,11 @@
 """The training functions of the port's three VRT block kernels on the
 CPU, f32, against the JAX package's custom VJPs.
 
-``TmsaBlockFunction``, ``Self6BlockFunction`` and ``DcnFunction`` on the
-CPU route (the plain forward, autograd through the composed route) against
-``jax.grad`` through ``tmsa_block_pallas`` / ``self6_block_pallas`` /
-``dcn_fused`` in interpret mode (the max-safe kernel forward, the composed
-route's VJP): dx and every parameter's gradient, max abs error at most 1e-4
+``tmsa_block_train``, ``self6_block_train`` (``Win3dBlockFunction``) and
+``DcnFunction`` on the CPU route (the plain forward, autograd through the
+composed route) against ``jax.grad`` through ``tmsa_block_pallas`` /
+``self6_block_pallas`` / ``dcn_fused`` in interpret mode (the max-safe
+kernel forward, the composed route's VJP): dx and every parameter's gradient, max abs error at most 1e-4
 of the gradient's own max (f32 sums in another order; the Pallas mirrors
 use the A&S GELU and bf16-held score biases, so the tables hold
 bf16-representable values). On the card the forward is the kernel
