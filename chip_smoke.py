@@ -16,8 +16,10 @@ sampled by the bilinear sampler's forward and backward kernels; then the
 CNN zoo's inference (cuDNN and cuFFT, no hand-written kernel on its path)
 and the port's timing CLIs; then training the CNN zoo and SwinIR's gray
 denoising recipe from their option files; then RVRT-001 training through
-the STL2, GDA and 2-D Swin block kernels. Phases, one flushed line each
-with its seconds:
+the STL2, GDA and 2-D Swin block kernels; then SwinIR-L x4 GAN training on
+the Swin-block kernels at C=240; then the face pipeline (GPEN,
+RetinaFace, cv2-free alignment). Phases, one flushed line each with its
+seconds:
 
   0 device      card name, power limit (nvidia-smi), torch and CUDA versions
   1 build       the kernels, from csrc/, one nvcc process per source, all
@@ -226,6 +228,37 @@ with its seconds:
                 memory, busy ms and idle share from two profiled steps, a
                 remat step's launches (128 STL2, 8 Swin forward); (e) --dtype
                 f32 refused naming the kernel
+ 26 gan_train SwinIR-L x4 (embed 240, depths 9x6, 8 heads, 3conv,
+                nearest+conv) trained as a GAN against discriminator_unet
+                (base 64, spectral norm) with the training fields of
+                options/train_msrresnet_gan.json (l1 x1e-2, VGG19 layer 34
+                x1 from a seeded torchvision-keyed .pth, ragan x5e-3, E_decay
+                0.999, Adam 1e-4), bf16, B=16 of 256x256 HR on the 'sr'
+                dataset over seeded images: (a) the gradient at B=1 against
+                the f32 composed route on the card (the blocks' plain
+                version), for the l1 pixel loss alone (<= 1e-2 over all,
+                3e-2 the 54 blocks, 5e-2 a part; control: the shift mask
+                dropped, above the blocks' limit) and for the whole step
+                (G <= 4e-2 over all and 1e-1 a part, D <= 1e-1; controls:
+                VGG's input norm off, D's fake batch the real one); (b) 54
+                row-1 and 54 row-3 launches a G+D step, 54 and 0 a D-only
+                step, no composed block; (c) ms a G+D and a D-only step
+                (3 after 1), MFU from the analytic FLOP, peak memory, busy
+                ms and idle share from two profiled steps; (d) --dtype f32
+                refused naming the kernel; (e) through cli.train_gan for 2
+                steps, then a resume to 3: the recipe above (--dtype bf16,
+                --vgg, make_train_loader at B=16 of 256x256; 54 + 54
+                launches a G update over both runs), then the shipped option
+                file as it is (MSRResNet0, discriminator_vgg_96 with
+                BatchNorm, f32)
+ 27 face        seeded KAIR-keyed GPEN-BFR-512 and RetinaFace-R50 .pth
+                files: (b) enhance_faces on a 320x240 image with two given
+                boxes and landmarks, GPEN bf16 on the card against f32 on
+                the CPU (<= 5e-2 of max|ref|; control: demodulation off),
+                RetinaFace's outputs likewise (control: the BGR means not
+                subtracted); (a) cli.test_face end to end on a seeded PNG
+                (--sr 2, the threshold under the detector's third score: 3
+                faces); (c) GPEN's ms per 512x512 face
 
 Any failed check raises and the script exits non-zero; a watchdog ends a
 hung run with a traceback. The line before the last is one JSON object with
@@ -246,7 +279,7 @@ import sys
 import tempfile
 import time
 
-WATCHDOG_S = 590          # the whole run, build included, stays under 10 min
+WATCHDOG_S = 700          # the whole run, build included (≈ 510-600 s)
 SEED = 0
 
 
@@ -2717,7 +2750,7 @@ def phase_vrt_train(report: list, card: str, build_dir) -> None:
         out["composed_deform"] = modulated_deform_conv.composed_calls
         return out
 
-    def timed_steps(trainer, batches):
+    def timed_steps(trainer, batches, warmup=warmup, timed=timed):
         for bt in batches[:warmup]:
             trainer.train_step(bt)
         torch.cuda.synchronize()
@@ -2868,12 +2901,15 @@ def phase_vrt_train(report: list, card: str, build_dir) -> None:
         auto = build_trainer(vrt_train_options(tmp, "auto"),
                              dtype=torch.bfloat16)
         auto.model.load_state_dict(sd, strict=True)
-        ms_a, counts_a, losses_a, mem_a = timed_steps(auto, batches)
-        per_a = {k: v // timed for k, v in counts_a.items()}
+        # one warm-up and two timed steps: a step is ≈ 5 s on this route,
+        # and the script keeps within its time
+        ms_a, counts_a, losses_a, mem_a = timed_steps(auto, batches, 1, 2)
+        per_a = {k: v // 2 for k, v in counts_a.items()}
         want_a = {**want, "bilin_fwd": 0, "bilin_bwd": 0, "dcn": 70}
         require(per_a == want_a, f"auto route counts {counts_a}, want {want_a}")
         ph.note(f"(e) 'auto' route (DCN kernel, composed backward), same "
                 f"batches: launches per step {per_a}; ms_per_step {ms_a:.2f} "
+                f"(mean of 2 after 1) "
                 f"against mxu {ms:.2f}; peak memory {mem_a / 2 ** 30:.2f} GiB")
         del auto
         torch.cuda.empty_cache()
@@ -3838,6 +3874,634 @@ def phase_rvrt_train(report: list, card: str, build_dir) -> None:
         del trainer
         torch.cuda.empty_cache()
 
+# ---------------------------------------------------------------------------
+# GAN training of SwinIR-L x4 (phase 26)
+# ---------------------------------------------------------------------------
+
+GAN_OPTION = "options/train_msrresnet_gan.json"
+# relative gradient norms against the f32 composed route, set from this
+# phase's readings on an H100: the pixel loss alone (G over all, the 54 blocks together, the
+# worst part; read 0.0044, 0.0148, 0.0170) and the whole GAN step (G over
+# all, G's worst part, D; read 0.0235, 0.0635, 0.0200)
+GAN_PIXEL_LIMITS = (1e-2, 3e-2, 5e-2)
+GAN_STEP_LIMITS = (4e-2, 1e-1, 1e-1)
+GAN_BATCH, GAN_H = 16, 256
+# KAIR's real-world SR GAN recipes' discriminator
+GAN_NETD = {"net_type": "discriminator_unet", "in_nc": 3, "base_nc": 64}
+
+
+def gan_options(tmp: str, net_g=None, net_d=None, h_size=None,
+                name: str = "gan.json"):
+    """The shipped GAN option file with paths in `tmp` (its runs under
+    ``tmp/runs_<name>``); ``net_g``, ``net_d`` and ``h_size`` replace its
+    networks and patch size when given."""
+    from kair_tpu_torch import config
+    raw = config.load_json_with_comments(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), GAN_OPTION))
+    raw["path"]["root"] = os.path.join(tmp, "runs_" + name.split(".")[0])
+    raw["path"]["pretrained_netG"] = None
+    if net_g is not None:
+        raw["netG"] = net_g
+    if net_d is not None:
+        raw["netD"] = net_d
+    if h_size is not None:
+        raw["datasets"]["train"]["H_size"] = h_size
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path, config.parse(path, is_train=True)
+
+
+def seeded_vgg19(path: str, seed: int) -> dict:
+    """A torchvision-keyed vgg19 ``features`` state dict (convs He-normal
+    by fan-out, as torchvision initialises them, biases 0), written to
+    ``path``."""
+    import torch
+    from kair_tpu_torch.models.vgg import VGG19Features
+    gen = torch.Generator().manual_seed(seed)
+    sd = VGG19Features((34,)).state_dict()
+    for k, v in sd.items():
+        sd[k] = torch.zeros_like(v) if k.endswith("bias") else torch.randn(
+            v.shape, generator=gen) * math.sqrt(2.0 / (v.shape[0] * 9))
+    torch.save(sd, path)
+    return sd
+
+
+def swinir_l_parts(names) -> dict:
+    """SwinIR-L's parameter names by part: conv_first, each RSTB, the last
+    norm and conv_after_body, the nearest+conv head."""
+    parts: dict = {}
+    for n in names:
+        head = n.split(".")
+        key = ".".join(head[:2]) if head[0] == "layers" else head[0] \
+            if head[0] in ("conv_first", "norm", "conv_after_body") else "head"
+        parts.setdefault(key, []).append(n)
+    return parts
+
+
+class composed_swin_blocks:
+    """While open, SwinIR's training blocks run the block kernels' plain
+    version (composed PyTorch, autograd through it) instead of
+    ``swin_block_train``, on whatever device: the f32 reference route."""
+
+    def __enter__(self):
+        from kair_tpu_torch.models import swinir as msw
+        self.msw, self.fn = msw, msw.swin_block_train
+        msw.swin_block_train = lambda x, p, nh, mask, packed=None, \
+            packed_bwd=None, phase=0: msw.swin_block_win_reference(
+                x, p, nh, mask, phase=phase, ws=8)
+        return self
+
+    def __exit__(self, *exc):
+        self.msw.swin_block_train = self.fn
+        return False
+
+
+def gan_grads(trainer, batch, u0) -> tuple:
+    """G's and D's f32 gradients of one step from the spectral vectors
+    ``u0`` (restored after)."""
+    import torch
+    from kair_tpu_torch.models.discriminator import load_spectral_vectors
+    load_spectral_vectors(trainer.model_d, u0)
+    trainer.compute_grads(batch, update_g=True)
+    out = tuple({n: (torch.zeros_like(p) if p.grad is None else p.grad)
+                 .detach().float().cpu() for n, p in m.named_parameters()}
+                for m in (trainer.model, trainer.model_d))
+    load_spectral_vectors(trainer.model_d, u0)
+    return out
+
+
+def d_grads_on(trainer, batch, fake, u0) -> dict:
+    """D's f32 gradients of its update with ``fake`` as the fake batch,
+    from the spectral vectors ``u0`` (restored after)."""
+    import torch
+    from kair_tpu_torch.models.discriminator import load_spectral_vectors
+    from kair_tpu_torch.train.trainer import _tensor
+    load_spectral_vectors(trainer.model_d, u0)
+    trainer.optimizer_d.zero_grad(set_to_none=True)
+    h = _tensor(batch["H"], trainer.device).float()
+    trainer._d_loss(h, h if fake is None else fake)[0].backward()
+    load_spectral_vectors(trainer.model_d, u0)
+    return {n: (torch.zeros_like(p) if p.grad is None else p.grad)
+            .detach().float().cpu() for n, p in trainer.model_d.named_parameters()}
+
+
+def pixel_grads(trainer, batch) -> dict:
+    """G's f32 gradients of the l1 pixel loss alone (the blocks' share of
+    the step, without the perceptual and adversarial terms)."""
+    import torch
+    from kair_tpu_torch.train.trainer import _tensor
+    trainer.optimizer.zero_grad(set_to_none=True)
+    with trainer._autocast():
+        e = trainer.model(*trainer._args(batch))
+    h = _tensor(batch["H"], trainer.device).float()
+    (e.float() - h).abs().mean().backward()
+    return {n: (torch.zeros_like(p) if p.grad is None else p.grad)
+            .detach().float().cpu() for n, p in trainer.model.named_parameters()}
+
+
+def conv_flops(model, *inputs) -> float:
+    """Multiply-add FLOP (x2) of every convolution in one forward of
+    ``model`` (nn.Conv2d and the discriminators' SNConv), from their output
+    shapes."""
+    import torch
+    from kair_tpu_torch.models.discriminator import SNConv
+    total = [0.0]
+
+    def hook(m, a, out):
+        total[0] += 2.0 * out.numel() * m.weight[0].numel()
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, SNConv))]
+    with torch.no_grad():
+        model(*inputs)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def phase_gan_train(report: list, card: str, build_dir) -> None:
+    import copy
+    import itertools
+    import torch
+    from kair_tpu_torch.cli import train_gan
+    from kair_tpu_torch.data import datasets as mdatasets
+    from kair_tpu_torch.data.base import Loader
+    from kair_tpu_torch.models import swinir as msw
+    from kair_tpu_torch.models.discriminator import spectral_vectors
+    from kair_tpu_torch.ops.kernels import swin_block
+    from kair_tpu_torch.train.gan import GanTrainer
+    from kair_tpu_torch.train.select import define_trainer
+    from kair_tpu_torch.train.trainer import bf16_only_route
+    from kair_tpu_torch.utils.summary import (peak_bf16_tflops,
+                                              swinir_flops_per_lr_pixel)
+
+    px_all, px_blocks, px_part = GAN_PIXEL_LIMITS
+    st_all, st_part, st_d = GAN_STEP_LIMITS
+    t0 = time.perf_counter()
+    lap = lambda: f" [{time.perf_counter() - t0:.1f} s into the phase]"
+    counters = ((swin_block.swin_block_2d, "launches", "row1"),
+                (swin_block.swin_block_2d, "launches_win", "row1_win"),
+                (swin_block.swin_block_2d_bwd, "launches", "row3"))
+    composed = [0]
+    ref_fn = msw.swin_block_win_reference
+
+    def counted(*a, **kw):
+        composed[0] += 1
+        return ref_fn(*a, **kw)
+
+    def zero_counts():
+        for f, attr, _ in counters:
+            setattr(f, attr, 0)
+        composed[0] = 0
+
+    def read_counts():
+        out = {k: getattr(f, attr) for f, attr, k in counters}
+        out["composed"] = composed[0]
+        return out
+
+    with Phase("26 gan_train") as ph, \
+            tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        torch.manual_seed(SEED + 26)
+        net_g = {"net_type": "swinir", "upscale": 4, "in_nc": 3,
+                 "img_size": 64, "window_size": 8, "img_range": 1.0,
+                 "depths": [6] * 9, "embed_dim": 240, "num_heads": [8] * 9,
+                 "mlp_ratio": 2, "upsampler": "nearest+conv",
+                 "resi_connection": "3conv", "fuse_block": True}
+        _, opt = gan_options(tmp, net_g, GAN_NETD, GAN_H)
+        ot, ds_opt = opt["train"], opt["datasets"]["train"]
+        vgg_sd = seeded_vgg19(os.path.join(tmp, "vgg19.pth"), SEED + 260)
+        trainer = define_trainer(opt, dtype=torch.bfloat16, vgg_state=vgg_sd)
+        require(isinstance(trainer, GanTrainer), type(trainer).__name__)
+        sd = seeded_train_weights(trainer.model, SEED + 261)
+        trainer.model.load_state_dict(sd)
+        trainer.ema.load_state_dict(sd)
+        n_g = sum(p.numel() for p in trainer.model.parameters())
+        n_d = sum(p.numel() for p in trainer.model_d.parameters())
+        ph.note(f"SwinIR-L x4 (embed 240, depths 9x6, 8 heads, window 8, "
+                f"3conv, nearest+conv, {n_g} params, blocks by BLOCK_INIT) "
+                f"against discriminator_unet (base 64, spectral norm, {n_d} "
+                f"params) with the training fields of {GAN_OPTION}: "
+                f"{ot['G_lossfn_type']} pixel x{ot['G_lossfn_weight']}, VGG19 "
+                f"layer {ot['F_feature_layer']} l1 x{ot['F_lossfn_weight']} "
+                f"(seeded torchvision-keyed .pth through vgg_state), "
+                f"{ot['gan_type']} x{ot['D_lossfn_weight']}, E_decay "
+                f"{ot['E_decay']}, Adam {ot['G_optimizer_lr']} / "
+                f"{ot['D_optimizer_lr']}; B={GAN_BATCH} of {GAN_H}x{GAN_H} HR "
+                f"(64x64 LR; the file's H_size 96 gives a 24-pixel LR patch), "
+                "dataset 'sr' on seeded smooth images (blindsr needs cv2), "
+                "no warm start; bf16 autocast over f32")
+
+        # (d) f32 refused before any work, naming the kernel
+        try:
+            define_trainer(opt, dtype=torch.float32, vgg_state=vgg_sd)
+            refusal = None
+        except NotImplementedError as e:
+            refusal = str(e)
+        require(refusal is not None and "swin_block_2d" in refusal
+                and bf16_only_route(trainer.model) in refusal,
+                f"--dtype f32 on the card: {refusal}")
+        ph.note(f"(d) --dtype f32 refused: '{refusal[:150]}'" + lap())
+
+        dataset = seeded_dataset(ds_opt, 64, SEED + 262, size=320)
+        loader = Loader(dataset, GAN_BATCH, seed=SEED)
+        batches = [{k: v for k, v in bt.items() if hasattr(v, "shape")}
+                   for bt in itertools.islice(loader.epoch(0), 4)]
+        batches += [{k: v for k, v in bt.items() if hasattr(v, "shape")}
+                    for bt in itertools.islice(loader.epoch(1), 4)]
+        require(len(batches) == 8
+                and batches[0]["L"].shape == (GAN_BATCH, 64, 64, 3)
+                and batches[0]["H"].shape == (GAN_BATCH, GAN_H, GAN_H, 3),
+                f"{len(batches)} batches, {batches[0]['L'].shape}")
+
+        # (a) one step's G and D gradients at B=1, bf16 kernels against the
+        # f32 composed route on the card
+        small = {k: v[:1] for k, v in batches[0].items()}
+        u0 = spectral_vectors(trainer.model_d)
+        zero_counts()
+        msw.swin_block_win_reference = counted
+        try:
+            g_card, d_card = gan_grads(trainer, small, u0)
+        finally:
+            msw.swin_block_win_reference = ref_fn
+        grad_counts = read_counts()
+        p_card = pixel_grads(trainer, small)
+        ref = copy.copy(trainer)
+        ref.dtype = torch.float32
+        with composed_swin_blocks():
+            g_ref, d_ref = gan_grads(ref, small, u0)
+            p_ref = pixel_grads(ref, small)
+            p_ctl = cpu_without_shift_mask(lambda: pixel_grads(ref, small))
+            ref.vgg.use_input_norm = False
+            g_ctl, _ = gan_grads(ref, small, u0)
+            ref.vgg.use_input_norm = True
+            d_ctl = d_grads_on(ref, small, None, u0)
+        parts = swinir_l_parts(g_ref)
+        blocks = [n for n in g_ref if n.startswith("layers.")]
+
+        def by_part(a, b):
+            out = {k: rel_norm(a, b, v) for k, v in parts.items()}
+            out["blocks"] = rel_norm(a, b, blocks)
+            out["all"] = rel_norm(a, b, list(b))
+            return out
+        fmt = lambda d: ", ".join(f"{k} {v:.4g}" for k, v in d.items())
+        perr, pctl = by_part(p_card, p_ref), by_part(p_ctl, p_ref)
+        pworst = max(parts, key=perr.get)
+        ph.note(f"(a) gradient at B=1 (64x64 LR), bf16 kernels vs the f32 "
+                "composed route on the card, relative norm. The l1 pixel loss "
+                "alone (the kernels' share): " + fmt(perr) + f" (limits "
+                f"{px_all} over all, {px_blocks} the 54 blocks, {px_part} a "
+                f"part; worst {pworst}); control, the f32 route without the "
+                "shift mask: " + fmt(pctl) + lap())
+        require(perr["all"] <= px_all and perr["blocks"] <= px_blocks
+                and perr[pworst] <= px_part,
+                f"pixel-loss gradient {perr['all']:.4g} / blocks "
+                f"{perr['blocks']:.4g} / {pworst} {perr[pworst]:.4g}")
+        require(pctl["blocks"] > px_blocks
+                and pctl["blocks"] > 3 * perr["blocks"],
+                "the dropped-mask control is not above the blocks' limit and "
+                "3x their error")
+        err, ctl = by_part(g_card, g_ref), by_part(g_ctl, g_ref)
+        err["D"] = rel_norm(d_card, d_ref, list(d_ref))
+        ctl["D"] = rel_norm(d_ctl, d_ref, list(d_ref))
+        worst = max(parts, key=err.get)
+        ph.note("(a) the whole GAN step (pixel + VGG + ragan, VGG and D "
+                "under autocast): " + fmt(err) + f" (limits {st_all} G over "
+                f"all, {st_part} a part of G, {st_d} D; worst {worst}); "
+                "controls, the f32 route with VGG's input norm off (G) and "
+                "with D's fake batch the real one (D): " + fmt(ctl)
+                + f"; launches in that step {grad_counts}" + lap())
+        require(err["all"] <= st_all and err[worst] <= st_part
+                and err["D"] <= st_d,
+                f"GAN-step gradient G {err['all']:.4g}, {worst} "
+                f"{err[worst]:.4g}, D {err['D']:.4g}")
+        require(ctl["all"] > st_all and ctl["all"] > 3 * err["all"]
+                and ctl[worst] > st_part and ctl[worst] > 3 * err[worst]
+                and ctl["D"] > st_d and ctl["D"] > 3 * err["D"],
+                "a GAN-step control is not above its limit and 3x the error")
+        require(grad_counts == {"row1": 54, "row1_win": 0, "row3": 54,
+                                "composed": 0},
+                f"launches in the gradient step {grad_counts}")
+        del ref
+        torch.cuda.empty_cache()
+
+        # (b)-(c) the main path: B=16 steps
+        trainer.train_step(batches[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timed = 3
+
+        def run(bts, update_g):
+            s, e = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            s.record()
+            ms_ = [trainer.train_step(bt, update_g=update_g) for bt in bts]
+            e.record()
+            torch.cuda.synchronize()
+            vals = [float(m["D_total"]) for m in ms_]
+            require(all(math.isfinite(v) for v in vals), f"D losses {vals}")
+            return s.elapsed_time(e) / len(bts), ms_
+
+        zero_counts()
+        msw.swin_block_win_reference = counted
+        try:
+            ms_gd, m_gd = run(batches[1:1 + timed], True)
+            per_g = {k: v // timed for k, v in read_counts().items()}
+            zero_counts()
+            ms_d, _ = run(batches[4:4 + timed], False)
+            per_d = {k: v // timed for k, v in read_counts().items()}
+        finally:
+            msw.swin_block_win_reference = ref_fn
+        mem = torch.cuda.max_memory_allocated()
+        ph.note(f"(b) launches per G+D step over {timed}: {per_g}; per "
+                f"D-only step (G's forward for E): {per_d}")
+        require(per_g == {"row1": 54, "row1_win": 0, "row3": 54,
+                          "composed": 0}
+                and per_d == {"row1": 54, "row1_win": 0, "row3": 0,
+                              "composed": 0},
+                f"launches {per_g} / {per_d}")
+        for k in report:
+            if k["name"] in ("swin_block_2d", "swin_block_2d_bwd"):
+                k["gan_train_launches_per_g_update"] = per_g[
+                    "row1" if k["name"] == "swin_block_2d" else "row3"]
+        g_fwd = swinir_flops_per_lr_pixel(
+            240, (6,) * 9, 8, 8, 2.0, 64, 3, 4, "nearest+conv", "3conv") \
+            * 64 * 64 * GAN_BATCH
+        h1 = torch.zeros(1, GAN_H, GAN_H, 3, device="cuda")
+        vgg_fwd = conv_flops(trainer.vgg, h1) * GAN_BATCH
+        d_fwd = conv_flops(copy.deepcopy(trainer.model_d), h1) * GAN_BATCH
+        # G: forward + backward; VGG: E and H forward, E's input gradient;
+        # D: G's pass (E forward + input gradient, H forward for ragan),
+        # D's real and fake passes forward and backward
+        flops_gd = 3 * g_fwd + 3 * vgg_fwd + 9 * d_fwd
+        flops_d = g_fwd + 6 * d_fwd
+        peak = peak_bf16_tflops(torch.cuda.get_device_name(0))
+        mfu = lambda f, ms: f / (ms / 1e3) / 1e12 / peak if peak else None
+        fmt = lambda v: "n/a" if v is None else f"{v:.4f}"
+        ph.note(f"(c) B={GAN_BATCH}: G+D step {ms_gd:.2f} ms (mean of "
+                f"{timed} after 1, CUDA events), D-only step (G forward + D "
+                f"update) {ms_d:.2f} ms; so the G update about "
+                f"{ms_gd - ms_d:.2f} ms past G's forward; losses G "
+                f"{float(m_gd[-1]['G_loss']):.4g}, F "
+                f"{float(m_gd[-1]['F_loss']):.4g}, D_loss "
+                f"{float(m_gd[-1]['D_loss']):.4g}, D_total "
+                f"{float(m_gd[-1]['D_total']):.4g}; analytic FLOP a G+D step "
+                f"{flops_gd / 1e12:.3f} T (G forward {g_fwd / 1e12:.3f}, VGG "
+                f"forward {vgg_fwd / 1e12:.3f}, D forward {d_fwd / 1e12:.3f}; "
+                f"x3, x3, x9), MFU {fmt(mfu(flops_gd, ms_gd))}; D-only "
+                f"{flops_d / 1e12:.3f} T, MFU {fmt(mfu(flops_d, ms_d))} "
+                f"against {peak} TFLOP/s; peak memory {mem / 2 ** 30:.2f} "
+                f"GiB [{card}]" + lap())
+        ph.note("(c) " + device_breakdown(
+            lambda: [trainer.train_step(bt, update_g=True)
+                     for bt in batches[6:8]], 2, ms_gd, "G+D step", top=10,
+            sums=("swin_", "sm90", "sm80")) + lap())
+        del trainer
+        torch.cuda.empty_cache()
+
+        # (e) cli.train_gan: first the recipe above (SwinIR-L, the U-Net D,
+        # bf16, B=16 of 256x256, --vgg loaded by torch.load), 2 steps then a
+        # resume to 3, its launches counted over both runs; then the shipped
+        # option file as it is (MSRResNet0, the VGG-style D with BatchNorm,
+        # f32), likewise
+        vgg_path = os.path.join(tmp, "vgg19.pth")
+        runs = (("recipe", gan_options(tmp, net_g, GAN_NETD, GAN_H,
+                                       name="recipe.json"),
+                 ["--dtype", "bf16"], GAN_BATCH * 2, 320),
+                ("shipped", gan_options(tmp, name="shipped.json"), [],
+                 16 * 2, 200))
+        made = mdatasets.define_dataset
+        for key, (path, opt_e), extra, n_img, size in runs:
+            def seeded_define(ds, n_img=n_img, size=size):
+                return seeded_dataset(ds, n_img, SEED + 263, size=size)
+            mdatasets.define_dataset = seeded_define
+            train_gan.define_dataset = seeded_define
+            zero_counts()
+            msw.swin_block_win_reference = counted
+            try:
+                argv = ["--opt", path, "--vgg", vgg_path] + extra
+                t1 = train_gan.main(argv=argv + ["--max_steps", "2"])
+                first = (t1.step, t1.g_updates, t1.dtype)
+                del t1
+                t2 = train_gan.main(argv=argv + ["--max_steps", "3"])
+            finally:
+                mdatasets.define_dataset = made
+                train_gan.define_dataset = made
+                msw.swin_block_win_reference = ref_fn
+            counts = read_counts()
+            models = opt_e["path"]["models"]
+            files = sorted(os.listdir(models))
+            g3 = torch.load(os.path.join(models, "3_G.pth"), weights_only=True)
+            require(all(torch.isfinite(v).all() for v in g3.values()
+                        if v.is_floating_point()), f"{key}: 3_G.pth not finite")
+            require(first[:2] == (2, 2) and t2.step == 3 and t2.g_updates == 3
+                    and all(f"{s}_{tag}.pth" in files for s in (2, 3)
+                            for tag in ("G", "D", "E", "optimizerG",
+                                        "optimizerD")),
+                    f"{key} GAN file: steps {first[0]}/{t2.step}, G updates "
+                    f"{first[1]}/{t2.g_updates}, files {files}")
+            if key == "recipe":
+                n_up = 3
+                require(first[2] == t2.dtype == torch.bfloat16
+                        and counts == {"row1": 54 * n_up, "row1_win": 0,
+                                       "row3": 54 * n_up, "composed": 0},
+                        f"cli.train_gan SwinIR-L: dtype {t2.dtype}, launches "
+                        f"{counts} over {n_up} G updates")
+                ph.note(f"(e) cli.train_gan --dtype bf16 --vgg on the recipe "
+                        f"(SwinIR-L x4, discriminator_unet, B="
+                        f"{opt_e['datasets']['train']['dataloader_batch_size']}"
+                        f" of {opt_e['datasets']['train']['H_size']}x"
+                        f"{opt_e['datasets']['train']['H_size']} HR through "
+                        "make_train_loader): 2 steps, then a resume to 3 "
+                        f"({len(files)} checkpoint files); launches over the "
+                        f"{n_up} G+D steps {counts}" + lap())
+            else:
+                bn = t2.model_d.bn1
+                require(int(bn.num_batches_tracked) == 12
+                        and first[2] == t2.dtype == torch.float32,
+                        f"shipped GAN file: bn1 batches "
+                        f"{int(bn.num_batches_tracked)}, dtype {t2.dtype}")
+                ph.note(f"(e) {GAN_OPTION} as shipped (MSRResNet0 64/16, "
+                        f"discriminator_vgg_96 with BatchNorm, ragan, f32, B="
+                        f"{opt_e['datasets']['train']['dataloader_batch_size']}"
+                        f" of 96x96 HR) through cli.train_gan: 2 steps, then a "
+                        f"resume to 3 ({files}); D's bn1 saw "
+                        f"{int(bn.num_batches_tracked)} training batches (4 a "
+                        "ragan step)" + lap())
+            del t2
+            torch.cuda.empty_cache()
+
+# ---------------------------------------------------------------------------
+# The face slice (phase 27)
+# ---------------------------------------------------------------------------
+
+# max_abs / max|ref|, bf16 on the card vs f32 on the CPU: GPEN-512 read
+# 0.0190 and 0.0313 on two faces on an H100 (about 20 convolutions of
+# 512-1024 channels in bf16), its control (demodulation off) 5.6
+FACE_LIMIT = 5e-2
+
+
+def seeded_face_models(tmp: str, seed: int):
+    """KAIR-keyed GPEN-BFR-512 (size 512, style 512, 8 MLP layers, channel
+    multiplier 2; StyleGAN2's own initialisation, noise weights 0.2 so the
+    encoder's maps reach the output) and RetinaFace-R50 (torchvision's
+    initialisation) ``.pth`` files in ``tmp``; their paths."""
+    import torch
+    from kair_tpu_torch.models.gpen import FullGenerator
+    from kair_tpu_torch.models.retinaface import RetinaFace
+    torch.manual_seed(seed)
+    sd = FullGenerator(size=512, style_dim=512, n_mlp=8,
+                       channel_multiplier=2).state_dict()
+    for k in sd:
+        if k.endswith("noise.weight"):
+            sd[k] = torch.full_like(sd[k], 0.2)
+    gpen = os.path.join(tmp, "GPEN-BFR-512.pth")
+    torch.save(sd, gpen)
+    retina = os.path.join(tmp, "RetinaFace-R50.pth")
+    torch.save({"module." + k: v for k, v in RetinaFace().state_dict().items()},
+               retina)
+    return gpen, retina
+
+
+def synthetic_faces(size: int = 512):
+    """A 320x240 seeded image with two faces' boxes and five landmarks (the
+    template moved and scaled), one under 100 px (the small-face filter)."""
+    import numpy as np
+    from kair_tpu_torch.utils.alignfaces import get_reference_facial_points
+    tmpl = get_reference_facial_points((size, size), 0.25, (0, 0), True)
+    boxes, lms = [], []
+    for scale, tx, ty, score in ((0.12, 40, 30, 0.98), (0.35, 150, 60, 0.95)):
+        pts = tmpl * scale + np.array([tx, ty])
+        boxes.append([*(pts.min(0) - 8), *(pts.max(0) + 8), score])
+        lms.append(np.concatenate([pts[:, 0], pts[:, 1]]))
+    return (smooth_image(240, 320, SEED + 271), np.float32(boxes),
+            np.float32(lms))
+
+
+def phase_face(card: str, build_dir) -> None:
+    import copy
+    import numpy as np
+    import torch
+    from kair_tpu_torch.cli import test_face
+    from kair_tpu_torch.eval.face_pipeline import (enhance_faces,
+                                                   make_gpen_enhancer,
+                                                   make_retinaface_detector)
+    from kair_tpu_torch.models import gpen as mgpen
+    from kair_tpu_torch.models.gpen import FullGenerator
+    from kair_tpu_torch.models.retinaface import load_retinaface
+    from kair_tpu_torch.utils.png import read_png, write_png
+
+    with Phase("27 face") as ph, \
+            tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        gpen_path, retina_path = seeded_face_models(tmp, SEED + 270)
+        cpu_g = FullGenerator(512, 512, 8, 2).eval()
+        cpu_g.load_state_dict(torch.load(gpen_path, weights_only=True))
+        gpu_g = copy.deepcopy(cpu_g).to("cuda", torch.bfloat16)
+        ph.note(f"GPEN-BFR-512 (size 512, style 512, n_mlp 8, multiplier 2, "
+                f"{sum(p.numel() for p in cpu_g.parameters())} params) and "
+                "RetinaFace-R50 from seeded KAIR-keyed .pth files; the card "
+                "runs both in bf16 (modulation and demodulation in f32), "
+                "the warps and blending are utils/cv_ops on the host")
+
+        # (b) enhance_faces with given boxes and landmarks: bf16 on the card
+        # against the same run in f32 on the CPU
+        img, boxes, lms = synthetic_faces()
+        det = lambda bgr: (boxes, lms)
+        raw = {}
+
+        class Recording(torch.nn.Module):
+            """The GPEN model, its outputs kept under ``key``."""
+
+            def __init__(self, model, key):
+                super().__init__()
+                self.model, self.key = model, key
+
+            def forward(self, x):
+                y = self.model(x)
+                raw.setdefault(self.key, []).append((x.float().cpu(),
+                                                     y.float().cpu()))
+                return y
+
+        recording = lambda model, key: make_gpen_enhancer(
+            Recording(model, key))
+        out_g, _, ef_g = enhance_faces(img, det, recording(gpu_g, "gpu"))
+        out_c, _, ef_c = enhance_faces(img, det, recording(cpu_g, "cpu"))
+        # the control: the CPU's first face without demodulation
+        for m in cpu_g.modules():
+            if isinstance(m, mgpen.ModulatedConv2d):
+                m.demodulate = False
+        with torch.inference_mode():
+            ctls = [compare(cpu_g(raw["cpu"][0][0]), raw["cpu"][0][1])[1]]
+        errs = [compare(g[1], c[1])[1] for g, c in zip(raw["gpu"], raw["cpu"])]
+        img_diff = np.abs(out_g.astype(int) - out_c).max()
+        ph.note(f"(b) enhance_faces, 2 faces of a 320x240 image: GPEN's "
+                f"output bf16 on the card vs f32 on the CPU max_abs / "
+                f"max|ref| {', '.join(f'{e:.4g}' for e in errs)} (limit "
+                f"{FACE_LIMIT}); control, the f32 run of the first face "
+                "without demodulation: "
+                f"{', '.join(f'{c:.4g}' for c in ctls)}; the blended images "
+                f"differ by at most {img_diff} levels, the enhanced faces by "
+                f"{max(np.abs(a.astype(int) - b).max() for a, b in zip(ef_g, ef_c))}")
+        require(len(errs) == 2 and max(errs) <= FACE_LIMIT,
+                f"GPEN bf16 error {errs}")
+        require(min(ctls) > FACE_LIMIT and min(ctls) > 3 * max(errs),
+                f"the control {ctls} is not above the limit and 3x the error")
+
+        # the detector: bf16 on the card against f32 on the CPU
+        cpu_r = load_retinaface(retina_path)
+        gpu_r = copy.deepcopy(cpu_r).to("cuda", torch.bfloat16)
+        x = torch.from_numpy(img[None, :, :, ::-1].astype(np.float32)
+                             - np.float32([104, 117, 123]))
+        with torch.inference_mode():
+            r_g = [t.float().cpu() for t in gpu_r(x.cuda().to(torch.bfloat16))]
+            r_c = cpu_r(x)
+            r_ctl = cpu_r(x + torch.tensor([104.0, 117.0, 123.0]))
+        r_err = [compare(g, c)[1] for g, c in zip(r_g, r_c)]
+        r_ctl = [compare(g, c)[1] for g, c in zip(r_ctl, r_c)]
+        ph.note(f"RetinaFace boxes / scores / landmarks bf16 vs f32 "
+                f"{', '.join(f'{e:.4g}' for e in r_err)} (limit {FACE_LIMIT}); "
+                "control, the f32 run without the BGR means subtracted: "
+                + ", ".join(f"{e:.4g}" for e in r_ctl))
+        require(max(r_err) <= FACE_LIMIT and min(r_ctl) > 3 * max(r_err),
+                f"RetinaFace {r_err}, control {r_ctl}")
+
+        # (a) cli.test_face end to end: a 128x128 seeded PNG, upscaled x2;
+        # the threshold set under the detector's third score
+        src = os.path.join(tmp, "in")
+        os.makedirs(src)
+        write_png(os.path.join(src, "face.png"), smooth_image(128, 128,
+                                                              SEED + 272))
+        up = test_face.read_rgb(os.path.join(src, "face.png"))
+        from kair_tpu_torch.utils import cv_ops
+        up = cv_ops.resize_linear(up, (256, 256))
+        dets, _ = make_retinaface_detector(gpu_r, 0.0)(cv_ops.rgb_bgr(up))
+        thr = float(np.sort(dets[:, 4])[-3]) - 1e-6
+        t0 = time.perf_counter()
+        res = test_face.main([
+            "--input", src, "--output", os.path.join(tmp, "out"),
+            "--retinaface", retina_path, "--gpen", gpen_path,
+            "--threshold", f"{thr}", "--save_faces"])
+        dt = time.perf_counter() - t0
+        (name, out, n_faces), = res
+        back = read_png(os.path.join(tmp, "out", "face_enhanced.png"))
+        require(n_faces == 3 and out.shape == (256, 256, 3)
+                and np.array_equal(back, out),
+                f"cli.test_face: {n_faces} faces, {out.shape}")
+        ph.note(f"(a) cli.test_face on a 128x128 PNG (--sr 2, threshold "
+                f"{thr:.6f}: the detector's third score): {n_faces} faces "
+                f"enhanced and pasted back, "
+                f"{sorted(os.listdir(os.path.join(tmp, 'out')))} in "
+                f"{dt:.2f} s (models loaded, host warps included)")
+
+        # (c) GPEN's time per 512x512 face, bf16, batch 1
+        xg = torch.randn(1, 512, 512, 3, generator=torch.Generator()
+                         .manual_seed(SEED + 273)).to("cuda", torch.bfloat16)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: gpu_g(xg))
+        ph.note(f"(c) GPEN-BFR-512 {ms:.2f} ms per 512x512 face (median of "
+                f"10, CUDA events, bf16, batch 1) [{card}]")
+        del gpu_g, gpu_r
+        torch.cuda.empty_cache()
+
 
 def phase_build() -> None:
     """Phase 1: build the kernels, check the layout mirrors, print ptxas."""
@@ -4048,6 +4712,8 @@ def main() -> int:
     phase_timing_clis(card)
     phase_train_zoo(card, _build.BUILD_DIR)
     phase_rvrt_train(report, card, _build.BUILD_DIR)
+    phase_gan_train(report, card, _build.BUILD_DIR)
+    phase_face(card, _build.BUILD_DIR)
     faulthandler.cancel_dump_traceback_later()
 
     log(card)

@@ -11,7 +11,11 @@ initialised) back into a KAIR state dict, so JAX parameters can be carried
 across. The CNN zoo's ``dncnn_from_jax`` … ``usrnet_from_jax`` invert
 ``convert_dncnn`` … ``convert_usrnet`` (:94-345) the same way, and
 ``block_from_jax`` carries the blocks no model builds (CALayer, RCABlock,
-RCAGroup, ESA, CFRB, NonLocalBlock2D) across.
+RCAGroup, ESA, CFRB, NonLocalBlock2D) across. The GAN and face slice's
+``discriminator_from_jax`` (parameters, spectral vectors, BatchNorm
+statistics), ``vgg19_from_jax``, ``stylegan_from_jax``, ``gpen_from_jax``
+(inverse of ``convert_gpen`` :681) and ``retinaface_from_jax`` (of
+``convert_retinaface`` :724) complete the set.
 """
 
 from __future__ import annotations
@@ -674,4 +678,160 @@ def block_from_jax(variables: Dict[str, Any], kind: str, mode: str = "CRC"
         _conv(sd, "W", p["w"]["conv"])
     else:
         raise ValueError(f"no block [{kind}]")
+    return sd
+
+
+# ----------------------------------------------------------------------------
+# GAN slice: discriminators and VGG19 features
+# ----------------------------------------------------------------------------
+
+def discriminator_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX discriminator's variables (``params``, ``spectral``,
+    ``batch_stats`` where present) → the port's state dict
+    (``models/discriminator.py``: the same module names; HWIO kernels →
+    OIHW, dense (in, out) → (out, in), each spectral layer's ``u``,
+    BatchNorm's scale/bias and running mean/var)."""
+    sd: Dict[str, torch.Tensor] = {}
+    spectral = variables.get("spectral") or {}
+    stats = variables.get("batch_stats") or {}
+    for name, leaf in variables["params"].items():
+        if "kernel" in leaf:
+            k = np.asarray(leaf["kernel"])
+            sd[f"{name}.weight"] = _t(k.transpose(3, 2, 0, 1) if k.ndim == 4
+                                      else k.T)
+            if "bias" in leaf:
+                sd[f"{name}.bias"] = _t(np.asarray(leaf["bias"]))
+            if name in spectral:
+                sd[f"{name}.u"] = _t(np.asarray(spectral[name]["u"]))
+        else:                                           # BatchNorm
+            _ln(sd, name, leaf)
+            st = stats[name]
+            sd[f"{name}.running_mean"] = _t(np.asarray(st["mean"]))
+            sd[f"{name}.running_var"] = _t(np.asarray(st["var"]))
+            sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def vgg19_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """``convert_vgg19_features``' tree (``conv{N}/conv``) → torchvision's
+    ``features.N.weight`` / ``.bias``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, leaf in variables["params"].items():
+        _conv(sd, f"features.{int(name[4:])}", leaf["conv"])
+    return sd
+
+
+# ----------------------------------------------------------------------------
+# Face slice: GPEN and RetinaFace
+# ----------------------------------------------------------------------------
+
+def _eql(sd, name: str, leaf) -> None:
+    """EqualLinear: JAX (in, out) → KAIR (out, in)."""
+    sd[f"{name}.weight"] = _t(np.asarray(leaf["weight"]).T)
+    sd[f"{name}.bias"] = _t(np.asarray(leaf["bias"]))
+
+
+def _modconv(sd, name: str, leaf) -> None:
+    sd[f"{name}.weight"] = _t(np.asarray(leaf["weight"]).transpose(3, 2, 0, 1)[None])
+    _eql(sd, f"{name}.modulation", leaf["modulation"])
+
+
+def stylegan_from_jax(g: Dict[str, Any], prefix: str = "",
+                      blur_kernel=(1, 3, 3, 1)) -> Dict[str, torch.Tensor]:
+    """A JAX ``StyleGANGenerator`` tree → ``models/gpen.StyleGANGenerator``'s
+    state dict (names under ``prefix``), with the blur and upsample
+    kernels' buffers."""
+    from kair_tpu_torch.ops.stylegan import make_kernel
+    k = make_kernel(blur_kernel)
+    sd: Dict[str, torch.Tensor] = {}
+    for i, leaf in _indexed(g, "style"):
+        _eql(sd, f"{prefix}style.{i + 1}", leaf)
+    sd[f"{prefix}input.input"] = _t(np.asarray(g["const_input"])
+                                    .transpose(0, 3, 1, 2))
+
+    def styled(name, leaf, up):
+        _modconv(sd, f"{name}.conv", leaf["conv"])
+        sd[f"{name}.noise.weight"] = _t(np.asarray(leaf["noise_weight"]))
+        sd[f"{name}.activate.bias"] = _t(np.asarray(leaf["act_bias"]))
+        if up:
+            sd[f"{name}.conv.blur.kernel"] = k * 4
+
+    def torgb(name, leaf, up):
+        _modconv(sd, f"{name}.conv", leaf["conv"])
+        sd[f"{name}.bias"] = _t(np.asarray(leaf["bias"]).reshape(1, 3, 1, 1))
+        if up:
+            sd[f"{name}.upsample.kernel"] = k * 4
+
+    styled(f"{prefix}conv1", g["conv1"], False)
+    torgb(f"{prefix}to_rgb1", g["to_rgb1"], False)
+    for j, _ in _indexed(g, "conv_up"):
+        styled(f"{prefix}convs.{2 * j}", g[f"conv_up{j}"], True)
+        styled(f"{prefix}convs.{2 * j + 1}", g[f"conv_same{j}"], False)
+        torgb(f"{prefix}to_rgbs.{j}", g[f"to_rgbs{j}"], True)
+    return sd
+
+
+def gpen_from_jax(variables: Dict[str, Any], blur_kernel=(1, 3, 3, 1)
+                  ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_gpen``: a JAX ``FullGenerator`` tree → KAIR's
+    GPEN state dict (``models/gpen.FullGenerator``), with the blur and
+    upsample kernels' buffers."""
+    from kair_tpu_torch.ops.stylegan import make_kernel
+    p = variables.get("params", variables)
+    sd = stylegan_from_jax(p["generator"], "generator.", blur_kernel)
+    for i, leaf in _indexed(p, "ecd"):
+        conv = "ecd0.0.0" if i == 0 else f"ecd{i}.0.1"
+        act = "ecd0.0.1" if i == 0 else f"ecd{i}.0.2"
+        sd[f"{conv}.weight"] = _t(np.asarray(leaf["conv"]["weight"])
+                                  .transpose(3, 2, 0, 1))
+        sd[f"{act}.bias"] = _t(np.asarray(leaf["act_bias"]))
+        if i:
+            sd[f"ecd{i}.0.0.kernel"] = make_kernel(blur_kernel)
+    w = np.asarray(p["final_linear"]["weight"])          # (4·4·C NHWC, out)
+    c = w.shape[0] // 16
+    sd["final_linear.0.weight"] = _t(w.reshape(4, 4, c, -1).transpose(3, 2, 0, 1)
+                                     .reshape(w.shape[1], -1))
+    sd["final_linear.0.bias"] = _t(np.asarray(p["final_linear"]["bias"]))
+    return sd
+
+
+def _convbn(sd, name: str, conv: str, bn: str, leaf, stats) -> None:
+    sd[f"{name}.{conv}.weight"] = _t(np.asarray(leaf["conv"]["kernel"])
+                                     .transpose(3, 2, 0, 1))
+    _ln(sd, f"{name}.{bn}", leaf["bn"])
+    sd[f"{name}.{bn}.running_mean"] = _t(np.asarray(stats["bn"]["mean"]))
+    sd[f"{name}.{bn}.running_var"] = _t(np.asarray(stats["bn"]["var"]))
+    sd[f"{name}.{bn}.num_batches_tracked"] = torch.tensor(0)
+
+
+def retinaface_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Inverse of ``convert_retinaface``: a JAX RetinaFace tree (params and
+    batch_stats) → the RetinaFace-R50 state dict (``models/retinaface``)."""
+    p, st = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    body, bst = p["body"], st["body"]
+    sd["body.conv1.weight"] = _t(np.asarray(body["conv1"]["kernel"])
+                                 .transpose(3, 2, 0, 1))
+    _convbn(sd, "body", "conv1", "bn1", {"conv": body["conv1"], "bn": body["bn1"]},
+            {"bn": bst["bn1"]})
+    for li, blocks in enumerate([3, 4, 6, 3]):
+        for bi in range(blocks):
+            t, key = f"body.layer{li + 1}.{bi}", f"layer{li + 1}_b{bi}"
+            for ci in range(1, 4):
+                _convbn(sd, t, f"conv{ci}", f"bn{ci}", body[key][f"c{ci}"],
+                        bst[key][f"c{ci}"])
+            if "down" in body[key]:
+                _convbn(sd, f"{t}.downsample", "0", "1", body[key]["down"],
+                        bst[key]["down"])
+    for name in ("output1", "output2", "output3", "merge1", "merge2"):
+        _convbn(sd, f"fpn.{name}", "0", "1", p["fpn"][name], st["fpn"][name])
+    for i in (1, 2, 3):
+        for leaf in ("conv3X3", "conv5X5_1", "conv5X5_2", "conv7X7_2",
+                     "conv7x7_3"):
+            _convbn(sd, f"ssh{i}.{leaf}", "0", "1", p[f"ssh{i}"][leaf],
+                    st[f"ssh{i}"][leaf])
+    for i in range(3):
+        for head, src in (("BboxHead", "bbox"), ("ClassHead", "class"),
+                          ("LandmarkHead", "ldm")):
+            _conv(sd, f"{head}.{i}.conv1x1", p[f"{src}{i}"])
     return sd

@@ -2,17 +2,14 @@
 ``kair_tpu/models/registry.py``; reference models/select_network.py:16-274).
 
 Keyed by the same ``net_type`` strings and hyper-parameter keys as the
-reference option files. The port builds the CNN zoo, SwinIR, VRT and RVRT;
-SpyNet alone raises NotImplementedError naming the slice that brings it.
+reference option files. The port builds the CNN zoo, SwinIR, VRT, RVRT and
+SpyNet; ``define_d`` builds the discriminators of the GAN trainer
+(reference select_network.py:280-341).
 """
 
 from __future__ import annotations
 
 import torch.nn as nn
-
-LATER_SLICES = {"spynet": "video", "discriminator_patchgan": "GAN",
-                "discriminator_unet": "GAN", "discriminator_vgg_96": "GAN",
-                "discriminator_vgg_128": "GAN", "discriminator_vgg_192": "GAN"}
 
 
 def _get(o, key, default=None):
@@ -167,8 +164,30 @@ def define_g(opt: dict) -> nn.Module:
                     fuse_block=bool(_get(o, "fuse_block", True)),
                     deform_impl=_get(o, "deform_impl", "auto"),
                     remat=bool(_get(o, "use_checkpoint_attn", False)))
-    if t in LATER_SLICES:
-        raise NotImplementedError(
-            f"netG [{t}] belongs to the {LATER_SLICES[t]} slice of the port, "
-            "not ported yet")
+    if t == "spynet":
+        from kair_tpu_torch.models.spynet import SpyNet
+        return SpyNet(return_levels=tuple(_get(o, "return_levels", [5])))
     raise NotImplementedError(f"netG [{t}] is not implemented yet")
+
+
+def define_d(opt: dict) -> nn.Module:
+    """Build the discriminator from ``opt['netD']`` (reference
+    select_network.py:280-341; the JAX registry's keys and defaults)."""
+    o = opt["netD"]
+    t = o["net_type"]
+    from kair_tpu_torch.models import discriminator as D
+    if t == "discriminator_patchgan":
+        return D.PatchGAN(_get(o, "in_nc", 3), _get(o, "base_nc", 64),
+                          _get(o, "n_layers", 3),
+                          _get(o, "norm_type", "spectral"))
+    if t == "discriminator_unet":
+        return D.UNetDiscriminator(_get(o, "in_nc", 3), _get(o, "base_nc", 64))
+    sizes = {"discriminator_vgg_96": 96, "discriminator_vgg_128": 128,
+             "discriminator_vgg_192": 192}
+    if t in sizes:
+        return D.VGGStyleDiscriminator(sizes[t], _get(o, "in_nc", 3),
+                                       _get(o, "base_nc", 64),
+                                       _get(o, "act_mode", "BL"))
+    if t == "discriminator_vgg_128_SN":
+        return D.VGG128SN()
+    raise NotImplementedError(f"netD [{t}] is not implemented yet")

@@ -1,13 +1,17 @@
-"""Pixel losses of the plain trainer (counterpart of
+"""Training losses: the pixel losses and the GAN objectives (counterpart of
 ``kair_tpu/train/losses.py``; reference model_plain.py:181-205,
 models/loss.py, models/loss_ssim.py). Images are NHWC.
 
-The GAN losses, the StyleGAN2 regularisers (R1, path length, gradient
-penalty) and the SPECT Poisson loss belong to later slices and raise.
+The GAN losses (reference loss.py:136-173) and the StyleGAN2 regularisers
+(R1, path length, gradient penalty; loss.py:222-290) take torch callables
+and differentiate them with ``torch.autograd.grad(..., create_graph=True)``,
+so their penalties train the network they probe. The SPECT Poisson loss
+belongs to a later slice and raises.
 """
 
 from __future__ import annotations
 
+import math
 from functools import partial
 from typing import Callable, Optional
 
@@ -76,12 +80,34 @@ def ssim_loss(pred, target):
     return 1.0 - ssim(pred, target)
 
 
-LATER_SLICES = {"poisson": "SPECT", "gan": "GAN", "ragan": "GAN",
-                "lsgan": "GAN", "wgan": "GAN", "softplusgan": "GAN"}
+def gan_loss(logits, target_is_real: bool, gan_type: str = "gan",
+             real_label: float = 1.0, fake_label: float = 0.0):
+    """GANLoss (reference loss.py:136-173; JAX ``losses.gan_loss``). For
+    'ragan' the caller passes relativised logits, as the reference does at
+    its call site (model_gan.py:242-251)."""
+    gan_type = gan_type.lower()
+    if gan_type in ("gan", "ragan"):
+        label = real_label if target_is_real else fake_label
+        return F.binary_cross_entropy_with_logits(
+            logits, torch.full_like(logits, label))
+    if gan_type == "lsgan":
+        label = real_label if target_is_real else fake_label
+        return torch.mean((logits - label) ** 2)
+    if gan_type == "wgan":
+        return -torch.mean(logits) if target_is_real else torch.mean(logits)
+    if gan_type == "softplusgan":
+        return torch.mean(F.softplus(-logits)) if target_is_real \
+            else torch.mean(F.softplus(logits))
+    raise NotImplementedError(f"GAN type [{gan_type}] is not found")
+
+
+LATER_SLICES = {"poisson": "SPECT"}
 
 
 def get_loss_fn(name: str, opt_train: Optional[dict] = None) -> Callable:
-    """Loss selection mirroring model_plain.py:181-205."""
+    """Loss selection mirroring model_plain.py:181-205 (the GAN objectives
+    are ``gan_loss``'s, not pixel losses: "gan" is not found here, as in
+    the JAX package)."""
     opt_train = opt_train or {}
     if name == "l1":
         return l1_loss
@@ -103,17 +129,72 @@ def get_loss_fn(name: str, opt_train: Optional[dict] = None) -> Callable:
     raise NotImplementedError(f"Loss type [{name}] is not found.")
 
 
-def _later(name: str, slice_name: str) -> Callable:
-    def raise_(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} belongs to the {slice_name} slice of the port, not "
-            "ported yet")
-    raise_.__name__ = name
-    return raise_
+def poisson_ll_loss(*args, **kwargs):
+    raise NotImplementedError("poisson_ll_loss belongs to the SPECT slice of "
+                              "the port, not ported yet")
 
 
-gan_loss = _later("gan_loss", "GAN")
-r1_penalty = _later("r1_penalty", "GAN")
-g_path_regularize = _later("g_path_regularize", "GAN")
-gradient_penalty_loss = _later("gradient_penalty_loss", "GAN")
-poisson_ll_loss = _later("poisson_ll_loss", "SPECT")
+# ----------------------------------------------------------------------------
+# StyleGAN2 training regularisers (reference models/loss.py:222-290)
+# ----------------------------------------------------------------------------
+
+def r1_penalty(d_fn: Callable, real_img: torch.Tensor) -> torch.Tensor:
+    """R1 penalty on real data (reference loss.py:222-237): the batch mean
+    of the squared L2 norm of d sum(D(real)) / d real."""
+    real_img = real_img.detach().requires_grad_(True)
+    grad, = torch.autograd.grad(d_fn(real_img).sum(), real_img,
+                                create_graph=True)
+    return grad.pow(2).reshape(grad.shape[0], -1).sum(1).mean()
+
+
+def g_path_regularize(g_fn: Callable, latents: torch.Tensor,
+                      mean_path_length, noise: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None,
+                      decay: float = 0.01):
+    """StyleGAN2 path-length regularisation (reference loss.py:239-251).
+
+    g_fn maps latents (B, n_latent, D) to an NHWC image; without ``noise``
+    it is drawn from ``generator`` and scaled by 1/sqrt(H·W). Returns
+    (path_penalty, mean path length, new mean path length), the last two
+    detached: carry the last as training state."""
+    if not latents.requires_grad:
+        latents = latents.detach().requires_grad_(True)
+    fake = g_fn(latents)
+    if noise is None:
+        hw = fake.shape[1] * fake.shape[2] if fake.ndim == 4 else fake.numel()
+        noise = torch.randn(fake.shape, generator=generator,
+                            device=fake.device, dtype=fake.dtype) / math.sqrt(hw)
+    grad, = torch.autograd.grad(fake, latents, noise, create_graph=True)
+    path_lengths = grad.pow(2).sum(2).mean(1).sqrt()
+    path_mean = mean_path_length + decay * (path_lengths.mean()
+                                            - mean_path_length)
+    path_penalty = (path_lengths - path_mean).pow(2).mean()
+    return (path_penalty, path_lengths.mean().detach(),
+            torch.as_tensor(path_mean).detach())
+
+
+def gradient_penalty_loss(d_fn: Callable, real_data: torch.Tensor,
+                          fake_data: torch.Tensor,
+                          alpha: Optional[torch.Tensor] = None,
+                          generator: Optional[torch.Generator] = None,
+                          weight: Optional[torch.Tensor] = None,
+                          channel_axis: int = -1) -> torch.Tensor:
+    """WGAN-GP (reference loss.py:254-290): D's gradient at an interpolate
+    of real and fake must have unit L2 norm over the channel axis (-1 for
+    NHWC). ``alpha`` (B, 1, 1, 1), or drawn uniform from ``generator``."""
+    b = real_data.shape[0]
+    if alpha is None:
+        alpha = torch.rand((b,) + (1,) * (real_data.ndim - 1),
+                           generator=generator, device=real_data.device,
+                           dtype=real_data.dtype)
+    interp = (alpha * real_data.detach() + (1.0 - alpha) * fake_data.detach()
+              ).requires_grad_(True)
+    out = d_fn(interp)
+    grads, = torch.autograd.grad(out, interp, torch.ones_like(out),
+                                 create_graph=True)
+    if weight is not None:
+        grads = grads * weight
+    gp = (grads.pow(2).sum(channel_axis).sqrt() - 1.0).pow(2).mean()
+    if weight is not None:
+        gp = gp / weight.mean()
+    return gp

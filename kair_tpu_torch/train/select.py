@@ -1,5 +1,5 @@
 """Trainer registry (counterpart of ``kair_tpu/train/select.py``; reference
-models/select_model.py:9-33): plain | plain2 | plain4 | vrt."""
+models/select_model.py:9-33): plain | plain2 | plain4 | vrt | gan."""
 
 from __future__ import annotations
 
@@ -14,11 +14,12 @@ FEED_KEYS = {
     "plain2": ("C",),
     "plain4": ("k", "sf", "sigma"),
 }
-LATER_SLICES = {"gan": "GAN"}
 
 
 def define_trainer(opt: dict, dtype: Optional[torch.dtype] = None,
-                   device=None):
+                   device=None, vgg_state=None):
+    """The trainer of ``opt['model']``; ``vgg_state`` (a torchvision vgg19
+    state dict) feeds the GAN trainer's perceptual loss."""
     model = (opt.get("model") or "plain").lower()
     if model in FEED_KEYS:
         from kair_tpu_torch.train.trainer import PlainTrainer
@@ -27,8 +28,7 @@ def define_trainer(opt: dict, dtype: Optional[torch.dtype] = None,
     if model == "vrt":
         from kair_tpu_torch.train.video import VideoTrainer
         return VideoTrainer(opt, dtype=dtype, device=device)
-    if model in LATER_SLICES:
-        raise NotImplementedError(
-            f"model [{model}] trainer belongs to the {LATER_SLICES[model]} "
-            "slice of the port, not ported yet")
+    if model == "gan":
+        from kair_tpu_torch.train.gan import GanTrainer
+        return GanTrainer(opt, dtype=dtype, device=device, vgg_state=vgg_state)
     raise NotImplementedError(f"model [{model}] is not defined")

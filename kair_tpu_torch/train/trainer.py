@@ -117,6 +117,22 @@ class PlainTrainer:
 
     def __init__(self, opt: dict, extra_keys: Sequence[str] = (),
                  dtype: Optional[torch.dtype] = None, device=None):
+        self._init_g(opt, dtype, device)
+        self.loss_fn = get_loss_fn(self.opt_train["G_lossfn_type"] or "l1",
+                                   self.opt_train)
+        self.loss_weight = self.opt_train.get("G_lossfn_weight") or 1.0
+        self.schedule = get_schedule(self.opt_train)
+        self.optimizer = build_optimizer(self.model.parameters(), self.opt_train)
+        self.clip = self.opt_train.get("G_optimizer_clipgrad") or 0
+        self._init_ema()
+        self.extra_keys = tuple(extra_keys)
+        self.step = 0                     # optimizer updates made
+
+    def _init_g(self, opt: dict, dtype: Optional[torch.dtype], device) -> None:
+        """The device, the type (None: bf16 on the card, f32 on the CPU)
+        and G on the device in training mode. A G whose training route runs
+        a bf16-only kernel raises here, before any work, in f32 on the
+        card."""
         from kair_tpu_torch.models.registry import define_g
 
         self.device = default_device(device)
@@ -134,12 +150,10 @@ class PlainTrainer:
         self.opt = opt
         self.opt_train = opt["train"]
         self.model = model.to(self.device).train()
-        self.loss_fn = get_loss_fn(self.opt_train["G_lossfn_type"] or "l1",
-                                   self.opt_train)
-        self.loss_weight = self.opt_train.get("G_lossfn_weight") or 1.0
-        self.schedule = get_schedule(self.opt_train)
-        self.optimizer = build_optimizer(self.model.parameters(), self.opt_train)
-        self.clip = self.opt_train.get("G_optimizer_clipgrad") or 0
+
+    def _init_ema(self) -> None:
+        """The EMA copy of G when ``E_decay`` > 0; BatchNorm buffers are
+        copied, not averaged."""
         self.ema_decay = self.opt_train.get("E_decay") or 0
         self.ema = None
         self._ema_buffers = []
@@ -149,8 +163,14 @@ class PlainTrainer:
                 (e, b) for me, mm in zip(self.ema.modules(), self.model.modules())
                 if isinstance(mm, torch.nn.modules.batchnorm._BatchNorm)
                 for e, b in zip(me.buffers(), mm.buffers())]
-        self.extra_keys = tuple(extra_keys)
-        self.step = 0                     # optimizer updates made
+
+    @torch.no_grad()
+    def _update_ema(self) -> None:
+        ema, params = list(self.ema.parameters()), list(self.model.parameters())
+        torch._foreach_mul_(ema, self.ema_decay)
+        torch._foreach_add_(ema, params, alpha=1 - self.ema_decay)
+        for e, b in self._ema_buffers:
+            e.copy_(b)
 
     def _autocast(self):
         return torch.autocast(self.device.type, dtype=torch.bfloat16,
@@ -187,11 +207,7 @@ class PlainTrainer:
         self.optimizer.step()
         self.step += 1
         if self.ema is not None:
-            ema, params = list(self.ema.parameters()), list(self.model.parameters())
-            torch._foreach_mul_(ema, self.ema_decay)
-            torch._foreach_add_(ema, params, alpha=1 - self.ema_decay)
-            for e, b in self._ema_buffers:
-                e.copy_(b)
+            self._update_ema()
 
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """One update; the loss stays on the device (no host sync)."""

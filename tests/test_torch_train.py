@@ -260,10 +260,16 @@ def test_tv_loss_matches_jax():
 
 @pytest.mark.parametrize("name", ["gan", "poisson"])
 def test_later_slice_losses_raise(name):
-    with pytest.raises(NotImplementedError, match="slice"):
-        losses.get_loss_fn(name, {})
-    with pytest.raises(NotImplementedError, match="slice"):
-        losses.r1_penalty(None, None)
+    """"gan" is no pixel loss: not found, as in the JAX package (its
+    objectives are ``gan_loss``'s); "poisson" belongs to the SPECT slice."""
+    if name == "gan":
+        with pytest.raises(NotImplementedError, match="not found"):
+            jlosses.get_loss_fn(name)
+        with pytest.raises(NotImplementedError, match="not found"):
+            losses.get_loss_fn(name, {})
+    else:
+        with pytest.raises(NotImplementedError, match="slice"):
+            losses.get_loss_fn(name, {})
 
 
 def test_regularizers_match_jax():
@@ -387,18 +393,38 @@ def test_no_card_raises(tmp_path, hr_dir, monkeypatch):
 
 @pytest.mark.parametrize("what,name", [
     ("dataset", "spect"), ("net", "spynet"), ("dataset", "spectpatch"),
-    ("net", "discriminator_patchgan"), ("net", "discriminator_unet"),
-    ("trainer", "gan"), ("net", "discriminator_vgg_128")])
+    ("netD", "discriminator_patchgan"), ("netD", "discriminator_unet"),
+    ("trainer", "gan"), ("netD", "discriminator_vgg_128")])
 def test_later_slices_raise_naming_their_slice(what, name):
-    from kair_tpu_torch.models.registry import define_g
+    """The SPECT datasets still raise, naming their slice; the video and GAN
+    slices' entries build: ``define_g`` SpyNet (the JAX registry's
+    ``return_levels`` default [5]), ``define_d`` each discriminator,
+    ``define_trainer`` the GAN trainer."""
+    from kair_tpu_torch.models import discriminator as tdisc
+    from kair_tpu_torch.models.registry import define_d, define_g
+    from kair_tpu_torch.models.spynet import SpyNet
+    from kair_tpu_torch.train.gan import GanTrainer
     from kair_tpu_torch.train.select import define_trainer
-    with pytest.raises(NotImplementedError, match="slice"):
-        if what == "net":
-            define_g({"netG": {"net_type": name}})
-        elif what == "dataset":
+    if what == "dataset":
+        with pytest.raises(NotImplementedError, match="slice"):
             datasets.define_dataset({"dataset_type": name})
-        else:
-            define_trainer({"model": name})
+    elif what == "net":
+        net = define_g({"netG": {"net_type": name}})
+        assert isinstance(net, SpyNet) and net.return_levels == (5,)
+    elif what == "netD":
+        net = define_d({"netD": {"net_type": name, "base_nc": 8}})
+        want = {"discriminator_patchgan": tdisc.PatchGAN,
+                "discriminator_unet": tdisc.UNetDiscriminator,
+                "discriminator_vgg_128": tdisc.VGGStyleDiscriminator}[name]
+        assert type(net) is want
+    else:
+        opt = {"model": name,
+               "netG": {"net_type": "dncnn", "in_nc": 1, "out_nc": 1,
+                        "nc": 8, "nb": 3, "act_mode": "R"},
+               "netD": {"net_type": "discriminator_patchgan", "in_nc": 1,
+                        "base_nc": 8},
+               "train": {"G_lossfn_weight": 1.0, "F_lossfn_weight": 0}}
+        assert isinstance(define_trainer(opt, device="cpu"), GanTrainer)
 
 
 def _tiny_swinir(**kw):
