@@ -18,8 +18,9 @@ and the port's timing CLIs; then training the CNN zoo and SwinIR's gray
 denoising recipe from their option files; then RVRT-001 training through
 the STL2, GDA and 2-D Swin block kernels; then SwinIR-L x4 GAN training on
 the Swin-block kernels at C=240; then the face pipeline (GPEN,
-RetinaFace, cv2-free alignment). Phases, one flushed line each with its
-seconds:
+RetinaFace, cv2-free alignment); then the SPECT fork (SPECT SwinIR through
+cli/train_spect on the Swin-block kernels, DRUNet and RRDBNet-noUp in f32).
+Phases, one flushed line each with its seconds:
 
   0 device      card name, power limit (nvidia-smi), torch and CUDA versions
   1 build       the kernels, from csrc/, one nvcc process per source, all
@@ -259,6 +260,32 @@ seconds:
                 subtracted); (a) cli.test_face end to end on a seeded PNG
                 (--sr 2, the threshold under the detector's third score: 3
                 faces); (c) GPEN's ms per 512x512 face
+ 28 spect       seeded SPECT scans ((2, 1024, 256) float32 .dat: H Poisson
+                counts of a smooth phantom up to 150, L binomial_thin at
+                1/8; 8 training, 2 validation, 2 test pairs) and the three
+                experiments of options/spect generated by
+                cli.config_generator (data roots, run folder, checkpoint
+                intervals and val_2's eval_repoisson rewritten): (a) SPECT
+                SwinIR (embed 180, 6x6, window 8, in_nc 2, no upsampler)
+                bf16 at B=16 of 64x64, blocks by BLOCK_INIT: --dtype f32
+                refused naming the kernel; the first step's gradient
+                against the f32 plain route on the card with the f32
+                route's dL/dE fed to both (<= 8e-3 over all, 1e-1 a block
+                parameter, phase 24's gray limits; controls: the shifted
+                blocks one pixel off, the shift mask dropped) and with
+                each route's own Charbonnier gradient (<= 1e-1 a block
+                parameter); 36 row-1 + 36 row-3 launches a step, ms a
+                step, peak memory, busy ms and idle share; (b)
+                the EMA copy's bf16 evaluation forward of a 1x1024x256x2
+                scan (36 row-1 + 7 row-2 launches) against the f32 plain
+                route on the card (<= 2e-2 of max|ref|; control: no shift
+                mask), its ms; (c) cli.train_spect --dtype bf16 for 4 steps
+                with an evaluation at 2 and 4 (test, val_1, val_2 clean and
+                re-Poissoned: seconds and launches each), the best-PSNR /
+                SSIM files and 6 corr_*.png, then a resume to 5; (d)
+                DRUNet (poisson loss, epsilon 1 count) and RRDBNet-noUp in
+                f32 at B=32 of 64x64: the gradient at B=2 of 32x32 against
+                the CPU's (<= 1e-4; control: seed + 1 weights), ms a step
 
 Any failed check raises and the script exits non-zero; a watchdog ends a
 hung run with a traceback. The line before the last is one JSON object with
@@ -3942,14 +3969,21 @@ def swinir_l_parts(names) -> dict:
 class composed_swin_blocks:
     """While open, SwinIR's training blocks run the block kernels' plain
     version (composed PyTorch, autograd through it) instead of
-    ``swin_block_train``, on whatever device: the f32 reference route."""
+    ``swin_block_train``, on whatever device: the f32 reference route;
+    ``phase_off`` moves every shifted block's read that many pixels
+    further (a control: a block reading its shifted windows one pixel
+    off)."""
+
+    def __init__(self, phase_off: int = 0):
+        self.phase_off = phase_off
 
     def __enter__(self):
         from kair_tpu_torch.models import swinir as msw
         self.msw, self.fn = msw, msw.swin_block_train
+        off = self.phase_off
         msw.swin_block_train = lambda x, p, nh, mask, packed=None, \
             packed_bwd=None, phase=0: msw.swin_block_win_reference(
-                x, p, nh, mask, phase=phase, ws=8)
+                x, p, nh, mask, phase=phase + off if phase else 0, ws=8)
         return self
 
     def __exit__(self, *exc):
@@ -4503,6 +4537,476 @@ def phase_face(card: str, build_dir) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The SPECT fork (phase 28)
+# ---------------------------------------------------------------------------
+
+SPECT_DIR = "options/spect"
+SPECT_SETS = {"train": 8, "val": 2, "test": 2}
+# the template's test and val_2 sets read indices 96-99 of a 100-scan
+# folder, the training set indices 0-95
+SPECT_TEST_START = 96
+SPECT_TRAIN_ITEMS = 32
+# the gradient of the first SwinIR step against the f32 plain route: the
+# limits phase 24 holds the gray recipe to (over all, a block parameter);
+# read 0.005806 and 0.03214 on an H100 with one cotangent fed to both
+SPECT_GRAD_LIMITS = (8e-3, 1e-1)
+# the bf16 evaluation forward against the f32 plain route, max_abs over
+# max|ref| (PERF.md §2's model gate)
+SPECT_EVAL_LIMIT = 2e-2
+# the CNNs' gradient at B=2, card f32 against the CPU's (phase 24's limit)
+SPECT_CNN_LIMIT = 1e-4
+
+
+def spect_phantom(rng, peak: float = 150.0):
+    """A smooth seeded count rate (1024, 256, 2), up to ``peak``: a few
+    Gaussian blobs a view."""
+    import numpy as np
+    yy, xx = np.mgrid[:1024, :256] / np.array([1024.0, 256.0])[:, None, None]
+    rate = np.zeros((1024, 256, 2))
+    for c in range(2):
+        for _ in range(5):
+            cy, cx, s = rng.random(), rng.random(), 0.05 + 0.2 * rng.random()
+            rate[..., c] += np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / s ** 2)
+    return rate / rate.max() * peak
+
+
+def write_spect_sets(root: str, seed: int) -> dict:
+    """Seeded SPECT scans as the fork's raw (2, 1024, 256) float32 .dat
+    files: H Poisson counts of a smooth phantom up to about 150, L
+    ``binomial_thin`` of H at 1/8 (the template's "speed": 8). 8 training,
+    2 validation and 2 test pairs; the training folders list the 8 pairs
+    4 times by symlinks (32 items: batches of 32 need them), the test
+    folders put their pairs at indices 96-97 behind 96 symlinks, where the
+    template's indices read them. Returns {set: (H folder, L folder)}."""
+    import numpy as np
+    from kair_tpu_torch.data.dataset_spect import write_spect_dat
+    from kair_tpu_torch.utils.spect import binomial_thin
+    rng = np.random.default_rng(seed)
+    pairs = {}
+    for name, n in SPECT_SETS.items():
+        for i in range(n):
+            h = rng.poisson(spect_phantom(rng)).astype(np.float32)
+            l = binomial_thin(h, 1 / 8, rng)
+            for kind, img in (("H", h), ("L", l)):
+                os.makedirs(os.path.join(root, "scans", kind), exist_ok=True)
+                path = os.path.join(root, "scans", kind, f"{name}{i}.dat")
+                write_spect_dat(path, img)
+                pairs.setdefault((name, kind), []).append(path)
+    dirs = {}
+    for name in SPECT_SETS:
+        for kind in ("H", "L"):
+            d = os.path.join(root, f"{name}{kind}")
+            os.makedirs(d)
+            files = pairs[(name, kind)]
+            if name == "train":
+                links = [files[i % len(files)]
+                         for i in range(SPECT_TRAIN_ITEMS)]
+            elif name == "test":
+                links = [pairs[("train", kind)][0]] * SPECT_TEST_START + files
+            else:
+                links = files
+            for i, f in enumerate(links):
+                os.symlink(f, os.path.join(d, f"s{i:03d}.dat"))
+        dirs[name] = (os.path.join(root, f"{name}H"),
+                      os.path.join(root, f"{name}L"))
+    return dirs
+
+
+def spect_option_files(tmp: str, dirs: dict, test_every: int = 2,
+                       poisson=()) -> dict:
+    """The three experiments of options/spect generated by the port's
+    config_generator, then in the generated copies: the data roots, the
+    run folder, the checkpoint intervals (print 1, save and test every
+    ``test_every``), ``eval_repoisson`` on val_2 (the template sets it
+    nowhere); the experiments named in ``poisson`` train on the poisson
+    loss at an epsilon of 1 count. Returns {experiment: path}."""
+    from kair_tpu_torch import config
+    from kair_tpu_torch.cli.config_generator import generate_all
+    here = os.path.dirname(os.path.abspath(__file__))
+    args = [os.path.join(here, SPECT_DIR, f) for f in (
+        "base_template.json", "network_configs.json",
+        "experiment_configs.json")]
+    out = {}
+    for name, path in generate_all(*args, os.path.join(tmp, "generated")
+                                   ).items():
+        raw = config.load_json_with_comments(path)
+        raw["path"]["root"] = os.path.join(tmp, "runs")
+        ds = raw["datasets"]
+        for key, which in (("train", "train"), ("test", "test"),
+                           ("val_1", "val"), ("val_2", "test")):
+            ds[key]["dataroot_H"], ds[key]["dataroot_L"] = dirs[which]
+        ds["val_2"]["eval_repoisson"] = True
+        raw["train"].update(checkpoint_print=1, checkpoint_save=test_every,
+                            checkpoint_test=test_every)
+        if name in poisson:
+            raw["train"].update(G_lossfn_type="poisson", G_poisson_epsilon=1.0)
+        out[name] = os.path.join(tmp, f"{name}.json")
+        with open(out[name], "w") as f:
+            json.dump(raw, f)
+    return out
+
+
+def loss_grads(trainer, batch, cot=None) -> tuple:
+    """(G's f32 gradients, the output E in f32) of the trainer's loss on
+    ``batch``, or of ``E · cot`` when a cotangent dL/dE is given."""
+    import torch
+    from kair_tpu_torch.train.trainer import _tensor
+    trainer.optimizer.zero_grad(set_to_none=True)
+    with trainer._autocast():
+        e = trainer.model(*trainer._args(batch)).float()
+    if cot is None:
+        h = _tensor(batch["H"], trainer.device).float()
+        (trainer.loss_weight * trainer.loss_fn(e, h)).backward()
+    else:
+        e.backward(cot)
+    return ({n: (torch.zeros_like(p) if p.grad is None else p.grad)
+             .detach().float().cpu()
+             for n, p in trainer.model.named_parameters()}, e.detach())
+
+
+def spect_batches(ds_opt, n: int, seed: int) -> list:
+    """``n`` training batches of the option block's dataset (the files on
+    disk) through the port's Loader, epoch after epoch."""
+    from kair_tpu_torch.data.base import Loader
+    from kair_tpu_torch.data.datasets import define_dataset
+    loader = Loader(define_dataset(ds_opt), ds_opt["dataloader_batch_size"],
+                    seed=seed)
+    out, epoch = [], 0
+    while len(out) < n:
+        out += [{k: v for k, v in bt.items() if k in ("L", "H")}
+                for bt in loader.epoch(epoch)]
+        epoch += 1
+    return out[:n]
+
+
+def spect_cnn_case(ph, name: str, path: str, card: str, seed: int) -> None:
+    """A SPECT CNN from its generated option file in f32 at the file's
+    batch: the gradient at B=2 (32x32 crops) on the card against the CPU's
+    within SPECT_CNN_LIMIT, the weights of seed + 1 on the card as the
+    control; 1 warm-up and 3 timed steps."""
+    import numpy as np
+    import torch
+    from kair_tpu_torch import config
+    from kair_tpu_torch.train.select import define_trainer
+
+    opt = config.parse(path, is_train=True)
+    ds_opt, ot = opt["datasets"]["train"], opt["train"]
+    torch.manual_seed(seed)
+    trainer = define_trainer(opt, dtype=torch.float32)
+    batches = spect_batches(ds_opt, 4, SEED)
+    small = {k: np.ascontiguousarray(v[:2, :32, :32])
+             for k, v in batches[0].items()}
+    g_card = grads_of(trainer, small)
+    cpu = define_trainer(opt, dtype=torch.float32, device="cpu")
+    cpu.model.load_state_dict(trainer.model.state_dict())
+    g_cpu = grads_of(cpu, small)
+    del cpu
+    torch.manual_seed(seed + 1)
+    alt = define_trainer(opt, dtype=torch.float32)
+    names = list(g_cpu)
+    err = rel_norm(g_card, g_cpu, names)
+    eff = rel_norm(grads_of(alt, small), g_cpu, names)
+    del alt
+    loss = ot["G_lossfn_type"] + (
+        f" (epsilon {ot['G_poisson_epsilon']})"
+        if ot["G_lossfn_type"] == "poisson" else "")
+    ph.note(f"{name} ({opt['netG']['net_type']}, in_nc "
+            f"{opt['netG']['in_nc']}, "
+            f"{sum(p.numel() for p in trainer.model.parameters())} params, "
+            f"{loss}): gradient B=2 of 32x32, f32 card vs CPU relative norm "
+            f"{err:.4g} (limit {SPECT_CNN_LIMIT}), control (seed + 1 "
+            f"weights) {eff:.4g}")
+    require(err <= SPECT_CNN_LIMIT, f"{name}: gradient error {err:.4g}")
+    require(eff > SPECT_CNN_LIMIT and eff > 3 * err,
+            f"{name}: the seed + 1 control {eff:.4g} is not above the limit "
+            "and 3x the error")
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = timed_steps(trainer, batches)
+    bs = ds_opt["dataloader_batch_size"]
+    require(batches[0]["L"].shape == (bs, 64, 64, 2),
+            f"{name}: batch {batches[0]['L'].shape}")
+    ph.note(f"{name}: f32 B={bs} of 64x64x2, losses {losses[0]:.4g} .. "
+            f"{losses[-1]:.4g}; ms_per_step {ms:.2f} (mean of 3 after 1, "
+            f"CUDA events), {bs / (ms / 1e3):.1f} patches/s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def phase_spect(report: list, card: str, build_dir) -> None:
+    import copy
+    import numpy as np
+    import torch
+    from kair_tpu_torch import config
+    from kair_tpu_torch.cli import train_spect
+    from kair_tpu_torch.ops.kernels import conv_block, swin_block
+    from kair_tpu_torch.train.select import define_trainer
+    from kair_tpu_torch.train.trainer import bf16_only_route
+
+    lo_all, lo_param = SPECT_GRAD_LIMITS
+    t0 = time.perf_counter()
+    lap = lambda: f" [{time.perf_counter() - t0:.1f} s into the phase]"
+    with Phase("28 spect") as ph, \
+            tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        dirs = write_spect_sets(os.path.join(tmp, "data"), SEED + 280)
+        paths = spect_option_files(tmp, dirs,
+                                   poisson=("drunet_psnr_8x_linear",))
+        ph.note(f"seeded scans (2, 1024, 256) float32: H Poisson counts of "
+                f"a smooth phantom up to 150, L binomial_thin at 1/8; "
+                f"{SPECT_SETS} pairs; option files from options/spect by "
+                f"cli.config_generator: {sorted(paths)}" + lap())
+
+        # (a) SPECT SwinIR: bf16, the generated file's batch 16 of 64x64
+        opt = config.parse(paths["swinir_psnr_8x_linear"], is_train=True)
+        net, ds_opt = opt["netG"], opt["datasets"]["train"]
+        bs = ds_opt["dataloader_batch_size"]
+        try:
+            define_trainer(opt, dtype=torch.float32)
+            refusal = None
+        except NotImplementedError as e:
+            refusal = str(e)
+        torch.manual_seed(SEED + 280)
+        trainer = define_trainer(opt, dtype=torch.bfloat16)
+        require(refusal is not None and bf16_only_route(trainer.model)
+                in refusal, f"--dtype f32 on the card: {refusal}")
+        sd = seeded_train_weights(trainer.model, SEED + 281)
+        trainer.model.load_state_dict(sd)
+        trainer.ema.load_state_dict(sd)
+        batches = spect_batches(ds_opt, 4, SEED)
+        require(batches[0]["L"].shape == (bs, 64, 64, 2),
+                f"SPECT batch {batches[0]['L'].shape}")
+        n_blocks = sum(net["depths"])
+        ph.note(f"(a) SPECT SwinIR (embed {net['embed_dim']}, depths "
+                f"{net['depths']}, {net['num_heads'][0]} heads, window "
+                f"{net['window_size']}, in_nc {net['in_nc']}, upsampler "
+                f"{net['upsampler']}, "
+                f"{sum(p.numel() for p in trainer.model.parameters())} "
+                f"params, blocks by BLOCK_INIT), "
+                f"{opt['train']['G_lossfn_type']} loss, batch {bs} of 64x64x2; "
+                f"--dtype f32 refused: '{refusal[:120]}'" + lap())
+
+        # the first step's gradient: bf16 kernels against the f32 plain
+        # route on the card. Charbonnier at eps 1e-9 is sign(E - H)
+        # wherever |E - H| > 3e-5: where bf16 moves E across H, dL/dE
+        # flips, and the whole step's gradient carries that noise. So the
+        # kernels are held to the f32 route with one cotangent, the f32
+        # route's dL/dE, fed to both backwards (control over all: the
+        # shifted blocks reading one pixel off; a block parameter: no
+        # shift mask, which hardly moves the norm over all, held by
+        # conv_first, the tails and the LayerNorms), and each route's own
+        # loss gradient a block parameter.
+        b0 = batches[0]
+        h0 = torch.from_numpy(b0["H"]).cuda()
+        g_card, e_card = loss_grads(trainer, b0)
+        ref = copy.copy(trainer)
+        ref.dtype = torch.float32
+        with composed_swin_blocks():
+            g_ref, e_ref = loss_grads(ref, b0)
+            e_leaf = e_ref.clone().requires_grad_(True)
+            trainer.loss_fn(e_leaf, h0).backward()
+            cot = e_leaf.grad * trainer.loss_weight
+            c_ref, _ = loss_grads(ref, b0, cot)
+            c_ctl, _ = cpu_without_shift_mask(lambda: loss_grads(ref, b0, cot))
+            g_ctl, _ = cpu_without_shift_mask(lambda: loss_grads(ref, b0))
+        with composed_swin_blocks(phase_off=1):
+            c_off, _ = loss_grads(ref, b0, cot)
+        c_card, _ = loss_grads(trainer, b0, cot)
+        del ref
+        flips = ((e_card - h0).sign() != (e_ref - h0).sign()).float().mean()
+        names = list(g_ref)
+        block = [n for n in names if ".residual_group.blocks." in n]
+
+        def held(card_g, ref_g, ctl_g):
+            per = {n: rel_norm(card_g, ref_g, [n]) for n in block}
+            eff = {n: rel_norm(ctl_g, ref_g, [n]) for n in block}
+            worst, eff_worst = max(per, key=per.get), max(eff, key=eff.get)
+            return (rel_norm(card_g, ref_g, names), worst, per[worst],
+                    rel_norm(ctl_g, ref_g, names), eff_worst, eff[eff_worst])
+        c_all, c_w, c_wv, cc_all, cc_w, cc_wv = held(c_card, c_ref, c_ctl)
+        g_all, g_w, g_wv, gc_all, gc_w, gc_wv = held(g_card, g_ref, g_ctl)
+        co_all = rel_norm(c_off, c_ref, names)
+        ph.note(f"(a) first step's gradient at B={bs}, bf16 card vs the f32 "
+                f"plain route on the card, relative norm; with the f32 "
+                f"route's dL/dE fed to both: {c_all:.4g} over all (limit "
+                f"{lo_all}), worst block parameter {c_w} {c_wv:.4g} (limit "
+                f"{lo_param}); controls: without the shift mask "
+                f"{cc_all:.4g} over all, {cc_wv:.4g} at {cc_w}; the shifted "
+                f"blocks reading one pixel off {co_all:.4g} over all. Each "
+                f"route's own loss "
+                f"gradient: {g_all:.4g} over all, worst block parameter "
+                f"{g_w} {g_wv:.4g} (limit {lo_param}), control {gc_all:.4g} "
+                f"/ {gc_wv:.4g} at {gc_w}; sign(E - H) differs at "
+                f"{flips.item():.4f} of the pixels [{card}]" + lap())
+        require(c_all <= lo_all and c_wv <= lo_param,
+                f"SPECT gradient {c_all:.4g} / {c_w} {c_wv:.4g}")
+        require(co_all > lo_all and co_all > 3 * c_all,
+                "SPECT: the one-pixel-off control is not above the limit and "
+                "3x the error over all")
+        require(cc_wv > lo_param and cc_wv > 3 * c_wv,
+                "SPECT: the dropped-mask control is not above the block "
+                "parameter limit and 3x the worst error")
+        require(g_wv <= lo_param and gc_wv > lo_param and gc_wv > 3 * g_wv,
+                f"SPECT loss gradient {g_w} {g_wv:.4g}, control {gc_wv:.4g}")
+        del g_card, g_ref, g_ctl, c_card, c_ref, c_ctl, c_off
+
+        # steps: 36 row-1 and 36 row-3 launches a step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        swin_block.swin_block_2d_bwd.launches = 0
+        with LaunchCount() as lc:
+            ms, losses = timed_steps(trainer, batches)
+        n_bwd = swin_block.swin_block_2d_bwd.launches
+        mem = torch.cuda.max_memory_allocated()
+        steps = len(batches)
+        lc.expect("SPECT training", swin_block_2d=n_blocks * steps)
+        require(n_bwd == n_blocks * steps,
+                f"SPECT training: {n_bwd} backward launches in {steps} steps")
+        per_step = {"swin_block_2d": lc.counts["swin_block_2d"] // steps,
+                    "swin_block_2d_bwd": n_bwd // steps}
+        for k in report:
+            if k["name"] in per_step:
+                k["spect_train_launches_per_step"] = per_step[k["name"]]
+        prof = device_breakdown(lambda: [trainer.train_step(bt)
+                                         for bt in batches[1:3]], 2, ms,
+                                "step", sums=("swin_",))
+        ph.note(f"(a) launches in {steps} steps: swin_block_2d "
+                f"{lc.counts['swin_block_2d']}, swin_block_2d_bwd {n_bwd}, "
+                f"conv tail {lc.counts['conv3x3_residual']}, composed "
+                f"{lc.counts['composed']} ({n_blocks} + {n_blocks} a step); "
+                f"losses {losses[0]:.4g} .. {losses[-1]:.4g}; ms_per_step "
+                f"{ms:.2f} (bf16, mean of 3 after 1, CUDA events), "
+                f"{bs / (ms / 1e3):.1f} patches/s, peak memory "
+                f"{mem / 2 ** 30:.2f} GiB (no use_checkpoint); {prof} "
+                f"[{card}]" + lap())
+
+        # (b) the evaluation forward on a full 1024x256 scan: the EMA copy
+        # in bf16 through rows 1 and 2 against the f32 plain route
+        from kair_tpu_torch.data.dataset_spect import DatasetSPECT
+        val = DatasetSPECT(opt["datasets"]["val_1"])
+        lq = val.get_example(0, None)["L"][None]
+        with LaunchCount() as lc:
+            out = trainer.eval_step({"L": lq}, use_ema=True)
+        lc.expect("SPECT evaluation forward", swin_block_2d=n_blocks,
+                  conv3x3_residual=len(net["depths"]) + 1)
+        ref_m = copy.deepcopy(trainer.ema).float().train()
+        x = torch.from_numpy(lq).cuda()
+        with torch.no_grad(), composed_swin_blocks():
+            want = ref_m(x)
+            ctl = cpu_without_shift_mask(lambda: ref_m(x))
+        del ref_m
+        _, rel, ref_max, _ = compare(out, want)
+        _, rel_ctl, _, _ = compare(ctl, want)
+        _, rel_res, _, _ = compare(out - x, want - x)
+        ph.note(f"(b) evaluation forward 1x1024x256x2 (128 x 32 windows, "
+                f"the shift mask at both edges): {n_blocks} swin_block_2d + "
+                f"{len(net['depths']) + 1} conv tail launches, bf16 vs the "
+                f"f32 plain route on the card max_abs / max|ref| {rel:.4g} "
+                f"(limit {SPECT_EVAL_LIMIT}; max|ref| {ref_max:.4g}; on the "
+                f"network's residual out - L {rel_res:.4g}); control without "
+                f"the shift mask {rel_ctl:.4g} [{card}]" + lap())
+        require(torch.isfinite(out).all().item()
+                and out.shape == (1, 1024, 256, 2), f"eval out {out.shape}")
+        require(rel <= SPECT_EVAL_LIMIT, f"SPECT eval error {rel:.4g}")
+        require(rel_ctl > SPECT_EVAL_LIMIT and rel_ctl > 3 * rel,
+                f"SPECT eval control {rel_ctl:.4g} is not above the limit "
+                "and 3x the error")
+        model_bf16 = copy.deepcopy(trainer.ema).to(torch.bfloat16).eval()
+        with torch.inference_mode():
+            fwd_ms = cuda_ms(lambda: model_bf16(x), warmup=1, reps=5)
+        del model_bf16, trainer
+        torch.cuda.empty_cache()
+        ph.note(f"(b) evaluation forward {fwd_ms:.2f} ms a 1024x256 scan "
+                f"(median of 5, CUDA events, bf16) [{card}]")
+
+        # (c) cli.train_spect --dtype bf16: 4 steps with an evaluation at
+        # 2 and 4 (every test* / val* set, val_2 also re-Poissoned), then a
+        # resume to 5; each evaluation timed and its launches counted
+        evals, run = [], train_spect.run_evals
+
+        def timed_evals(*a, **kw):
+            n1 = swin_block.swin_block_2d.launches
+            n2 = conv_block.conv3x3_residual.launches
+            t1 = time.perf_counter()
+            m = run(*a, **kw)
+            evals.append((time.perf_counter() - t1,
+                          swin_block.swin_block_2d.launches - n1,
+                          conv_block.conv3x3_residual.launches - n2, m))
+            return m
+        path = paths["swinir_psnr_8x_linear"]
+        train_spect.run_evals = timed_evals
+        try:
+            with LaunchCount() as lc:
+                swin_block.swin_block_2d_bwd.launches = 0
+                t1 = train_spect.main(argv=["--opt", path, "--dtype", "bf16",
+                                            "--max_steps", "4"])
+                first = (t1.step, t1.dtype)
+                del t1
+                t2 = train_spect.main(argv=["--opt", path, "--dtype", "bf16",
+                                            "--max_steps", "5"])
+                n_bwd = swin_block.swin_block_2d_bwd.launches
+        finally:
+            train_spect.run_evals = run
+        step2 = t2.step
+        del t2
+        torch.cuda.empty_cache()
+        task = config.parse(path)["path"]["task"]
+        models = os.path.join(task, "models")
+        n_img = sum(len(DatasetSPECT(opt["datasets"][k])) * (
+            2 if opt["datasets"][k].get("eval_repoisson") else 1)
+            for k in opt["datasets"] if k.startswith(("test", "val")))
+        with open(os.path.join(task, "metrics.csv")) as f:
+            csv_lines = f.read().strip().splitlines()
+        plots = sorted(f for f in os.listdir(task) if f.startswith("corr_"))
+        best = sorted(os.listdir(os.path.join(models, "bestmodel")))
+        secs = ", ".join(f"{s:.2f} s ({a} + {c} launches)"
+                         for s, a, c, _ in evals)
+        ph.note(f"(c) cli.train_spect --dtype bf16: 4 steps, then a resume "
+                f"to {step2}; {len(evals)} evaluations of {n_img} scans "
+                f"each (test, val_1, val_2 clean and re-Poissoned): {secs}; "
+                f"metrics.csv {len(csv_lines) - 1} rows x "
+                f"{len(csv_lines[0].split(','))} columns; best files {best}; "
+                f"plots {plots[:2]} and {len(plots) - 2} more; launches over "
+                f"both runs {lc.counts}, swin_block_2d_bwd {n_bwd} [{card}]"
+                + lap())
+        last = evals[-1][3]
+        require(first == (4, torch.bfloat16) and step2 == 5,
+                f"cli.train_spect steps {first} / {step2}")
+        require(len(evals) == 2 and all(
+            a == n_blocks * n_img and c == (len(net["depths"]) + 1) * n_img
+            for _, a, c, _ in evals),
+            f"evaluation launches {[(a, c) for _, a, c, _ in evals]}")
+        # the last evaluation's launches a scan, as cli.train_spect made them
+        _, a_last, c_last, _ = evals[-1]
+        per_scan = {"swin_block_2d": a_last // n_img,
+                    "conv3x3_residual": c_last // n_img}
+        for k in report:
+            if k["name"] in per_scan:
+                k["spect_eval_launches_per_scan"] = per_scan[k["name"]]
+        require(lc.counts["swin_block_2d"] == n_blocks * (5 + 2 * n_img)
+                and n_bwd == n_blocks * 5 and lc.counts["composed"] == 0,
+                f"cli.train_spect launches {lc.counts}, backward {n_bwd}")
+        require(len(csv_lines) == 3 and all(np.isfinite(v) for v in
+                                            last.values())
+                and "val_2_poisson_pll" in last and "test_psnr" in last
+                and last["test_loss"] > 0,
+                f"metrics {last}")
+        require(best == ["best_psnr_E.pth", "best_psnr_G.pth",
+                         "best_ssim_E.pth", "best_ssim_G.pth"]
+                and len(plots) == 6 and {"4_G.pth", "5_G.pth"} <= set(
+                    os.listdir(models)), f"files {best} {plots}")
+        ph.note("(c) the last evaluation: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in last.items()
+            if k.startswith(("test_", "val_2_poisson_"))))
+
+        # (d) DRUNet (on the poisson loss) and RRDBNet-noUp in f32
+        spect_cnn_case(ph, "DRUNet", paths["drunet_psnr_8x_linear"], card,
+                       SEED + 282)
+        spect_cnn_case(ph, "RRDBNet-noUp", paths["rrdbnet_psnr_8x_linear"],
+                       card, SEED + 283)
+        ph.note("done" + lap())
+
+
 def phase_build() -> None:
     """Phase 1: build the kernels, check the layout mirrors, print ptxas."""
     from kair_tpu_torch.ops.kernels import _build
@@ -4714,6 +5218,7 @@ def main() -> int:
     phase_rvrt_train(report, card, _build.BUILD_DIR)
     phase_gan_train(report, card, _build.BUILD_DIR)
     phase_face(card, _build.BUILD_DIR)
+    phase_spect(report, card, _build.BUILD_DIR)
     faulthandler.cancel_dump_traceback_later()
 
     log(card)

@@ -103,9 +103,7 @@ def main(argv=None):
         name = os.path.splitext(os.path.basename(path))[0]
         img = read_rgb(path)
         if args.sr and args.sr != 1.0:
-            h, w = img.shape[:2]
-            img = cv_ops.resize_linear(img, (int(round(w * args.sr)),
-                                             int(round(h * args.sr))))
+            img = cv_ops.resize_linear(img, (0, 0), fx=args.sr, fy=args.sr)
         out, orig_faces, enhanced_faces = enhance_faces(
             img, detector, enhancer, size=args.size, threshold=args.threshold)
         logger.info(f"{idx + 1:4d} -> {name}: {len(orig_faces)} face(s)")

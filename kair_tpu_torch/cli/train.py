@@ -21,10 +21,13 @@ run trains on one card with the option file's batch.
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import random
+import shutil
 import time
-from typing import Optional
+from dataclasses import dataclass
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -118,7 +121,8 @@ def evaluate_video(trainer: PlainTrainer, test_loader: Loader, opt: dict,
     return float(np.mean(psnrs)), float(np.mean(ssims))
 
 
-def main(json_path: Optional[str] = None, argv=None) -> PlainTrainer:
+def make_parser(json_path: Optional[str] = None) -> argparse.ArgumentParser:
+    """The arguments every training CLI of the port takes."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--opt", type=str, default=json_path,
                         required=json_path is None)
@@ -127,17 +131,44 @@ def main(json_path: Optional[str] = None, argv=None) -> PlainTrainer:
                         help="cuda (default) or cpu")
     parser.add_argument("--max_steps", type=int, default=None,
                         help="stop after N optimizer steps")
-    args = parser.parse_args(argv)
+    return parser
 
+
+@dataclass
+class Run:
+    """A training run as ``prepare`` sets it up: the trainer resumed at
+    ``init_iter``, its train loader, and where to stop."""
+    opt: dict
+    logger: logging.Logger
+    seed: int
+    trainer: PlainTrainer
+    train_loader: Loader
+    init_iter: int
+    max_iter: int
+
+
+def prepare(args: argparse.Namespace, logger_name: str = "train",
+            default_seed: Optional[int] = None, restart: bool = False) -> Run:
+    """Parse the option file, make the run's folders (``restart`` wipes the
+    task folder first), log, seed, build the trainer and the train loader,
+    and resume from the newest ``_G`` checkpoint (or ``pretrained_netG``;
+    reference main_train_psnr.py:63-69). Without ``train.manual_seed`` the
+    seed is ``default_seed`` when given (a ``manual_seed`` of 0 too, as the
+    SPECT CLI reads it), else drawn at random."""
     opt = opt_util.parse(args.opt, is_train=True)
+    if restart and os.path.isdir(opt["path"]["task"]):
+        shutil.rmtree(opt["path"]["task"])
     for d in ("models", "images", "options", "log"):
         os.makedirs(opt["path"].get(d) or opt["path"]["task"], exist_ok=True)
     opt_util.save(opt)
-    logger = setup_logger("train", os.path.join(opt["path"]["log"], "train.log"))
+    logger = setup_logger(logger_name,
+                          os.path.join(opt["path"]["log"], "train.log"))
     logger.info(opt_util.dict2str(opt))
 
     seed = opt["train"].get("manual_seed")
-    if seed is None:
+    if default_seed is not None:
+        seed = seed or default_seed
+    elif seed is None:
         seed = random.randint(1, 10000)
     logger.info(f"Random seed: {seed}")
     np.random.seed(seed)
@@ -149,69 +180,86 @@ def main(json_path: Optional[str] = None, argv=None) -> PlainTrainer:
                     "is a later slice of the port; training on one card with "
                     "the option file's batch")
 
-    train_loader = test_loader = None
-    test_is_video = False
-    for phase, ds_opt in opt["datasets"].items():
-        if phase == "train":
-            train_loader = make_train_loader(
-                ds_opt, ds_opt.get("dataloader_batch_size") or 16, seed=seed,
-                info=logger.info)
-        elif phase == "test":
-            test_loader = Loader(define_dataset(ds_opt), 1, shuffle=False,
-                                 drop_last=False)
-            test_is_video = "video" in (ds_opt.get("dataset_type")
-                                        or "").lower()
-    if train_loader is None:
+    ds_opt = opt["datasets"].get("train")
+    if ds_opt is None:
         raise ValueError(f"{args.opt}: no 'train' entry under 'datasets'")
+    train_loader = make_train_loader(
+        ds_opt, ds_opt.get("dataloader_batch_size") or 16, seed=seed,
+        info=logger.info)
 
-    # auto-resume (reference main_train_psnr.py:63-69)
     init_iter, init_path = opt_util.find_last_checkpoint(
         opt["path"]["models"], "G",
         pretrained_path=opt["path"].get("pretrained_netG"))
     if init_path and os.path.exists(init_path):
-        logger.info(f"resume from {init_path} @ iter {init_iter}")
+        logger.info(f"resume from {init_path} @ {init_iter}")
         trainer.resume(init_path, init_iter)
-    current_step = int(init_iter)
+    max_iter = args.max_steps or opt["train"].get("max_iter") or 10 ** 8
+    return Run(opt, logger, seed, trainer, train_loader, int(init_iter),
+               max_iter)
 
-    ot = opt["train"]
-    checkpoint_print = ot.get("checkpoint_print") or 200
-    checkpoint_save = ot.get("checkpoint_save") or 5000
-    checkpoint_test = ot.get("checkpoint_test") or 5000
-    max_iter = args.max_steps or ot.get("max_iter") or 10 ** 8
-    border = opt.get("scale") or 1
-    models = opt["path"]["models"]
 
+def train_loop(run: Run, save_every: int, test_every: int, prune: bool,
+               on_test: Optional[Callable[[int, int], None]] = None
+               ) -> PlainTrainer:
+    """Step from ``run.init_iter`` to ``run.max_iter``: the regularizers
+    after each step, a log line every ``train.checkpoint_print`` steps,
+    checkpoints every ``save_every`` (the older ones pruned when
+    ``prune``), ``on_test(step, epoch)`` every ``test_every``, and the
+    last step saved."""
+    trainer, logger = run.trainer, run.logger
+    models = run.opt["path"]["models"]
+    print_every = run.opt["train"].get("checkpoint_print") or 200
+    step = run.init_iter
     t0 = time.time()
     for epoch in range(10 ** 9):
-        for batch in train_loader.epoch(epoch + seed):
-            if current_step >= max_iter:
+        for batch in run.train_loader.epoch(epoch + run.seed):
+            if step >= run.max_iter:
                 logger.info("reached max_iter, stopping")
-                trainer.save(models, current_step)
+                trainer.save(models, step)
                 return trainer
-            current_step += 1
+            step += 1
             metrics = trainer.train_step(batch)
-            trainer.apply_regularizers(current_step)
+            trainer.apply_regularizers(step)
 
-            if current_step % checkpoint_print == 0:
-                lr = trainer.current_lr(current_step)
-                ips = (current_step - init_iter) / max(time.time() - t0, 1e-9)
-                logger.info(f"<epoch:{epoch:3d}, iter:{current_step:8,d}, "
+            if step % print_every == 0:
+                lr = trainer.current_lr(step)
+                ips = (step - run.init_iter) / max(time.time() - t0, 1e-9)
+                logger.info(f"<epoch:{epoch:3d}, iter:{step:8,d}, "
                             f"lr:{lr:.3e}> G_loss: {float(metrics['G_loss']):.3e} "
                             f"it/s: {ips:.2f}")
-            if current_step % checkpoint_save == 0:
+            if step % save_every == 0:
                 logger.info("Saving the model.")
-                trainer.save(models, current_step)
-                if ot.get("keep_only_latest"):
+                trainer.save(models, step)
+                if prune:
                     for tag in ("G", "E", "optimizerG"):
-                        ck.prune_old(models, tag, current_step)
-            if current_step % checkpoint_test == 0 and test_loader is not None:
-                if test_is_video:
-                    psnr, ssim = evaluate_video(trainer, test_loader, opt,
-                                                logger)
-                else:
-                    psnr, ssim = evaluate(trainer, test_loader, border=border)
-                logger.info(f"<epoch:{epoch:3d}, iter:{current_step:8,d}, "
-                            f"Average PSNR : {psnr:<.2f}dB, SSIM : {ssim:<.4f}")
+                        ck.prune_old(models, tag, step)
+            if on_test is not None and step % test_every == 0:
+                on_test(step, epoch)
+
+
+def main(json_path: Optional[str] = None, argv=None) -> PlainTrainer:
+    run = prepare(make_parser(json_path).parse_args(argv))
+    opt, logger = run.opt, run.logger
+    ds_opt = opt["datasets"].get("test")
+    test_loader = (Loader(define_dataset(ds_opt), 1, shuffle=False,
+                          drop_last=False) if ds_opt else None)
+    test_is_video = "video" in ((ds_opt or {}).get("dataset_type") or
+                                "").lower()
+    border = opt.get("scale") or 1
+
+    def on_test(step: int, epoch: int) -> None:
+        if test_is_video:
+            psnr, ssim = evaluate_video(run.trainer, test_loader, opt, logger)
+        else:
+            psnr, ssim = evaluate(run.trainer, test_loader, border=border)
+        logger.info(f"<epoch:{epoch:3d}, iter:{step:8,d}, "
+                    f"Average PSNR : {psnr:<.2f}dB, SSIM : {ssim:<.4f}")
+
+    ot = opt["train"]
+    return train_loop(run, save_every=ot.get("checkpoint_save") or 5000,
+                      test_every=ot.get("checkpoint_test") or 5000,
+                      prune=bool(ot.get("keep_only_latest")),
+                      on_test=on_test if test_loader is not None else None)
 
 
 if __name__ == "__main__":

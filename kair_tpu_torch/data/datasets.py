@@ -242,10 +242,8 @@ class DatasetL(ImageFiles):
         return {"L": img_l.astype(np.float32), "L_path": l_path}
 
 
-# dataset types of the JAX package's extra registry, by the slice of the
-# port that brings them (ROADMAP.md, Queue 1)
-LATER_SLICES = {"spect": "SPECT", "spectpatch": "SPECT"}
-# types whose classes live in modules of their own: (module, class)
+# types whose classes live in modules of their own: (module, class); the
+# JAX package's extra registry (kair_tpu/data/extra_registry.py)
 MODULES = {
     "usrnet": ("dataset_usrnet", "DatasetUSRNet"),
     "srmd": ("dataset_srmd", "DatasetSRMD"),
@@ -254,6 +252,8 @@ MODULES = {
     "plainpatch": ("dataset_patch", "DatasetPlainPatch"),
     "blindsr": ("dataset_blindsr", "DatasetBlindSR"),
     "jpeg": ("dataset_jpeg", "DatasetJPEG"),
+    "spect": ("dataset_spect", "DatasetSPECT"),
+    "spectpatch": ("dataset_spect", "DatasetSPECTPatch"),
     "videorecurrenttraindataset": ("dataset_video", "VideoRecurrentTrainDataset"),
     "video_train": ("dataset_video", "VideoRecurrentTrainDataset"),
     "videorecurrenttestdataset": ("dataset_video", "VideoRecurrentTestDataset"),
@@ -300,11 +300,6 @@ def dataset_class(opt_ds: dict) -> type:
         module, cls = MODULES[t]
         return getattr(importlib.import_module(
             f"kair_tpu_torch.data.{module}"), cls)
-    slice_name = LATER_SLICES.get(t)
-    if slice_name:
-        raise NotImplementedError(
-            f"dataset type [{t}] belongs to the {slice_name} slice of the "
-            "port, not ported yet")
     raise NotImplementedError(f"dataset type [{t}] is not implemented yet")
 
 

@@ -147,3 +147,25 @@ def make_lpips_fn(model: LPIPSAlex, device=None) -> Callable:
             return float(model(prep(img1), prep(img2))[0])
 
     return fn
+
+
+def load_lpips_default(weights_dir: Optional[str] = None, device=None):
+    """(model, state dict, lpips_fn) from the conventional weights
+    location, or None when the files are absent (counterpart of
+    ``kair_tpu/models/lpips_jax.load_lpips_default``). The folder is
+    ``weights_dir``, else ``$KAIR_LPIPS_DIR``, else
+    ``<cwd>/model_zoo/lpips``; it must hold
+      alexnet.pth  torchvision's AlexNet IMAGENET1K_V1 state dict
+      alex.pth     the ``lpips`` package's v0.1 alex linear heads.
+    Nothing is downloaded. ``lpips_fn`` runs on ``device``: the card unless
+    the caller asks for the CPU."""
+    from kair_tpu_torch import default_device
+
+    d = weights_dir or os.environ.get("KAIR_LPIPS_DIR") \
+        or os.path.join(os.getcwd(), "model_zoo", "lpips")
+    alex_path = os.path.join(d, "alexnet.pth")
+    lin_path = os.path.join(d, "alex.pth")
+    if not (os.path.exists(alex_path) and os.path.exists(lin_path)):
+        return None
+    model = load_lpips(alex_path, lin_path).to(default_device(device))
+    return model, model.state_dict(), make_lpips_fn(model)

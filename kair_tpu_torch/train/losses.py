@@ -5,8 +5,8 @@ models/loss.py, models/loss_ssim.py). Images are NHWC.
 The GAN losses (reference loss.py:136-173) and the StyleGAN2 regularisers
 (R1, path length, gradient penalty; loss.py:222-290) take torch callables
 and differentiate them with ``torch.autograd.grad(..., create_graph=True)``,
-so their penalties train the network they probe. The SPECT Poisson loss
-belongs to a later slice and raises.
+so their penalties train the network they probe. ``poisson_ll_loss`` is
+the SPECT fork's negative Poisson log-likelihood in the counts domain.
 """
 
 from __future__ import annotations
@@ -101,7 +101,29 @@ def gan_loss(logits, target_is_real: bool, gan_type: str = "gan",
     raise NotImplementedError(f"GAN type [{gan_type}] is not found")
 
 
-LATER_SLICES = {"poisson": "SPECT"}
+def denormalize_spect(img, method: str = "linear", max_pixel: float = 150.0):
+    """Normalised SPECT images back to counts, on tensors (reference
+    loss.py:310-319; the JAX loss's default method is "linear", unlike
+    ``utils/spect``'s "log")."""
+    if method == "log":
+        return torch.exp(img * math.log(max_pixel + 1.0)) - 1.0
+    if method == "anscombe":
+        return (math.sqrt(max_pixel + 3.0 / 8.0) * img) ** 2 - 3.0 / 8.0
+    if method == "linear":
+        return img * max_pixel
+    raise ValueError(f"Unknown normalization method: {method}")
+
+
+def poisson_ll_loss(pred, target, normalization_method: str = "linear",
+                    max_pixel: float = 150.0, epsilon: float = 1e-9):
+    """Negative mean Poisson log-likelihood −(k·log λ − λ) in the counts
+    domain: λ the denormalised prediction clipped below at ``epsilon``, k
+    the denormalised target clipped at 0 (fork, reference loss.py:294-345)."""
+    lam = torch.clamp(denormalize_spect(pred, normalization_method,
+                                        max_pixel), min=epsilon)
+    k = torch.clamp(denormalize_spect(target, normalization_method,
+                                      max_pixel), min=0.0)
+    return -torch.mean(k * torch.log(lam) - lam)
 
 
 def get_loss_fn(name: str, opt_train: Optional[dict] = None) -> Callable:
@@ -122,16 +144,14 @@ def get_loss_fn(name: str, opt_train: Optional[dict] = None) -> Callable:
     if name == "charbonnier":
         return partial(charbonnier_loss,
                        eps=opt_train.get("G_charbonnier_eps") or 1e-9)
-    if name in LATER_SLICES:
-        raise NotImplementedError(
-            f"loss [{name}] belongs to the {LATER_SLICES[name]} slice of the "
-            "port, not ported yet")
+    if name == "poisson":
+        return partial(
+            poisson_ll_loss,
+            normalization_method=opt_train.get(
+                "G_poisson_normalization_method") or "linear",
+            max_pixel=opt_train.get("G_poisson_max_pixel") or 150.0,
+            epsilon=opt_train.get("G_poisson_epsilon") or 1e-9)
     raise NotImplementedError(f"Loss type [{name}] is not found.")
-
-
-def poisson_ll_loss(*args, **kwargs):
-    raise NotImplementedError("poisson_ll_loss belongs to the SPECT slice of "
-                              "the port, not ported yet")
 
 
 # ----------------------------------------------------------------------------

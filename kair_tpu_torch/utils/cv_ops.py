@@ -22,7 +22,7 @@ holds each against cv2 itself.
 * ``filter2d_u8``: ``cv2.filter2D(src, -1, kernel)`` of an 8-bit image
   (BORDER_REFLECT_101, float sums rounded half to even and saturated).
 * ``resize_linear``: ``cv2.resize(..., INTER_LINEAR)`` (half-pixel
-  centres, edge samples clamped): float images in float32, 8-bit images in
+  centres, edge samples clamped; by dsize, or by cv2's fx, fy): float images in float32, 8-bit images in
   cv2's fixed point (weights ×2048, rounded; the vertical pass as cv2's
   vector code rounds it, which the tests hold to one level on a few
   percent of the pixels).
@@ -189,12 +189,13 @@ def filter2d_u8(src: Array, kernel: np.ndarray):
     return _back(out[..., 0] if gray else out, was_np)
 
 
-def _linear_taps(n_in: int, n_out: int, coord32: bool):
+def _linear_taps(n_in: int, n_out: int, coord32: bool, inv_scale=None):
     """cv2 INTER_LINEAR along one axis: the two source indices and their
     float32 weights of each output sample (half-pixel centres, clamped);
     ``coord32`` the source position rounded to float32 first (cv2's 8-bit
-    path)."""
-    scale = 1.0 / (n_out / n_in)
+    path); ``inv_scale`` cv2's fx or fy when given (the taps step by 1/fx),
+    else n_out / n_in."""
+    scale = 1.0 / (n_out / n_in if inv_scale is None else inv_scale)
     f = (np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5
     if coord32:
         f = f.astype(np.float32)
@@ -207,19 +208,31 @@ def _linear_taps(n_in: int, n_out: int, coord32: bool):
     return s, np.minimum(s + 1, n_in - 1), np.float32(1) - f, f
 
 
-def resize_linear(src: Array, dsize: Tuple[int, int]):
-    """cv2.resize(src, dsize) with INTER_LINEAR: src (H, W) or (H, W, C),
-    uint8 or float32; dsize (width, height)."""
+def resize_linear(src: Array, dsize: Tuple[int, int] = (0, 0),
+                  fx: float = 0.0, fy: float = 0.0):
+    """cv2.resize(src, dsize, fx=fx, fy=fy) with INTER_LINEAR: src (H, W)
+    or (H, W, C), uint8 or float32; dsize (width, height). With dsize
+    (0, 0), as cv2: the output is round(W·fx) x round(H·fy) and the taps
+    sample the source every 1/fx, 1/fy (not every W/round(W·fx))."""
     x, was_np = _as_tensor(src)
-    w_out, h_out = dsize
     h_in, w_in = x.shape[:2]
-    if (h_in, w_in) == (h_out, w_out):
+    w_out, h_out = dsize
+    if w_out <= 0 or h_out <= 0:
+        if fx <= 0 or fy <= 0:
+            raise ValueError("resize_linear: give dsize or both fx and fy")
+        # cv2's saturate_cast<int>: round half to even
+        w_out, h_out = int(np.rint(w_in * fx)), int(np.rint(h_in * fy))
+        inv_x, inv_y = float(fx), float(fy)
+    else:
+        inv_x = inv_y = None
+    if (h_in, w_in) == (h_out, w_out) and inv_x in (None, 1.0) \
+            and inv_y in (None, 1.0):
         return _back(x.clone(), was_np)
     gray = x.ndim == 2
     img = x[..., None] if gray else x
     u8 = x.dtype == torch.uint8
-    x0, x1, a0, a1 = _linear_taps(w_in, w_out, u8)
-    y0, y1, b0, b1 = _linear_taps(h_in, h_out, u8)
+    x0, x1, a0, a1 = _linear_taps(w_in, w_out, u8, inv_x)
+    y0, y1, b0, b1 = _linear_taps(h_in, h_out, u8, inv_y)
     dev = img.device
     t = lambda a: torch.from_numpy(a).to(dev)
     if u8:

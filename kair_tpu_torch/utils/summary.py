@@ -7,11 +7,16 @@ sheet and the Hopper architecture white paper). They assume the card's full
 700 W power limit; a card set lower runs slower, so every measured number
 is reported beside ``nvidia-smi``'s power limit. An unknown card (or the
 CPU) gets None, never a guessed number.
+
+The model summary at the end (``count_params``, ``describe_model``,
+``cost_analysis``, ``activation_count``, ``summary_report``) measures a
+module or a call instead: FLOP by ``FlopCounterMode``, bytes and
+activations by a dispatch mode over the aten ops run.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 # dense bf16 tensor-core TFLOP/s, f32 TFLOP/s outside the tensor cores and
 # device-memory TB/s, by device name
@@ -256,3 +261,93 @@ def rvrt_flops_per_clip(frames: int = 8, h: int = 64, w: int = 64,
     total += 4 * px * conv(num_feat, 4 * num_feat, 3)           # upsampler 1
     total += 16 * px * (conv(num_feat, num_feat, 3) + conv(num_feat, 3, 3))
     return total
+
+
+# ---------------------------------------------------------------------------
+# Model summary: parameters, FLOP, bytes, activations (counterpart of
+# kair_tpu/utils/summary.py:36-82; reference utils/utils_modelsummary.py:
+# 27-48 and main_challenge_sr.py:99-171)
+# ---------------------------------------------------------------------------
+
+def count_params(params) -> int:
+    """Elements of a module's parameters, or of every tensor in a state
+    dict."""
+    import torch
+    if isinstance(params, torch.nn.Module):
+        return sum(p.numel() for p in params.parameters())
+    return sum(v.numel() for v in params.values() if torch.is_tensor(v))
+
+
+def describe_model(model) -> str:
+    n = count_params(model)
+    return f"{type(model).__name__}: {n:,} params ({n * 4 / 1e6:.2f} MB fp32)"
+
+
+def _aten_mode(on_op):
+    """A TorchDispatchMode that calls ``on_op(args, kwargs, out)`` after
+    each aten op it runs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Mode(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            on_op(args, kwargs, out)
+            return out
+    return Mode()
+
+
+def _tensors(tree):
+    import torch
+    from torch.utils._pytree import tree_leaves
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def cost_analysis(fn: Callable, *args) -> Dict[str, float]:
+    """``{"flops": ..., "bytes accessed": ...}`` of one call ``fn(*args)``
+    under inference mode, the counterpart of XLA's cost analysis: "flops"
+    from ``torch.utils.flop_counter.FlopCounterMode`` (a multiply-add is
+    2; the matmuls, convolutions and attention it knows), "bytes accessed"
+    the sum over the aten ops run of the bytes of their tensor inputs and
+    outputs (each op reading its inputs once and writing its outputs once,
+    no fusion: more than a fused program moves)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    total = [0]
+
+    def on_op(a, kw, out):
+        total[0] += sum(t.numel() * t.element_size()
+                        for t in _tensors((a, kw)) + _tensors(out))
+    counter = FlopCounterMode(display=False)
+    with torch.inference_mode(), counter, _aten_mode(on_op):
+        fn(*args)
+    return {"flops": float(counter.get_total_flops()),
+            "bytes accessed": float(total[0])}
+
+
+def activation_count(fn: Callable, *args) -> int:
+    """Output elements of every aten op in one call ``fn(*args)`` (the
+    counterpart of the JAX package's count over a jaxpr's equations, and of
+    the reference's get_model_activation, utils_modelsummary.py:48)."""
+    import torch
+
+    total = [0]
+
+    def on_op(a, kw, out):
+        total[0] += sum(t.numel() for t in _tensors(out))
+    with torch.inference_mode(), _aten_mode(on_op):
+        fn(*args)
+    return total[0]
+
+
+def summary_report(model, x, extra_args=()) -> str:
+    """main_challenge_sr-style report (main_challenge_sr.py:99-171): the
+    model, the input, its FLOP and bytes accessed by ``cost_analysis``."""
+    ca = cost_analysis(lambda a: model(a, *extra_args), x)
+    return "\n".join([
+        describe_model(model),
+        f"input {tuple(x.shape)}",
+        f"FLOPs: {ca['flops'] / 1e9:.2f} G",
+        f"bytes accessed: {ca['bytes accessed'] / 1e6:.1f} MB",
+    ])

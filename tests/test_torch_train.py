@@ -261,15 +261,20 @@ def test_tv_loss_matches_jax():
 @pytest.mark.parametrize("name", ["gan", "poisson"])
 def test_later_slice_losses_raise(name):
     """"gan" is no pixel loss: not found, as in the JAX package (its
-    objectives are ``gan_loss``'s); "poisson" belongs to the SPECT slice."""
+    objectives are ``gan_loss``'s); "poisson", the SPECT slice's, matches
+    the JAX loss (rel 1e-5)."""
     if name == "gan":
         with pytest.raises(NotImplementedError, match="not found"):
             jlosses.get_loss_fn(name)
         with pytest.raises(NotImplementedError, match="not found"):
             losses.get_loss_fn(name, {})
     else:
-        with pytest.raises(NotImplementedError, match="slice"):
-            losses.get_loss_fn(name, {})
+        p, t = _arrays(np.random.RandomState(2))
+        ot = {"G_poisson_normalization_method": "log"}
+        got = losses.get_loss_fn(name, ot)(torch.from_numpy(p),
+                                           torch.from_numpy(t))
+        want = jlosses.get_loss_fn(name, ot)(jnp.asarray(p), jnp.asarray(t))
+        assert float(got) == pytest.approx(float(want), rel=1e-5)
 
 
 def test_regularizers_match_jax():
@@ -395,9 +400,9 @@ def test_no_card_raises(tmp_path, hr_dir, monkeypatch):
     ("dataset", "spect"), ("net", "spynet"), ("dataset", "spectpatch"),
     ("netD", "discriminator_patchgan"), ("netD", "discriminator_unet"),
     ("trainer", "gan"), ("netD", "discriminator_vgg_128")])
-def test_later_slices_raise_naming_their_slice(what, name):
-    """The SPECT datasets still raise, naming their slice; the video and GAN
-    slices' entries build: ``define_g`` SpyNet (the JAX registry's
+def test_later_slices_raise_naming_their_slice(what, name, tmp_path):
+    """The entries of the later slices build: the SPECT datasets on a
+    written ``.dat`` pair, ``define_g`` SpyNet (the JAX registry's
     ``return_levels`` default [5]), ``define_d`` each discriminator,
     ``define_trainer`` the GAN trainer."""
     from kair_tpu_torch.models import discriminator as tdisc
@@ -406,8 +411,19 @@ def test_later_slices_raise_naming_their_slice(what, name):
     from kair_tpu_torch.train.gan import GanTrainer
     from kair_tpu_torch.train.select import define_trainer
     if what == "dataset":
-        with pytest.raises(NotImplementedError, match="slice"):
-            datasets.define_dataset({"dataset_type": name})
+        from kair_tpu_torch.data import dataset_spect
+        for sub in ("H", "L"):
+            os.makedirs(tmp_path / sub)
+            np.zeros((2, 1024, 256), np.float32).tofile(
+                str(tmp_path / sub / "a.dat"))
+        ds = datasets.define_dataset({
+            "dataset_type": name, "dataroot_H": str(tmp_path / "H"),
+            "dataroot_L": str(tmp_path / "L"), "num_patches_per_image": 2})
+        want = {"spect": dataset_spect.DatasetSPECT,
+                "spectpatch": dataset_spect.DatasetSPECTPatch}[name]
+        assert type(ds) is want and len(ds) == (1 if name == "spect" else 2)
+        assert ds.get_example(0, np.random.default_rng(0))["L"].shape == (
+            64, 64, 2)
     elif what == "net":
         net = define_g({"netG": {"net_type": name}})
         assert isinstance(net, SpyNet) and net.return_levels == (5,)

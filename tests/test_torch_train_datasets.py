@@ -246,9 +246,9 @@ def test_define_dataset_builds_the_new_types(folders):
     for t, cls in (("video_train_vimeo", "VideoRecurrentTrainVimeoDataset"),
                    ("vfi_davis", "VFI_DAVIS")):
         assert datasets.dataset_class({"dataset_type": t}).__name__ == cls
-    for t in ("spect", "spectpatch"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            datasets.define_dataset({"dataset_type": t})
+    for t, cls in (("spect", "DatasetSPECT"),
+                   ("spectpatch", "DatasetSPECTPatch")):
+        assert datasets.dataset_class({"dataset_type": t}).__name__ == cls
 
 
 def test_datasets_read_only_through_the_hooks():
