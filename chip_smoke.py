@@ -19,7 +19,9 @@ denoising recipe from their option files; then RVRT-001 training through
 the STL2, GDA and 2-D Swin block kernels; then SwinIR-L x4 GAN training on
 the Swin-block kernels at C=240; then the face pipeline (GPEN,
 RetinaFace, cv2-free alignment); then the SPECT fork (SPECT SwinIR through
-cli/train_spect on the Swin-block kernels, DRUNet and RRDBNet-noUp in f32).
+cli/train_spect on the Swin-block kernels, DRUNet and RRDBNet-noUp in f32);
+then scale-out and the native loader (data-parallel ranks, NCCL, tiled
+inference, the profiler trace, cli.train on the native loader).
 Phases, one flushed line each with its seconds:
 
   0 device      card name, power limit (nvidia-smi), torch and CUDA versions
@@ -62,7 +64,8 @@ Phases, one flushed line each with its seconds:
   7 train       SwinIR-M x4 training from the shipped option file
                 (options/swinir/train_swinir_sr_classical_x4.json) through
                 config.parse → cli.train.build_trainer, bf16, batches of 32
-                from the port's Loader over seeded smooth images: (a) one
+                from the port's native loader (the file's use_native_loader,
+                through make_train_loader) over seeded smooth PNGs: (a) one
                 gradient on the card against the f32 CPU run on the same
                 weights and a B=2 batch, with a dropped-mask control; (b) 2
                 warm-up and 8 timed steps, 36 forward and 36 backward block
@@ -286,6 +289,28 @@ Phases, one flushed line each with its seconds:
                 DRUNet (poisson loss, epsilon 1 count) and RRDBNet-noUp in
                 f32 at B=32 of 64x64: the gradient at B=2 of 32x32 against
                 the CPU's (<= 1e-4; control: seed + 1 weights), ms a step
+ 29 scale_out   (a) cli.device_check: the card, the 128x128 round trip, the
+                mesh {data: 1, model: 1, tile: 1}; (b) cli.train from
+                options/swinir/train_swinir_sr_classical_x4.json for 2 steps
+                on 32 seeded 200x200 PNGs through the native loader (built
+                in phase 1 beside nvcc; the log's native-loader line
+                required), then ms a batch of 32 at H_size 192 of the native
+                loader against the Python Loader (utils/png decode, MATLAB
+                bicubic; host time), and the loader's RAM-cache build
+                (utils/png decode, then the C++ bicubic) on 4 seeded
+                DIV2K-sized 2040x1356 PNGs, filter 0 and every row Paeth
+                (the decoded pixels equal to the written ones), scaled to
+                DIV2K's 800 images; (c) data parallel at world 2 over gloo,
+                both ranks on the card, through parallel.launch.spawn: one
+                SwinIR-M x4 step at B=4 of 64x64 LR, the averaged gradient
+                against one process on the whole batch (<= 1.5e-2, the x4
+                training gate), rank 0's own gradient as the control above
+                it, 36 row-1 + 36 row-3 launches a rank's step; (d) NCCL in
+                a group of one rank: the step's gradient through the
+                all-reduce bit-equal; (e) parallel.tiled's overlap bands at
+                world 1 on a 1x128x128 LR image: equal to the monolithic
+                forward, 36 + 7 launches; (f) utils/profiling.trace of one
+                forward, whose top rows name the row-1 kernel
 
 Any failed check raises and the script exits non-zero; a watchdog ends a
 hung run with a traceback. The line before the last is one JSON object with
@@ -306,7 +331,7 @@ import sys
 import tempfile
 import time
 
-WATCHDOG_S = 700          # the whole run, build included (≈ 510-600 s)
+WATCHDOG_S = 700          # the whole run, build included (≈ 600-660 s)
 SEED = 0
 
 
@@ -1023,6 +1048,102 @@ def device_breakdown(fn, runs: int, ms: float, what: str,
     return out
 
 
+def write_seeded_pngs(root: str, n_images: int, seed: int,
+                      size: int = 200) -> None:
+    """``n_images`` smooth seeded PNGs in ``root`` (the card has no image
+    set)."""
+    from kair_tpu_torch.utils.png import write_png
+    os.makedirs(root, exist_ok=True)
+    for i in range(n_images):
+        write_png(os.path.join(root, f"seed{i:03d}.png"),
+                  smooth_image(size, size, seed + i))
+
+
+def write_paeth_png(path: str, img) -> None:
+    """An (H, W, 3) uint8 image as a PNG with every row Paeth-filtered:
+    the filter a photo's encoder picks most, and the port's slowest
+    decode (utils/png's anti-diagonal path)."""
+    import struct
+    import zlib
+    import numpy as np
+    h, w, c = img.shape
+    cur = img.reshape(h, w * c).astype(np.int16)
+    up = np.vstack([np.zeros((1, w * c), np.int16), cur[:-1]])
+    left = np.hstack([np.zeros((h, c), np.int16), cur[:, :-c]])
+    up_left = np.hstack([np.zeros((h, c), np.int16), up[:, :-c]])
+    p = left + up - up_left
+    pa, pb, pc = abs(p - left), abs(p - up), abs(p - up_left)
+    pred = np.where((pa <= pb) & (pa <= pc), left,
+                    np.where(pb <= pc, up, up_left))
+    rows = ((cur - pred) & 255).astype(np.uint8)
+    raw = np.hstack([np.full((h, 1), 4, np.uint8), rows]).tobytes()
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(
+            ">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def cache_build_seconds(root: str, n_images: int, seed: int, threads: int
+                        ) -> dict:
+    """The native loader's RAM-cache build for the main recipe (on-the-fly
+    x4 bicubic) on ``n_images`` seeded DIV2K-sized (2040x1356) photo-like
+    PNGs, once written with filter 0 and once with every row Paeth:
+    seconds of the whole build, and of its utils/png decode alone (whose
+    pixels must equal the written ones)."""
+    import numpy as np
+    from kair_tpu_torch.data import native_loader
+    from kair_tpu_torch.utils.png import write_png
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    base = smooth_image(1356, 2040, seed).astype(np.int16)
+    images = [np.clip(base + rng.randint(-6, 7, base.shape), 0, 255)
+              .astype(np.uint8) for _ in range(n_images)]
+    out = {}
+    for kind, writer in (("filter 0", write_png), ("Paeth", write_paeth_png)):
+        paths = [os.path.join(root, f"{kind[0]}{i}.png")
+                 for i in range(n_images)]
+        for p, img in zip(paths, images):
+            writer(p, img)
+        t0 = time.perf_counter()
+        decoded = native_loader.read_images(paths, 3, threads)
+        decode_s = time.perf_counter() - t0
+        require(all(np.array_equal(a, b) for a, b in zip(decoded, images)),
+                f"utils/png decoded the {kind} PNGs wrongly")
+        del decoded
+        t0 = time.perf_counter()
+        loader = native_loader.NativePairLoader(None, paths, n_channels=3,
+                                                n_threads=threads, bicubic_sf=4)
+        build_s = time.perf_counter() - t0
+        require(loader.n_pairs == n_images, f"{loader.n_pairs} pairs cached")
+        del loader
+        out[kind] = (build_s, decode_s)
+    return out
+
+
+def native_batches(ds_opt, n: int, n_images: int, seed: int, ph) -> list:
+    """``n`` training batches of an option block with
+    ``use_native_loader`` through ``make_train_loader``, which must give
+    the native loader, over seeded PNGs written to its ``dataroot_H``."""
+    from kair_tpu_torch.data.datasets import make_train_loader
+    from kair_tpu_torch.data.native_loader import NativeEpochLoader
+    write_seeded_pngs(ds_opt["dataroot_H"], n_images, seed)
+    said: list = []
+    loader = make_train_loader(ds_opt, ds_opt["dataloader_batch_size"],
+                               seed=SEED, info=said.append)
+    require(isinstance(loader, NativeEpochLoader),
+            f"use_native_loader gave {type(loader).__name__}: {said}")
+    ph.note(f"batches from the native loader ({said[-1]})")
+    batches, epoch = [], 0
+    while len(batches) < n:
+        batches += list(loader.epoch(epoch))
+        epoch += 1
+    return batches[:n]
+
+
 def rel_norm(a: dict, b: dict, names) -> float:
     import torch
     num = torch.sqrt(sum(((a[n] - b[n]) ** 2).sum() for n in names))
@@ -1067,9 +1188,8 @@ def phase_train(report: list, card: str, build_dir) -> None:
                 f"{opt['train']['G_optimizer_lr']}, EMA {opt['train']['E_decay']}; "
                 f"{sum(p.numel() for p in trainer.model.parameters())} params "
                 "(blocks drawn by BLOCK_INIT)")
-        batches = [{k: v for k, v in bt.items() if isinstance(v, np.ndarray)}
-                   for bt in loader_batches(ds_opt, warmup + timed, 64,
-                                            SEED + 100)]
+        batches = native_batches(ds_opt, warmup + timed, 64, SEED + 100,
+                                 ph)
         hs, sf = ds_opt["H_size"], opt["scale"]
         lr_hw = batches[0]["L"].shape[1:3]
         require(batches[0]["L"].shape == (bs, hs // sf, hs // sf, 3)
@@ -5007,11 +5127,312 @@ def phase_spect(report: list, card: str, build_dir) -> None:
         ph.note("done" + lap())
 
 
+SCALE_OUT_TOL = 1.5e-2     # the SwinIR x4 training gate (PERF.md §2)
+
+
+def dp_rank_step(option_path: str, sd: dict, batch: dict,
+                 t_spawn: float) -> dict:
+    """One rank's SwinIR-M x4 training step under a ('data',) mesh over
+    the group (run by launch.spawn): its launches, its own gradient before
+    the average (rank 0's, the control), the averaged one, then the update;
+    the seconds from the spawn to each stage."""
+    stages = {"started": time.time() - t_spawn}
+    import torch
+    import torch.distributed as dist
+    from kair_tpu_torch import config
+    from kair_tpu_torch.cli.train import build_trainer
+    from kair_tpu_torch.ops.kernels.swin_block import (swin_block_2d,
+                                                        swin_block_2d_bwd)
+    from kair_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    trainer = build_trainer(config.parse(option_path), dtype=torch.bfloat16)
+    trainer.model.load_state_dict(sd)
+    stages["built"] = time.time() - t_spawn
+    mesh = make_mesh(data=dist.get_world_size())
+    trainer.use_mesh(mesh)
+    stages["replicated"] = time.time() - t_spawn
+    mine = shard_batch(mesh, batch)
+    swin_block_2d.launches = swin_block_2d_bwd.launches = 0
+    loss = trainer.compute_grads(mine)
+    torch.cuda.synchronize()
+    launches = (swin_block_2d.launches, swin_block_2d_bwd.launches)
+    # numpy, not tensors: a tensor result would be shared through this
+    # process's memory after it exits
+    grads = lambda: {n: (torch.zeros_like(p) if p.grad is None else p.grad)
+                     .detach().float().cpu().numpy()
+                     for n, p in trainer.model.named_parameters()}
+    rank0 = dist.get_rank() == 0
+    local = grads() if rank0 else None
+    t0 = time.perf_counter()
+    trainer.average_grads([loss])
+    torch.cuda.synchronize()
+    reduce_ms = (time.perf_counter() - t0) * 1e3
+    averaged = grads() if rank0 else None
+    trainer.apply_update()
+    torch.cuda.synchronize()
+    stages["stepped"] = time.time() - t_spawn
+    return {"launches": launches, "local": local, "averaged": averaged,
+            "reduce_ms": reduce_ms, "backend": dist.get_backend(),
+            "stages": stages,
+            "device": str(next(trainer.model.parameters()).device)}
+
+
+def nccl_rank_step(option_path: str, sd: dict, batch: dict) -> dict:
+    """In a group of one rank over NCCL: one step's gradient, then the
+    same gradient through the mesh's all-reduce, which must leave it bit
+    for bit."""
+    import torch
+    import torch.distributed as dist
+    from kair_tpu_torch import config
+    from kair_tpu_torch.cli.train import build_trainer
+    from kair_tpu_torch.parallel.mesh import make_mesh
+    trainer = build_trainer(config.parse(option_path), dtype=torch.bfloat16)
+    trainer.model.load_state_dict(sd)
+    trainer.use_mesh(make_mesh())
+    loss = trainer.compute_grads(batch)
+    params = [p for p in trainer.model.parameters() if p.grad is not None]
+    before = [p.grad.clone() for p in params]
+    trainer.average_grads([loss])
+    torch.cuda.synchronize()
+    return {"backend": dist.get_backend(), "world": dist.get_world_size(),
+            "tensors": len(params),
+            "equal": all(torch.equal(a, p.grad) for a, p in zip(before, params)),
+            "moved": max(float((a.float() - p.grad.float()).abs().max())
+                         for a, p in zip(before, params))}
+
+
+def phase_scale_out(report: list, card: str, build_dir) -> None:
+    """Phase 29: device_check, the native loader through cli.train on the
+    main recipe, data parallel at world 2 (gloo, both ranks on the card)
+    and NCCL at world 1, tiled SwinIR-M inference, a profiler trace."""
+    import contextlib
+    import io
+    import logging
+    import numpy as np
+    import torch
+    from kair_tpu_torch import config
+    from kair_tpu_torch.cli import device_check
+    from kair_tpu_torch.cli import train as cli_train
+    from kair_tpu_torch.cli.test import build_preset
+    from kair_tpu_torch.data import native_loader
+    from kair_tpu_torch.data.base import Loader
+    from kair_tpu_torch.data.datasets import DatasetSR
+    from kair_tpu_torch.ops.kernels.conv_block import conv3x3_residual
+    from kair_tpu_torch.ops.kernels.swin_block import swin_block_2d
+    from kair_tpu_torch.parallel import launch
+    from kair_tpu_torch.parallel.mesh import make_mesh
+    from kair_tpu_torch.parallel.tiled import make_sharded_tiled_fn
+    from kair_tpu_torch.utils import profiling
+    from kair_tpu_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+
+    def lap() -> str:
+        return f" [{time.perf_counter() - t_phase:.1f} s]"
+
+    with Phase("29 scale_out") as ph, \
+            tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        # (a) the environment check
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            device_check.main([])
+        out = buf.getvalue()
+        require(torch.cuda.get_device_name(0) in out
+                and "tensor round-trip: OK" in out
+                and "mesh: {'data': 1, 'model': 1, 'tile': 1}" in out
+                and out.strip().endswith("OK"), f"device_check said {out!r}")
+        ph.note("(a) cli.device_check: " + "; ".join(
+            l.strip() for l in out.strip().splitlines()[:4]) + lap())
+
+        # (b) the native loader through cli.train on the main recipe
+        from kair_tpu_torch import config as cfg
+        raw = cfg.load_json_with_comments(os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), OPTION_FILE))
+        raw["path"]["root"] = os.path.join(tmp, "runs")
+        raw["datasets"]["train"]["dataroot_H"] = os.path.join(tmp, "trainH")
+        raw["datasets"].pop("test", None)
+        opt_path = os.path.join(tmp, "train_x4.json")
+        with open(opt_path, "w") as f:
+            json.dump(raw, f)
+        ds_opt = config.parse(opt_path)["datasets"]["train"]
+        write_seeded_pngs(ds_opt["dataroot_H"], 32, SEED + 290)
+        logger = logging.getLogger("train")
+        for h in list(logger.handlers):
+            logger.removeHandler(h)
+        t0 = time.perf_counter()
+        trainer = cli_train.main(argv=["--opt", opt_path, "--max_steps", "2"])
+        train_s = time.perf_counter() - t0
+        task = config.parse(opt_path)["path"]["task"]
+        with open(os.path.join(task, "train.log")) as f:
+            log_text = f.read()
+        native_line = [l for l in log_text.splitlines()
+                       if "(native C++ loader)" in l]
+        require(trainer is not None and trainer.step == 2 and native_line
+                and os.path.exists(os.path.join(task, "models", "2_G.pth")),
+                f"cli.train on {OPTION_FILE}: step {getattr(trainer, 'step', None)},"
+                f" native-loader line {native_line}")
+        del trainer
+        torch.cuda.empty_cache()
+        bs, hs = ds_opt["dataloader_batch_size"], ds_opt["H_size"]
+        native = native_loader.NativeEpochLoader(ds_opt, bs, seed=SEED)
+        it = iter(native.epoch(0))
+        next(it)
+        t0 = time.perf_counter()
+        n_native = 0
+        for e in range(1, 4):
+            for _ in native.epoch(e):
+                n_native += 1
+        native_ms = (time.perf_counter() - t0) * 1e3 / n_native
+
+        class PngSR(DatasetSR):          # the Python path on the card: no cv2
+            def read_uint(self, path):
+                return read_png(path)
+        py = Loader(PngSR(ds_opt), bs, seed=SEED)
+        t0 = time.perf_counter()
+        next(iter(py.epoch(0)))
+        python_ms = (time.perf_counter() - t0) * 1e3
+        ph.note(f"(b) native loader: g++ {native_loader.build_seconds or 0:.1f}"
+                f" s in phase 1; cli.train {OPTION_FILE} (batch {bs}, H_size "
+                f"{hs}, 32 seeded 200x200 PNGs, use_native_loader) 2 steps in "
+                f"{train_s:.1f} s, log: '{native_line[0].split(' : ')[-1]}'; "
+                f"ms a batch of {bs}: native {native_ms:.2f} (mean of "
+                f"{n_native}), Python Loader {python_ms:.2f} (one batch: "
+                f"utils/png decode, MATLAB bicubic, crop and augment an item; "
+                f"host time) [{card}]" + lap())
+        threads = ds_opt.get("dataloader_num_workers") or 8
+        n_div = 4
+        cache = cache_build_seconds(os.path.join(tmp, "div2k_sized"), n_div,
+                                    SEED + 310, threads)
+        ph.note(f"(b) RAM-cache build ({threads} threads, x4 bicubic) of "
+                f"{n_div} seeded 2040x1356 PNGs: " + "; ".join(
+                    f"{kind} {b:.2f} s (utils/png decode alone {d:.2f} s), "
+                    f"x{800 // n_div} for DIV2K's 800 images {b * 800 / n_div:.0f}"
+                    f" s" for kind, (b, d) in cache.items())
+                + f" (host time) [{card}]" + lap())
+
+        # (c) data parallel at world 2 over gloo, both ranks on the card
+        rng = np.random.RandomState(SEED + 291)
+        batch = {"L": np.stack([smooth_image(64, 64, SEED + 292 + i)
+                                for i in range(4)]).astype(np.float32) / 255,
+                 "H": np.stack([smooth_image(256, 256, SEED + 296 + i)
+                                for i in range(4)]).astype(np.float32) / 255}
+        batch["L"] += rng.rand(*batch["L"].shape).astype(np.float32) * 0.02
+        opt = config.parse(opt_path)
+        one = cli_train.build_trainer(opt, dtype=torch.bfloat16)
+        sd = {k: v.cpu() for k, v in seeded_train_weights(
+            one.model, SEED + 3).items()}
+        one.model.load_state_dict(sd)
+        g_one = grads_of(one, batch)
+        del one
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = launch.spawn(dp_rank_step, 2, backend="gloo", device="cuda",
+                             init_method="file://" + os.path.join(tmp, "dp2"),
+                             args=(opt_path, sd, batch, time.time()))
+        dp_s = time.perf_counter() - t0
+        r0 = {k: ({n: torch.from_numpy(v) for n, v in g.items()}
+                  if k in ("local", "averaged") else g)
+              for k, g in ranks[0].items()}
+        names = list(g_one)
+        err = rel_norm(r0["averaged"], g_one, names)
+        ctrl = rel_norm(r0["local"], g_one, names)
+        per_rank = [r["launches"] for r in ranks]
+        ph.note(f"(c) SwinIR-M x4 step at B=4 of 64x64 LR on 2 ranks "
+                f"({r0['backend']}, {ranks[0]['device']} and "
+                f"{ranks[1]['device']}; spawn and step {dp_s:.1f} s; the "
+                f"all-reduce {r0['reduce_ms']:.1f} ms): averaged gradient vs "
+                f"one process on the whole batch, relative norm {err:.4g} "
+                f"(limit {SCALE_OUT_TOL}); control, rank 0's own gradient "
+                f"{ctrl:.4g}; launches a rank's step (row 1, row 3) "
+                f"{per_rank}; rank 0's seconds from the spawn: " + ", ".join(
+                    f"{k} {v:.1f}" for k, v in r0["stages"].items()) + lap())
+        require(all(l == (36, 36) for l in per_rank),
+                f"launches a rank's step {per_rank}, expected 36 + 36")
+        require(err <= SCALE_OUT_TOL, f"data-parallel gradient {err:.4g} > "
+                f"{SCALE_OUT_TOL}")
+        require(ctrl > SCALE_OUT_TOL and ctrl > 3 * err,
+                f"the control ({ctrl:.4g}) is not above the limit and 3x "
+                f"the error")
+        for k in report:
+            if k["name"] in ("swin_block_2d", "swin_block_2d_bwd"):
+                k["dp_launches_per_rank_step"] = per_rank[0][
+                    k["name"] == "swin_block_2d_bwd"]
+        del ranks, r0
+
+        # (d) NCCL at world 1, in this process (a spawn costs ~20 s)
+        small = {k: v[:2] for k, v in batch.items()}
+        torch.distributed.init_process_group(
+            "nccl", init_method="file://" + os.path.join(tmp, "nccl1"),
+            world_size=1, rank=0)
+        try:
+            nc = nccl_rank_step(opt_path, sd, small)
+        finally:
+            torch.distributed.destroy_process_group()
+        torch.cuda.empty_cache()
+        ph.note(f"(d) {nc['backend']} at world {nc['world']}: {nc['tensors']} "
+                f"gradient tensors through the all-reduce, bit-equal "
+                f"{nc['equal']} (max move {nc['moved']:.3g})" + lap())
+        require(nc["backend"] == "nccl" and nc["world"] == 1 and nc["equal"],
+                f"NCCL at world 1: {nc}")
+
+        # (e) tiled SwinIR-M x4 inference at world 1, (f) its trace
+        pth = os.path.join(tmp, "swinir_m_x4.pth")
+        torch.save({"params": main_path_state_dict(SEED)}, pth)
+        model, _, _ = build_preset("swinir_classical_x4", pth, device="cuda",
+                                   dtype=torch.bfloat16)
+        x = torch.from_numpy(smooth_image(128, 128, SEED + 300)[None]
+                             .astype(np.float32) / 255).to("cuda",
+                                                            torch.bfloat16)
+        tiled = make_sharded_tiled_fn(model, make_mesh(), halo=16, sf=4)
+        with torch.inference_mode():
+            whole = model(x)
+            swin_block_2d.launches = conv3x3_residual.launches = 0
+            y = tiled(x)
+            torch.cuda.synchronize()
+            n_tiled = (swin_block_2d.launches, conv3x3_residual.launches)
+        require(n_tiled == (36, 7) and torch.equal(y, whole)
+                and y.shape == (1, 512, 512, 3),
+                f"tiled forward: launches {n_tiled}, equal "
+                f"{torch.equal(y, whole)}, shape {tuple(y.shape)}")
+        ph.note(f"(e) make_sharded_tiled_fn at world 1 on a 1x128x128 LR "
+                f"image: equal to the monolithic forward, launches (row 1, "
+                f"row 2) {n_tiled}" + lap())
+        for k in report:
+            if k["name"] in ("swin_block_2d", "conv3x3_residual"):
+                k["tiled_launches_per_forward"] = n_tiled[
+                    k["name"] == "conv3x3_residual"]
+        prof_dir = os.path.join(tmp, "trace")
+        with torch.inference_mode(), profiling.trace(prof_dir):
+            model(x)
+        rows = profiling.summarize_trace(prof_dir, top=5)
+        ph.note("(f) utils/profiling.trace of one forward, top rows: " + ", ".join(
+            f"{n[:40]} {us:.0f} us x{c}" for n, us, c in rows) + lap())
+        require(rows and any("swin_block_wg" in n for n, _, _ in rows),
+                f"the trace's top rows {rows} name no row-1 kernel")
+
+
 def phase_build() -> None:
     """Phase 1: build the kernels, check the layout mirrors, print ptxas."""
+    import threading
+    from kair_tpu_torch.data import native_loader
     from kair_tpu_torch.ops.kernels import _build
     with Phase("1 build") as ph:
+        # the native loader's g++ beside the kernels' nvcc processes
+        loader_error: list = []
+
+        def build_loader():
+            try:
+                native_loader.build()
+            except Exception as e:          # reported below, with the phase
+                loader_error.append(e)
+        loader = threading.Thread(target=build_loader)
+        loader.start()
         lib = _build.library()
+        loader.join()
+        if loader_error:
+            raise loader_error[0]
+        ph.note(f"native loader {native_loader.library_path().name}: g++ "
+                + (f"{native_loader.build_seconds:.1f} s"
+                   if native_loader.build_seconds else "already built"))
         secs = _build.build_seconds
         ph.note(f"{_build.library_path().name}: {len(_build.sources())} "
                 "sources, one nvcc process each, all at once, then one link: "
@@ -5219,6 +5640,7 @@ def main() -> int:
     phase_gan_train(report, card, _build.BUILD_DIR)
     phase_face(card, _build.BUILD_DIR)
     phase_spect(report, card, _build.BUILD_DIR)
+    phase_scale_out(report, card, _build.BUILD_DIR)
     faulthandler.cancel_dump_traceback_later()
 
     log(card)

@@ -7,7 +7,8 @@ Each file is one plain torch state dict: ``{iter}_G.pth`` loads with
 name and are moved into place with ``os.replace``, so a killed run never
 leaves a half-written checkpoint. ``prune_old`` and ``save_best`` are the
 fork's rolling retention (model_plain.py:149-176) and best-model tracking
-(model_base.py:170-196).
+(model_base.py:170-196). In a process group rank 0 alone writes: another
+rank's write raises, since two ranks writing one file would race.
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ import torch
 
 
 def save_state(state: Dict[str, Any], path: str) -> str:
+    if torch.distributed.is_initialized() and torch.distributed.get_rank():
+        raise RuntimeError(f"rank {torch.distributed.get_rank()} writing "
+                           f"{path}: only rank 0 writes checkpoints")
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
     torch.save(state, tmp)

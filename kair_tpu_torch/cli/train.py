@@ -14,8 +14,14 @@ runs the kernels' plain versions on the CPU, where ``--dtype f32`` is the
 usual choice. Checkpoints are KAIR's tagged state dicts under
 ``path.models`` (``<iter>_G.pth``, ``<iter>_E.pth``,
 ``<iter>_optimizerG.pth``); a run resumes from the newest ``_G`` file.
-Data parallelism over several cards (``gpu_ids``) is a later slice: the
-run trains on one card with the option file's batch.
+
+Several cards: ``gpu_ids`` with n entries spawns n ranks on this host
+(``parallel.launch.spawn``; NCCL, one card each) when n cards exist and
+the batch divides n, else trains on one card and says why; under
+``torchrun`` or SLURM each process joins the group the launcher names.
+Each rank steps on its rows of the option file's batch and the gradients
+are averaged over the ranks (``train/trainer.PlainTrainer.use_mesh``);
+rank 0 alone logs, saves and evaluates while the others wait.
 """
 
 from __future__ import annotations
@@ -31,11 +37,14 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from kair_tpu_torch import config as opt_util
 from kair_tpu_torch.ckpt import checkpoint as ck
 from kair_tpu_torch.data.base import Loader
 from kair_tpu_torch.data.datasets import define_dataset, make_train_loader
+from kair_tpu_torch.parallel import launch
+from kair_tpu_torch.parallel.mesh import Mesh, data_parallel_mesh, shard_batch
 from kair_tpu_torch.train.select import define_trainer
 from kair_tpu_torch.train.trainer import PlainTrainer
 from kair_tpu_torch.utils import image as im
@@ -137,14 +146,63 @@ def make_parser(json_path: Optional[str] = None) -> argparse.ArgumentParser:
 @dataclass
 class Run:
     """A training run as ``prepare`` sets it up: the trainer resumed at
-    ``init_iter``, its train loader, and where to stop."""
+    ``init_iter``, its train loader, where to stop, and the data-parallel
+    mesh (None: one process). A run whose ranks are still to be spawned
+    has a mesh and neither a trainer nor a loader."""
     opt: dict
     logger: logging.Logger
     seed: int
-    trainer: PlainTrainer
-    train_loader: Loader
+    trainer: Optional[PlainTrainer]
+    train_loader: Optional[Loader]
     init_iter: int
     max_iter: int
+    mesh: Optional[Mesh] = None
+
+
+def rank_logger(name: str, log_path: str) -> logging.Logger:
+    """The run's logger: rank 0's writes ``log_path`` and the console,
+    another rank's nothing."""
+    if launch.is_main_process():
+        return setup_logger(name, log_path)
+    logger = logging.getLogger(f"{name}.rank{dist.get_rank()}")
+    logger.addHandler(logging.NullHandler())
+    logger.propagate = False
+    return logger
+
+
+def train_batch_size(ds_opt: dict) -> int:
+    """The global batch of a train option block (16 when unset)."""
+    return ds_opt.get("dataloader_batch_size") or 16
+
+
+def choose_mesh(opt: dict, device, log) -> Optional[Mesh]:
+    """The run's data-parallel mesh: ``data_parallel_mesh`` on ``gpu_ids``
+    (or the group a launcher started) and the option file's batch, read
+    before any loader is built: a process that spawns the ranks builds
+    none."""
+    return data_parallel_mesh(opt.get("num_gpu"),
+                              train_batch_size(opt["datasets"]["train"]), log,
+                              device=device)
+
+
+def join_launched_group(device) -> None:
+    """Join the process group that torchrun or SLURM started this process
+    in (nothing for a single process)."""
+    if launch.launched_world() > 1 and not dist.is_initialized():
+        launch.initialize_multihost(device=device)
+
+
+def _main_on_rank(main_fn: Callable, json_path: Optional[str], argv) -> None:
+    main_fn(json_path, argv)
+
+
+def spawn_ranks(main_fn: Callable, mesh: Mesh, device, json_path, argv) -> None:
+    """Run ``main_fn(json_path, argv)`` on the mesh's ranks (this host,
+    one card each; gloo on the CPU) and wait for them."""
+    import sys
+    argv = list(sys.argv[1:] if argv is None else argv)
+    launch.spawn(_main_on_rank, mesh.shape["data"], device=device,
+                 args=(main_fn, json_path, argv))
 
 
 def prepare(args: argparse.Namespace, logger_name: str = "train",
@@ -154,15 +212,23 @@ def prepare(args: argparse.Namespace, logger_name: str = "train",
     and resume from the newest ``_G`` checkpoint (or ``pretrained_netG``;
     reference main_train_psnr.py:63-69). Without ``train.manual_seed`` the
     seed is ``default_seed`` when given (a ``manual_seed`` of 0 too, as the
-    SPECT CLI reads it), else drawn at random."""
+    SPECT CLI reads it), else drawn at random. Under several ranks
+    (``choose_mesh``) rank 0 alone touches the run's folders and logs;
+    when the ranks are still to be spawned, the Run has neither a trainer
+    nor a loader."""
+    join_launched_group(args.device)
     opt = opt_util.parse(args.opt, is_train=True)
-    if restart and os.path.isdir(opt["path"]["task"]):
+    main = launch.is_main_process()
+    if restart and main and os.path.isdir(opt["path"]["task"]):
         shutil.rmtree(opt["path"]["task"])
-    for d in ("models", "images", "options", "log"):
-        os.makedirs(opt["path"].get(d) or opt["path"]["task"], exist_ok=True)
-    opt_util.save(opt)
-    logger = setup_logger(logger_name,
-                          os.path.join(opt["path"]["log"], "train.log"))
+    if main:
+        for d in ("models", "images", "options", "log"):
+            os.makedirs(opt["path"].get(d) or opt["path"]["task"],
+                        exist_ok=True)
+        opt_util.save(opt)
+    launch.barrier()
+    logger = rank_logger(logger_name,
+                         os.path.join(opt["path"]["log"], "train.log"))
     logger.info(opt_util.dict2str(opt))
 
     seed = opt["train"].get("manual_seed")
@@ -174,28 +240,27 @@ def prepare(args: argparse.Namespace, logger_name: str = "train",
     np.random.seed(seed)
     torch.manual_seed(seed)
 
-    trainer = build_trainer(opt, dtype=DTYPES[args.dtype], device=args.device)
-    if (opt.get("num_gpu") or 0) > 1:
-        logger.info(f"gpu_ids lists {opt['num_gpu']} cards: data parallelism "
-                    "is a later slice of the port; training on one card with "
-                    "the option file's batch")
-
     ds_opt = opt["datasets"].get("train")
     if ds_opt is None:
         raise ValueError(f"{args.opt}: no 'train' entry under 'datasets'")
-    train_loader = make_train_loader(
-        ds_opt, ds_opt.get("dataloader_batch_size") or 16, seed=seed,
-        info=logger.info)
+    max_iter = args.max_steps or opt["train"].get("max_iter") or 10 ** 8
+    mesh = choose_mesh(opt, args.device, logger.info)
+    if mesh is not None and not dist.is_initialized():
+        return Run(opt, logger, seed, None, None, 0, max_iter, mesh)
 
+    train_loader = make_train_loader(ds_opt, train_batch_size(ds_opt),
+                                     seed=seed, info=logger.info)
+    trainer = build_trainer(opt, dtype=DTYPES[args.dtype], device=args.device)
     init_iter, init_path = opt_util.find_last_checkpoint(
         opt["path"]["models"], "G",
         pretrained_path=opt["path"].get("pretrained_netG"))
     if init_path and os.path.exists(init_path):
         logger.info(f"resume from {init_path} @ {init_iter}")
         trainer.resume(init_path, init_iter)
-    max_iter = args.max_steps or opt["train"].get("max_iter") or 10 ** 8
+    if mesh is not None:
+        trainer.use_mesh(mesh)
     return Run(opt, logger, seed, trainer, train_loader, int(init_iter),
-               max_iter)
+               max_iter, mesh)
 
 
 def train_loop(run: Run, save_every: int, test_every: int, prune: bool,
@@ -205,8 +270,10 @@ def train_loop(run: Run, save_every: int, test_every: int, prune: bool,
     after each step, a log line every ``train.checkpoint_print`` steps,
     checkpoints every ``save_every`` (the older ones pruned when
     ``prune``), ``on_test(step, epoch)`` every ``test_every``, and the
-    last step saved."""
+    last step saved. Under a mesh each rank steps on its rows of the
+    batch; rank 0 alone saves and tests while the others wait."""
     trainer, logger = run.trainer, run.logger
+    main = launch.is_main_process()
     models = run.opt["path"]["models"]
     print_every = run.opt["train"].get("checkpoint_print") or 200
     step = run.init_iter
@@ -215,9 +282,12 @@ def train_loop(run: Run, save_every: int, test_every: int, prune: bool,
         for batch in run.train_loader.epoch(epoch + run.seed):
             if step >= run.max_iter:
                 logger.info("reached max_iter, stopping")
-                trainer.save(models, step)
+                if main:
+                    trainer.save(models, step)
                 return trainer
             step += 1
+            if run.mesh is not None:
+                batch = shard_batch(run.mesh, batch)
             metrics = trainer.train_step(batch)
             trainer.apply_regularizers(step)
 
@@ -227,18 +297,27 @@ def train_loop(run: Run, save_every: int, test_every: int, prune: bool,
                 logger.info(f"<epoch:{epoch:3d}, iter:{step:8,d}, "
                             f"lr:{lr:.3e}> G_loss: {float(metrics['G_loss']):.3e} "
                             f"it/s: {ips:.2f}")
-            if step % save_every == 0:
+            if step % save_every == 0 and main:
                 logger.info("Saving the model.")
                 trainer.save(models, step)
                 if prune:
                     for tag in ("G", "E", "optimizerG"):
                         ck.prune_old(models, tag, step)
             if on_test is not None and step % test_every == 0:
-                on_test(step, epoch)
+                if main:
+                    on_test(step, epoch)
+                launch.barrier()
 
 
-def main(json_path: Optional[str] = None, argv=None) -> PlainTrainer:
-    run = prepare(make_parser(json_path).parse_args(argv))
+def main(json_path: Optional[str] = None, argv=None
+         ) -> Optional[PlainTrainer]:
+    """Train; returns the trainer (None where this process spawned the
+    ranks that trained)."""
+    args = make_parser(json_path).parse_args(argv)
+    run = prepare(args)
+    if run.trainer is None:
+        spawn_ranks(main, run.mesh, args.device, json_path, argv)
+        return None
     opt, logger = run.opt, run.logger
     ds_opt = opt["datasets"].get("test")
     test_loader = (Loader(define_dataset(ds_opt), 1, shuffle=False,

@@ -43,7 +43,9 @@ default) or f32 (the CPU's default), which the zoo takes on the card and
 SwinIR and VRT refuse there; f32 on the card runs with TF32 off (cuDNN
 and cuBLAS), so that its mfu is over the f32 peak.
 ``--device cpu`` runs the plain versions (a timing there is the CPU's, not
-the card's; mfu and peak_mem_gib null).
+the card's; mfu and peak_mem_gib null). ``--profile DIR`` traces one more
+step after the timed ones (``utils/profiling``: a Chrome trace in DIR)
+and prints its top operators to stderr.
 """
 
 from __future__ import annotations
@@ -147,6 +149,9 @@ def main(argv=None) -> dict:
                              "(swinir: use_checkpoint, vrt: "
                              "use_checkpoint_attn)")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
+    parser.add_argument("--profile", default=None, metavar="DIR",
+                        help="trace one step after the timed ones into DIR "
+                             "(torch.profiler) and print its top operators")
     args = parser.parse_args(argv)
 
     device = default_device(args.device)
@@ -219,6 +224,13 @@ def main(argv=None) -> dict:
     else:
         float(loss)
         per_step = (time.perf_counter() - t0) / args.steps
+    if args.profile:
+        import sys
+        from kair_tpu_torch.utils.profiling import print_trace_summary, trace
+        with trace(args.profile):
+            trainer.train_step(batch)
+        print_trace_summary(args.profile,
+                            printer=lambda *a: print(*a, file=sys.stderr))
     report.update({
         "step_ms": round(per_step * 1e3, 3),
         "steps_per_s": round(1.0 / per_step, 2),

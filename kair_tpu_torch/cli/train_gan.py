@@ -14,7 +14,9 @@ f32 on the card before any work: pass ``--dtype bf16``. Checkpoints are
 KAIR's tagged state dicts under ``path.models`` (``<iter>_G.pth``,
 ``_D``, ``_E``, ``_optimizerG``, ``_optimizerD``); a run resumes from the
 newest ``_G`` file, and the best PSNR's G (or E) goes to
-``bestmodel/best_psnr_G.pth``.
+``bestmodel/best_psnr_G.pth``. ``gpu_ids`` with several entries trains
+data-parallel as ``cli.train`` does: G's and D's gradients averaged over
+the ranks, rank 0 alone logging, saving and evaluating.
 """
 
 from __future__ import annotations
@@ -29,11 +31,14 @@ import torch
 
 from kair_tpu_torch import config as opt_util
 from kair_tpu_torch.ckpt import checkpoint as ck
-from kair_tpu_torch.cli.train import DTYPES, evaluate
+from kair_tpu_torch.cli.train import (DTYPES, choose_mesh, evaluate,
+                                      join_launched_group, rank_logger,
+                                      spawn_ranks, train_batch_size)
 from kair_tpu_torch.data.base import Loader
 from kair_tpu_torch.data.datasets import define_dataset, make_train_loader
+from kair_tpu_torch.parallel import launch
+from kair_tpu_torch.parallel.mesh import shard_batch
 from kair_tpu_torch.train.select import define_trainer
-from kair_tpu_torch.utils.logger import setup_logger
 from kair_tpu_torch.utils.metrics_log import MetricsLogger
 
 
@@ -50,40 +55,50 @@ def main(json_path: Optional[str] = None, argv=None):
                              "the perceptual loss")
     args = parser.parse_args(argv)
 
+    join_launched_group(args.device)
     opt = opt_util.parse(args.opt, is_train=True)
-    for d in ("models", "images", "options", "log"):
-        os.makedirs(opt["path"].get(d) or opt["path"]["task"], exist_ok=True)
-    opt_util.save(opt)
-    logger = setup_logger("train_gan", os.path.join(opt["path"]["log"],
-                                                    "train.log"))
-    mlog = MetricsLogger(opt["path"]["log"])
+    main_rank = launch.is_main_process()
+    if main_rank:
+        for d in ("models", "images", "options", "log"):
+            os.makedirs(opt["path"].get(d) or opt["path"]["task"],
+                        exist_ok=True)
+        opt_util.save(opt)
+    launch.barrier()
+    logger = rank_logger("train_gan", os.path.join(opt["path"]["log"],
+                                                   "train.log"))
 
     seed = opt["train"].get("manual_seed") or 1234
     np.random.seed(seed)
     torch.manual_seed(seed)
+
+    ds_train = opt["datasets"].get("train")
+    if ds_train is None:
+        raise ValueError(f"{args.opt}: no 'train' entry under 'datasets'")
+    mesh = choose_mesh(opt, args.device, logger.info)
+    if mesh is not None and not torch.distributed.is_initialized():
+        spawn_ranks(main, mesh, args.device, json_path, argv)
+        return None
+
+    train_loader = make_train_loader(ds_train, train_batch_size(ds_train),
+                                     seed=seed, info=logger.info)
+    ds_test = opt["datasets"].get("test")
+    test_loader = (Loader(define_dataset(ds_test), 1, shuffle=False,
+                          drop_last=False) if ds_test else None)
+
     vgg_state = None
     if args.vgg:
         vgg_state = torch.load(args.vgg, map_location="cpu", weights_only=True)
     trainer = define_trainer(opt, dtype=DTYPES[args.dtype], device=args.device,
                              vgg_state=vgg_state)
-
-    train_loader = test_loader = None
-    for phase, ds_opt in opt["datasets"].items():
-        if phase == "train":
-            train_loader = make_train_loader(
-                ds_opt, ds_opt.get("dataloader_batch_size") or 16, seed=seed,
-                info=logger.info)
-        elif phase == "test":
-            test_loader = Loader(define_dataset(ds_opt), 1, shuffle=False,
-                                 drop_last=False)
-    if train_loader is None:
-        raise ValueError(f"{args.opt}: no 'train' entry under 'datasets'")
+    mlog = MetricsLogger(opt["path"]["log"]) if main_rank else None
 
     models = opt["path"]["models"]
     init_iter, init_path = opt_util.find_last_checkpoint(models, "G")
     if init_path and os.path.exists(init_path):
         logger.info(f"resume from {init_path} @ {init_iter}")
         trainer.resume(init_path, init_iter)
+    if mesh is not None:
+        trainer.use_mesh(mesh)
     current_step = int(init_iter)
 
     ot = opt["train"]
@@ -94,14 +109,33 @@ def main(json_path: Optional[str] = None, argv=None):
     border = opt.get("scale") or 1
     best_psnr = -1.0
 
+    def test_and_keep_best(step: int, m: dict, best_psnr: float) -> float:
+        psnr, ssim = evaluate(trainer, test_loader, border=border,
+                              use_ema=True)
+        logger.info(f"<iter:{step:8,d}> PSNR {psnr:.2f} dB SSIM {ssim:.4f}")
+        mlog.log(step, {"psnr": psnr, "ssim": ssim,
+                        **{k: float(v) for k, v in m.items()}})
+        try:
+            mlog.plot_correlations()
+        except ImportError as e:
+            logger.info(f"no correlation plots: {e}")
+        if psnr > best_psnr:
+            src = trainer.ema if trainer.ema is not None else trainer.model
+            ck.save_best(models, "psnr", "G", src.state_dict())
+            logger.info(f"new best PSNR {psnr:.2f} dB: saved bestmodel")
+        return max(psnr, best_psnr)
+
     t0 = time.time()
     for epoch in range(10 ** 9):
         for batch in train_loader.epoch(epoch + seed):
             if current_step >= max_iter:
-                trainer.save(models, current_step)
+                if main_rank:
+                    trainer.save(models, current_step)
                 logger.info("reached max_iter")
                 return trainer
             current_step += 1
+            if mesh is not None:
+                batch = shard_batch(mesh, batch)
             m = trainer.train_step(batch,
                                    update_g=trainer.should_update_g(current_step))
 
@@ -109,24 +143,12 @@ def main(json_path: Optional[str] = None, argv=None):
                 msg = ", ".join(f"{k}:{float(v):.3e}" for k, v in m.items())
                 ips = (current_step - init_iter) / max(time.time() - t0, 1e-9)
                 logger.info(f"<iter:{current_step:8,d}> {msg} it/s:{ips:.2f}")
-            if current_step % save_every == 0:
+            if current_step % save_every == 0 and main_rank:
                 trainer.save(models, current_step)
             if current_step % test_every == 0 and test_loader is not None:
-                psnr, ssim = evaluate(trainer, test_loader, border=border,
-                                      use_ema=True)
-                logger.info(f"<iter:{current_step:8,d}> PSNR {psnr:.2f} dB "
-                            f"SSIM {ssim:.4f}")
-                mlog.log(current_step, {"psnr": psnr, "ssim": ssim,
-                                        **{k: float(v) for k, v in m.items()}})
-                try:
-                    mlog.plot_correlations()
-                except ImportError as e:
-                    logger.info(f"no correlation plots: {e}")
-                if psnr > best_psnr:
-                    best_psnr = psnr
-                    src = trainer.ema if trainer.ema is not None else trainer.model
-                    ck.save_best(models, "psnr", "G", src.state_dict())
-                    logger.info(f"new best PSNR {psnr:.2f} dB: saved bestmodel")
+                if main_rank:
+                    best_psnr = test_and_keep_best(current_step, m, best_psnr)
+                launch.barrier()
 
 
 if __name__ == "__main__":

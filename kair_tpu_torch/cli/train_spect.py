@@ -30,9 +30,9 @@ shipped templates do not meet that case. The ``*_loss`` columns are
 the trainer's loss on E against H (``eval_loss``); the JAX CLI hands the
 harness no loss, so its columns read 0.
 
-The setup, the step loop and the checkpoints are ``cli/train``'s
-``prepare`` and ``train_loop``; this CLI adds the evaluations, the best
-models and the metric history.
+The setup, the step loop, the checkpoints and data parallelism over
+``gpu_ids`` are ``cli/train``'s ``prepare`` and ``train_loop``; this CLI
+adds the evaluations, the best models and the metric history (rank 0's).
 """
 
 from __future__ import annotations
@@ -102,6 +102,9 @@ def main(json_path: Optional[str] = None, argv=None):
     args = parser.parse_args(argv)
     run = train_cli.prepare(args, "train_spect", default_seed=1234,
                             restart=args.restart)
+    if run.trainer is None:
+        train_cli.spawn_ranks(main, run.mesh, args.device, json_path, argv)
+        return None
     opt, trainer, logger = run.opt, run.trainer, run.logger
     mlog = MetricsLogger(opt["path"]["log"])
     val_loaders = {

@@ -20,7 +20,9 @@ least), ``tflops`` and ``mfu`` (the analytic FLOP of
 ``utils/summary.vrt_flops_per_clip`` / ``rvrt_flops_per_clip`` over the
 card's dense bf16 peak; null on an unknown card or the CPU).
 ``--profile`` adds ``profile``: device ms by kernel and the idle share of
-one clip, from torch.profiler. ``--device cpu`` runs the plain versions in
+one clip, from torch.profiler; ``--profile DIR`` also writes a Chrome
+trace of one clip a route into DIR (``utils/profiling``) and prints its
+top operators to stderr. ``--device cpu`` runs the plain versions in
 f32 (a CPU time).
 """
 
@@ -71,9 +73,12 @@ def main(argv=None,
                              "process")
     parser.add_argument("--k", type=int, default=4,
                         help="timed forwards a route a round (3 rounds)")
-    parser.add_argument("--profile", action="store_true",
+    parser.add_argument("--profile", nargs="?", const=True, default=None,
+                        metavar="DIR",
                         help="device ms by kernel and the idle share of "
-                             "one clip (torch.profiler)")
+                             "one clip (torch.profiler); with DIR also a "
+                             "Chrome trace of one clip a route there and "
+                             "its top operators on stderr")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
@@ -129,6 +134,14 @@ def main(argv=None,
                 report["profile"] = device_profile(lambda: m(x), 1, ms)
         print(json.dumps(report))
         out.append(report)
+    if isinstance(args.profile, str):
+        import sys
+        from kair_tpu_torch.utils.profiling import print_trace_summary, trace
+        with torch.inference_mode(), trace(args.profile):
+            for m in models.values():
+                m(x)
+        print_trace_summary(args.profile,
+                            printer=lambda *a: print(*a, file=sys.stderr))
     return out
 
 

@@ -31,7 +31,6 @@ import numpy as np
 
 from kair_tpu_torch.data.base import Dataset, Loader
 from kair_tpu_torch.utils import image as im
-from kair_tpu_torch.utils.logger import warn_once
 
 
 class ImageFiles(Dataset):
@@ -312,16 +311,23 @@ def define_dataset(opt_ds: dict) -> Dataset:
 
 
 def make_train_loader(ds_opt: dict, batch_size: int, seed: int = 0,
-                      info=lambda s: None) -> Loader:
-    """The training batch source for a dataset option block: the Python
-    ``Loader``. ``use_native_loader`` (the JAX package's C++ epoch loader)
-    is a later slice of the port (ROADMAP Queue 1 item 10); the option is
-    logged and the Python loader used, as the JAX package does when its
-    native loader is unavailable."""
+                      info=lambda s: None):
+    """The training batch source for a dataset option block: with
+    ``use_native_loader`` the native C++ epoch loader
+    (``native_loader.NativeEpochLoader``) where it has the block's
+    protocol, else the Python ``Loader`` with a log line; both speak the
+    ``epoch()`` protocol the train loops iterate. A failed build or decode
+    of the native loader raises (the JAX package falls back to the Python
+    loader there; here a run asked for the native loader gets it)."""
     if ds_opt.get("use_native_loader"):
-        warn_once("native-loader", "use_native_loader: the native C++ loader "
-                  "is a later slice of the port; using the Python loader")
-        info("native loader not ported yet; using the python loader")
+        from kair_tpu_torch.data import native_loader
+        why = native_loader.native_refusal(ds_opt)
+        if why is None:
+            ld = native_loader.NativeEpochLoader(ds_opt, batch_size, seed=seed)
+            info(f"train images: {ld.n_images} (native C++ loader), "
+                 f"iters/epoch: {len(ld)}")
+            return ld
+        info(f"native loader: {why}; using the python loader")
     ds = define_dataset(ds_opt)
     ld = Loader(ds, batch_size,
                 shuffle=bool(ds_opt.get("dataloader_shuffle", True)),

@@ -20,6 +20,11 @@ One step, as the JAX package's jitted step:
   vectors of before the step (the JAX ``state.spectral_d``) in frozen
   mode. GP's interpolation weights come from ``gp_alpha``;
 * EMA of G after G updates only.
+* data parallel (``use_mesh``): G's and D's gradients and the losses
+  averaged over the mesh's 'data' axis before the updates; ragan's other
+  side's mean and GP's interpolation weights are the global batch's
+  (``parallel.mesh.batch_mean``, ``shard_rows``), BatchNorm in D the
+  global batch's statistics, as under the JAX mesh.
 
 Each network has its own Adam (optax's defaults: betas (0.9, 0.999), eps
 1e-8) and MultiStepLR schedule over its own update count. ``dtype``
@@ -42,6 +47,7 @@ import torch
 from kair_tpu_torch.models.discriminator import (load_spectral_vectors,
                                                  set_frozen_mode,
                                                  spectral_vectors)
+from kair_tpu_torch.parallel.mesh import batch_mean, shard_rows
 from kair_tpu_torch.train.losses import (gan_loss, get_loss_fn,
                                          gradient_penalty_loss, r1_penalty)
 from kair_tpu_torch.train.schedulers import multistep
@@ -112,6 +118,13 @@ class GanTrainer(PlainTrainer):
         self._init_ema()
         self.step = 0                     # steps made (G + D or D only)
         self.g_updates = 0                # G optimizer updates made
+        self.mesh = None
+
+    def nets(self) -> list:
+        return [self.model, self.model_d]
+
+    def optimizers(self) -> list:
+        return [self.optimizer, self.optimizer_d]
 
     # ------------------------------------------------------------------
     def should_update_g(self, current_step: int) -> bool:
@@ -121,9 +134,14 @@ class GanTrainer(PlainTrainer):
 
     def gp_alpha(self, step: int, shape, device) -> torch.Tensor:
         """GP's interpolation weights at ``step`` (uniform, from a
-        generator seeded by ``D_reg_seed`` and the step)."""
+        generator seeded by ``D_reg_seed`` and the step), drawn for the
+        global batch; this rank's rows of them under a mesh."""
         gen = torch.Generator().manual_seed(self.reg_seed * 1_000_003 + step)
-        return torch.rand(shape, generator=gen).to(device)
+        if self.mesh is None:
+            return torch.rand(shape, generator=gen).to(device)
+        n = self.mesh.shape["data"] * self.mesh.shape.get("tile", 1)
+        alpha = torch.rand((shape[0] * n,) + tuple(shape[1:]), generator=gen)
+        return shard_rows(self.mesh, alpha).to(device)
 
     def _d(self, x: torch.Tensor) -> torch.Tensor:
         with self._autocast():
@@ -153,9 +171,9 @@ class GanTrainer(PlainTrainer):
             dl = gan_loss(pred_fake, True, self.gan_type)
         else:                             # ragan (model_gan.py:246-251)
             pred_real = self._d(h).detach()
-            dl = 0.5 * (gan_loss(pred_real - pred_fake.mean(0, keepdim=True),
+            dl = 0.5 * (gan_loss(pred_real - batch_mean(self.mesh, pred_fake),
                                  False, self.gan_type)
-                        + gan_loss(pred_fake - pred_real.mean(0, keepdim=True),
+                        + gan_loss(pred_fake - batch_mean(self.mesh, pred_real),
                                    True, self.gan_type))
         logs["D_loss"] = self.d_weight * dl
         return logs
@@ -171,9 +189,9 @@ class GanTrainer(PlainTrainer):
                 gan_loss(pred_fake, False, self.gan_type)
         else:                             # ragan (model_gan.py:279-288)
             loss = 0.5 * gan_loss(
-                pred_real - pred_fake.mean(0, keepdim=True).detach(), True,
+                pred_real - batch_mean(self.mesh, pred_fake).detach(), True,
                 self.gan_type) + 0.5 * gan_loss(
-                pred_fake - pred_real.mean(0, keepdim=True).detach(), False,
+                pred_fake - batch_mean(self.mesh, pred_real).detach(), False,
                 self.gan_type)
         if before is not None:
             after = spectral_vectors(d)
@@ -198,8 +216,8 @@ class GanTrainer(PlainTrainer):
         l_in = self._args(batch)
         h = _tensor(batch["H"], self.device).float()
         metrics: Dict[str, torch.Tensor] = {}
+        self.optimizer.zero_grad(set_to_none=True)
         if update_g:
-            self.optimizer.zero_grad(set_to_none=True)
             self.model_d.requires_grad_(False)
             with self._autocast():
                 e = self.model(*l_in)
@@ -243,6 +261,7 @@ class GanTrainer(PlainTrainer):
         if update_g is None:
             update_g = self.should_update_g(self.step + 1)
         metrics = self.compute_grads(batch, update_g)
+        self.average_grads(list(metrics.values()))
         self.apply_updates(update_g)
         return metrics
 

@@ -30,6 +30,12 @@ jitted step:
   for both). BatchNorm's running variance is PyTorch's and KAIR's, from
   the unbiased batch variance; flax updates it with the biased one
   (ROADMAP Queue 3).
+* data parallel (``use_mesh``): each rank steps on its rows of the global
+  batch (``parallel.mesh.shard_batch``); between the backward and the
+  update every gradient, and the logged losses, are averaged over the
+  mesh's 'data' axis, before clipping, as XLA's all-reduce comes before
+  optax in the JAX step; BatchNorm takes the global batch's statistics
+  (``parallel.mesh.group_batchnorm``).
 """
 
 from __future__ import annotations
@@ -127,6 +133,7 @@ class PlainTrainer:
         self._init_ema()
         self.extra_keys = tuple(extra_keys)
         self.step = 0                     # optimizer updates made
+        self.mesh = None
 
     def _init_g(self, opt: dict, dtype: Optional[torch.dtype], device) -> None:
         """The device, the type (None: bf16 on the card, f32 on the CPU)
@@ -166,9 +173,16 @@ class PlainTrainer:
 
     @torch.no_grad()
     def _update_ema(self) -> None:
-        ema, params = list(self.ema.parameters()), list(self.model.parameters())
-        torch._foreach_mul_(ema, self.ema_decay)
-        torch._foreach_add_(ema, params, alpha=1 - self.ema_decay)
+        # one foreach a tensor type: a model sharded by parallel.tp mixes
+        # DTensors and tensors, which one foreach call refuses
+        kinds: Dict[type, tuple] = {}
+        for e, p in zip(self.ema.parameters(), self.model.parameters()):
+            pair = kinds.setdefault(type(e), ([], []))
+            pair[0].append(e)
+            pair[1].append(p)
+        for ema, params in kinds.values():
+            torch._foreach_mul_(ema, self.ema_decay)
+            torch._foreach_add_(ema, params, alpha=1 - self.ema_decay)
         for e, b in self._ema_buffers:
             e.copy_(b)
 
@@ -212,8 +226,52 @@ class PlainTrainer:
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """One update; the loss stays on the device (no host sync)."""
         loss = self.compute_grads(batch)
+        self.average_grads([loss])
         self.apply_update()
         return {"G_loss": loss}
+
+    # ------------------------------------------------------------------
+    def nets(self) -> list:
+        """The networks that train (their BatchNorm statistics are global
+        under a mesh)."""
+        return [self.model]
+
+    def optimizers(self) -> list:
+        return [self.optimizer]
+
+    def state_tensors(self):
+        """Every tensor of the training state: the networks' and the EMA
+        copy's parameters and buffers, the optimizers' state."""
+        for net in self.nets() + ([self.ema] if self.ema is not None else []):
+            yield from net.parameters()
+            yield from net.buffers()
+        for opt in self.optimizers():
+            for group in opt.param_groups:
+                for p in group["params"]:
+                    st = opt.state.get(p, {})
+                    yield from (st[k] for k in sorted(st)
+                                if torch.is_tensor(st[k]))
+
+    def use_mesh(self, mesh) -> None:
+        """Train data-parallel over ``mesh`` (``parallel.mesh``): rank 0's
+        state broadcast, BatchNorm over the global batch, gradients
+        averaged a step."""
+        from kair_tpu_torch.parallel.mesh import group_batchnorm, replicate_state
+        self.mesh = mesh
+        for net in self.nets():
+            group_batchnorm(net, mesh)
+        replicate_state(mesh, list(self.state_tensors()))
+
+    @torch.no_grad()
+    def average_grads(self, values=()) -> None:
+        """Average the networks' gradients and ``values`` (the step's
+        losses) over the mesh's 'data' axis; nothing without a mesh."""
+        if self.mesh is None:
+            return
+        from kair_tpu_torch.parallel.mesh import all_reduce_mean
+        all_reduce_mean(self.mesh, [p.grad for net in self.nets()
+                                    for p in net.parameters()
+                                    if p.grad is not None] + list(values))
 
     # ------------------------------------------------------------------
     def eval_step(self, batch: Dict[str, Any], use_ema: bool = False
