@@ -22,7 +22,9 @@ block's forward does, per call and for the clip's 68 block calls (4 + 64
 launches, phase 19). Phase names after
 the checkout run only those phases (``python3 ab_kernels.py ../parent
 bilin``); with none, all of the above run. ``vrt``, ``rvrt`` and
-``vrt_train`` (phases 16, 19 and 21, whole models) run only when named.
+``vrt_train`` (phases 16, 19 and 21, whole models) and ``f32`` (phase 30,
+the f32 kernels and SwinIR in f32; checkouts whose chip_smoke.py has
+phase_f32) run only when named.
 It prints the card's name and power limit, then each run's phase lines:
 kernel, plain-version and library times, bounds and errors, as that
 checkout's phases report them. Comparing two kernel versions is only sound
@@ -65,12 +67,15 @@ PHASES = {
     "bilin": "chip_smoke.phase_bilin([])",
 }
 # whole models, run only when named: VRT-001's clip (16), RVRT-001's clip
-# (19) and VRT-001's training (21), each with its device time by kernel
+# (19) and VRT-001's training (21), each with its device time by kernel;
+# and phase 30, the f32 kernels and SwinIR in f32
 MODEL_PHASES = {
     "vrt": "chip_smoke.phase_vrt([], chip_smoke.nvidia_smi())",
     "rvrt": "chip_smoke.phase_rvrt([], chip_smoke.nvidia_smi())",
     "vrt_train": "chip_smoke.phase_vrt_train([], chip_smoke.nvidia_smi(), "
                  "_build.BUILD_DIR)",
+    "f32": "chip_smoke.phase_f32([], chip_smoke.nvidia_smi(), "
+           "_build.BUILD_DIR)",
 }
 VRT_B8 = """
 # VRT's blocks at the training step's B=8 calls, this checkout's own pack

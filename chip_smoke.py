@@ -249,7 +249,8 @@ Phases, one flushed line each with its seconds:
                 step, no composed block; (c) ms a G+D and a D-only step
                 (3 after 1), MFU from the analytic FLOP, peak memory, busy
                 ms and idle share from two profiled steps; (d) --dtype f32
-                refused naming the kernel; (e) through cli.train_gan for 2
+                passes the route check (phase 30's kernels); (e) through
+                cli.train_gan for 2
                 steps, then a resume to 3: the recipe above (--dtype bf16,
                 --vgg, make_train_loader at B=16 of 256x256; 54 + 54
                 launches a G update over both runs), then the shipped option
@@ -271,7 +272,7 @@ Phases, one flushed line each with its seconds:
                 intervals and val_2's eval_repoisson rewritten): (a) SPECT
                 SwinIR (embed 180, 6x6, window 8, in_nc 2, no upsampler)
                 bf16 at B=16 of 64x64, blocks by BLOCK_INIT: --dtype f32
-                refused naming the kernel; the first step's gradient
+                passes the route check; the first step's gradient
                 against the f32 plain route on the card with the f32
                 route's dL/dE fed to both (<= 8e-3 over all, 1e-1 a block
                 parameter, phase 24's gray limits; controls: the shifted
@@ -311,6 +312,27 @@ Phases, one flushed line each with its seconds:
                 world 1 on a 1x128x128 LR image: equal to the monolithic
                 forward, 36 + 7 launches; (f) utils/profiling.trace of one
                 forward, whose top rows name the row-1 kernel
+ 30 f32         the f32 kernels (csrc/swin_block_f32.cu,
+                swin_block_bwd_f32.cu, conv_block_f32.cu) against their f32
+                plain versions on the card, each with the bf16 kernel on the
+                same inputs as the control over the limit: (a) row 1 at
+                B=16 128x128 C=180, phases 0 and 4, and C=240 B=4 (<= 1e-4
+                of max|ref|); (b) row 4 at ws 7, B=8 126x126, and row 5 (the
+                attention-only mode) at B=16 128x128 (<= 1e-4); (c) row 2 at
+                B=16 128x128 (<= 1e-4), timed against F.conv2d f32 + add;
+                (d) row 3 at B=32 48x48, C=180 and C=240 (<= 5e-4 per
+                tensor); ms, plain ms and the f32 bound of each; (e)
+                SwinIR-M x4 through cli.test.build_preset(dtype=f32) at B=16
+                128x128: 36 + 7 f32 launches, no bf16 launch, no composed
+                call, within 1e-4 of the f32 plain route on the card; ms a
+                forward, LR MP/s and f32 MFU; the unfused route and JPEG-CAR
+                in f32 (36 row-5, 36 row-4 + 7 row-2 launches); (f) one
+                SwinIR-M x4 f32 step from the x4 recipe at its batch (32 of
+                48x48 LR): 36 + 36 f32 launches, its gradient within 1e-3 of
+                the f32 plain route (the bf16 step's over it), ms a step,
+                peak memory, busy ms and idle share; (g) one JPEG-CAR
+                SwinIR-M step at window 7 (126x126, batch cut to 2): a
+                finite loss, no row-1 or row-3 launch, 36 composed calls
 
 Any failed check raises and the script exits non-zero; a watchdog ends a
 hung run with a traceback. The line before the last is one JSON object with
@@ -1510,32 +1532,34 @@ def cpu_without_shift_mask(fn):
 
 
 class LaunchCount:
-    """Zero every kernel's launch count (and count calls of the composed
-    block route, which the card must never take), read them after."""
+    """Zero every Swin-path kernel's launch count, bf16 and f32, and
+    SwinIR's count of composed block calls (``SwinBlock.composed_calls``, a
+    route the card takes only where the JAX package runs XLA), read them
+    after."""
 
     def __enter__(self):
         from kair_tpu_torch.models import swinir as msw
         from kair_tpu_torch.ops.kernels import conv_block, swin_block, window_msa
+        sb2, bwd = swin_block.swin_block_2d, swin_block.swin_block_2d_bwd
+        msa, conv = window_msa.window_msa_win, conv_block.conv3x3_residual
         # kernel name → (wrapper, its count of that kernel's launches)
-        self.fns = {"swin_block_2d": (swin_block.swin_block_2d, "launches"),
-                    "swin_block_win": (swin_block.swin_block_2d, "launches_win"),
-                    "window_msa_win": (window_msa.window_msa_win, "launches"),
-                    "conv3x3_residual": (conv_block.conv3x3_residual, "launches")}
+        self.fns = {"swin_block_2d": (sb2, "launches"),
+                    "swin_block_win": (sb2, "launches_win"),
+                    "window_msa_win": (msa, "launches"),
+                    "conv3x3_residual": (conv, "launches"),
+                    "swin_block_2d_bwd": (bwd, "launches"),
+                    "swin_block_2d_f32": (sb2, "launches_f32"),
+                    "swin_block_win_f32": (sb2, "launches_win_f32"),
+                    "window_msa_win_f32": (msa, "launches_f32"),
+                    "conv3x3_residual_f32": (conv, "launches_f32"),
+                    "swin_block_2d_bwd_f32": (bwd, "launches_f32"),
+                    "composed": (msw.SwinBlock, "composed_calls")}
         for f, attr in self.fns.values():
             setattr(f, attr, 0)
-        self.composed, self.msw = 0, msw
-        self.ref = msw.swin_block_win_reference
-
-        def counted(*a, **kw):
-            self.composed += 1
-            return self.ref(*a, **kw)
-        msw.swin_block_win_reference = counted
         return self
 
     def __exit__(self, *exc):
-        self.msw.swin_block_win_reference = self.ref
         self.counts = {n: getattr(f, attr) for n, (f, attr) in self.fns.items()}
-        self.counts["composed"] = self.composed
         return False
 
     def expect(self, what: str, **want) -> str:
@@ -3656,7 +3680,8 @@ def phase_train_zoo(card: str, build_dir) -> None:
                 f"{bs / (ms / 1e3):.1f} patches/s, peak memory "
                 f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
                 f"{prof} [{card}]")
-        lc.expect("gray training", swin_block_2d=2 * n_blocks * steps)
+        lc.expect("gray training", swin_block_2d=2 * n_blocks * steps,
+                  swin_block_2d_bwd=n_blocks * steps)
         require(n_bwd == n_blocks * steps,
                 f"gray training: {n_bwd} backward launches in {steps} steps")
         del trainer
@@ -4245,16 +4270,12 @@ def phase_gan_train(report: list, card: str, build_dir) -> None:
                 "dataset 'sr' on seeded smooth images (blindsr needs cv2), "
                 "no warm start; bf16 autocast over f32")
 
-        # (d) f32 refused before any work, naming the kernel
-        try:
-            define_trainer(opt, dtype=torch.float32, vgg_state=vgg_sd)
-            refusal = None
-        except NotImplementedError as e:
-            refusal = str(e)
-        require(refusal is not None and "swin_block_2d" in refusal
-                and bf16_only_route(trainer.model) in refusal,
-                f"--dtype f32 on the card: {refusal}")
-        ph.note(f"(d) --dtype f32 refused: '{refusal[:150]}'" + lap())
+        # (d) f32 passes the route check: the G's blocks run the f32
+        # kernels (phase 30)
+        where = bf16_only_route(trainer.model)
+        require(where is None, f"--dtype f32 on the card: {where}")
+        ph.note("(d) --dtype f32: no bf16-only route in the G (its blocks "
+                "take the f32 kernels, phase 30)" + lap())
 
         dataset = seeded_dataset(ds_opt, 64, SEED + 262, size=320)
         loader = Loader(dataset, GAN_BATCH, seed=SEED)
@@ -4881,15 +4902,10 @@ def phase_spect(report: list, card: str, build_dir) -> None:
         opt = config.parse(paths["swinir_psnr_8x_linear"], is_train=True)
         net, ds_opt = opt["netG"], opt["datasets"]["train"]
         bs = ds_opt["dataloader_batch_size"]
-        try:
-            define_trainer(opt, dtype=torch.float32)
-            refusal = None
-        except NotImplementedError as e:
-            refusal = str(e)
         torch.manual_seed(SEED + 280)
         trainer = define_trainer(opt, dtype=torch.bfloat16)
-        require(refusal is not None and bf16_only_route(trainer.model)
-                in refusal, f"--dtype f32 on the card: {refusal}")
+        where = bf16_only_route(trainer.model)
+        require(where is None, f"--dtype f32 on the card: {where}")
         sd = seeded_train_weights(trainer.model, SEED + 281)
         trainer.model.load_state_dict(sd)
         trainer.ema.load_state_dict(sd)
@@ -4904,7 +4920,8 @@ def phase_spect(report: list, card: str, build_dir) -> None:
                 f"{sum(p.numel() for p in trainer.model.parameters())} "
                 f"params, blocks by BLOCK_INIT), "
                 f"{opt['train']['G_lossfn_type']} loss, batch {bs} of 64x64x2; "
-                f"--dtype f32 refused: '{refusal[:120]}'" + lap())
+                "--dtype f32: no bf16-only route (the f32 kernels, phase 30)"
+                + lap())
 
         # the first step's gradient: bf16 kernels against the f32 plain
         # route on the card. Charbonnier at eps 1e-9 is sign(E - H)
@@ -4979,7 +4996,8 @@ def phase_spect(report: list, card: str, build_dir) -> None:
         n_bwd = swin_block.swin_block_2d_bwd.launches
         mem = torch.cuda.max_memory_allocated()
         steps = len(batches)
-        lc.expect("SPECT training", swin_block_2d=n_blocks * steps)
+        lc.expect("SPECT training", swin_block_2d=n_blocks * steps,
+                  swin_block_2d_bwd=n_blocks * steps)
         require(n_bwd == n_blocks * steps,
                 f"SPECT training: {n_bwd} backward launches in {steps} steps")
         per_step = {"swin_block_2d": lc.counts["swin_block_2d"] // steps,
@@ -5410,6 +5428,412 @@ def phase_scale_out(report: list, card: str, build_dir) -> None:
                 f"the trace's top rows {rows} name no row-1 kernel")
 
 
+# ---------------------------------------------------------------------------
+# f32 on the card (phase 30)
+# ---------------------------------------------------------------------------
+
+# limits of phase 30: the f32 kernels against their f32 plain versions on
+# the card (sums in another order; no bf16 anywhere), per tensor for the
+# backward; the training step's gradient against the f32 plain route
+F32_FWD_TOL, F32_BWD_TOL, F32_STEP_TOL = 1e-4, 5e-4, 1e-3
+# KAIR 006_CAR's training geometry: 126x126 HR patches (window 7); the
+# training fields of OPTION_FILE, batch cut from 32 to 2 to fit the phase
+JPEG_CAR_TRAIN_BATCH = 2
+
+
+class plain_inference:
+    """While open, SwinIR's inference blocks and tails run the kernels'
+    plain versions on whatever device (the f32 plain route on the card)."""
+
+    def __enter__(self):
+        from kair_tpu_torch.models import swinir as msw
+        from kair_tpu_torch.ops import blocks
+        from kair_tpu_torch.ops.kernels import conv_block, window_msa
+        from kair_tpu_torch.ops.kernels import swin_block as sb
+        self.saved = [(msw, "swin_block_2d", msw.swin_block_2d),
+                      (msw, "window_msa_win", msw.window_msa_win),
+                      (blocks, "conv3x3_residual", blocks.conv3x3_residual)]
+        msw.swin_block_2d = lambda x, p, nh, mask=None, phase=0, ws=8, \
+            packed=None: sb.swin_block_win_reference(x, p, nh, mask, phase, ws)
+        msw.window_msa_win = lambda *a, packed=None: \
+            window_msa.window_msa_win_reference(*a)
+        blocks.conv3x3_residual = lambda y, res, w, b, phase=0, \
+            packed_weight=None: conv_block.conv3x3_residual_reference(
+                y, res, w, b, phase)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def f32_check(ph, what: str, got, ref, tol: float, control=None) -> float:
+    """max|got − ref| ≤ tol · max|ref|; the control (the bf16 kernel on the
+    same inputs) must be over the limit. Returns the max abs error."""
+    e_abs, e_rel, ref_max, _ = compare(got, ref)
+    note = f"{what}: max_rel {e_rel:.4g} (max|ref| {ref_max:.4g})"
+    require(e_rel <= tol, f"{what}: max_rel {e_rel:.4g} > {tol}")
+    if control is not None:
+        c_rel = compare(control, ref)[1]
+        note += f"; bf16 control {c_rel:.4g}"
+        require(c_rel > tol, f"{what}: the bf16 control {c_rel:.4g} is not "
+                "over the limit")
+    ph.note(note)
+    return e_abs
+
+
+def grad_rel(a, b) -> dict:
+    """Per tensor ‖a − b‖ / ‖b‖ of two backward results (dx, grads)."""
+    import torch
+    out = {"dx": ((a[0].float() - b[0].float()).norm()
+                  / b[0].float().norm()).item()}
+    for name, g, r in zip(b[1]._fields, a[1], b[1]):
+        if r is not None:
+            out[name] = ((g.float() - r.float()).norm()
+                         / max(r.float().norm().item(), 1e-30)).item()
+    return out
+
+
+def phase_f32(report: list, card: str, build_dir) -> None:
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from kair_tpu_torch.cli.test import build_preset
+    from kair_tpu_torch.models.registry import define_g
+    from kair_tpu_torch.ops.kernels import conv_block as cb
+    from kair_tpu_torch.ops.kernels import swin_block as sb
+    from kair_tpu_torch.ops.kernels import window_msa as wm
+    from kair_tpu_torch.train.select import define_trainer
+    from kair_tpu_torch.utils.summary import (PEAKS, swinir_block_bwd_flops_per_token,
+                                              swinir_block_flops_per_token,
+                                              swinir_flops_per_lr_pixel,
+                                              window_msa_flops_per_token)
+
+    dev, f32 = torch.device("cuda"), torch.float32
+    gen = torch.Generator().manual_seed(SEED + 300)
+    t_phase = time.perf_counter()
+
+    def lap() -> str:
+        return f" [{time.perf_counter() - t_phase:.1f} s]"
+
+    def f32_bound(flops, nbytes):
+        return bound_ms(flops, nbytes, rate="fp32")
+
+    entries = {}
+    with Phase("30 f32") as ph:
+        ph.note(f"TF32 off (phase 0); limits {F32_FWD_TOL} x max|ref| "
+                f"(forward kernels), {F32_BWD_TOL} per tensor (backward), "
+                f"{F32_STEP_TOL} over all (a training step's gradient), each "
+                "against the f32 plain version or route on the card; controls "
+                "the bf16 kernels on the same inputs [" + card + "]")
+        # (a) row 1 in f32, B=16 128x128 C=180, and C=240
+        b, h, c, nh, hid = 16, 128, 180, 6, 360
+        p = swin_params(c, nh, hid, gen, dev, f32)
+        x = torch.randn(b, h, h, c, generator=gen).to(dev)
+        pk, pk16 = sb.pack_swin_block_f32(p, nh), sb.pack_swin_block(p, nh)
+        mask = wm.shift_mask_tensor(h, h, 8, 4, dev)
+        errs = []
+        for phase, m in ((0, None), (4, mask)):
+            got = sb.swin_block_2d(x, p, nh, m, phase, packed=pk)
+            ref = sb.swin_block_win_reference(x, p, nh, m, phase)
+            ctl = sb.swin_block_2d(x.to(torch.bfloat16), p, nh, m, phase,
+                                   packed=pk16)
+            errs.append(f32_check(ph, f"(a) row 1 B={b} {h}x{h} C={c} phase "
+                                  f"{phase}", got, ref, F32_FWD_TOL, ctl))
+        del got, ref, ctl
+        ms = cuda_ms(lambda: sb.swin_block_2d(x, p, nh, mask, 4, packed=pk))
+        plain_ms = cuda_ms(lambda: sb.swin_block_win_reference(
+            x, p, nh, mask, 4), warmup=1, reps=5)
+        tokens = b * h * h
+        flops = tokens * swinir_block_flops_per_token(c, nh, 8, hid / c)
+        n_par = sum(t.numel() for t in p)
+        bms, by = f32_bound(flops, 2 * 4 * tokens * c + 4 * n_par
+                            + 4 * mask.numel())
+        ph.note(f"(a) row 1 f32 {ms:.3f} ms (shifted, median of 10), "
+                f"{flops / ms / 1e9:.2f} TFLOP/s; plain f32 {plain_ms:.3f} ms; "
+                f"bound {bms:.4f} ms ({by}, {flops / 1e9:.1f} GFLOP at 67 "
+                "TFLOP/s f32)" + lap())
+        entries["swin_block_2d_f32"] = dict(
+            source="kair_tpu_torch/csrc/swin_block_f32.cu",
+            replaces="kair_tpu/ops/pallas/swin_block.py:701", max_abs_err=max(errs),
+            ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
+        # (b) row 5, the attention-only mode, at the same inputs
+        y = F.layer_norm(x, (c,), p.norm1_weight, p.norm1_bias)
+        msa_args = (p.qkv_weight, p.qkv_bias, p.proj_weight, p.proj_bias,
+                    p.rel_table, nh, mask, 4)
+        pkm = sb.pack_attn_f32(*msa_args[:6])
+        got = wm.window_msa_win(y, *msa_args, packed=pkm)
+        ref = wm.window_msa_win_reference(y, *msa_args)
+        ctl = wm.window_msa_win(y.to(torch.bfloat16), *msa_args)
+        e5 = f32_check(ph, f"(b) row 5 B={b} {h}x{h} C={c} phase 4", got, ref,
+                       F32_FWD_TOL, ctl)
+        del got, ref, ctl, x
+        ms5 = cuda_ms(lambda: wm.window_msa_win(y, *msa_args, packed=pkm))
+        plain5 = cuda_ms(lambda: wm.window_msa_win_reference(y, *msa_args),
+                         warmup=1, reps=5)
+        fl5 = tokens * window_msa_flops_per_token(c, 8)
+        b5, by5 = f32_bound(fl5, 2 * 4 * tokens * c + 4 * (4 * c * c + 4 * c)
+                            + 4 * mask.numel())
+        ph.note(f"(b) row 5 f32 {ms5:.3f} ms, plain {plain5:.3f} ms, bound "
+                f"{b5:.4f} ms ({by5})" + lap())
+        entries["window_msa_win_f32"] = dict(
+            source="kair_tpu_torch/csrc/swin_block_f32.cu",
+            replaces="kair_tpu/ops/pallas/window_msa.py:271", max_abs_err=e5,
+            ms=ms5, plain_ms=plain5, bound_ms=b5, bound_by=by5, library_ms=None)
+        del y
+        # C=240 (SwinIR-L), B=4
+        pl_ = swin_params(240, 8, 480, gen, dev, f32)
+        xl = torch.randn(4, h, h, 240, generator=gen).to(dev)
+        got = sb.swin_block_2d(xl, pl_, 8, mask, 4)
+        ref = sb.swin_block_win_reference(xl, pl_, 8, mask, 4)
+        ctl = sb.swin_block_2d(xl.to(torch.bfloat16), pl_, 8, mask, 4)
+        errs.append(f32_check(ph, f"(a) row 1 B=4 {h}x{h} C=240 phase 4", got,
+                              ref, F32_FWD_TOL, ctl))
+        pkl = sb.pack_swin_block_f32(pl_, 8)
+        ph.note(f"(a) C=240 {cuda_ms(lambda: sb.swin_block_2d(xl, pl_, 8, mask, 4, packed=pkl)):.3f} ms"
+                + lap())
+        del got, ref, ctl, xl
+        # (b) row 4 at ws 7, B=8 126x126 (JPEG-CAR's geometry)
+        b4, s4 = 8, 126
+        p7 = swin_params(c, nh, hid, gen, dev, f32, ws=7)
+        x7 = torch.randn(b4, s4, s4, c, generator=gen).to(dev)
+        m7 = wm.shift_mask_tensor(s4, s4, 7, 3, dev)
+        pk7 = sb.pack_swin_block_f32(p7, nh)
+        e4 = 0.0
+        for phase, m in ((0, None), (3, m7)):
+            got = sb.swin_block_2d(x7, p7, nh, m, phase, 7, packed=pk7)
+            ref = sb.swin_block_win_reference(x7, p7, nh, m, phase, 7)
+            ctl = sb.swin_block_2d(x7.to(torch.bfloat16), p7, nh, m, phase, 7)
+            e4 = max(e4, f32_check(ph, f"(b) row 4 ws 7 B={b4} {s4}x{s4} "
+                                   f"phase {phase}", got, ref, F32_FWD_TOL, ctl))
+        del got, ref, ctl
+        ms4 = cuda_ms(lambda: sb.swin_block_2d(x7, p7, nh, m7, 3, 7, packed=pk7))
+        plain4 = cuda_ms(lambda: sb.swin_block_win_reference(x7, p7, nh, m7, 3, 7),
+                         warmup=1, reps=5)
+        fl4 = b4 * s4 * s4 * swinir_block_flops_per_token(c, nh, 7, hid / c)
+        b4ms, by4 = f32_bound(fl4, 2 * 4 * b4 * s4 * s4 * c + 4 * n_par
+                              + 4 * m7.numel())
+        ph.note(f"(b) row 4 f32 {ms4:.3f} ms (shifted), plain {plain4:.3f} ms, "
+                f"bound {b4ms:.4f} ms ({by4}, on the real tokens)" + lap())
+        entries["swin_block_win_f32"] = dict(
+            source="kair_tpu_torch/csrc/swin_block_f32.cu",
+            replaces="kair_tpu/ops/pallas/swin_block.py:843", max_abs_err=e4,
+            ms=ms4, plain_ms=plain4, bound_ms=b4ms, bound_by=by4, library_ms=None)
+        del x7
+        # (c) row 2 in f32, B=16 128x128 C=180, against F.conv2d f32 + add
+        yc = torch.randn(b, h, h, c, generator=gen).to(dev)
+        rc = torch.randn(b, h, h, c, generator=gen).to(dev)
+        wc = (torch.randn(c, c, 3, 3, generator=gen) * 0.05).to(dev)
+        bc = torch.randn(c, generator=gen).to(dev)
+        wpk = cb.pack_conv3x3_f32(wc)
+        got = cb.conv3x3_residual(yc, rc, wc, bc, 4, wpk)
+        ref = cb.conv3x3_residual_reference(yc, rc, wc, bc, 4)
+        ctl = cb.conv3x3_residual(yc.to(torch.bfloat16), rc.to(torch.bfloat16),
+                                  wc, bc, 4)
+        e2 = f32_check(ph, f"(c) row 2 B={b} {h}x{h} C={c} phase 4", got, ref,
+                       F32_FWD_TOL, ctl)
+        del got, ref, ctl
+        ms2 = cuda_ms(lambda: cb.conv3x3_residual(yc, rc, wc, bc, 4, wpk))
+        plain2 = cuda_ms(lambda: cb.conv3x3_residual_reference(yc, rc, wc, bc, 4),
+                         warmup=1, reps=5)
+        yn = yc.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        rn = rc.permute(0, 3, 1, 2)
+        lib2 = cuda_ms(lambda: F.conv2d(yn, wc, bc, padding=1).add_(rn))
+        fl2 = 2.0 * b * h * h * c * 9 * c
+        b2ms, by2 = f32_bound(fl2, 3 * 4 * b * h * h * c + 4 * (9 * c * c + c))
+        ph.note(f"(c) row 2 f32 {ms2:.3f} ms, {fl2 / ms2 / 1e9:.2f} TFLOP/s; "
+                f"plain {plain2:.3f} ms; F.conv2d f32 (TF32 off, channels-last) "
+                f"+ add {lib2:.3f} ms; bound {b2ms:.4f} ms ({by2})" + lap())
+        entries["conv3x3_residual_f32"] = dict(
+            source="kair_tpu_torch/csrc/conv_block_f32.cu",
+            replaces="kair_tpu/ops/pallas/conv_block.py:94", max_abs_err=e2,
+            ms=ms2, plain_ms=plain2, bound_ms=b2ms, bound_by=by2,
+            library_ms=lib2)
+        del yc, rc, yn, rn
+        # (d) row 3 in f32: B=32 48x48 at C=180 and C=240
+        e3 = 0.0
+        for cc, nn, hh in ((180, 6, 360), (240, 8, 480)):
+            pb = swin_params(cc, nn, hh, gen, dev, f32)
+            xb = torch.randn(32, 48, 48, cc, generator=gen).to(dev)
+            dyb = torch.randn(32, 48, 48, cc, generator=gen).to(dev)
+            mb = wm.shift_mask_tensor(48, 48, 8, 4, dev)
+            pkb = sb.pack_swin_block_f32(pb, nn)
+            got = sb.swin_block_2d_bwd(xb, dyb, pb, nn, mb, pkb, 4)
+            ref = sb.swin_block_2d_bwd_reference(xb, dyb, pb, nn, mb, 4)
+            ctl = sb.swin_block_2d_bwd(xb.to(torch.bfloat16),
+                                       dyb.to(torch.bfloat16), pb, nn, mb,
+                                       sb.pack_swin_block(pb, nn, folded=False), 4)
+            rel, rel_ctl = grad_rel(got, ref), grad_rel(ctl, ref)
+            worst = max(rel, key=rel.get)
+            ph.note(f"(d) row 3 B=32 48x48 C={cc} phase 4: worst tensor {worst} "
+                    f"{rel[worst]:.4g} (limit {F32_BWD_TOL}), dx {rel['dx']:.4g}; "
+                    f"bf16 control worst {max(rel_ctl.values()):.4g}" + lap())
+            require(rel[worst] <= F32_BWD_TOL, f"row 3 C={cc}: {worst} "
+                    f"{rel[worst]:.4g} > {F32_BWD_TOL}")
+            require(max(rel_ctl.values()) > F32_BWD_TOL,
+                    f"row 3 C={cc}: the bf16 control is not over the limit")
+            e3 = max(e3, (got[0] - ref[0]).abs().max().item())
+            if cc == 180:
+                ms3 = cuda_ms(lambda: sb.swin_block_2d_bwd(xb, dyb, pb, nn, mb,
+                                                           pkb, 4))
+                plain3 = cuda_ms(lambda: sb.swin_block_2d_bwd_reference(
+                    xb, dyb, pb, nn, mb, 4), warmup=1, reps=5)
+                tok3 = 32 * 48 * 48
+                fl3 = tok3 * swinir_block_bwd_flops_per_token(cc, 8, hh / cc)
+                n3 = sum(t.numel() for t in pb)
+                b3ms, by3 = f32_bound(fl3, 3 * 4 * tok3 * cc + 2 * 4 * n3
+                                      + 4 * mb.numel())
+                ph.note(f"(d) row 3 f32 {ms3:.3f} ms, {fl3 / ms3 / 1e9:.2f} "
+                        f"TFLOP/s; plain {plain3:.3f} ms; bound {b3ms:.4f} ms "
+                        f"({by3}, {fl3 / 1e9:.1f} GFLOP)")
+            del got, ref, ctl, xb, dyb
+        entries["swin_block_2d_bwd_f32"] = dict(
+            source="kair_tpu_torch/csrc/swin_block_bwd_f32.cu",
+            replaces="kair_tpu/ops/pallas/swin_block.py:588", max_abs_err=e3,
+            ms=ms3, plain_ms=plain3, bound_ms=b3ms, bound_by=by3,
+            library_ms=None)
+        torch.cuda.empty_cache()
+
+        # (e) SwinIR-M x4 in f32 through cli/test's build_preset
+        with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+            path = f"{tmp}/swinir_m_x4_seed{SEED}.pth"
+            torch.save({"params": main_path_state_dict(SEED)}, path)
+            model, _, _ = build_preset("swinir_classical_x4", path, "cuda", f32)
+            unfused, _, _ = build_preset("swinir_classical_x4", path, "cuda",
+                                         f32, fuse=False)
+        xin = torch.rand(b, h, h, 3, generator=gen).to(dev)
+        with LaunchCount() as lc, torch.inference_mode():
+            out = model(xin)
+            torch.cuda.synchronize()
+        counts = lc.expect("f32 SwinIR-M forward", swin_block_2d_f32=36,
+                           conv3x3_residual_f32=7)
+        n_fwd = dict(lc.counts)
+        with torch.inference_mode(), plain_inference():
+            want = model(xin)
+        e_rel = compare(out, want)[1]
+        ph.note(f"(e) SwinIR-M x4 f32 (cli/test build_preset, dtype f32) "
+                f"B={b} {h}x{h}: launches {counts}; "
+                f"against the f32 plain route on the card max_rel "
+                f"{e_rel:.4g} (limit {F32_FWD_TOL})" + lap())
+        require(out.shape == (b, 4 * h, 4 * h, 3)
+                and torch.isfinite(out).all().item(), f"output {out.shape}")
+        require(e_rel <= F32_FWD_TOL, f"SwinIR-M f32 max_rel {e_rel:.4g}")
+        del out, want
+        with torch.inference_mode():
+            fwd_ms = cuda_ms(lambda: model(xin), warmup=1, reps=3)
+        tfl = swinir_flops_per_lr_pixel() * b * h * h / (fwd_ms / 1e3) / 1e12
+        ph.note(f"(e) ms_per_forward {fwd_ms:.2f} (median of 3), "
+                f"{b * h * h / (fwd_ms / 1e3) / 1e6:.4f} LR MP/s, "
+                f"{tfl:.2f} TFLOP/s, f32 MFU {tfl / PEAKS['H100 SXM']['fp32_tflops']:.4f}"
+                " of 67 TFLOP/s" + lap())
+        for k in ("swin_block_2d_f32", "conv3x3_residual_f32"):
+            entries[k]["launches"] = n_fwd[k]
+        # the unfused route (row 5) and JPEG-CAR (row 4) in f32, B=2
+        jcar = define_g({"netG": dict(JPEG_CAR_NET)})
+        jcar.load_state_dict(visible_state_dict(jcar, SEED + 301,
+                                                img_range=255.0))
+        jcar = jcar.to(dev).eval()
+        with LaunchCount() as lc, torch.inference_mode():
+            o5 = unfused(xin[:2])
+            o4 = jcar(torch.rand(2, 126, 126, 3, generator=gen).to(dev))
+            torch.cuda.synchronize()
+        c2 = lc.expect("unfused and JPEG-CAR f32 forwards",
+                       window_msa_win_f32=36, swin_block_win_f32=36,
+                       conv3x3_residual_f32=7)
+        require(torch.isfinite(o5).all().item()
+                and torch.isfinite(o4).all().item(),
+                "unfused and JPEG-CAR f32 forwards: non-finite output")
+        for k in ("window_msa_win_f32", "swin_block_win_f32"):
+            entries[k]["launches"] = lc.counts[k]
+        ph.note(f"(e) the unfused route and JPEG-CAR (ws 7) in f32 at B=2: "
+                f"launches {c2}" + lap())
+        del model, unfused, jcar, o4, o5, xin
+        torch.cuda.empty_cache()
+
+        # (f) one SwinIR-M x4 f32 training step at the recipe's batch
+        with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+            opt = train_options(tmp)
+            ds_opt = opt["datasets"]["train"]
+            bs = ds_opt["dataloader_batch_size"]
+            trainer = define_trainer(opt, dtype=f32)
+            require(trainer.dtype == f32, f"trainer dtype {trainer.dtype}")
+            sd = seeded_train_weights(trainer.model, SEED + 302)
+            trainer.model.load_state_dict(sd)
+            rng = np.random.RandomState(SEED + 303)
+            hs = ds_opt["H_size"]
+            batches = [{"L": rng.rand(bs, hs // 4, hs // 4, 3).astype(np.float32),
+                        "H": rng.rand(bs, hs, hs, 3).astype(np.float32)}
+                       for _ in range(3)]
+            with LaunchCount() as lc:
+                g_card, _ = loss_grads(trainer, batches[0])
+                torch.cuda.synchronize()
+            c3 = lc.expect("f32 training step", swin_block_2d_f32=36,
+                           swin_block_2d_bwd_f32=36)
+            n_step = dict(lc.counts)
+            with composed_swin_blocks():
+                g_ref, _ = loss_grads(trainer, batches[0])
+            bf = copy.copy(trainer)
+            bf.dtype = torch.bfloat16
+            g_bf, _ = loss_grads(bf, batches[0])
+            names = list(g_ref)
+            err, err_bf = rel_norm(g_card, g_ref, names), rel_norm(g_bf, g_ref, names)
+            ph.note(f"(f) {OPTION_FILE} at its batch {bs} of {hs // 4}x{hs // 4} "
+                    f"LR in f32 (define_trainer dtype f32): launches {c3} a "
+                    f"step; gradient against the f32 plain route on the card "
+                    f"{err:.4g} over all (limit {F32_STEP_TOL}), the bf16 "
+                    f"step's {err_bf:.4g}" + lap())
+            require(err <= F32_STEP_TOL, f"f32 step gradient {err:.4g}")
+            require(err_bf > F32_STEP_TOL, f"the bf16 control {err_bf:.4g}")
+            entries["swin_block_2d_bwd_f32"]["launches"] = \
+                n_step["swin_block_2d_bwd_f32"]
+            del g_card, g_ref, g_bf, bf
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms_step, losses = timed_steps(trainer, batches)
+            mem = torch.cuda.max_memory_allocated()
+            prof = device_breakdown(lambda: trainer.train_step(batches[1]), 1,
+                                    ms_step, "step", sums=("swin_",))
+            ph.note(f"(f) ms_per_step {ms_step:.2f} (mean of 2 after 1, CUDA "
+                    f"events), losses {losses[0]:.4g} .. {losses[-1]:.4g}, peak "
+                    f"memory {mem / 2 ** 30:.2f} GiB; {prof}" + lap())
+            # the f32 trainer evaluates its f32 model on the f32 kernels
+            with LaunchCount() as lc:
+                e = trainer.eval_step({"L": batches[0]["L"][:2]})
+                torch.cuda.synchronize()
+            ce = lc.expect("the f32 trainer's eval_step", swin_block_2d_f32=36,
+                           conv3x3_residual_f32=7)
+            require(e.shape == (2, hs, hs, 3) and torch.isfinite(e).all().item(),
+                    f"f32 eval_step output {tuple(e.shape)}")
+            ph.note(f"(f) eval_step of the f32 trainer, 2 LR patches: {ce}"
+                    + lap())
+            del trainer, batches, e
+            torch.cuda.empty_cache()
+
+            # (g) one JPEG-CAR SwinIR-M training step at window 7 (composed)
+            opt["netG"] = dict(JPEG_CAR_NET)
+            opt["scale"] = 1
+            trainer = define_trainer(opt, dtype=f32)
+            h7 = rng.rand(JPEG_CAR_TRAIN_BATCH, 126, 126, 3).astype(np.float32)
+            batch = {"L": np.clip(h7 + rng.normal(0, 0.05, h7.shape), 0, 1)
+                     .astype(np.float32), "H": h7}
+            with LaunchCount() as lc:
+                loss = float(trainer.train_step(batch)["G_loss"])
+                torch.cuda.synchronize()
+            c4 = lc.expect("JPEG-CAR training step", composed=36)
+            ph.note(f"(g) JPEG-CAR SwinIR-M (window 7, 126x126, the x4 "
+                    f"recipe's training fields, batch cut from {bs} to "
+                    f"{JPEG_CAR_TRAIN_BATCH}) f32 step: loss {loss:.4g}, "
+                    f"counts {c4}" + lap())
+            require(math.isfinite(loss), f"JPEG-CAR training step: loss {loss}")
+            del trainer
+            torch.cuda.empty_cache()
+    for name, e in entries.items():
+        report.append(dict(name=name, route="cuda", **e))
+
+
 def phase_build() -> None:
     """Phase 1: build the kernels, check the layout mirrors, print ptxas."""
     import threading
@@ -5493,6 +5917,33 @@ def phase_build() -> None:
                     f"a window pair), backward {bw.smem} B ({bw.stages} "
                     f"stages a window pair) + {bw.wgrad_smem} B (weight grads, "
                     f"{bw.items} items of 128 x {bw.nb})")
+        # the f32 kernels' layouts (csrc/swin_block_f32.cu,
+        # swin_block_bwd_f32.cu, conv_block_f32.cu)
+        from kair_tpu_torch.ops.kernels.swin_block import (bwd_f32_plan,
+                                                            f32_plan)
+        for c, nh, hid, ws in ((24, 4, 48, 8), (180, 6, 360, 8),
+                               (180, 6, 360, 7), (240, 8, 480, 8),
+                               (60, 6, 120, 4)):
+            plan = (ctypes.c_int * 4)()
+            lib.kair_swin_f32_plan(c, nh, 32, ws, plan)
+            require(tuple(plan) == tuple(f32_plan(c, nh, ws)),
+                    f"f32 block plan mirror differs at C={c} ws {ws}: "
+                    f"{tuple(plan)} vs {tuple(f32_plan(c, nh, ws))}")
+            lib.kair_swin_bwd_f32_plan(c, nh, 32, hid, plan)
+            require(tuple(plan) == tuple(bwd_f32_plan(c, nh, hid))[:4],
+                    f"f32 backward plan mirror differs at C={c}: "
+                    f"{tuple(plan)} vs {tuple(bwd_f32_plan(c, nh, hid))[:4]}")
+            require(lib.kair_conv3x3_f32_shared_bytes(c)
+                    == conv_block.f32_shared_bytes(c),
+                    f"f32 conv shared-memory mirror differs at C={c}")
+        ph.note(f"the f32 plans equal the kernels' at 5 geometries; SwinIR-M "
+                f"{f32_plan(180, 6, 8).smem} B forward, "
+                f"{bwd_f32_plan(180, 6, 360).smem} B backward pass 1, "
+                f"SwinIR-L {f32_plan(240, 8, 8).smem} / "
+                f"{bwd_f32_plan(240, 8, 480).smem} B; f32 kernels (ptxas): "
+                + ", ".join(f"{n} {r} regs {sp} B spill" for n, r, sp in
+                            ptxas_kernels(log_lines) if "f32" in n
+                            or "sum_parts" in n))
         from kair_tpu_torch.ops.kernels.win3d import kind, win3d_plan
         names = {0: "self", 1: "TMSA", 2: "STL2"}
         for mutual, plain, c, nh, wd, twd in (
@@ -5641,6 +6092,7 @@ def main() -> int:
     phase_face(card, _build.BUILD_DIR)
     phase_spect(report, card, _build.BUILD_DIR)
     phase_scale_out(report, card, _build.BUILD_DIR)
+    phase_f32(report, card, _build.BUILD_DIR)
     faulthandler.cancel_dump_traceback_later()
 
     log(card)

@@ -7,6 +7,7 @@ numpy only; nothing of JAX, flax or ``kair_tpu``.
 Entry points run on the card: ``default_device()`` resolves to ``cuda`` and
 raises when there is none, unless the caller asks for the CPU, where every
 hand-written kernel is replaced by its plain PyTorch version.
+``exact_f32`` is what the CLIs call for ``--dtype f32`` on the card.
 """
 
 from __future__ import annotations
@@ -32,3 +33,16 @@ def default_device(device: Optional[Union[str, torch.device]] = None
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def exact_f32(device: Optional[Union[str, torch.device]],
+              dtype: Optional[torch.dtype]) -> None:
+    """f32 on the card means f32: turn TF32 off for cuBLAS and cuDNN when
+    ``device`` (None: the card) is a CUDA device and ``dtype`` is f32, so
+    the convolutions and matrix products around the f32 kernels keep f32's
+    precision too (cuDNN runs f32 convolutions in TF32 by default). Does
+    nothing otherwise."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dtype == torch.float32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False

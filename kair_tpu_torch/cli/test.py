@@ -19,8 +19,10 @@ wrap blur and ×4 subsampling; ``sr4`` (MSRResNet, RRDB, IMDN, SwinIR)
 bicubic ×4. ``--border`` applies to the denoisers; the SR kinds shave
 their scale.
 
-Runs on the card (bf16) unless ``--device cpu`` is given (f32, the plain
-versions of the kernels). ``--x8`` is the 8-fold self-ensemble (mode 3 of
+Runs on the card in bf16 unless ``--dtype f32`` is given (the f32
+kernels, TF32 off for cuBLAS and cuDNN: ``exact_f32``; what the JAX CLI
+always runs) or ``--device cpu`` (f32, the plain versions of the
+kernels). ``--x8`` is the 8-fold self-ensemble (mode 3 of
 ``eval/test_modes.test_mode``); ``--fuse`` picks SwinIR's fused block
 kernels (on) or its unfused route with the window-attention kernel (off);
 auto is on where a card is present.
@@ -35,8 +37,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from kair_tpu_torch import default_device
+from kair_tpu_torch import default_device, exact_f32
 
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 SWINIR_X4 = dict(upscale=4, in_chans=3, embed_dim=180, depths=(6,) * 6,
                  num_heads=(6,) * 6, window_size=8, mlp_ratio=2.0,
                  upsampler="pixelshuffle", resi_connection="1conv")
@@ -202,7 +205,12 @@ def main(argv=None):
                         default="auto",
                         help="fused Swin block kernels (swinir): auto = on "
                              "when a card is present")
+    parser.add_argument("--dtype", choices=list(DTYPES), default=None,
+                        help="bf16 (the card's default) or f32 (the CPU's "
+                             "default; the JAX CLI's only one)")
     args = parser.parse_args(argv)
+    dtype = DTYPES.get(args.dtype)
+    exact_f32(args.device, dtype)
 
     from kair_tpu_torch.eval.test_modes import test_mode
     from kair_tpu_torch.utils import image as im
@@ -212,7 +220,8 @@ def main(argv=None):
     fuse = args.fuse == "on" or (args.fuse == "auto"
                                  and default_device(args.device).type == "cuda")
     model, kind, n_channels = build_preset(args.model_name, args.model_path,
-                                           device=args.device, fuse=fuse)
+                                           device=args.device, dtype=dtype,
+                                           fuse=fuse)
     noise = args.noise_level_img / 255.0
     fwd = make_forward(model, noise if kind == "ffdnet" else None)
 

@@ -9,9 +9,12 @@
 ``options/vrt/001_train_vrt_videosr_bi_reds_6frames.json``) and evaluates
 video test sets with ``evaluate_video``.
 
-Runs on the card in bf16 (autocast over f32 parameters); ``--device cpu``
-runs the kernels' plain versions on the CPU, where ``--dtype f32`` is the
-usual choice. Checkpoints are KAIR's tagged state dicts under
+Runs on the card in bf16 (autocast over f32 parameters) unless ``--dtype
+f32`` is given: then the f32 kernels, with TF32 off for cuBLAS and cuDNN
+(``exact_f32``); VRT and RVRT still raise in f32 on the card before any
+work (``train/trainer.bf16_only_route``). ``--device cpu`` runs the
+kernels' plain versions on the CPU, where ``--dtype f32`` is the usual
+choice. Checkpoints are KAIR's tagged state dicts under
 ``path.models`` (``<iter>_G.pth``, ``<iter>_E.pth``,
 ``<iter>_optimizerG.pth``); a run resumes from the newest ``_G`` file.
 
@@ -40,6 +43,7 @@ import torch
 import torch.distributed as dist
 
 from kair_tpu_torch import config as opt_util
+from kair_tpu_torch import exact_f32
 from kair_tpu_torch.ckpt import checkpoint as ck
 from kair_tpu_torch.data.base import Loader
 from kair_tpu_torch.data.datasets import define_dataset, make_train_loader
@@ -86,8 +90,8 @@ def evaluate_video(trainer: PlainTrainer, test_loader: Loader, opt: dict,
     ``evaluate_video``; reference main_train_vrt.py:205-246): clips of
     ``val.num_frame_testing`` frames, patches of ``val.size_patch_testing``,
     PSNR/SSIM per frame averaged per folder, then over folders. The EMA
-    copy when there is one; on the card a bf16 copy (SpyNet in f32, as
-    ``cli.test_video`` serves it), on the CPU an f32 copy. VRT or RVRT:
+    copy when there is one; on the card a copy in the trainer's dtype (bf16:
+    SpyNet in f32, as ``cli.test_video`` serves it), on the CPU an f32 copy. VRT or RVRT:
     the window defaults to the network's own ((6, 8, 8) and (2, 8, 8))."""
     import copy
     from kair_tpu_torch.eval.video_test import test_video
@@ -99,7 +103,7 @@ def evaluate_video(trainer: PlainTrainer, test_loader: Loader, opt: dict,
         (2, 8, 8) if net.get("net_type") == "rvrt" else (6, 8, 8)))
     sf = opt.get("scale") or 1
     src = trainer.ema if (use_ema and trainer.ema is not None) else trainer.model
-    dt = torch.bfloat16 if trainer.device.type == "cuda" else torch.float32
+    dt = trainer.dtype if trainer.device.type == "cuda" else torch.float32
     net = cast_for_inference(copy.deepcopy(src), trainer.device, dt)
 
     def fwd(a):
@@ -250,6 +254,7 @@ def prepare(args: argparse.Namespace, logger_name: str = "train",
 
     train_loader = make_train_loader(ds_opt, train_batch_size(ds_opt),
                                      seed=seed, info=logger.info)
+    exact_f32(args.device, DTYPES[args.dtype])
     trainer = build_trainer(opt, dtype=DTYPES[args.dtype], device=args.device)
     init_iter, init_path = opt_util.find_last_checkpoint(
         opt["path"]["models"], "G",

@@ -39,9 +39,10 @@ forward's FLOP over the card's peak for the dtype, recompute not counted:
 the analytic count for SwinIR and VRT, FlopCounterMode's for the zoo) and
 ``peak_mem_gib``; the VRT line also has ``deform``, ``fuse`` and
 ``remat``. ``--dtype`` is bf16 (autocast over f32 parameters; the card's
-default) or f32 (the CPU's default), which the zoo takes on the card and
-SwinIR and VRT refuse there; f32 on the card runs with TF32 off (cuDNN
-and cuBLAS), so that its mfu is over the f32 peak.
+default) or f32 (the CPU's default), which the zoo and SwinIR (its f32
+kernels) take on the card and VRT refuses there; f32 on the card runs with
+TF32 off (cuDNN and cuBLAS, ``exact_f32``), so that its mfu is over the
+f32 peak.
 ``--device cpu`` runs the plain versions (a timing there is the CPU's, not
 the card's; mfu and peak_mem_gib null). ``--profile DIR`` traces one more
 step after the timed ones (``utils/profiling``: a Chrome trace in DIR)
@@ -56,6 +57,8 @@ import time
 
 import numpy as np
 import torch
+
+from kair_tpu_torch import exact_f32
 
 # the network of options/vrt/001_train_vrt_videosr_bi_reds_6frames.json
 VRT_NET = {"net_type": "vrt", "upscale": 4, "img_size": [6, 64, 64],
@@ -156,10 +159,8 @@ def main(argv=None) -> dict:
 
     device = default_device(args.device)
     dtype = DTYPES.get(args.dtype)
-    if device.type == "cuda" and dtype == torch.float32:
-        # f32 as it is, not TF32: the mfu below divides by the f32 peak
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    # f32 as it is, not TF32: the mfu below divides by the f32 peak
+    exact_f32(device, dtype)
     rng = np.random.RandomState(0)
     torch.manual_seed(0)
     p = args.patch

@@ -8,9 +8,9 @@ correlation plots and best-PSNR retention.
 ``--vgg`` is the path of a local torchvision ``vgg19`` state dict, required
 when the option file sets ``F_lossfn_weight`` > 0: the perceptual loss
 refuses random features. Runs on the card (``--device cpu`` runs the
-kernels' plain versions); ``--dtype`` defaults to f32, as in the JAX CLI,
-and a G whose training route runs a bf16-only kernel (SwinIR) raises in
-f32 on the card before any work: pass ``--dtype bf16``. Checkpoints are
+kernels' plain versions); ``--dtype`` defaults to f32, as in the JAX CLI:
+a SwinIR G runs the f32 kernels, with TF32 off for cuBLAS and cuDNN
+(``exact_f32``); ``--dtype bf16`` runs the bf16 ones. Checkpoints are
 KAIR's tagged state dicts under ``path.models`` (``<iter>_G.pth``,
 ``_D``, ``_E``, ``_optimizerG``, ``_optimizerD``); a run resumes from the
 newest ``_G`` file, and the best PSNR's G (or E) goes to
@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from kair_tpu_torch import config as opt_util
+from kair_tpu_torch import exact_f32
 from kair_tpu_torch.ckpt import checkpoint as ck
 from kair_tpu_torch.cli.train import (DTYPES, choose_mesh, evaluate,
                                       join_launched_group, rank_logger,
@@ -88,6 +89,7 @@ def main(json_path: Optional[str] = None, argv=None):
     vgg_state = None
     if args.vgg:
         vgg_state = torch.load(args.vgg, map_location="cpu", weights_only=True)
+    exact_f32(args.device, DTYPES[args.dtype])
     trainer = define_trainer(opt, dtype=DTYPES[args.dtype], device=args.device,
                              vgg_state=vgg_state)
     mlog = MetricsLogger(opt["path"]["log"]) if main_rank else None

@@ -13,9 +13,10 @@ history with correlation plots redrawn at every evaluation, and
     python -m kair_tpu_torch.cli.train_spect \
         --opt generated/swinir_psnr_8x_linear.json
 
-Runs on the card, bf16 by default (``--dtype f32`` for the CNNs; a SwinIR
-at window 8 raises there, ``train/trainer.bf16_only_route``); ``--device
-cpu`` runs the kernels' plain versions on the CPU. Checkpoints are the
+Runs on the card, bf16 by default; ``--dtype f32`` runs the CNNs and the
+SwinIR in f32 (the f32 kernels), with TF32 off for cuBLAS and cuDNN
+(``cli/train.prepare``, ``exact_f32``); ``--device cpu`` runs the kernels'
+plain versions on the CPU. Checkpoints are the
 port trainer's (``<iter>_G.pth``, ``<iter>_E.pth``,
 ``<iter>_optimizerG.pth``, older ones pruned at each save, the newest
 resumed; ``path.pretrained_netG`` seeds a fresh run), the best models

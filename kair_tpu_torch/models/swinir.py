@@ -26,11 +26,14 @@ JAX rolls before the block, ``kair_tpu/models/swinir.py:124-137``) and its
 output is rolled back, whatever ``fuse_block`` says; the RSTB tail is ``F.conv2d`` + residual, as the JAX
 package leaves it to XLA in training. ``use_checkpoint`` recomputes each
 RSTB in the backward (``torch.utils.checkpoint``, non-reentrant; JAX's
-``nn.remat``). A window that no kernel takes (training at a window under 8,
-or any window above 8) runs the block kernels' plain version, composed
-PyTorch, as the JAX package's ``_flat_block_xla`` does, and says so once,
-on the CPU and, at inference, on the card; training on the card at such a
-window raises, since its only route there is the kernels.
+``nn.remat``). The kernels run in the block's working dtype: bf16 under a
+bf16 autocast, else the input's own (an f32 model on the card gets the f32
+kernels, inference and training alike). A window that no kernel takes
+(training at a window other than 8, e.g. JPEG-CAR's 7, or any window above
+8) runs the block kernels' plain version, composed PyTorch under autograd,
+where the JAX package runs ``_flat_block_xla`` through XLA
+(``kair_tpu/models/swinir.py:162-177``): no Pallas kernel is skipped there.
+It says so once and adds one to ``SwinBlock.composed_calls``.
 
 The head's normalisation and the final ``x + conv_last(res)`` (denoising,
 JPEG-CAR) or ``/ img_range + mean`` stay in f32 whatever the weights'
@@ -50,7 +53,9 @@ import torch.utils.checkpoint
 
 from kair_tpu_torch.ops.blocks import Conv, pixel_shuffle, upsample_nearest
 from kair_tpu_torch.ops.kernels.swin_block import (WS, SwinBlockParams,
+                                                    kernel_dtype,
                                                     pack_swin_block,
+                                                    pack_swin_block_f32,
                                                     swin_block_2d,
                                                     swin_block_train,
                                                     swin_block_win_reference)
@@ -93,6 +98,8 @@ class SwinBlock(nn.Module):
     """One Swin transformer block (KAIR SwinTransformerBlock,
     network_swinir.py:164-277) on (B, H, W, C)."""
 
+    composed_calls = 0      # forwards on the composed route, all blocks
+
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  num_heads: int, window_size: int, shift_size: int,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
@@ -119,10 +126,9 @@ class SwinBlock(nn.Module):
         self._pack_key: Optional[tuple] = None
         self._packs: dict = {}
 
-    def bf16_only_kernel(self) -> str:
-        """The kernels, bfloat16 only, that are this block's one training
-        route on the card: at another window than 8 the block raises there
-        (``forward``) rather than run composed PyTorch."""
+    def card_kernel(self) -> str:
+        """The hand-written kernels of this block's route on the card, in
+        bf16 and f32 alike; they take whole weights (``parallel/tp``)."""
         return "swin_block_2d and swin_block_2d_bwd"
 
     def params(self) -> SwinBlockParams:
@@ -134,22 +140,30 @@ class SwinBlock(nn.Module):
             m.fc2.weight, m.fc2.bias)
 
     @torch.no_grad()
-    def _packed(self, kind: str = "fwd"):
-        """Kernel operands — the block's folded pack ("fwd"), the
-        backward's ("bwd") or the attention kernel's ("msa") — rebuilt only
-        when a parameter changes: an optimizer step bumps the parameters'
-        versions, so each step packs anew."""
+    def _packed(self, kind: str = "fwd", dtype: torch.dtype = torch.bfloat16):
+        """Kernel operands of the kernels that take ``dtype`` — the block's
+        forward pack ("fwd"), the backward's ("bwd") or the attention
+        kernel's ("msa"); in f32 all three share one (the attention-only
+        mode reads the block pack's attention fields) — rebuilt only when a parameter changes: an optimizer step bumps the
+        parameters' versions, so each step packs anew."""
         key = tuple((t.data_ptr(), t._version) for t in self.parameters())
         if key != self._pack_key:
             self._packs, self._pack_key = {}, key
-        if kind not in self._packs:
+        f32 = dtype == torch.float32
+        slot = ("blk" if f32 else kind, f32)
+        if slot not in self._packs:
             a = self.attn
-            self._packs[kind] = pack_window_msa(
-                a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias,
-                a.relative_position_bias_table, self.num_heads) \
-                if kind == "msa" else pack_swin_block(
+            if f32:
+                self._packs[slot] = pack_swin_block_f32(self.params(),
+                                                        self.num_heads)
+            elif kind == "msa":
+                self._packs[slot] = pack_window_msa(
+                    a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias,
+                    a.relative_position_bias_table, self.num_heads)
+            else:
+                self._packs[slot] = pack_swin_block(
                     self.params(), self.num_heads, folded=kind == "fwd")
-        return self._packs[kind]
+        return self._packs[slot]
 
     def forward(self, x: torch.Tensor, phase_in: int = 0) -> torch.Tensor:
         b, h, w, c = x.shape
@@ -169,31 +183,35 @@ class SwinBlock(nn.Module):
             # the cyclic shift is folded into the kernel's read
             # (phase = shift − phase_in); the output stays in this block's
             # phase and RSTB threads it to the next block
+            if cuda:
+                x = x.to(kernel_dtype(x))
             return swin_block_2d(x, self.params(), self.num_heads, mask,
                                  shift - phase_in, ws,
-                                 packed=self._packed() if cuda else None)
+                                 packed=self._packed("fwd", x.dtype)
+                                 if cuda else None)
         if phase_in:
             raise ValueError("phase threading requires the fused block kernel")
         if self.training and ws == WS and kernel_ok(ws, h, w):
             # training: the shift is folded into both kernels' reads of x
             # (the forward's and the backward's); the output comes back in
             # the block's coordinates and one roll returns it
+            kdt = kernel_dtype(x)
             x = swin_block_train(
                 x, self.params(), self.num_heads, mask,
-                packed=self._packed() if cuda else None,
-                packed_bwd=self._packed("bwd") if cuda and torch.is_grad_enabled()
-                else None, phase=shift)
+                packed=self._packed("fwd", kdt) if cuda else None,
+                packed_bwd=self._packed("bwd", kdt)
+                if cuda and torch.is_grad_enabled() else None, phase=shift)
             return torch.roll(x, (shift, shift), (1, 2)) if shift else x
-        if self.training and cuda:
-            raise NotImplementedError(
-                f"SwinIR training on the card at window {ws}, map {h}x{w}: "
-                f"the block kernels train window {WS} only (swin_block_2d "
-                "and swin_block_2d_bwd) and there is no composed fallback; "
-                "another training window is a ROADMAP item")
+        # the counterpart of the JAX package's XLA route (_flat_block_xla):
+        # no Pallas kernel runs there either
         warn_once(f"swin-composed-fallback-{h}x{w}x{ws}-{self.training}",
-                  f"SwinIR block kernels not used at {h}x{w}, window {ws}, "
-                  f"training={self.training} (inference takes windows up to "
-                  f"{WS}, training window {WS}): composed PyTorch path")
+                  f"SwinIR fuse_block=True fell back to the composed PyTorch "
+                  f"path at {h}x{w}, window {ws}, train={self.training}: "
+                  + ("training requires ws=8 with H%8==0 and W%8==0"
+                     if self.training else
+                     f"the block kernels take windows of at most {WS} that "
+                     "tile the map"))
+        SwinBlock.composed_calls += 1
         x = swin_block_win_reference(x, self.params(), self.num_heads, mask,
                                      phase=shift, ws=ws)
         return torch.roll(x, (shift, shift), (1, 2)) if shift else x
@@ -203,10 +221,14 @@ class SwinBlock(nn.Module):
         """The unfused inference block: LN1, the window-attention kernel
         (shift folded into its read and write), residual, LN2 → MLP."""
         a, m = self.attn, self.mlp
+        y = self.norm1(x)
+        if y.is_cuda:
+            y = y.to(kernel_dtype(y))
         x = x + window_msa_win(
-            self.norm1(x), a.qkv.weight, a.qkv.bias, a.proj.weight,
+            y, a.qkv.weight, a.qkv.bias, a.proj.weight,
             a.proj.bias, a.relative_position_bias_table, self.num_heads, mask,
-            shift, ws, packed=self._packed("msa") if x.is_cuda else None)
+            shift, ws, packed=self._packed("msa", y.dtype)
+            if y.is_cuda else None)
         return x + m.fc2(F.gelu(m.fc1(self.norm2(x))))
 
 

@@ -28,7 +28,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from kair_tpu_torch.ops.kernels.conv_block import conv3x3_residual, pack_conv3x3
+from kair_tpu_torch.ops.kernels.conv_block import (conv3x3_residual,
+                                                   pack_conv3x3,
+                                                   pack_conv3x3_f32)
 
 
 def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -117,16 +119,20 @@ class Conv(nn.Conv2d):
                 and self.in_channels == self.out_channels):
             raise ValueError("fused residual mode needs k=3/s=1/p=1/d=1/"
                              "groups=1, a bias and C_in == C_out")
-        packed = self._packed_weight() if x.is_cuda else None
+        packed = self._packed_weight(x.dtype) if x.is_cuda else None
         return conv3x3_residual(x, residual, self.weight, self.bias,
                                 phase=phase, packed_weight=packed)
 
     @torch.no_grad()
-    def _packed_weight(self) -> torch.Tensor:
-        """The kernel's weight layout, rebuilt only when the weight changes."""
-        key = (self.weight.data_ptr(), self.weight._version)
+    def _packed_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        """The weight layout of the kernel that takes ``dtype`` (f32: the
+        f32 kernel's, else the bf16 one's), rebuilt only when the weight or
+        the dtype changes."""
+        key = (self.weight.data_ptr(), self.weight._version,
+               dtype == torch.float32)
         if key != self._pack_key:
-            self._pack = pack_conv3x3(self.weight)
+            self._pack = pack_conv3x3_f32(self.weight) \
+                if dtype == torch.float32 else pack_conv3x3(self.weight)
             self._pack_key = key
         return self._pack
 

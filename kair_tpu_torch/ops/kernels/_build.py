@@ -80,6 +80,16 @@ SIGNATURES = {
                                _I),
     # y, res, w, bias, out, B, H, W, C, phase, stream
     "kair_conv3x3_residual": ([_P] * 5 + [_I] * 5 + [_P], _I),
+    # x, out, wqkv, bqkv, wp, bp, ln, w1, b1, w2, b2, relbias, mask,
+    # B, H, W, C, NH, HDP, hidden, phase, ws, mode, scale, stream
+    "kair_swin_block_f32": ([_P] * 13 + [_I] * 10 + [ctypes.c_float, _P], _I),
+    # x, dy, wqkv, bqkv, wp, bp, ln, w1, b1, w2, b2, relbias, mask, ops,
+    # part_bias, part_ln, part_w, dx, dw, dln, dbias, B, H, W, C, NH, HDP,
+    # hidden, phase, grid, splits, scale, stream
+    "kair_swin_block_2d_bwd_f32": ([_P] * 21 + [_I] * 10
+                                   + [ctypes.c_float, _P], _I),
+    # y, res, w, bias, out, B, H, W, C, phase, stream
+    "kair_conv3x3_residual_f32": ([_P] * 5 + [_I] * 5 + [_P], _I),
     # kind, x, out, qkv, att, st1, bq, st3, pos, ln1, ln2, bp, b11, b12,
     # b2, rel_table, labels, B, D, H, W, C, NH, hidden, wd, twd, sd, sh, sw,
     # stream
@@ -100,6 +110,9 @@ SIGNATURES = {
     "kair_swin_block_plan": ([_I] * 3 + [_P], _I),       # C, NH, HP, dst (i32[5])
     "kair_swin_bwd_plan": ([_I] * 3 + [_P], _I),          # C, NH, hidden, dst (i32[10])
     "kair_conv3x3_shared_bytes": ([_I], _I),             # C
+    "kair_conv3x3_f32_shared_bytes": ([_I], _I),         # C
+    "kair_swin_f32_plan": ([_I] * 4 + [_P], _I),          # C, NH, HDP, ws, dst (i32[4])
+    "kair_swin_bwd_f32_plan": ([_I] * 4 + [_P], _I),      # C, NH, HDP, hidden, dst (i32[4])
     "kair_conv3x3_plan": ([_I, _P], _I),                 # C, dst (host i32[4])
     # kind, C, NH, hidden, wd, twd, dst (host i32[17])
     "kair_win3d_plan": ([_I] * 6 + [_P], _I),

@@ -12,7 +12,9 @@ its plain PyTorch version. The weight keeps KAIR's ``nn.Conv2d`` layout
 
 ``conv3x3_residual`` launches the kernel for a CUDA tensor and uses the
 plain version only for a CPU tensor; a tensor the kernel does not take
-raises.
+raises. An f32 tensor goes to the f32 kernel, ``csrc/conv_block_f32.cu``
+(an implicit GEMM on the CUDA cores over ``pack_conv3x3_f32``'s weights),
+a bf16 one to the wgmma kernel.
 """
 
 from __future__ import annotations
@@ -85,6 +87,21 @@ def pack_conv3x3(weight: torch.Tensor,
     return packed.reshape(ncs * kcs * 9, nt, KC).to(dtype).contiguous()
 
 
+def pack_conv3x3_f32(weight: torch.Tensor) -> torch.Tensor:
+    """(C, C, 3, 3) OIHW → the f32 kernel's (9, C_in, C_out): tap-major
+    rows of K, every value f32 as it is."""
+    c = weight.shape[0]
+    with torch.autocast(weight.device.type, enabled=False):
+        return weight.float().permute(2, 3, 1, 0).reshape(9, c, c).contiguous()
+
+
+def f32_shared_bytes(c: int) -> int:
+    """Dynamic shared memory of the f32 kernel's thread block: the staging,
+    two stages of 16 K rows of 64 pixels and of up to 256 output channels."""
+    from kair_tpu_torch.ops.kernels.swin_block import F32_CONV_NB, stage_floats
+    return 4 * stage_floats(64, c, F32_CONV_NB)
+
+
 def conv3x3_residual_reference(y: torch.Tensor, res: torch.Tensor,
                                weight: torch.Tensor, bias: torch.Tensor,
                                phase: int = 0) -> torch.Tensor:
@@ -100,8 +117,12 @@ def conv3x3_residual_reference(y: torch.Tensor, res: torch.Tensor,
 
 def _check_cuda_args(y, res, weight, bias):
     if y.dtype != torch.bfloat16 or res.dtype != torch.bfloat16:
-        raise TypeError(f"conv3x3_residual kernel takes bfloat16, got "
-                        f"{y.dtype}/{res.dtype}")
+        raise TypeError(f"conv3x3_residual's bf16 kernel takes bfloat16 y "
+                        f"and res, got {y.dtype}/{res.dtype}")
+    _check_shapes(y, res, weight, bias)
+
+
+def _check_shapes(y, res, weight, bias):
     if y.dim() != 4 or y.shape != res.shape:
         raise ValueError("conv3x3_residual expects y and res of one "
                          "(B, H, W, C) shape")
@@ -141,10 +162,15 @@ def conv3x3_residual(y: torch.Tensor, res: torch.Tensor, weight: torch.Tensor,
                      ) -> torch.Tensor:
     """out = conv3x3_SAME(roll(y, (phase, phase))) + bias + res, NHWC.
 
-    CPU tensor → the plain version. CUDA tensor → the kernel (bf16 only),
-    or an exception; ``packed_weight`` is the cached ``pack_conv3x3``."""
+    CPU tensor → the plain version. CUDA tensor → the kernel of its dtype:
+    bf16 → the wgmma kernel, ``packed_weight`` the cached ``pack_conv3x3``;
+    f32 → the f32 kernel, ``packed_weight`` the cached
+    ``pack_conv3x3_f32``; anything else raises. A launch adds one to
+    ``launches`` (bf16) or ``launches_f32``."""
     if y.device.type == "cpu":
         return conv3x3_residual_reference(y, res, weight, bias, phase)
+    if y.dtype == torch.float32:
+        return _conv3x3_residual_f32(y, res, weight, bias, phase, packed_weight)
     _check_cuda_args(y, res, weight, bias)
     c = y.shape[-1]
     wpk = packed_weight if packed_weight is not None else pack_conv3x3(weight)
@@ -174,3 +200,35 @@ def _launch(lib, y, res, wpk, bias32, out, phase: int) -> None:
 
 
 conv3x3_residual.launches = 0
+conv3x3_residual.launches_f32 = 0
+
+
+def _conv3x3_residual_f32(y, res, weight, bias, phase, packed_weight):
+    """The f32 kernel, ``kair_conv3x3_residual_f32``, on a CUDA tensor."""
+    if res.dtype != torch.float32:
+        raise TypeError(f"conv3x3_residual (f32) takes an f32 residual, got "
+                        f"{res.dtype}")
+    _check_shapes(y, res, weight, bias)
+    b, h, w, c = y.shape
+    if c % 4 or f32_shared_bytes(c) > SMEM_LIMIT:
+        raise ValueError(f"conv3x3_residual (f32) takes C in multiples of 4 "
+                         f"up to the shared-memory limit, got C={c}")
+    wpk = packed_weight if packed_weight is not None else \
+        pack_conv3x3_f32(weight)
+    if (wpk.dtype != torch.float32 or tuple(wpk.shape) != (9, c, c)
+            or wpk.device != y.device or not wpk.is_contiguous()):
+        raise ValueError(f"an f32 input needs the f32 packed weight: a "
+                         f"contiguous f32 (9, {c}, {c}) tensor on {y.device}")
+    if b * h * w >= 2 ** 31:
+        raise ValueError(f"conv3x3_residual takes B*H*W < 2^31 pixels, got "
+                         f"{b * h * w}")
+    bias32 = bias.float().contiguous()
+    out = torch.empty_like(y)
+    with torch.cuda.device(y.device):
+        err = _build.library().kair_conv3x3_residual_f32(
+            y.data_ptr(), res.data_ptr(), wpk.data_ptr(), bias32.data_ptr(),
+            out.data_ptr(), b, h, w, c, int(phase),
+            torch.cuda.current_stream(y.device).cuda_stream)
+    _build.check(err, "conv3x3_residual (f32)")
+    conv3x3_residual.launches_f32 += 1
+    return out

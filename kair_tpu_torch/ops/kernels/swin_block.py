@@ -50,7 +50,7 @@ import torch.nn.functional as F
 
 from kair_tpu_torch.ops.kernels import _build
 from kair_tpu_torch.ops.kernels._build import SMEM_LIMIT
-from kair_tpu_torch.ops.kernels.window_msa import (check_geometry,
+from kair_tpu_torch.ops.kernels.window_msa import (HD_MAX, check_geometry,
                                                    fold_ln_affine,
                                                    pack_qkv_proj,
                                                    rel_index_on,
@@ -454,20 +454,26 @@ def check_ring_operands(name: str, x: torch.Tensor, st: torch.Tensor,
 
 def swin_block_2d(x: torch.Tensor, p: SwinBlockParams, num_heads: int,
                   mask: Optional[torch.Tensor] = None, phase: int = 0,
-                  ws: int = WS, packed: Optional[SwinBlockPack] = None
-                  ) -> torch.Tensor:
+                  ws: int = WS, packed=None) -> torch.Tensor:
     """Fused inference Swin block on (B, H, W, C) for a window ws ≤ 8 that
     tiles the map: kernel 1 at ws 8, kernel A below it (windows of N = ws²
     tokens padded to 64 rows inside the kernel); one C entry,
     ``kair_swin_block``.
 
-    CPU tensor → the plain version. CUDA tensor → the kernel (bf16 only),
-    or an exception; ``packed`` is the cached ``pack_swin_block(p, nh)``
-    (its weight stages included). A launch adds one to ``launches`` (ws 8)
-    or ``launches_win`` (ws < 8)."""
+    CPU tensor → the plain version. CUDA tensor → the kernel of its dtype:
+    bf16 → ``kair_swin_block``, ``packed`` the cached ``pack_swin_block(p,
+    nh)`` (its weight stages included); f32 → ``kair_swin_block_f32``,
+    ``packed`` the cached ``pack_swin_block_f32(p, nh)``; anything else, or
+    a pack of the other dtype, raises. A launch adds one to ``launches``
+    (bf16, ws 8), ``launches_win`` (bf16, ws < 8), ``launches_f32`` or
+    ``launches_win_f32``."""
     if x.device.type == "cpu":
         return swin_block_win_reference(x, p, num_heads, mask, phase, ws)
+    if x.dtype == torch.float32:
+        return _swin_block_f32(x, p, num_heads, mask, phase, ws, packed)
     _check_cuda_args(x, p, num_heads, mask, ws)
+    if isinstance(packed, SwinBlockF32Pack):
+        raise TypeError("swin_block_2d: a bf16 input met the f32 pack")
     pk = packed if packed is not None else pack_swin_block(p, num_heads)
     _check_stages(x, pk, num_heads)
     out = torch.empty_like(x)
@@ -498,6 +504,213 @@ def _launch(lib, x: torch.Tensor, out: torch.Tensor, pk: SwinBlockPack,
 
 swin_block_2d.launches = 0          # kernel 1: ws 8
 swin_block_2d.launches_win = 0      # kernel A: ws < 8
+swin_block_2d.launches_f32 = 0      # the f32 kernel: ws 8
+swin_block_2d.launches_win_f32 = 0  # the f32 kernel: ws < 8
+
+
+# ---------------------------------------------------------------------------
+# The f32 kernels (csrc/swin_block_f32.cu, csrc/swin_block_bwd_f32.cu): the
+# block at every window ≤ 8 and its attention-only mode, and the window-8
+# backward, FFMA on the CUDA cores over the parameters as they are. One pack
+# serves all of them; f32_plan and bwd_f32_plan mirror the kernels' layouts
+# (chip_smoke.py holds them to kair_swin_f32_plan and kair_swin_bwd_f32_plan).
+# ---------------------------------------------------------------------------
+
+F32_KT = 16                 # K rows the f32 products stage at a time
+F32_NB, F32_CONV_NB = 128, 256  # output columns a pass over K covers: the
+                                # block kernels, the conv tail
+F32_HC = 128                # MLP hidden chunk
+F32_L = 68                  # row stride of the backward's 64-wide buffers
+
+
+def stage_floats(nr: int, nnmax: int, nb: int) -> int:
+    """Shared floats of the f32 products' staging (simt_f32.cuh): two
+    stages of F32_KT rows of A (nr wide) and of B (up to nb wide)."""
+    return 2 * F32_KT * nr + 2 * F32_KT * min(nnmax, nb)
+
+
+class SwinBlockF32Pack(NamedTuple):
+    """The f32 kernels' operands: qkv per head [q | k | v] of HD_MAX columns
+    each (zero past the head dim), no LN affine folded, no q scale. A pack
+    for the attention-only mode alone (``pack_attn_f32``) has the LN and MLP
+    fields empty."""
+    wqkv: torch.Tensor      # (C, nh*96)
+    bqkv: torch.Tensor      # (nh*96,)
+    wp: torch.Tensor        # (nh*32, C)
+    bp: torch.Tensor        # (C,)
+    ln: torch.Tensor        # (4, C): norm1 weight, bias, norm2 weight, bias
+    w1: torch.Tensor        # (C, hidden)
+    b1: torch.Tensor        # (hidden,)
+    w2: torch.Tensor        # (hidden, C)
+    b2: torch.Tensor        # (C,)
+    relbias: torch.Tensor   # (nh, N, N)
+
+
+def pack_attn_f32(qkv_weight: torch.Tensor, qkv_bias: Optional[torch.Tensor],
+                  proj_weight: torch.Tensor, proj_bias: torch.Tensor,
+                  bias_table: torch.Tensor, num_heads: int) -> SwinBlockF32Pack:
+    """W-MSA's fields of the f32 pack, every value f32 as it is; the LN and
+    MLP fields empty (the attention-only mode reads none of them). Runs with
+    autocast off."""
+    with torch.autocast(qkv_weight.device.type, enabled=False):
+        c = qkv_weight.shape[1]
+        wqkv, bqkv, wp = pack_qkv_proj(qkv_weight, qkv_bias, proj_weight,
+                                       num_heads, scale_q=False)
+        e = proj_bias.new_empty(0, dtype=torch.float32)
+        return SwinBlockF32Pack(
+            wqkv[:c].contiguous(), bqkv.contiguous(), wp[:, :c].contiguous(),
+            proj_bias.float().contiguous(), e, e, e, e, e,
+            window_bias(bias_table, num_heads, table_window(bias_table)))
+
+
+def pack_swin_block_f32(p: SwinBlockParams, num_heads: int) -> SwinBlockF32Pack:
+    """One block's parameters in the f32 kernels' layout (once per set of
+    weights; the model caches it): every value f32 as it is, nothing folded
+    or rounded. The forward, its attention-only mode and the backward read
+    the same pack. Runs with autocast off."""
+    with torch.autocast(p.qkv_weight.device.type, enabled=False):
+        t = lambda a: a.float().t().contiguous()
+        return pack_attn_f32(
+            p.qkv_weight, p.qkv_bias, p.proj_weight, p.proj_bias, p.rel_table,
+            num_heads)._replace(
+                ln=ln_params(p), w1=t(p.fc1_weight),
+                b1=p.fc1_bias.float().contiguous(), w2=t(p.fc2_weight),
+                b2=p.fc2_bias.float().contiguous())
+
+
+class F32Plan(NamedTuple):
+    """csrc/swin_block_f32.cu's F32Plan, as kair_swin_f32_plan reports it."""
+    nr: int         # rows a window is padded to: 16, 32 or 64
+    ldx: int        # row stride of the x and LN buffers
+    nnmax: int      # widest staged B tile
+    smem: int       # dynamic shared memory of one thread block
+
+
+def f32_plan(c: int, nh: int, ws: int, hdp: int = HD_MAX) -> F32Plan:
+    """The f32 forward's layout: the window's x and LN rows (nr, C + 4),
+    one head's q, k, v and scores (the MLP chunk in their bytes), and the
+    products' staging (``stage_floats``)."""
+    n = ws * ws
+    nr = 16 if n <= 16 else 32 if n <= 32 else 64
+    ldx = c + 4
+    nnmax = max(c, 3 * hdp, F32_HC, nr)
+    head = max(3 * nr * hdp + nr * (nr + 4), nr * (F32_HC + 4))
+    floats = 2 * nr * ldx + head + stage_floats(nr, nnmax, F32_NB)
+    return F32Plan(nr, ldx, nnmax, 4 * floats)
+
+
+class BwdF32Plan(NamedTuple):
+    """csrc/swin_block_bwd_f32.cu's layout, as kair_swin_bwd_f32_plan
+    reports it."""
+    smem: int       # pass-1 shared memory of a thread block
+    op_floats: int  # operand floats a token (Y1, O, Y2, GELU out, dpre,
+                    # dx1, dqkv, dy; each head's q, k, v and P)
+    total: int      # floats of the four products' D, back to back
+    tiles: int      # pass-2 tiles of 64 x 128
+    dims: Tuple[Tuple[int, int], ...]   # (Kin + 1, Nout) of each product
+
+
+def bwd_f32_plan(c: int, nh: int, hidden: int, hdp: int = HD_MAX) -> BwdF32Plan:
+    ldx, nq = c + 4, nh * 3 * hdp
+    nnmax = max(c, 3 * hdp, F32_HC)
+    floats = (2 * 64 * ldx + 4 * 64 * hdp + 2 * 64 * F32_L + 4 * 64
+              + stage_floats(64, nnmax, F32_NB))
+    nhd = nh * hdp
+    dims = ((c + 1, nq), (nhd + 1, c), (c + 1, hidden), (hidden + 1, c))
+    return BwdF32Plan(
+        4 * floats, 4 * c + nhd + 2 * hidden + nq + nh * (3 * hdp + F32_L),
+        sum(m * n for m, n in dims),
+        sum(-(-m // 64) * -(-n // 128) for m, n in dims), dims)
+
+
+def f32_refusal(c: int, nh: int, hidden: int, ws: int = WS,
+                backward: bool = False) -> Optional[str]:
+    """Why the f32 kernels refuse a block of C channels, nh heads, an MLP
+    of ``hidden`` width at window ws (the forward, or with ``backward`` the
+    window-8 backward), or None."""
+    name = "swin_block_2d_bwd (f32)" if backward else "swin_block_2d (f32)"
+    if c % 4 or hidden % 4:
+        return (f"{name} takes C and the MLP width in multiples of 4 (its "
+                f"16-byte tiles), got C={c}, hidden={hidden}")
+    if c % nh or c // nh > HD_MAX:
+        return (f"{name} needs C divisible by the heads with head dim <= "
+                f"{HD_MAX} (C={c}, heads={nh})")
+    if backward and ws != WS:
+        return f"{name} takes window {WS} only, got {ws}"
+    smem = bwd_f32_plan(c, nh, hidden).smem if backward else \
+        f32_plan(c, nh, ws).smem
+    if smem > SMEM_LIMIT:
+        return (f"{name} at C={c}, {nh} heads, window {ws} needs {smem} "
+                f"bytes of shared memory per block, over the card's opt-in "
+                f"limit of {SMEM_LIMIT}")
+    return None
+
+
+def _check_f32(name: str, x: torch.Tensor, p: SwinBlockParams, num_heads: int,
+               mask, ws: int, backward: bool = False) -> None:
+    """Raise on what the f32 kernels do not take: the window geometry, the
+    widths (``f32_refusal``) and B·H·W < 2^31."""
+    c, hidden = x.shape[-1], p.fc1_weight.shape[0]
+    check_geometry(name, x, p.qkv_weight, num_heads, p.rel_table, mask, ws, 0,
+                   torch.float32)
+    why = f32_refusal(c, num_heads, hidden, ws, backward)
+    if why:
+        raise ValueError(why)
+    if x.numel() // c >= 2 ** 31:
+        raise ValueError(f"{name} takes B*H*W < 2^31 pixels")
+
+
+def check_f32_pack(name: str, x: torch.Tensor, pk,
+                   attn_only: bool = False) -> None:
+    """The pack must be the f32 one, contiguous f32 on x's device, and
+    hold the LN and MLP fields unless the attention-only mode reads it."""
+    if not isinstance(pk, SwinBlockF32Pack):
+        raise TypeError(f"{name}: an f32 input needs the f32 pack "
+                        "(SwinBlockF32Pack)")
+    if not attn_only and pk.w1.numel() == 0:
+        raise ValueError(f"{name}: the f32 pack holds W-MSA's fields only "
+                         "(pack_attn_f32); the block needs pack_swin_block_f32")
+    if any(t.dtype != torch.float32 or t.device != x.device
+           or not t.is_contiguous() for t in pk):
+        raise ValueError(f"{name}: the f32 pack must be contiguous f32 on "
+                         f"{x.device}")
+
+
+def _swin_block_f32(x, p, num_heads, mask, phase, ws, packed) -> torch.Tensor:
+    """The f32 forward kernel on a checked CUDA tensor (``swin_block_2d``)."""
+    _check_f32("swin_block_2d", x, p, num_heads, mask, ws)
+    pk = packed if packed is not None else pack_swin_block_f32(p, num_heads)
+    check_f32_pack("swin_block_2d", x, pk)
+    out = torch.empty_like(x)
+    launch_f32(x, out, pk, num_heads, p.fc1_weight.shape[0], mask, phase, ws,
+               attn_only=False)
+    if ws == WS:
+        swin_block_2d.launches_f32 += 1
+    else:
+        swin_block_2d.launches_win_f32 += 1
+    return out
+
+
+def launch_f32(x: torch.Tensor, out: torch.Tensor, pk, num_heads: int,
+               hidden: int, mask: Optional[torch.Tensor], phase: int, ws: int,
+               attn_only: bool) -> None:
+    """One launch of ``kair_swin_block_f32`` on checked operands: the whole
+    block (``pk`` a ``SwinBlockF32Pack``), or its attention-only mode on an
+    LN1 output (its LN and MLP fields unread)."""
+    b, h, w, c = x.shape
+    mlp = [None] * 5 if attn_only else [
+        t.data_ptr() for t in (pk.ln, pk.w1, pk.b1, pk.w2, pk.b2)]
+    with torch.cuda.device(x.device):
+        err = _build.library().kair_swin_block_f32(
+            x.data_ptr(), out.data_ptr(), pk.wqkv.data_ptr(),
+            pk.bqkv.data_ptr(), pk.wp.data_ptr(), pk.bp.data_ptr(), *mlp,
+            pk.relbias.data_ptr(),
+            None if mask is None else mask.data_ptr(), b, h, w, c, num_heads,
+            HD_MAX, hidden, int(phase), ws, int(attn_only),
+            float((c // num_heads) ** -0.5),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, f"swin_block f32 ({'attention' if attn_only else 'block'}"
+                      f", ws {ws})")
 
 
 # ---------------------------------------------------------------------------
@@ -769,12 +982,19 @@ def swin_block_2d_bwd(x: torch.Tensor, dy: torch.Tensor, p: SwinBlockParams,
     x read at +phase, dy in the block's coordinates, dx at x's): dx and the
     f32 parameter grads.
 
-    CPU tensor → the plain version. CUDA tensor → the kernel (bf16 x and
-    dy), or an exception; ``packed`` is the cached
-    ``pack_swin_block(p, nh, folded=False)``."""
+    CPU tensor → the plain version. CUDA tensor → the kernel of its dtype
+    (x and dy of one dtype): bf16 → ``kair_swin_block_2d_bwd``, ``packed``
+    the cached ``pack_swin_block(p, nh, folded=False)``; f32 →
+    ``kair_swin_block_2d_bwd_f32``, ``packed`` the cached
+    ``pack_swin_block_f32(p, nh)``; anything else raises. A launch adds one
+    to ``launches`` (bf16) or ``launches_f32``."""
     if x.device.type == "cpu":
         return swin_block_2d_bwd_reference(x, dy, p, num_heads, mask, phase)
+    if x.dtype == torch.float32:
+        return _swin_block_2d_bwd_f32(x, dy, p, num_heads, mask, packed, phase)
     _check_cuda_args(x, p, num_heads, mask, backward=True)
+    if isinstance(packed, SwinBlockF32Pack):
+        raise TypeError("swin_block_2d_bwd: a bf16 input met the f32 pack")
     if (dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous()
             or dy.device != x.device):
         raise ValueError("dy must be a contiguous bf16 tensor shaped and "
@@ -803,9 +1023,8 @@ def swin_block_2d_bwd(x: torch.Tensor, dy: torch.Tensor, p: SwinBlockParams,
 def ln_params(p: SwinBlockParams) -> torch.Tensor:
     """(4, C) f32: norm1 weight, bias, norm2 weight, bias (the backward
     kernel's LayerNorm operand)."""
-    with torch.autocast(p.norm1_weight.device.type, enabled=False):
-        return torch.stack([p.norm1_weight, p.norm1_bias, p.norm2_weight,
-                            p.norm2_bias]).float().contiguous()
+    return torch.stack([p.norm1_weight, p.norm1_bias, p.norm2_weight,
+                        p.norm2_bias]).float().contiguous()
 
 
 def _launch_bwd(lib, x: torch.Tensor, dy: torch.Tensor, pk: SwinBlockPack,
@@ -847,6 +1066,96 @@ def _launch_bwd(lib, x: torch.Tensor, dy: torch.Tensor, pk: SwinBlockPack,
 
 
 swin_block_2d_bwd.launches = 0
+swin_block_2d_bwd.launches_f32 = 0
+
+
+def wgrad_f32_splits(tokens: int, tiles: int, sms: int = 132) -> int:
+    """Token ranges of the f32 weight-grad pass: about two blocks an SM,
+    each range at least 256 tokens."""
+    return max(1, min(-(-tokens // 256), -(-2 * sms // tiles)))
+
+
+def _swin_block_2d_bwd_f32(x, dy, p, num_heads, mask, packed, phase):
+    """The f32 backward kernel on checked CUDA tensors (``swin_block_2d_bwd``):
+    pass 1 over the windows, the weight grads, the partial sums; then the
+    grads in KAIR's layout."""
+    _check_f32("swin_block_2d_bwd", x, p, num_heads, mask, WS, backward=True)
+    pk = packed if packed is not None else pack_swin_block_f32(p, num_heads)
+    check_f32_pack("swin_block_2d_bwd", x, pk)
+    if (dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous()
+            or dy.device != x.device):
+        raise ValueError("dy must be a contiguous f32 tensor shaped and "
+                         "placed like x")
+    b, h, w, c = x.shape
+    hidden = p.fc1_weight.shape[0]
+    pl = bwd_f32_plan(c, num_heads, hidden)
+    windows = b * h * w // (WS * WS)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    grid = min(windows, sms)
+    splits = wgrad_f32_splits(b * h * w, pl.tiles, sms)
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                     device=x.device)
+    ops = new(b * h * w * pl.op_floats)
+    part_bias = torch.zeros(grid, num_heads, 64, 64, device=x.device)
+    part_ln = torch.zeros(grid, 4, c, device=x.device)
+    part_w = new(splits, pl.total)
+    dx = torch.empty_like(x)
+    dw, dln, dbias = new(pl.total), new(4, c), new(num_heads, 64, 64)
+    with torch.cuda.device(x.device):
+        err = _build.library().kair_swin_block_2d_bwd_f32(
+            x.data_ptr(), dy.data_ptr(), pk.wqkv.data_ptr(),
+            pk.bqkv.data_ptr(), pk.wp.data_ptr(), pk.bp.data_ptr(),
+            pk.ln.data_ptr(), pk.w1.data_ptr(), pk.b1.data_ptr(),
+            pk.w2.data_ptr(), pk.b2.data_ptr(), pk.relbias.data_ptr(),
+            None if mask is None else mask.data_ptr(), ops.data_ptr(),
+            part_bias.data_ptr(), part_ln.data_ptr(), part_w.data_ptr(),
+            dx.data_ptr(), dw.data_ptr(), dln.data_ptr(), dbias.data_ptr(),
+            b, h, w, c, num_heads, HD_MAX, hidden, int(phase), grid, splits,
+            float((c // num_heads) ** -0.5),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "swin_block_2d_bwd (f32)")
+    swin_block_2d_bwd.launches_f32 += 1
+    return dx, unpack_bwd_f32_grads(dw, dln, dbias, p, num_heads)
+
+
+def unpack_bwd_f32_grads(dw: torch.Tensor, dln: torch.Tensor,
+                         dbias: torch.Tensor, p: SwinBlockParams,
+                         num_heads: int) -> SwinBlockParams:
+    """The f32 backward's outputs (the four products' D back to back, each
+    (Kin + 1, Nout): rows the layer input with its bias row of ones last;
+    the LN grads (4, C); the score-bias grad (nh, 64, 64)) → grads in
+    KAIR's layout."""
+    c = p.qkv_weight.shape[1]
+    hidden = p.fc1_weight.shape[0]
+    pl = bwd_f32_plan(c, num_heads, hidden)
+    d_qkv, d_proj, d_fc1, d_fc2 = (
+        t.view(shape) for t, shape in
+        zip(torch.split(dw, [m * n for m, n in pl.dims]), pl.dims))
+    qcol, prow = _grad_index(c, num_heads, str(dw.device))
+    nin = num_heads * HD_MAX
+    t = lambda a: a.t().contiguous()
+    return SwinBlockParams(
+        qkv_weight=t(d_qkv[:c, qcol]),
+        qkv_bias=None if p.qkv_bias is None else d_qkv[c, qcol].contiguous(),
+        proj_weight=t(d_proj[prow, :]), proj_bias=d_proj[nin].contiguous(),
+        rel_table=rel_table_grad(dbias, p.rel_table.shape[0], num_heads),
+        norm1_weight=dln[0], norm1_bias=dln[1],
+        norm2_weight=dln[2], norm2_bias=dln[3],
+        fc1_weight=t(d_fc1[:c]), fc1_bias=d_fc1[c].contiguous(),
+        fc2_weight=t(d_fc2[:hidden]), fc2_bias=d_fc2[hidden].contiguous())
+
+
+def autocast_bf16(device: torch.device) -> bool:
+    """Whether a bf16 autocast is on for ``device``'s type."""
+    t = device.type
+    return torch.is_autocast_enabled(t) and \
+        torch.get_autocast_dtype(t) == torch.bfloat16
+
+
+def kernel_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype the training block runs x in: bf16 under a bf16 autocast on
+    x's device, else x's own (an f32 model gets the f32 kernels)."""
+    return torch.bfloat16 if autocast_bf16(x.device) else x.dtype
 
 
 class SwinBlockFunction(torch.autograd.Function):
@@ -854,15 +1163,16 @@ class SwinBlockFunction(torch.autograd.Function):
     ``swin_block_2d`` (kernel 1), backward through ``swin_block_2d_bwd``
     (kernel 3), both reading x at the block's phase. Only x and the
     parameters are saved (the remat profile of ``_fused_2d`` :490). On the
-    card x runs in bf16 whatever it arrives in (the kernels take bf16; f32
-    parameters stay the master copy and get f32 grads) and dx goes back in
+    card x runs in ``kernel_dtype(x)``: the bf16 kernels under a bf16
+    autocast (f32 parameters stay the master copy and get f32 grads), else
+    the kernels of x's own dtype (f32: the f32 kernels); dx goes back in
     x's dtype."""
 
     @staticmethod
     def forward(ctx, x, mask, num_heads, packed, packed_bwd, phase, *params):
         ctx.num_heads, ctx.mask, ctx.x_dtype = num_heads, mask, x.dtype
         ctx.packed_bwd, ctx.phase = packed_bwd, phase
-        xin = x.to(torch.bfloat16).contiguous() if x.is_cuda else x
+        xin = x.to(kernel_dtype(x)).contiguous() if x.is_cuda else x
         ctx.save_for_backward(xin, *params)
         return swin_block_2d(xin, SwinBlockParams(*params), num_heads, mask,
                              phase, packed=packed)
@@ -887,7 +1197,7 @@ def swin_block_train(x: torch.Tensor, p: SwinBlockParams, num_heads: int,
     """Differentiable Swin block on (B, H, W, C), window 8: Block(roll(x,
     −phase)) in the block's own coordinates (the caller rolls the output
     back), ``SwinBlockFunction``. ``packed`` and ``packed_bwd`` are the
-    cached forward and backward packs for a CUDA tensor (made per call
-    when None)."""
+    cached forward and backward packs of ``kernel_dtype(x)`` for a CUDA
+    tensor (made per call when None; in f32 both are the f32 pack)."""
     return SwinBlockFunction.apply(x, mask, num_heads, packed, packed_bwd,
                                    phase, *p)

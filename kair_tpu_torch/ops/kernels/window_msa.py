@@ -170,13 +170,16 @@ def shared_bytes(c: int, nh: int) -> int:
 def check_geometry(name: str, x: torch.Tensor, qkv_weight: torch.Tensor,
                    num_heads: int,
                    bias_table: torch.Tensor, mask: Optional[torch.Tensor],
-                   ws: int, smem: int) -> None:
-    """Raise on an input that the window kernels do not take: bf16,
-    contiguous (B, H, W, C) with ws ≤ 8 tiling H and W, an even C divisible
-    by the heads with head dim ≤ 32, the table and mask of that window, and
-    a shared-memory layout within the card's opt-in limit."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name} kernel takes bfloat16, got {x.dtype}")
+                   ws: int, smem: int,
+                   dtype: torch.dtype = torch.bfloat16) -> None:
+    """Raise on an input that the window kernels do not take: ``dtype``
+    (bf16 for the wgmma kernels, f32 for the f32 ones), contiguous (B, H,
+    W, C) with ws ≤ 8 tiling H and W, an even C divisible by the heads with
+    head dim ≤ 32, the table and mask of that window, and a shared-memory
+    layout within the card's opt-in limit."""
+    if x.dtype != dtype:
+        raise TypeError(f"{name} kernel takes {str(dtype)[6:]}, got "
+                        f"{x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"{name} expects a contiguous (B, H, W, C) tensor")
     b, h, w, c = x.shape
@@ -262,15 +265,25 @@ def window_msa_win(y: torch.Tensor, qkv_weight, qkv_bias, proj_weight,
     """W-MSA on the (B, H, W, C) LN1 output, windows of ws ≤ 8 taken at
     shift ``phase`` and written back un-rolled.
 
-    CPU tensor → the plain version. CUDA tensor → kernel B (bf16, C ≤ 240),
-    or an exception; ``packed`` is the cached ``pack_window_msa``."""
+    CPU tensor → the plain version. CUDA tensor → the kernel of its dtype:
+    bf16 → kernel B (C ≤ 240), ``packed`` the cached ``pack_window_msa``;
+    f32 → the f32 block kernel's attention-only mode, ``packed`` the cached
+    ``swin_block.pack_swin_block_f32`` or ``pack_attn_f32``; anything else, or a pack of the other dtype,
+    raises. A launch adds one to ``launches`` (bf16) or ``launches_f32``."""
     if y.device.type == "cpu":
         return window_msa_win_reference(y, qkv_weight, qkv_bias, proj_weight,
                                         proj_bias, bias_table, num_heads,
                                         mask, phase, ws)
+    if y.dtype == torch.float32:
+        return _window_msa_f32(y, qkv_weight, qkv_bias, proj_weight,
+                               proj_bias, bias_table, num_heads, mask, phase,
+                               ws, packed)
     from kair_tpu_torch.ops.kernels.swin_block import (NT_MAX,
+                                                        SwinBlockF32Pack,
                                                         check_ring_operands,
                                                         stage_rows)
+    if isinstance(packed, SwinBlockF32Pack):
+        raise TypeError("window_msa_win: a bf16 input met the f32 pack")
     nh, c = num_heads, y.shape[3]
     if c > NT_MAX:
         raise ValueError(f"window_msa_win takes C <= {NT_MAX} (the widest "
@@ -297,3 +310,26 @@ def window_msa_win(y: torch.Tensor, qkv_weight, qkv_bias, proj_weight,
 
 
 window_msa_win.launches = 0
+window_msa_win.launches_f32 = 0
+
+
+def _window_msa_f32(y, qkv_weight, qkv_bias, proj_weight, proj_bias,
+                    bias_table, num_heads, mask, phase, ws, packed):
+    """The f32 kernel's attention-only mode (``kair_swin_block_f32``, mode
+    1) on a CUDA tensor: the output un-rolled, as kernel B writes it."""
+    from kair_tpu_torch.ops.kernels.swin_block import (check_f32_pack,
+                                                        f32_plan, launch_f32,
+                                                        pack_attn_f32)
+    nh, c = num_heads, y.shape[3]
+    check_geometry("window_msa_win", y, qkv_weight, nh, bias_table, mask, ws,
+                   f32_plan(c, nh, ws).smem, torch.float32)
+    if c % 4:
+        raise ValueError(f"window_msa_win (f32) takes C in multiples of 4 "
+                         f"(its 16-byte tiles), got C={c}")
+    pk = packed if packed is not None else pack_attn_f32(
+        qkv_weight, qkv_bias, proj_weight, proj_bias, bias_table, nh)
+    check_f32_pack("window_msa_win", y, pk, attn_only=True)
+    out = torch.empty_like(y)
+    launch_f32(y, out, pk, nh, 0, mask, phase, ws, attn_only=True)
+    window_msa_win.launches_f32 += 1
+    return out

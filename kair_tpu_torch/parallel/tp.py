@@ -74,7 +74,10 @@ def kernel_refusal(model: torch.nn.Module):
     from kair_tpu_torch.train.trainer import bf16_only_route
     if not any(p.is_cuda for p in model.parameters()):
         return None
-    where = bf16_only_route(model)
+    where = bf16_only_route(model) or next(
+        (f"{name} ({type(m).__name__}) runs {m.card_kernel()}"
+         for name, m in model.named_modules() if hasattr(m, "card_kernel")),
+        None)
     return None if where is None else (
         f"{where}, a kernel that takes whole weights; tensor parallelism "
         "runs on the plain route, on the CPU")

@@ -29,8 +29,9 @@ One step, as the JAX package's jitted step:
 Each network has its own Adam (optax's defaults: betas (0.9, 0.999), eps
 1e-8) and MultiStepLR schedule over its own update count. ``dtype``
 bfloat16 runs G, D and VGG under autocast over f32 parameters, the
-losses in f32; a G whose training route runs a bf16-only kernel raises in
-f32 on the card (``trainer.bf16_only_route``).
+losses in f32; f32 runs a SwinIR G on the f32 kernels, and a G whose
+training route runs a bf16-only kernel raises in f32 on the card
+(``trainer.bf16_only_route``).
 
 Checkpoints are KAIR's tagged state dicts: ``<step>_G.pth``, ``_D.pth``,
 ``_E.pth``, ``_optimizerG.pth``, ``_optimizerD.pth``; D's carries its

@@ -11,13 +11,14 @@ jitted step:
 * ``dtype=torch.bfloat16`` runs the forward under
   ``torch.autocast(..., bfloat16)`` over f32 parameters, the counterpart of
   flax ``dtype=bf16`` with f32 params; the Swin blocks go through the
-  bf16 kernels and return f32 parameter grads. f32 runs the CNN zoo on the
-  card (cuDNN and cuFFT; the JAX training CLI's default dtype). A model
-  whose training route reaches a kernel that takes bf16 only (SwinIR's
-  window-8 blocks, VRT's TMSA and self blocks, the DCN kernel, RVRT's STL
-  blocks and the GDA kernel: :func:`bf16_only_route`) raises NotImplementedError in f32 on the card
-  before any work, naming the module, rather than running composed
-  PyTorch; on the CPU the kernels' plain versions run in f32.
+  bf16 kernels and return f32 parameter grads. f32 (the JAX training CLI's
+  default dtype) runs the CNN zoo on the card (cuDNN and cuFFT) and
+  SwinIR's blocks on the f32 kernels. A model whose training route reaches
+  a kernel that takes bf16 only (VRT's TMSA and self blocks, the DCN
+  kernel, RVRT's STL blocks and the GDA kernel: :func:`bf16_only_route`)
+  raises NotImplementedError in f32 on the card before any work, naming
+  the module, rather than running composed PyTorch; on the CPU the
+  kernels' plain versions run in f32.
 * ``extra_keys`` feed the model after 'L'; USRNet's ``sf`` goes in as one
   Python int read from the host batch (no copy to the card, no sync), and
   a batch whose items disagree on it raises.
@@ -55,8 +56,8 @@ from kair_tpu_torch.train.schedulers import get_schedule
 def bf16_only_route(model: torch.nn.Module) -> Optional[str]:
     """The first module whose training route on the card runs a kernel
     that takes bfloat16 only, with the kernel's name, or None (the CNN zoo:
-    cuDNN and cuFFT). Each such module says so by its
-    ``bf16_only_kernel()``."""
+    cuDNN and cuFFT; SwinIR: its blocks' f32 kernels). Each such module
+    says so by its ``bf16_only_kernel()``."""
     for name, m in model.named_modules():
         kernel = m.bf16_only_kernel() if hasattr(m, "bf16_only_kernel") \
             else None
@@ -276,11 +277,12 @@ class PlainTrainer:
     # ------------------------------------------------------------------
     def eval_step(self, batch: Dict[str, Any], use_ema: bool = False
                   ) -> torch.Tensor:
-        """Inference on a batch with the parameters or the EMA copy. On the
-        card a bf16 copy of the model serves it (the inference kernels take
-        bf16 weights and activations, as cli.test runs them)."""
+        """Inference on a batch with the parameters or the EMA copy, in the
+        trainer's type: a bf16 trainer on the card evaluates a bf16 copy of
+        the model (the bf16 inference kernels, as cli.test runs them), an
+        f32 trainer the f32 model as it is (the f32 kernels)."""
         model = self.ema if (use_ema and self.ema is not None) else self.model
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.dtype == torch.bfloat16:
             model = copy.deepcopy(model).to(torch.bfloat16)
         was_training = model.training
         model.eval()

@@ -48,7 +48,8 @@ def test_no_jax_and_no_module_level_heavy_imports(path):
 
 
 def test_cuda_sources_include_only_toolkit_headers():
-    allowed = {"cuda_bf16.h", "cuda_runtime.h", "mma.h", "common.cuh"}
+    allowed = {"cuda_bf16.h", "cuda_runtime.h", "mma.h", "common.cuh",
+               "simt_f32.cuh"}
     srcs = sorted((REPO / "kair_tpu_torch" / "csrc").glob("*.cu*"))
     assert srcs
     for src in srcs:
@@ -107,7 +108,9 @@ def test_nvcc_command_is_one_plain_call():
         assert obj.name == pathlib.Path(cu[0]).stem + ".o"
     assert set(srcs) == {"swin_block_wgmma.cu", "conv_block.cu",
                          "swin_block_bwd_wgmma.cu", "window3d_wgmma.cu",
-                         "dcn_block.cu", "gda_block.cu", "bilin_sample.cu"}
+                         "dcn_block.cu", "gda_block.cu", "bilin_sample.cu",
+                         "swin_block_f32.cu", "swin_block_bwd_f32.cu",
+                         "conv_block_f32.cu"}
     assert len(srcs) == len(set(srcs))
     assert link[0] == "nvcc" and "-shared" in link and str(out) in link
     assert link[link.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"

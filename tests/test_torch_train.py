@@ -380,8 +380,17 @@ def test_cli_train_main_runs_and_resumes_on_cpu(tmp_path, hr_dir):
 
 
 def test_f32_on_the_card_raises(tmp_path, hr_dir, monkeypatch):
+    """f32 on a card-looking device: SwinIR passes the route check (its
+    blocks run the f32 kernels); a G with VRT's bf16-only blocks still
+    raises before any work."""
+    from kair_tpu_torch.models import registry, vrt
     opt = config.parse(tiny_options(tmp_path, hr_dir))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.nn.Module, "to", lambda self, *a, **k: self)
+    t = cli_train.build_trainer(opt, dtype=torch.float32)
+    assert t.dtype == torch.float32 and t.device.type == "cuda"
+    monkeypatch.setattr(registry, "define_g",
+                        lambda o: torch.nn.Sequential(vrt.TMSA(24, 2)))
     with pytest.raises(NotImplementedError, match="bfloat16"):
         cli_train.build_trainer(opt, dtype=torch.float32)
 

@@ -176,8 +176,8 @@ def test_wrapper_refuses_before_a_launch(case):
         c, nh, match = 248, 8, "C <= 240"
     elif case == "head_dim":
         c, nh, match = 132, 2, "head dim"
-    elif case == "f32":
-        err, match = TypeError, "bfloat16"
+    elif case == "f32":     # the f32 kernel's own refusal, before packing
+        c, nh, match = 22, 2, "multiples of 4"
     elif case == "ws9":
         ws, h, w, match = 9, 18, 18, "window of at most 8"
     elif case == "not_tiled":

@@ -266,12 +266,18 @@ def test_f32_on_the_card_for_the_zoo_not_for_swinir(monkeypatch):
               "window_size": 8, "depths": [2], "embed_dim": 24,
               "num_heads": [4], "mlp_ratio": 2, "upsampler": None,
               "fuse_block": True, "use_checkpoint": True}
-    with pytest.raises(NotImplementedError,
-                       match=r"layers\.0\.residual_group\.blocks\.0 "
-                             r"\(SwinBlock\) runs swin_block_2d and "
-                             r"swin_block_2d_bwd, which takes bfloat16"):
-        PlainTrainer(_options(swinir), dtype=torch.float32)
+    # SwinIR's blocks run the f32 kernels there; VRT's and RVRT's blocks
+    # still name their bf16-only kernels
+    t = PlainTrainer(_options(swinir), dtype=torch.float32)
+    assert t.dtype == torch.float32 and trainer_mod.bf16_only_route(
+        t.model) is None
     PlainTrainer(_options(swinir), dtype=torch.bfloat16)
+    from kair_tpu_torch.models import vrt as tvrt
+    assert "kair_win3d_block" in trainer_mod.bf16_only_route(
+        torch.nn.Sequential(tvrt.TMSA(24, 2)))
+    assert "swin_block_2d_bwd" in trainer_mod.bf16_only_route(
+        torch.nn.Sequential(tvrt.TMSA(24, 2, (1, 8, 8), mut_attn=False,
+                                      geglu=False)))
 
 
 def test_bf16_only_routes_name_their_kernels():
@@ -352,22 +358,27 @@ class _CudaLooking(torch.Tensor):
 
 
 def test_swinir_trains_on_the_card_only_through_its_kernels(monkeypatch):
-    """At another window than 8 (JPEG-CAR's 7) SwinIR refuses f32 on the
-    card before any work, and a block in training raises there instead of
-    taking the composed path."""
+    """At another window than 8 (JPEG-CAR's 7) SwinIR takes f32 on the
+    card (the route check passes), and a block in training there takes the
+    composed route under autograd, as the JAX package's XLA route does: it
+    does not raise, counts one composed call and gives the CPU's result."""
     from kair_tpu_torch.models import swinir as tsw
     _OnTheCard(monkeypatch)
     swinir7 = {"net_type": "swinir", "upscale": 1, "in_nc": 1, "img_size": 14,
                "window_size": 7, "depths": [2], "embed_dim": 24,
                "num_heads": [4], "mlp_ratio": 2, "upsampler": None}
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        PlainTrainer(_options(swinir7), dtype=torch.float32)
+    assert PlainTrainer(_options(swinir7), dtype=torch.float32).dtype \
+        == torch.float32
     block = tsw.SwinBlock(24, (14, 14), 4, 7, 3).train()
-    x = torch.zeros(1, 14, 14, 24).as_subclass(_CudaLooking)
-    with pytest.raises(NotImplementedError, match="window 7, map 14x14"):
-        block(x)
-    # on the CPU the same block trains through the plain version
-    assert block(torch.zeros(1, 14, 14, 24)).shape == (1, 14, 14, 24)
+    x = torch.randn(1, 14, 14, 24, generator=torch.Generator().manual_seed(0))
+    n = tsw.SwinBlock.composed_calls
+    xc = x.clone().as_subclass(_CudaLooking).requires_grad_(True)
+    y = block(xc)
+    assert tsw.SwinBlock.composed_calls == n + 1
+    y.sum().backward()
+    assert xc.grad is not None and torch.isfinite(xc.grad).all()
+    # on the CPU the same block trains through the same plain version
+    assert torch.equal(y.as_subclass(torch.Tensor), block(x))
 
 
 def _drop_train_handlers() -> None:
